@@ -5,20 +5,28 @@
 
 Phases; any failure raises and exits non-zero before the last line:
   1. environment: the card's name and power limit; TF32 off.
-  2. build the CUDA kernels from scgib_tpu_torch/csrc/ (nvcc, sm_90a).
+  2. build the CUDA kernels from scgib_tpu_torch/csrc/ (one nvcc per
+     source, sm_90a, all started together).
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the benchmark batch (128 molecules of 10-30 atoms, k=1:
-     N=3072 graph rows, S=9728 ego-net rows): error, kernel / plain /
+     N=3072 graph rows, S=9728 ego-net rows; the attention kernels in the
+     narrow (64, 128) geometry, 8 heads of 8): error, kernel / plain /
      library time (median of 20 CUDA graph replays, each between CUDA
-     events), and the bound.
-  4. the full model on that batch, once on the card and once on the CPU
-     plain path in float64: losses and gradients must agree.
-  5. the main path: ``cli.run_pretrain`` at full width (PretrainModel(9, 64,
-     32), batch 128, lr 1e-4, wd 5e-5) for 6 optimizer steps; every
-     kernel's launch count must rise by its expected per-step count, and
-     the pooling must take its kernel branch.
-  6. where the step time goes: 3 steady steps of the main path under
-     torch.profiler; device time by kernel and the device's busy share.
+     events), and the bound; and the merged attention backward against
+     the two-pass one.
+  4. the full model on that batch, GIN and graph-transformer encoders,
+     once on the card and once on the CPU plain path in float64
+     (deterministic, dropout off): losses and gradients must agree.
+  5. the main paths: ``cli.run_pretrain`` at full width (PretrainModel(9,
+     64, 32), batch 128, lr 1e-4, wd 5e-5) for 6 optimizer steps with GIN
+     encoders, then 6 with graph transformers (5 layers, 8 heads, dropout
+     0.5, two-pass backward), then 2 with the merged backward; each run
+     starts with every launch count at 0, and each kernel's count must be
+     its expected per-step count times the steps, the pooling must take
+     its kernel branch and the encoders their band branches.
+  6. where the step time goes: 3 steady steps of each encoder's main path
+     under torch.profiler; device time by kernel and the device's busy
+     share.
   7. one JSON line of the kernels, the nvidia-smi line, and
      {"ok": true, "device": {...}} as the last line.
 """
@@ -45,6 +53,8 @@ from scgib_tpu_torch.models.scgib import (PretrainModel,  # noqa: E402
                                           _resolve_band)
 from scgib_tpu_torch.ops import pool as pool_mod  # noqa: E402
 from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
+from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
+from scgib_tpu_torch.ops.kernels import gt_flash as kg  # noqa: E402
 from scgib_tpu_torch.utils.params import init_flax_style_  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -55,14 +65,36 @@ GRAD_RTOL = 1e-3              # gradients, card vs float64 CPU, per tensor
 GRAD_FLOOR = 1e-3             # ... relative to max(|that tensor|, this
                               # fraction of the largest gradient)
 STEPS = 6                     # main-path optimizer steps (1 warm-up)
-SOURCE = "scgib_tpu_torch/csrc/banded.cu"
-TPU_SOURCE = "scgib_tpu/ops/pallas/banded.py"
-# wrapper -> (TPU kernel line, launches per main-path step, CUDA kernel)
-PATH = {"gin_fwd": (69, 8, "gin_fused_fwd_kernel"),
-        "gin_bwd": (141, 8, "gin_fused_bwd_kernel"),
-        "spmm_self": (177, 8, "banded_spmm_kernel"),
-        "spmm": (266, 2, "banded_spmm_kernel"),
-        "pool": (405, 1, "banded_spmm_kernel")}
+MERGED_STEPS = 2              # steps with the merged attention backward
+HEADS, HEAD_DIM = 8, 8        # the graph transformer's attention
+# wrapper -> (source, TPU kernel line, CUDA kernel)
+PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
+        "gin_bwd": ("banded", 141, "gin_fused_bwd_kernel"),
+        "spmm_self": ("banded", 177, "banded_spmm_kernel"),
+        "spmm": ("banded", 266, "banded_spmm_kernel"),
+        "pool": ("banded", 405, "banded_spmm_kernel"),
+        "gt_fwd": ("gt_flash", 121, "gt_fwd_kernel"),
+        "gt_bwd_rows": ("gt_flash", 146, "gt_bwd_rows_kernel"),
+        "gt_bwd_cols": ("gt_flash", 248, "gt_bwd_cols_kernel"),
+        "gt_bwd_merged": ("gt_flash", 181, "gt_bwd_rows_kernel (MERGED)")}
+# main-path run -> (run_pretrain arguments, steps, launches per step; the
+# wrappers not named launch 0 times)
+RUNS = {"GIN": ({}, STEPS, {"gin_fwd": 8, "gin_bwd": 8, "spmm_self": 8,
+                            "spmm": 2, "pool": 1}),
+        "Transformer": ({"encoder": "Transformer"}, STEPS,
+                        {"gt_fwd": 10, "gt_bwd_rows": 10, "gt_bwd_cols": 10,
+                         "spmm": 2, "pool": 1}),
+        "Transformer-merged": ({"encoder": "Transformer",
+                                "gt_bwd": "merged"}, MERGED_STEPS,
+                               {"gt_fwd": 10, "gt_bwd_merged": 10,
+                                "spmm": 2, "pool": 1})}
+# which run's count each kernel reports
+REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
+              "gt_bwd_cols": "Transformer",
+              "gt_bwd_merged": "Transformer-merged"}
+NO_LIBRARY = ("no single PyTorch call computes it: scaled_dot_product_"
+              "attention takes a max-shifted softmax, with no clamp of the "
+              "scores and no eps in the denominator")
 
 
 def smi_line():
@@ -97,6 +129,15 @@ def time_ms(fn, reps=20):
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def launch_counts():
+    return {**kb.launch_counts(), **kg.launch_counts()}
+
+
+def reset_launch_counts():
+    kb.reset_launch_counts()
+    kg.reset_launch_counts()
 
 
 def bound_ms(nbytes, flops):
@@ -213,15 +254,73 @@ def kernel_phase(g, sub, dev):
         nbytes(pblocks, off, data) + n_seg * hid * 4,
         2 * int((pblocks != 0).sum()) * hid,
         lambda: torch.bmm(pbf, pwin)))
+    return records + gt_kernel_phase(g, sub, dev, gen)
+
+
+def gt_kernel_phase(g, sub, dev, gen):
+    """The four attention kernels at the bench shapes, in the narrow
+    geometry the main path gives them; then the merged backward against
+    the two-pass one.  Operations are counted per edge and head (the
+    kernels skip zero gate entries): 2 hd per product of two hd-vectors,
+    plus the clip, exponential, gate and sums."""
+    records = []
+    for label, batch in (("N", g), ("S", sub)):
+        blocks, off = _resolve_band(batch, gt=True)
+        n = blocks.shape[0] * blocks.shape[1]
+        edges = int((blocks != 0).sum()) * HEADS
+        q, k, v, gr = (torch.randn(n, HEADS, HEAD_DIM, device=dev,
+                                   generator=gen) for _ in range(4))
+        z = kg.gt_fwd_plain(blocks, off, q, k, v)[1]
+        rho = kg.gt_bwd_rows_plain(blocks, off, q, k, v, gr, z)[1]
+        shape = (f"{label}={n} H={HEADS} hd={HEAD_DIM} "
+                 f"blocks={tuple(blocks.shape)}")
+        ins = nbytes(blocks, off, q, k, v)
+        feat, stat = nbytes(q), nbytes(z)
+        hd = HEAD_DIM
+        records.append(check(
+            "gt_fwd", shape, lambda: kg.gt_fwd(blocks, off, q, k, v),
+            lambda: kg.gt_fwd_plain(blocks, off, q, k, v),
+            ins + feat + stat, edges * (4 * hd + 5)))
+        records.append(check(
+            "gt_bwd_rows", shape,
+            lambda: kg.gt_bwd_rows(blocks, off, q, k, v, gr, z),
+            lambda: kg.gt_bwd_rows_plain(blocks, off, q, k, v, gr, z),
+            ins + feat + stat + feat + stat, edges * (6 * hd + 8)))
+        records.append(check(
+            "gt_bwd_cols", shape,
+            lambda: kg.gt_bwd_cols(blocks, off, q, k, v, gr, z, rho),
+            lambda: kg.gt_bwd_cols_plain(blocks, off, q, k, v, gr, z, rho),
+            ins + feat + 2 * stat + 2 * feat, edges * (8 * hd + 10)))
+        records.append(check(
+            "gt_bwd_merged", shape,
+            lambda: kg.gt_bwd_merged(blocks, off, q, k, v, gr, z),
+            lambda: kg.gt_bwd_merged_plain(blocks, off, q, k, v, gr, z),
+            ins + feat + stat + 3 * feat, edges * (10 * hd + 10)))
+        dq, rho_k = kg.gt_bwd_rows(blocks, off, q, k, v, gr, z)
+        twopass = (dq,) + kg.gt_bwd_cols(blocks, off, q, k, v, gr, z, rho_k)
+        merged = kg.gt_bwd_merged(blocks, off, q, k, v, gr, z)
+        torch.cuda.synchronize()
+        worst = max(rel_err(a, b)[1] for a, b in zip(merged, twopass))
+        print(f"gt merged vs two-pass backward on the card, {shape}: max "
+              f"rel err {worst:.3e} (tol {KERNEL_RTOL})", flush=True)
+        if not worst <= KERNEL_RTOL:
+            raise AssertionError(f"merged backward disagrees with two-pass: "
+                                 f"{worst:.3e}")
+    for rec in records:
+        rec["library_note"] = NO_LIBRARY
     return records
 
 
-def model_phase(g, sub, dev):
+def model_phase(g, sub, dev, encoder="GIN"):
     """Deterministic losses and gradients of the full model on the
     benchmark batch: the card (kernels, float32) against the CPU plain path
-    in float64."""
-    model = PretrainModel(9, hidden=64, d_transfer=32, deterministic=True)
+    in float64, with the transformer's dropout off."""
+    model = PretrainModel(9, hidden=64, d_transfer=32, encoder=encoder,
+                          num_heads=HEADS, deterministic=True)
     init_flax_style_(model, torch.Generator().manual_seed(3))
+    for m in model.modules():
+        if isinstance(m, encoders.GraphTransformerLayer):
+            m.dropout = 0.0
     ref = copy.deepcopy(model).double()
     model.to(dev)
     g64, sub64 = g.to("cpu"), sub.to("cpu")
@@ -247,14 +346,15 @@ def model_phase(g, sub, dev):
                    / max(float(g_ref[k].abs().max()), floor), k)
                   for k in g_ref)
     worst = errs[-1][0]
-    print(f"model card vs float64 CPU: losses {l_dev} vs {l_ref}; worst "
+    print(f"model ({encoder}) card vs float64 CPU: losses {l_dev} vs "
+          f"{l_ref}; worst "
           f"gradient rel errs {errs[-3:]} (tol {GRAD_RTOL})", flush=True)
     if not worst <= GRAD_RTOL:
         raise AssertionError(f"gradients disagree: {worst:.3e}")
 
 
-def profile_phase():
-    """Device time by kernel over 3 steady steps of the main path (after
+def profile_phase(encoder="GIN"):
+    """Device time by kernel over 3 steady steps of a main path (after
     2 unprofiled ones), and the device's busy share of those steps' wall
     time (host clock, with the profiler's own overhead in it)."""
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -264,7 +364,8 @@ def profile_phase():
     with prof:
         steps = run_pretrain(synthetic=1024, batch_size=128, steps=5,
                              lr=1e-4, weight_decay=5e-5, device="cuda",
-                             log=lambda _: None, profiler=prof)
+                             encoder=encoder, log=lambda _: None,
+                             profiler=prof)
     wall_ms = sum(r["ms"] for r in steps[2:]) / 3
     # device-side events, less the user annotations (ProfilerStep*, the
     # optimizer's step), which span kernels rather than being one
@@ -282,7 +383,7 @@ def profile_phase():
                "top": [{"kernel": name[:80], "ms_per_step": ms,
                         "calls_per_step": n}
                        for ms, n, name in kernels[:12]]}
-    print(f"profile: {json.dumps(summary)}", flush=True)
+    print(f"profile ({encoder}): {json.dumps(summary)}", flush=True)
     if not busy_ms:
         print("profile: the profiler recorded no device time; device busy "
               "share not measured", flush=True)
@@ -303,9 +404,12 @@ def main():
 
     # 2. build
     t0 = time.perf_counter()
+    kbuild.load(*sorted({src for src, _, _ in PATH.values()}))
     kb.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s\n{kb.build.log}",
-          flush=True)
+    kg.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in kbuild.logs.items():
+        print(f"nvcc {name}.cu:\n{log}", flush=True)
 
     # 3. kernels against their plain versions at benchmark shapes
     ds = GraphDataset(random_dataset(1024, seed=7, min_nodes=10,
@@ -314,60 +418,84 @@ def main():
     g, sub = next(batch_iterator(ds, 128, caps, shuffle=False))
     g, sub = g.to(dev), sub.to(dev)
     print(f"benchmark batch: N={g.num_nodes} E={g.num_edges} "
-          f"S={sub.num_nodes} Q={sub.num_edges}", flush=True)
+          f"S={sub.num_nodes} Q={sub.num_edges} gt_fits {g.gt_fits} "
+          f"{sub.gt_fits}", flush=True)
+    if not (g.gt_fits and sub.gt_fits):
+        raise AssertionError("benchmark batch does not fit the narrow "
+                             "attention geometry")
     records = kernel_phase(g, sub, dev)
 
     # 4. full model, card vs CPU
-    model_phase(g, sub, dev)
+    for encoder in ("GIN", "Transformer"):
+        model_phase(g, sub, dev, encoder)
 
-    # 5. main path
-    kb.reset_launch_counts()
-    pool_mod.branch_counts.clear()
-    encoders.branch_counts.clear()
-    steps = run_pretrain(synthetic=1024, batch_size=128, steps=STEPS,
-                         lr=1e-4, weight_decay=5e-5, device="cuda")
-    torch.cuda.synchronize()
-    counts = kb.launch_counts()
-    branches = (dict(pool_mod.branch_counts), dict(encoders.branch_counts))
-    for rec in steps:
-        for key in ("kl", "contrastive", "reconstruction"):
-            if not math.isfinite(rec[key]):
-                raise AssertionError(f"step {rec['step']}: {key} not finite")
-    step_ms = statistics.median(r["ms"] for r in steps[1:])
-    print(f"main path: {STEPS} steps, median {step_ms:.2f} ms/step after "
-          f"warm-up; launches {counts}; branches {branches}", flush=True)
-    for name, (_, per_step, _) in PATH.items():
-        if counts[name] != per_step * STEPS:
-            raise AssertionError(f"{name}: {counts[name]} launches, "
-                                 f"expected {per_step * STEPS}")
-    if branches[0] != {"banded": STEPS} or branches[1].get("coo"):
-        raise AssertionError(f"main path left the kernel branches: "
-                             f"{branches}")
+    # 5. main paths
+    runs = {name: main_path(name, *spec) for name, spec in RUNS.items()}
 
     # 6. where the step time goes
-    profile = profile_phase()
+    profiles = {encoder: profile_phase(encoder)
+                for encoder in ("GIN", "Transformer")}
 
     # 7. report
     kernels = []
-    for name, (line, _, port_kernel) in PATH.items():
+    for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
         widest = max(recs, key=lambda r: r["bound_ms"])
+        run = REPORT_RUN.get(name, "GIN")
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": f"{TPU_SOURCE}:{line}", "status": "ported",
-            "port_kernel": f"{SOURCE}::{port_kernel}",
-            "launches": counts[name],
+            "name": name, "route": "cuda",
+            "source": f"scgib_tpu_torch/csrc/{src}.cu",
+            "replaces": f"scgib_tpu/ops/pallas/{src}.py:{line}",
+            "status": "ported",
+            "port_kernel": f"scgib_tpu_torch/csrc/{src}.cu::{port_kernel}",
+            "launches": runs[run]["counts"][name], "launches_run": run,
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": widest["ms"], "plain_ms": widest["plain_ms"],
             "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
             "library_ms": widest["library_ms"], "shape": widest["shape"],
             "configs": recs})
-    print(json.dumps({"kernels": kernels, "step_ms": step_ms,
-                      "steps": steps, "profile": profile}), flush=True)
+    print(json.dumps({"kernels": kernels,
+                      "step_ms": {k: r["step_ms"] for k, r in runs.items()},
+                      "steps": {k: r["steps"] for k, r in runs.items()},
+                      "profile": profiles}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main_path(name, kwargs, steps, per_step):
+    """One main-path run: every launch count set to 0, ``run_pretrain`` at
+    full width, the counts read; each must be its per-step count times
+    the steps (0 for the wrappers not in ``per_step``)."""
+    reset_launch_counts()
+    pool_mod.branch_counts.clear()
+    encoders.branch_counts.clear()
+    records = run_pretrain(synthetic=1024, batch_size=128, steps=steps,
+                           lr=1e-4, weight_decay=5e-5, device="cuda",
+                           **kwargs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    branches = (dict(pool_mod.branch_counts), dict(encoders.branch_counts))
+    for rec in records:
+        for key in ("kl", "contrastive", "reconstruction"):
+            if not math.isfinite(rec[key]):
+                raise AssertionError(f"{name} step {rec['step']}: {key} "
+                                     "not finite")
+    step_ms = statistics.median(r["ms"] for r in records[1:])
+    print(f"main path {name}: {steps} steps, median {step_ms:.2f} ms/step "
+          f"after warm-up; launches {counts}; branches {branches}",
+          flush=True)
+    for kernel in PATH:
+        want = per_step.get(kernel, 0) * steps
+        if counts[kernel] != want:
+            raise AssertionError(f"{name}: {kernel} launched "
+                                 f"{counts[kernel]} times, expected {want}")
+    layers = 10 if "encoder" in kwargs else 8      # 2 encoders x layers
+    band = "gt_band_64x128" if "encoder" in kwargs else "band"
+    if branches != ({"banded": steps}, {band: layers * steps}):
+        raise AssertionError(f"{name} left the kernel branches: {branches}")
+    return {"counts": counts, "step_ms": step_ms, "steps": records}
 
 
 if __name__ == "__main__":

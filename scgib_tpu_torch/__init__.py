@@ -2,6 +2,8 @@
 
 The JAX package ``scgib_tpu`` is the reference; this package mirrors its
 module layout and names and imports nothing of it (nor of JAX).  Hand-written
-CUDA kernels for the banded adjacency products live in ``csrc/`` and are
-built at first use (``ops/kernels/banded.py``).
+CUDA kernels for the banded adjacency products and the graph-transformer
+attention live in ``csrc/`` and are built at first use
+(``ops/kernels/build.py``; wrappers in ``ops/kernels/banded.py`` and
+``ops/kernels/gt_flash.py``).
 """

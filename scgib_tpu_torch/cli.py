@@ -1,14 +1,17 @@
 """Command-line entry point: ``pretrain`` on synthetic molecules.
 
   python -m scgib_tpu_torch.cli pretrain --synthetic 1024 --batch_size 128 \\
-      --steps 5 --lr 1e-4 --weight_decay 5e-5 --device cuda
+      --steps 5 --lr 1e-4 --weight_decay 5e-5 --device cuda \\
+      [--encoder Transformer --num_layers 4 --num_heads 8]
 
 Counterpart of the JAX package's ``cli.py pretrain`` without checkpoints,
 curriculum or real datasets: it generates ``--synthetic`` molecules (10-30
 atoms, the benchmark's recipe), extracts their 1-hop ego-nets, plans
 padded capacities, packs batches and takes ``--steps`` optimizer steps of
-``PretrainModel(9, hidden=64, d_transfer=32)`` (GIN encoders) with
-torch-style Adam and coupled L2, printing the three losses of each.
+``PretrainModel(9, hidden=64, d_transfer=32)`` (GIN encoders by default, or
+graph transformers with ``--num_layers + 1`` layers of ``--num_heads``
+heads) with torch-style Adam and coupled L2, printing the three losses of
+each.
 """
 
 from __future__ import annotations
@@ -31,14 +34,18 @@ from .utils.params import init_flax_style_
 def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
                  steps: int = 5, lr: float = 1e-4,
                  weight_decay: float = 5e-5, seed: int = 7, device="cuda",
+                 encoder: str = "GIN", num_layers: int = 4,
+                 num_heads: int = 8, gt_bwd: str = "twopass",
                  log: Callable[[str], None] = print,
                  profiler=None) -> List[dict]:
     """Pack ``steps`` batches of ``batch_size`` graphs and train on them.
 
     Returns one record per step: its three losses and its time in ms
     (host clock around the step, ended by a device synchronize; batches
-    are packed and moved to the device beforehand).  ``profiler``, a
-    running ``torch.profiler.profile``, is stepped after every step."""
+    are packed and moved to the device beforehand).  ``gt_bwd`` is the
+    graph transformer's attention backward, "twopass" or "merged".
+    ``profiler``, a running ``torch.profiler.profile``, is stepped after
+    every step."""
     dev = resolve_device(device)
     ds = GraphDataset(random_dataset(synthetic, seed=seed, min_nodes=10,
                                      max_nodes=30), k=1)
@@ -51,7 +58,9 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
                itertools.islice(itertools.chain.from_iterable(epochs), steps)]
 
     feat_dim = ds.graphs[0].node_feat.shape[1]
-    model = PretrainModel(feat_dim, hidden=64, d_transfer=32)
+    model = PretrainModel(feat_dim, hidden=64, d_transfer=32,
+                          encoder=encoder, num_layers=num_layers,
+                          num_heads=num_heads, gt_bwd=gt_bwd)
     init_flax_style_(model, torch.Generator().manual_seed(seed))
     model.to(dev)
     step = make_pretrain_step(model, torch.optim.Adam(
@@ -89,13 +98,20 @@ def main(argv=None):
     sp.add_argument("--lr", type=float, default=1e-4)
     sp.add_argument("--weight_decay", type=float, default=5e-5)
     sp.add_argument("--seed", type=int, default=7)
+    sp.add_argument("--encoder", default="GIN",
+                    choices=["GIN", "Transformer"])
+    sp.add_argument("--num_layers", type=int, default=4,
+                    help="GIN convs, or transformer layers - 1")
+    sp.add_argument("--num_heads", type=int, default=8,
+                    help="attention heads of the transformer")
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain path")
     args = p.parse_args(argv)
     run_pretrain(synthetic=args.synthetic, batch_size=args.batch_size,
                  steps=args.steps, lr=args.lr,
                  weight_decay=args.weight_decay, seed=args.seed,
-                 device=args.device)
+                 device=args.device, encoder=args.encoder,
+                 num_layers=args.num_layers, num_heads=args.num_heads)
 
 
 if __name__ == "__main__":

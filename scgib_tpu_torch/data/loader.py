@@ -12,6 +12,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..graph.banded import gt_band_fits
 from ..graph.batching import (BucketSpec, EgoNets, GraphData, pack_graphs,
                               pack_subgraphs)
 from ..graph.container import GraphBatch, SubgraphBatch
@@ -104,10 +105,21 @@ def plan_batches(ds: GraphDataset, batch_size: int, caps: Capacities,
 
 def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities
                ) -> Tuple[GraphBatch, SubgraphBatch]:
+    """Pack the graphs ``sel`` of ``ds``.  ``gt_fits`` comes from the
+    dataset's largest graph and ego-net (computed once, kept on ``ds``),
+    so it is the same for every batch of the dataset."""
     graphs = [ds.graphs[j] for j in sel]
     egos = [ds.egonets[j] for j in sel]
-    g = pack_graphs(graphs, caps.nodes, caps.edges, caps.graphs)
-    sub = pack_subgraphs(graphs, egos, caps.sub_nodes, caps.sub_edges)
+    maxima = getattr(ds, "_gt_maxima", None)
+    if maxima is None:
+        maxima = (max((g.num_nodes for g in ds.graphs), default=0),
+                  max((len(nl) for ego in ds.egonets
+                       for nl in ego.node_lists), default=0))
+        ds._gt_maxima = maxima
+    g = pack_graphs(graphs, caps.nodes, caps.edges, caps.graphs,
+                    gt_fits=gt_band_fits(maxima[0], caps.nodes))
+    sub = pack_subgraphs(graphs, egos, caps.sub_nodes, caps.sub_edges,
+                         gt_fits=gt_band_fits(maxima[1], caps.sub_nodes))
     return g, sub
 
 

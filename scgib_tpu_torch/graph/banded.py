@@ -9,6 +9,13 @@ dense [tile, band] slab whose columns start at ``col_off[t]``, and
 
 The NumPy helpers run on the host; ``build_blocks`` builds the same blocks
 from the COO edge list on the device.
+
+The graph-transformer attention takes a narrower geometry, tile
+``GT_TILE`` = 64, band ``GT_BAND`` = 128, offsets aligned to ``GT_ALIGN`` = 8:
+its work grows with the window.  The window [t0 - 32, t0 + 96) holds every
+edge of a row tile when no graph (or ego-net) has more than GT_TILE / 2 + 1
+= 33 nodes, since an edge's endpoints then differ by at most 32; the
+packers record that as the batch's ``gt_fits`` flag.
 """
 
 from __future__ import annotations
@@ -37,6 +44,19 @@ def banded_col_off(num_nodes: int, tile: int = 128, band: int = 256,
     all_lo = np.maximum(all_t0 + tile // 2 - band // 2, 0)
     col_off = (all_lo // align) * align
     return np.minimum(col_off, max(num_nodes - band, 0)).astype(np.int32)
+
+
+GT_TILE = 64
+GT_BAND = 128
+GT_ALIGN = 8
+
+
+def gt_band_fits(max_component: int, cap: int) -> bool:
+    """True when the (GT_TILE, GT_BAND) geometry fits every batch of
+    capacity ``cap`` whose largest graph / ego-net has ``max_component``
+    nodes."""
+    return (cap % GT_TILE == 0 and cap >= GT_BAND
+            and max_component <= GT_TILE // 2 + 1)
 
 
 def fits_band_masked(senders: np.ndarray, receivers: np.ndarray,

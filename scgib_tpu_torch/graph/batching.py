@@ -10,11 +10,11 @@ moves them (``graph/container.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .banded import banded_col_off, fits_band_masked
+from .banded import banded_col_off, fits_band_masked, gt_band_fits
 from .container import GraphBatch, SubgraphBatch
 
 
@@ -79,11 +79,15 @@ def _band_col_off(senders, receivers, edge_mask, num_nodes,
 
 
 def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
-                num_graphs: int, banded: bool = True) -> GraphBatch:
+                num_graphs: int, banded: bool = True,
+                gt_fits: Optional[bool] = None) -> GraphBatch:
     """Pack graphs into one padded GraphBatch; edges sorted by receiver.
 
     ``banded=True`` attaches the window offsets when the batch fits the
-    band (the JAX package's ``banded="device"``)."""
+    band (the JAX package's ``banded="device"``).  ``gt_fits`` defaults to
+    this batch's own fact; callers with the dataset at hand pass the
+    dataset's (``data/loader.py::pack_batch``), which cannot change from
+    batch to batch."""
     total_n = sum(g.num_nodes for g in graphs)
     total_e = sum(g.num_edges for g in graphs)
     if total_n > num_nodes:
@@ -127,10 +131,14 @@ def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
     edge_mask = edge_mask[order]
     col_off = (_band_col_off(senders, receivers, edge_mask, num_nodes)
                if banded else None)
+    if gt_fits is None:
+        gt_fits = gt_band_fits(max((g.num_nodes for g in graphs), default=0),
+                               num_nodes)
     return GraphBatch(node_feat=node_feat, node_graph=node_graph,
                       node_mask=node_mask, senders=senders,
                       receivers=receivers, edge_mask=edge_mask,
-                      graph_mask=graph_mask, band_col_off=col_off)
+                      graph_mask=graph_mask, band_col_off=col_off,
+                      gt_fits=gt_fits)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,11 +191,13 @@ class FlatEgoNets:
 
 def pack_subgraphs(graphs: Sequence[GraphData], egonets: Sequence[EgoNets],
                    num_sub_nodes: int, num_sub_edges: int,
-                   banded: bool = True) -> SubgraphBatch:
+                   banded: bool = True,
+                   gt_fits: Optional[bool] = None) -> SubgraphBatch:
     """Flatten the ego-nets of a batch into one padded SubgraphBatch, in
     (graph, node) order, so ``node_center`` is the center's global id in
     the GraphBatch.  Sub-node features are left to the device gather
-    ``g.node_feat[node_orig]``."""
+    ``g.node_feat[node_orig]``.  ``gt_fits`` as in ``pack_graphs``, from
+    the largest ego-net."""
     flats = [e.flat() for e in egonets]
     total_s = int(sum(f.node_off[-1] for f in flats))
     total_q = int(sum(f.edge_off[-1] for f in flats))
@@ -231,7 +241,12 @@ def pack_subgraphs(graphs: Sequence[GraphData], egonets: Sequence[EgoNets],
     edge_mask = edge_mask[order]
     col_off = (_band_col_off(senders, receivers, edge_mask, num_sub_nodes)
                if banded else None)
+    if gt_fits is None:
+        gt_fits = gt_band_fits(
+            max((int(np.diff(f.node_off).max(initial=0)) for f in flats),
+                default=0), num_sub_nodes)
     return SubgraphBatch(node_feat=None, node_center=node_center,
                          node_orig=node_orig, node_mask=node_mask,
                          senders=senders, receivers=receivers,
-                         edge_mask=edge_mask, band_col_off=col_off)
+                         edge_mask=edge_mask, band_col_off=col_off,
+                         gt_fits=gt_fits)

@@ -9,6 +9,11 @@ PyTorch's indexing and ``index_add_`` take), masks bool, features float32.
 ``banded="device"`` mode): the model builds the blocks on the device at first
 use and caches them on the batch (``models/scgib.py::_resolve_band``), the
 eager counterpart of XLA hoisting the block build out of a scanned step.
+
+``gt_fits`` is a plain bool, not an array: every graph (ego-net) of the
+dataset fits the graph-transformer's narrow banded geometry
+(``graph/banded.py::gt_band_fits``).  ``.to`` and ``from_numpy`` pass it
+through unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ _MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask")
 
 
 def _to_tensor(name: str, value, device: torch.device):
+    if name == "gt_fits":
+        return bool(value)
     if value is None:
         return None
     if name in _INDEX_FIELDS:
@@ -72,6 +79,7 @@ class GraphBatch(_Batch):
       graph_mask [G]    bool
       band_blocks  [T, 128, 256] bf16 0/1 banded adjacency, or None
       band_col_off [T]  index   64-aligned window starts, or None
+      gt_fits      bool         the narrow (64, 128) geometry fits
     """
 
     node_feat: object
@@ -83,6 +91,7 @@ class GraphBatch(_Batch):
     graph_mask: object
     band_blocks: Optional[object] = None
     band_col_off: Optional[object] = None
+    gt_fits: bool = False
 
     @property
     def num_nodes(self) -> int:
@@ -106,7 +115,7 @@ class SubgraphBatch(_Batch):
       node_orig   [S]    index  original node's global id
       node_mask   [S]    bool
       senders/receivers/edge_mask [Q]  COO over sub-nodes, receivers sorted
-      band_blocks / band_col_off       as in GraphBatch
+      band_blocks / band_col_off / gt_fits   as in GraphBatch
     """
 
     node_feat: Optional[object]
@@ -118,6 +127,7 @@ class SubgraphBatch(_Batch):
     edge_mask: object
     band_blocks: Optional[object] = None
     band_col_off: Optional[object] = None
+    gt_fits: bool = False
 
     @property
     def num_nodes(self) -> int:

@@ -1,14 +1,15 @@
 """The S-CGIB pretraining model.
 
 Counterpart of ``scgib_tpu/models/scgib.py`` for the main path:
-``SCGIBCore`` (twin encoders, concrete-relaxation compression gate with
-per-graph noise, core<->candidate attention) in ``coo`` sub-graph mode with
-the ``sum`` readout and attention on, and ``PretrainModel`` with gram-form
-adjacency reconstruction.
+``SCGIBCore`` (twin GIN or graph-transformer encoders, concrete-relaxation
+compression gate with per-graph noise, core<->candidate attention) in
+``coo`` sub-graph mode with the ``sum`` readout and attention on, and
+``PretrainModel`` with gram-form adjacency reconstruction.
 
 Noise: the compression gate takes two uniform draws per call (reference
-``torch.rand`` at models.py:599, 650).  ``forward`` takes them from ``rand``,
-a callable ``shape -> U[0, 1)`` tensor; ``uniform_draws(generator)`` builds
+``torch.rand`` at models.py:599, 650), and the graph transformer's dropout
+one per layer in training mode.  ``forward`` takes them all from ``rand``, a
+callable ``shape -> U[0, 1)`` tensor; ``uniform_draws(generator)`` builds
 one from an explicit ``torch.Generator``.
 """
 
@@ -19,12 +20,13 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..graph.banded import build_blocks
+from ..graph.banded import (GT_ALIGN, GT_BAND, GT_TILE, banded_col_off,
+                           build_blocks)
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..ops.pool import sorted_segment_sum_banded
 from ..ops.segment import (segment_broadcast, segment_softmax,
                            segment_std_mean, segment_sum)
-from .encoders import make_encoder
+from .encoders import GraphTransformer, make_encoder
 from .layers import MLP2, SegmentBatchNorm
 from .losses import (contrastive_infonce, kl_loss, l2_normalize,
                      recon_adj_loss)
@@ -40,15 +42,29 @@ def uniform_draws(generator: Optional[torch.Generator],
     return rand
 
 
-def _resolve_band(batch):
+def _resolve_band(batch, gt: bool = False):
     """(blocks, col_off) of a batch's banded adjacency, or None.
 
     When the packer shipped only the offsets, the bf16 blocks are built on
     the device at first use and kept on the batch, so both encoders' uses
-    and the reconstruction loss's share one build per batch."""
+    and the reconstruction loss's share one build per batch.  With ``gt``
+    and the batch's ``gt_fits``, the graph transformer's narrow
+    (GT_TILE, GT_BAND) geometry instead, built once per batch likewise."""
     col_off = batch.band_col_off
     if col_off is None:
         return None
+    if gt and batch.gt_fits:
+        band = getattr(batch, "_gt_band", None)
+        if band is None:
+            n = batch.node_mask.shape[0]
+            off = torch.from_numpy(banded_col_off(
+                n, GT_TILE, GT_BAND, GT_ALIGN)).to(col_off.device,
+                                                   torch.int64)
+            band = (build_blocks(batch.senders, batch.receivers,
+                                 batch.edge_mask, off, n, tile=GT_TILE,
+                                 band=GT_BAND), off)
+            batch._gt_band = band
+        return band
     if batch.band_blocks is None:
         batch.band_blocks = build_blocks(
             batch.senders, batch.receivers, batch.edge_mask, col_off,
@@ -98,14 +114,17 @@ class SCGIBCore(nn.Module):
     """Twin encoders + compression + core<->candidate attention."""
 
     def __init__(self, in_dim: int, hidden: int = 64, encoder: str = "GIN",
-                 num_layers: int = 4, gate_bias: float = 1e-4,
+                 num_layers: int = 4, num_heads: int = 8,
+                 gt_bwd: str = "twopass", gate_bias: float = 1e-4,
                  std_eps: float = 1e-7, deterministic: bool = False):
         super().__init__()
         self.gate_bias = gate_bias
         self.std_eps = std_eps
         self.deterministic = deterministic
-        self.encoder1 = make_encoder(encoder, in_dim, hidden, num_layers)
-        self.encoder2 = make_encoder(encoder, in_dim, hidden, num_layers)
+        self.encoder1 = make_encoder(encoder, in_dim, hidden, num_layers,
+                                     num_heads, gt_bwd)
+        self.encoder2 = make_encoder(encoder, in_dim, hidden, num_layers,
+                                     num_heads, gt_bwd)
         self.compressor = Compressor(hidden)
         self.attn_layer = nn.Linear(2 * hidden, 1)
 
@@ -148,13 +167,15 @@ class SCGIBCore(nn.Module):
     def extract_features(self, g: GraphBatch, sub: SubgraphBatch,
                          x_proj, x_sub_proj,
                          rand: Optional[Rand] = None) -> CoreFeatures:
+        gt = isinstance(self.encoder1, GraphTransformer)
+        kw = {"rand": rand} if gt else {}
         h = self.encoder1(x_proj, g.senders, g.receivers,
                           node_mask=g.node_mask, edge_mask=g.edge_mask,
-                          band=_resolve_band(g))
+                          band=_resolve_band(g, gt), **kw)
         h_sub = self.encoder2(x_sub_proj, sub.senders, sub.receivers,
                               node_mask=sub.node_mask,
                               edge_mask=sub.edge_mask,
-                              band=_resolve_band(sub))
+                              band=_resolve_band(sub, gt), **kw)
         clean_readout = segment_sum(h, g.node_graph, g.num_graphs,
                                     mask=g.node_mask)
         noisy, kl_node = self.compression(h, g, rand)
@@ -188,18 +209,19 @@ class PretrainModel(nn.Module):
 
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
+                 num_heads: int = 8, gt_bwd: str = "twopass",
                  deterministic: bool = False, normalize_input: bool = True):
         super().__init__()
         self.normalize_input = normalize_input
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
-                              num_layers=num_layers,
-                              deterministic=deterministic)
+                              num_layers=num_layers, num_heads=num_heads,
+                              gt_bwd=gt_bwd, deterministic=deterministic)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
 
     def forward(self, g: GraphBatch, sub: SubgraphBatch,
                 rand: Optional[Rand] = None) -> PretrainLosses:
-        if rand is None and not self.core.deterministic:
+        if rand is None:
             rand = uniform_draws(None, g.node_feat.device)
         x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub,
                                              self.normalize_input)

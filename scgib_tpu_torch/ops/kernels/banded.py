@@ -23,19 +23,12 @@ how the design answers it.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
 from ..spmm_banded import _banded_spmm_impl
+from .build import load
 
-_PKG = Path(__file__).resolve().parents[2]
-SOURCE = _PKG / "csrc" / "banded.cu"
-BUILD_DIR = _PKG / "_build"
 TILE = 128
 KC = 32          # the kernels stage the band in chunks of this many columns
 MAX_FUSED_DIM = 128
@@ -46,30 +39,12 @@ _lib = None
 
 
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/banded.cu`` for sm_90a (once per source hash) and
-    load it.  ``build.log`` keeps nvcc's ``-Xptxas -v`` report."""
+    """Compile ``csrc/banded.cu`` for sm_90a (once per source hash, see
+    ``build.py``) and load it."""
     global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"libscgib_banded_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA kernels are built "
-                               "on a machine with the CUDA toolkit")
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(SOURCE)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{res.stdout}\n{res.stderr}")
-        build.log = res.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib, = load("banded")
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.scgib_banded_spmm.argtypes = [P, P, I, I, P, L, I, P, I, P]
     lib.scgib_gin_fused_fwd.argtypes = [P, P, I, I, P, L, I, P, P, I, P, P,
@@ -82,9 +57,6 @@ def build() -> ctypes.CDLL:
     lib.scgib_rows_per_block.argtypes = []
     _lib = lib
     return lib
-
-
-build.log = ""
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -112,3 +112,15 @@ def segment_softmax(logits: torch.Tensor, segment_ids: torch.Tensor,
     e = torch.exp(shifted)
     denom = segment_sum(e, segment_ids, num_segments).clamp_min(1e-16)
     return e / segment_broadcast(denom, segment_ids, num_segments)
+
+
+def segment_normalize_exp(scores: torch.Tensor, segment_ids: torch.Tensor,
+                          num_segments: int,
+                          mask: Optional[torch.Tensor] = None,
+                          clamp: float = 5.0,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """The graph transformer's unshifted edge softmax: ``exp(clamp(score,
+    +-clamp))`` divided by the per-destination sum plus ``eps``."""
+    e = _apply_mask(torch.exp(scores.clamp(-clamp, clamp)), mask)
+    z = segment_sum(e, segment_ids, num_segments)
+    return e / segment_broadcast(z + eps, segment_ids, num_segments)

@@ -1,12 +1,16 @@
-"""Banded SpMM — the plain PyTorch version.
+"""Banded SpMM and graph-transformer attention — the plain PyTorch versions.
 
-Counterpart of ``scgib_tpu/ops/spmm_banded.py::banded_spmm``: per row-tile,
-gather the band window of ``x`` and multiply it by the tile's dense
-[tile, band] block.  It is the semantics reference of the CUDA kernel in
+Counterpart of ``scgib_tpu/ops/spmm_banded.py``.  ``banded_spmm``: per
+row-tile, gather the band window of ``x`` and multiply it by the tile's dense
+[tile, band] block; it is the semantics reference of the CUDA kernel in
 ``ops/kernels/banded.py`` and the path CPU tensors take.
+``gt_banded_attention`` is the reference of the graph-transformer attention
+whose kernels are in ``ops/kernels/gt_flash.py``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -44,3 +48,44 @@ def banded_spmm(blocks: torch.Tensor, col_off: torch.Tensor,
     """[T, tile, band] x [T] x [N, d] -> [N, d] neighbor sums (A x).
     Requires a symmetric A."""
     return _BandedSpmm.apply(blocks, col_off, x)
+
+
+def gt_windows(col_off: torch.Tensor, band: int,
+               x: torch.Tensor) -> torch.Tensor:
+    """[T, band, ...] band windows ``x[col_off[t] : col_off[t] + band]``."""
+    return x[col_off[:, None] + torch.arange(band, device=x.device)]
+
+
+def gt_scores(blocks: torch.Tensor, col_off: torch.Tensor, q: torch.Tensor,
+              k: torch.Tensor, clamp: float = 5.0):
+    """(S, E), each [T, H, tile, band]: S = Q_tile K_win^T / sqrt(hd) and
+    E = exp(clip(S, +-clamp)) * blocks[t], in the inputs' dtype."""
+    n_tiles, tile, band = blocks.shape
+    _, num_heads, hd = q.shape
+    s = torch.einsum("tihd,tjhd->thij",
+                     q.reshape(n_tiles, tile, num_heads, hd),
+                     gt_windows(col_off, band, k)) / math.sqrt(hd)
+    return s, torch.exp(s.clamp(-clamp, clamp)) * blocks.to(s.dtype)[:, None]
+
+
+def gt_banded_attention(blocks: torch.Tensor, col_off: torch.Tensor,
+                        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        clamp: float = 5.0, eps: float = 1e-6) -> torch.Tensor:
+    """Graph-transformer edge attention over the banded layout, by autograd.
+
+    Per row-tile, dense over the [tile, band] window:
+
+        S   = Q_tile K_win^T / sqrt(hd)            (per head)
+        E   = exp(clip(S, +-clamp)) * blocks[t]    (no max shift)
+        out = (E / (rowsum(E) + eps)) V_win
+
+    the COO path's ``sddmm_dot`` + ``segment_normalize_exp`` + weighted
+    ``segment_sum`` up to reduction order.  The gradient is zero where
+    |S| > clamp; ``torch.clamp`` passes it where |S| <= clamp, the inclusive
+    mask of the flash kernels.  Computes in the inputs' dtype.
+    q, k, v: [N, H, hd] -> [N, H, hd]."""
+    _, e = gt_scores(blocks, col_off, q, k, clamp)
+    w = e / (e.sum(-1) + eps)[..., None]
+    out = torch.einsum("thij,tjhd->tihd", w,
+                       gt_windows(col_off, blocks.shape[2], v))
+    return out.reshape(q.shape)

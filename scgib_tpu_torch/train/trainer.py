@@ -19,8 +19,11 @@ from ..models.scgib import PretrainLosses, PretrainModel, uniform_draws
 def make_pretrain_step(model: PretrainModel, optimizer: torch.optim.Optimizer
                        ) -> Callable[..., PretrainLosses]:
     """``step(g, sub, generator=None) -> losses``: total = KL + contrastive
-    + reconstruction, one backward, one optimizer update.  The noise comes
-    from ``generator`` (a ``torch.Generator`` on the batch's device)."""
+    + reconstruction, one backward, one optimizer update.  The compression
+    noise and the graph transformer's dropout masks come from ``generator``
+    (a ``torch.Generator`` on the batch's device), the counterpart of the
+    JAX step's ``noise`` and ``dropout`` streams: other bits, the same
+    distribution."""
 
     def step(g: GraphBatch, sub: SubgraphBatch,
              generator: Optional[torch.Generator] = None) -> PretrainLosses:
