@@ -11,9 +11,12 @@ Phases; any failure raises and exits non-zero before the last line:
      shapes of the benchmark batch (128 molecules of 10-30 atoms, k=1:
      N=3072 graph rows, S=9728 ego-net rows; the attention kernels in the
      narrow (64, 128) geometry, 8 heads of 8): error, kernel / plain /
-     library time (median of 20 CUDA graph replays, each between CUDA
-     events), and the bound; and the merged attention backward against
-     the two-pass one.
+     library time (median of 20 replays of a CUDA graph of 10 calls, each
+     between CUDA events), the bound and its share of the kernel time (for
+     gin_bwd also the bound at the 3xTF32 tensor-core rate it runs at);
+     the merged attention backward against the two-pass one; and the
+     registers, shared memory and blocks per SM of banded_spmm and
+     gin_fused_bwd at the main path's widths.
   4. the full model on that batch, GIN and graph-transformer encoders,
      once on the card and once on the CPU plain path in float64
      (deterministic, dropout off): losses and gradients must agree.
@@ -59,6 +62,7 @@ from scgib_tpu_torch.utils.params import init_flax_style_  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+TF32X3_FLOPS_PER_S = 495e12 / 3   # 3xTF32: three TF32 tensor-core products
 KERNEL_RTOL = 1e-4            # max |kernel - plain| / max |plain|
 MODEL_RTOL = 1e-4             # losses, card vs float64 CPU
 GRAD_RTOL = 1e-3              # gradients, card vs float64 CPU, per tensor
@@ -105,12 +109,14 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20):
-    """Device time of one call of ``fn``: the call is captured once in a
-    CUDA graph, and the graph is replayed ``reps`` times, each between two
-    CUDA events; the median is returned.  Replaying a graph keeps the
-    host's per-call Python and launch cost out of the reading, which
-    would otherwise exceed these kernels' device time."""
+def time_ms(fn, reps=20, calls=10):
+    """Device time of one call of ``fn``: ``calls`` calls in a row are
+    captured in one CUDA graph, the graph is replayed ``reps`` times, each
+    between two CUDA events, and the median over ``calls`` is returned.
+    Replaying a graph keeps the host's per-call Python and launch cost out
+    of the reading; the calls in a row spread the graph's own launch
+    latency, which a one-call graph adds whole to every reading and which
+    varies between machines (``kernel_ab.py`` reads it)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -118,7 +124,8 @@ def time_ms(fn, reps=20):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
@@ -128,7 +135,7 @@ def time_ms(fn, reps=20):
         graph.replay()
         b.record()
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
+    return statistics.median(a.elapsed_time(b) for a, b in events) / calls
 
 
 def launch_counts():
@@ -161,9 +168,11 @@ def windows(blocks, col_off, x):
     return x[idx]
 
 
-def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None):
+def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
+          tf32x3=False):
     """Compare one kernel configuration with its plain version and time
-    both; returns the record."""
+    both; returns the record.  ``tf32x3``: the kernel runs its products in
+    3xTF32, so its bound at that rate is recorded beside the fp32 one."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -177,10 +186,18 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None):
            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
            "library_ms": time_ms(library_fn) if library_fn else None}
     rec["bound_ms"], rec["bound_by"] = bound_ms(nbyt, flops)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    extra = ""
+    if tf32x3:
+        rec["bound_3xtf32_ms"] = max(nbyt / HBM_BYTES_PER_S,
+                                     flops / TF32X3_FLOPS_PER_S) * 1e3
+        extra = (f", at the 3xTF32 rate {rec['bound_3xtf32_ms'] * 1e3:.3f} "
+                 f"us (share {rec['bound_3xtf32_ms'] / rec['ms']:.3f})")
     print(f"kernel {name} {shape}: max_abs_err {max_abs:.3e} rel "
           f"{max_rel:.3e} (tol {KERNEL_RTOL}) | ms {rec['ms']:.4f} plain "
           f"{rec['plain_ms']:.4f} library {rec['library_ms']} bound "
-          f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']})", flush=True)
+          f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}, share "
+          f"{rec['bound_share']:.3f}){extra}", flush=True)
     if not max_rel <= KERNEL_RTOL:
         raise AssertionError(f"{name} {shape} disagrees with its plain "
                              f"version: {max_rel:.3e} > {KERNEL_RTOL}")
@@ -217,7 +234,8 @@ def kernel_phase(g, sub, dev):
                 lambda: kb.gin_bwd_plain(blocks, col_off, h, gr, w1, b1, w2),
                 nbytes(blocks, col_off, h, gr, w1, b1, w2)
                 + nbytes(h, w1, b1, w2, b2),            # gz0, dW1 .. db2
-                2 * nnz * d + n * d + 2 * n * (3 * d * hid + 2 * hid * hid)))
+                2 * nnz * d + n * d + 2 * n * (3 * d * hid + 2 * hid * hid),
+                tf32x3=True))
             win = windows(blocks, col_off, h)
             records.append(check(
                 "spmm_self", shape,
@@ -254,6 +272,15 @@ def kernel_phase(g, sub, dev):
         nbytes(pblocks, off, data) + n_seg * hid * 4,
         2 * int((pblocks != 0).sum()) * hid,
         lambda: torch.bmm(pbf, pwin)))
+    for d in (32, 64):
+        for kernel, widths in (("banded_spmm", (d,)),
+                               ("gin_fused_bwd", (d, hid, hid))):
+            info = kb.kernel_info(kernel, *widths)
+            print(f"resources {kernel} widths {widths}: {info}", flush=True)
+            for rec in records:
+                if (rec["shape"].endswith(f"d={d}")
+                        and PATH[rec["name"]][2] == f"{kernel}_kernel"):
+                    rec["resources"] = info
     return records + gt_kernel_phase(g, sub, dev, gen)
 
 
@@ -356,7 +383,8 @@ def model_phase(g, sub, dev, encoder="GIN"):
 def profile_phase(encoder="GIN"):
     """Device time by kernel over 3 steady steps of a main path (after
     2 unprofiled ones), and the device's busy share of those steps' wall
-    time (host clock, with the profiler's own overhead in it)."""
+    time (host clock, with the profiler's own overhead in it); ``port``:
+    [ms, calls] per step of each of the port's CUDA kernels."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -382,7 +410,11 @@ def profile_phase(encoder="GIN"):
                "device_kernels_per_step": sum(k[1] for k in kernels),
                "top": [{"kernel": name[:80], "ms_per_step": ms,
                         "calls_per_step": n}
-                       for ms, n, name in kernels[:12]]}
+                       for ms, n, name in kernels[:12]],
+               "port": {k: [sum(ms for ms, _, name in kernels if k in name),
+                            sum(n for _, n, name in kernels if k in name)]
+                        for k in sorted({v[2].split()[0]
+                                         for v in PATH.values()})}}
     print(f"profile ({encoder}): {json.dumps(summary)}", flush=True)
     if not busy_ms:
         print("profile: the profiler recorded no device time; device busy "

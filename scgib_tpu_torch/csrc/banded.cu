@@ -8,29 +8,53 @@
 //   gin_fused_fwd  relu((h + A h) W1 + b1) W2 + b2 per row tile.
 //                  Replaces _kernel (#1).
 //   gin_fused_bwd  recompute z0 = h + A h and z1 = z0 W1 + b1, then
-//                  gz1 = (g W2^T) * [z1 > 0], gz0 = gz1 W1^T, and per-block
-//                  partial dW1, db1, dW2, db2.  Replaces _bwd_kernel (#2).
+//                  gz1 = (g W2^T) * [z1 > 0], gz0 = gz1 W1^T, and one
+//                  partial of dW1, db1, dW2, db2 per block.  Replaces
+//                  _bwd_kernel (#2).
 //
-// Layout (graph/banded.py): blocks [T, 128, W] bf16 0/1, col_off [T] int64;
-// row tile t of 128 rows reads the window x[col_off[t] : col_off[t] + W].
+// Layout (graph/banded.py): blocks [T, 128, W] bf16, col_off [T] int64; row
+// tile t of 128 rows reads the window x[col_off[t] : col_off[t] + W].  The
+// entries are edge counts, 0 or 1 but for repeated edges.
 //
-// What bounds them on an H100: at the main path's widths (d <= 64, N = 3072
-// or 9728 rows) a call moves a few MB and does well under a GFLOP of useful
-// work, so the floor is a few microseconds: HBM bytes for the SpMM and the
-// forward, fp32 operations for the backward.  The launch itself costs about
-// as much.  The design therefore keeps every intermediate on chip: one
-// block owns ROWS = 32 rows (a quarter tile, so the small grids still
-// spread over the SMs), stages the band in KC = 32 column chunks — bf16
-// block slab widened to f32, and the matching feature window — in shared
-// memory, skips chunks whose slab is all zero (most of the pooling window),
-// accumulates in registers with fp32 FMA (exact for the 0/1 operand, so the
-// pooling needs no hi/lo split), and runs the GIN layer's MLP products from
-// shared memory, weights included (rows padded by one float, so the
-// transposed products of the backward read distinct banks), before
-// anything is written.  Blocks run in no order, so the backward writes
-// per-block weight-gradient partials that the caller sums, where the TPU
-// grid carried them.  Tensor cores (wgmma), TMA and bf16 operands are
-// later work.
+// What bounds them on an H100.  At the main path's widths (d <= 64, N = 3072
+// or 9728 rows) a call moves a few MB and does well under a GFLOP, so the
+// floor is a few microseconds: HBM bytes for the SpMM and the forward, fp32
+// operations for the backward.  What keeps such kernels far above it is
+// latency: walking a band in dense column chunks makes each chunk a
+// dependent load, a barrier and a product over mostly zeros (a band row
+// holds 2-4 ones in 256, a pooling row ~3 in 1024).
+//
+// banded_spmm (band_row below) is a sparse gather.  A group of lanes owns
+// one row: as many lanes as cover the row's feature columns in float4s
+// (16 at d = 64, 8 at d = 32), so a warp takes two to four rows at once.
+// The group reads the row's slab with 16-byte loads, all issued together
+// with the window offset and, for x + A x, the row of x itself: one round
+// trip.  It then finds the nonzeros with warp ballots, without a barrier or
+// shared memory, and gathers only those x rows, four at a time, all in
+// flight together: the second round trip, a third only past four nonzeros.
+// Sums are fp32 FMA in registers, exact for the 0/1 operand (the pooling
+// needs no hi/lo split), in the same order in every run.
+//
+// gin_fused_bwd is persistent: one block of 8 warps per SM stages W1, W2
+// and b1 in shared memory once (cp.async), loops over row tiles of 64 rows
+// (32 above width 64), and keeps dW1 and dW2 in registers across its tiles,
+// so the grid writes one small partial per block that the caller sums in a
+// fixed order: no atomics, bitwise the same from run to run on one card.
+// Each tile gathers z0 with band_row into shared memory, 16 columns a lane
+// when the width allows, so that one pass covers the tile.  The five
+// products (z1, g W2^T, gz0, dW2, dW1) run on the tensor cores as mma.sync
+// m16n8k8 TF32 with the 3xTF32 split (hi*hi + hi*lo + lo*hi, fp32
+// accumulate; about 21 bits, not TF32's 11), each warp keeping four to
+// sixteen independent accumulator chains so the mma latencies overlap.
+// Widths are padded with zeros in shared memory, so any width up to 128
+// runs.  What bounds it on the card is latency more than the tensor cores:
+// one tile is a chain of the weight and g staging, the gather's two round
+// trips and five dependent products, with 8 warps an SM to hide it (more
+// blocks an SM would cap registers at 128 and spill; measured slower).
+//
+// gin_fused_fwd keeps its first design (ROWS = 32 rows a block, the band in
+// KC = 32 column chunks staged in shared memory, fp32 SIMT products out of
+// shared memory); it is later work.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/kernels/banded.py).  Every entry launches on the given stream,
@@ -43,13 +67,17 @@
 namespace {
 
 constexpr int TILE = 128;         // rows of one banded block
-constexpr int ROWS = 32;          // rows one thread block owns
-constexpr int KC = 32;            // band columns staged per chunk
+constexpr int ROWS = 32;          // rows one gin_fused_fwd block owns
+constexpr int KC = 32;            // band columns gin_fused_fwd stages a chunk
 constexpr int THREADS = 256;      // 16 x 16 threads
 constexpr int RPT = ROWS / 16;    // rows per thread
 constexpr int MAXC = 8;           // column slots per thread: widths <= 128
-constexpr int MAXD = 16 * MAXC;   // widest feature dimension one block takes
 constexpr int SLAB = ROWS * (KC + 1);   // padded against bank conflicts
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SEGV = 8;           // 16-byte slab vectors a lane holds at once
+constexpr int SPMM_THREADS = 128;
+constexpr int BWD_THREADS = 256;  // 8 warps
 
 // Stage chunk [k0, k0 + KC) of this block's [ROWS, W] slab and the matching
 // [KC, d] window rows of x.  Returns (block-uniformly) whether the slab chunk
@@ -154,32 +182,132 @@ __device__ void dense_rows(const float* in, int K, const float* W,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// --- sparse gather of one band row (banded_spmm, gin_fused_bwd) ------------
+
+// VEC consecutive floats, as float4s when VEC is a multiple of 4 (p then
+// 16-byte aligned).
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float v[VEC]) {
+  if constexpr (VEC % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + j);
+      v[j] = q.x; v[j + 1] = q.y; v[j + 2] = q.z; v[j + 3] = q.w;
+    }
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* p, const float v[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// One lane group of `lpr` lanes (a power of two; every group of the warp
+// calls this together) adds, for its row `arow` of A,
+//   acc[j] += sum_k A[row][k] * xw[k * ld + c + j],  j < VEC,
+// over the band k < W, where rows k >= rows_left (windows running past the
+// end of x) read as 0, with GATHER rows of x in flight.  `active` is false
+// for a group without a row; `col_ok` false for a lane past the last
+// column.
+template <int VEC, int GATHER>
+__device__ void band_row(const __nv_bfloat16* __restrict__ arow, bool active,
+                         int W, const float* __restrict__ xw,
+                         long long rows_left, int ld, int c, bool col_ok,
+                         int lpr, float acc[VEC]) {
+  const int lane = threadIdx.x & 31;
+  const int gbase = lane & ~(lpr - 1), lig = lane - gbase;
+  const unsigned gmask = lpr == 32 ? FULL : ((1u << lpr) - 1u) << gbase;
+  const int nvec = W / 8;                  // 16-byte vectors in a row
+  for (int s0 = 0; s0 < nvec; s0 += SEGV * lpr) {
+    // the row's slab, every load issued before any is used
+    uint4 v[SEGV];
+#pragma unroll
+    for (int i = 0; i < SEGV; ++i) {
+      int q = s0 + i * lpr + lig;
+      v[i] = (active && q < nvec)
+                 ? __ldg(reinterpret_cast<const uint4*>(arow) + q)
+                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+    // bit 8 i + e: element e of this lane's vector i is nonzero
+    unsigned long long m = 0ull;
+#pragma unroll
+    for (int i = 0; i < SEGV; ++i) {
+      const unsigned w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        if (w[h] & 0x7fffu) m |= 1ull << (8 * i + 2 * h);
+        if (w[h] & 0x7fff0000u) m |= 1ull << (8 * i + 2 * h + 1);
+      }
+    }
+    // take the group's nonzeros GATHER at a time, lowest lane and bit
+    // first; every lane of the group gathers its columns of each x row
+    while (__any_sync(FULL, m != 0ull)) {
+      int col[GATHER];
+      bool ok[GATHER];
+#pragma unroll
+      for (int u = 0; u < GATHER; ++u) {
+        const unsigned has = __ballot_sync(FULL, m != 0ull) & gmask;
+        const int src = has ? __ffs(has) - 1 : lane;
+        const unsigned lo = __shfl_sync(FULL, (unsigned)m, src);
+        const unsigned hi = __shfl_sync(FULL, (unsigned)(m >> 32), src);
+        const int bit = __ffsll((long long)(((unsigned long long)hi << 32)
+                                            | lo)) - 1;
+        if (has && lane == src) m &= m - 1ull;
+        ok[u] = has != 0u;
+        col[u] = (s0 + (bit >> 3) * lpr + (src - gbase)) * 8 + (bit & 7);
+      }
+      float a[GATHER], xv[GATHER][VEC];
+#pragma unroll
+      for (int u = 0; u < GATHER; ++u) {
+        a[u] = 0.f;
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) xv[u][j] = 0.f;
+        if (ok[u] && col[u] < rows_left) {
+          a[u] = __bfloat162float(arow[col[u]]);
+          if (col_ok) load_vec<VEC>(xw + (long long)col[u] * ld + c, xv[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER; ++u)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[j] = fmaf(a[u], xv[u][j], acc[j]);
+    }
+  }
+}
+
+// out[T*128, d] = A x (+ x): one lane group of `lpr` lanes per row, columns
+// in passes of lpr * VEC.
+template <int VEC>
+__global__ void __launch_bounds__(SPMM_THREADS)
 banded_spmm_kernel(const __nv_bfloat16* __restrict__ blocks,
                    const long long* __restrict__ col_off, int W,
                    const float* __restrict__ x, long long nx, int d,
-                   float* __restrict__ out, int add_self) {
-  __shared__ float slab[SLAB];
-  __shared__ float win[KC * MAXD];
-  const int t = blockIdx.x / (TILE / ROWS);
-  const int r0 = (blockIdx.x % (TILE / ROWS)) * ROWS;
-  const int c0 = blockIdx.y * MAXD;
-  const int dc = min(MAXD, d - c0);
-  float acc[RPT][MAXC];
-  band_aggregate(blocks, col_off, W, x + c0, d, nx, dc, t, r0, slab, win, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+                   float* __restrict__ out, long long nrows, int add_self,
+                   int lpr) {
+  const int lane = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * SPMM_THREADS + threadIdx.x) >> 5;
+  const long long row = warp * (32 / lpr) + lane / lpr;
+  const bool active = row < nrows;
+  const long long r = active ? row : 0;
+  const long long off = col_off[r / TILE];
+  const __nv_bfloat16* arow = blocks + r * W;
+  for (int c0 = 0; c0 < d; c0 += lpr * VEC) {
+    const int c = c0 + (lane % lpr) * VEC;
+    const bool col_ok = active && c < d;
+    float acc[VEC];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    long long row = (long long)t * TILE + r0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int c = tx + 16 * j;
-      if (c < dc) {
-        float v = acc[i][j];
-        if (add_self) v += x[row * d + c0 + c];
-        out[row * d + c0 + c] = v;
-      }
-    }
+    for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+    if (add_self && col_ok) load_vec<VEC>(x + r * d + c, acc);
+    band_row<VEC, 4>(arow, active, W, x + off * d, nx - off, d, c, col_ok,
+                     lpr, acc);
+    if (col_ok) store_vec<VEC>(out + r * d + c, acc);
   }
 }
 
@@ -238,7 +366,146 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
     }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// --- 3xTF32 tensor-core products (gin_fused_bwd) ---------------------------
+
+// x = hi + lo exactly, hi the top 11 significant bits (a TF32 value, cut
+// by a mask: a cvt costs several instructions and is the bottleneck of the
+// products otherwise).  The tensor core reads lo's top 11 bits too, so the
+// split keeps about 21 of the 24 bits.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[i] += A[m0:m0+16, 0:K] B[0:K, n0 + i step : + 8] for i < cnt <= NT, by
+// one warp, in the m16n8k8 fragment layout (c[i][0], c[i][1] at row
+// m0 + lane/4, columns n0 + i step + 2 (lane%4) and + 1; c[i][2], c[i][3]
+// eight rows below).  A(m, k) and B(k, n) read shared memory; K is a
+// multiple of 8.  Each operand is split into a TF32 high part and a TF32
+// remainder, and the three products that matter are summed smallest first
+// in fp32.  The NT products share each A fragment and form independent
+// chains of dependent mma, issued without branches so that they overlap.
+template <int NT, class FA, class FB>
+__device__ __forceinline__ void mma_3xtf32(float c[NT][4], FA A, FB B,
+                                           int m0, int n0, int step, int cnt,
+                                           int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32(A(m0 + g, k0 + t), ah[0], al[0]);
+    split_tf32(A(m0 + g + 8, k0 + t), ah[1], al[1]);
+    split_tf32(A(m0 + g, k0 + t + 4), ah[2], al[2]);
+    split_tf32(A(m0 + g + 8, k0 + t + 4), ah[3], al[3]);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      // no branch: a chain past cnt repeats the first one's reads, and its
+      // sums are never stored
+      const int n = n0 + (i < cnt ? i : 0) * step + g;
+      uint32_t bh[2], bl[2];
+      split_tf32(B(k0 + t, n), bh[0], bl[0]);
+      split_tf32(B(k0 + t + 4, n), bh[1], bl[1]);
+      mma_tf32(c[i], al, bh);
+      mma_tf32(c[i], ah, bl);
+      mma_tf32(c[i], ah, bh);
+    }
+  }
+}
+
+// The 16 x 8 output tiles of an [M, N] product that this warp of 8 takes:
+// row tile m0 = 16 (warp % (M/16)), column tiles n0 + i step for i < cnt.
+// M / 16 divides 8.
+struct WarpTiles {
+  int m0, n0, step, cnt;
+};
+
+__device__ __forceinline__ WarpTiles warp_tiles(int M, int N) {
+  const int warp = threadIdx.x >> 5, nm = M / 16, wpm = 8 / nm;
+  const int first = warp / nm, nn = N / 8;
+  // a warp without a tile reads tile 0, in bounds, and stores nothing
+  return {(warp % nm) * 16, first < nn ? first * 8 : 0, wpm * 8,
+          first < nn ? (nn - first + wpm - 1) / wpm : 0};
+}
+
+__host__ __device__ constexpr int pad16(int v) { return (v + 15) & ~15; }
+
+// The row dimensions of the weight-gradient products are padded to 16,
+// 32, 64 or 128, so that their row tiles divide the 8 warps.
+__host__ __device__ constexpr int pad_pow2(int v) {
+  return v <= 16 ? 16 : v <= 32 ? 32 : v <= 64 ? 64 : 128;
+}
+
+// Shared-memory floats of gin_fused_bwd: W1 [DP][HP+4], W2 [HP][OP+4],
+// b1 [HP], and per tile z0 [MT][DP+4], g [MT][OP+4], z1 and gz1 [MT][HP+4],
+// with DP = pad_pow2(din), HP = pad_pow2(hid), OP = pad16(dout) and the
+// padding zero.  Rows are padded by 4 floats so the fragment reads of a
+// warp spread over the banks.
+__host__ __device__ constexpr int bwd_smem_floats(int mt, int din, int hid,
+                                                  int dout) {
+  return pad_pow2(din) * (pad_pow2(hid) + 4)
+         + pad_pow2(hid) * (pad16(dout) + 4) + pad_pow2(hid)
+         + mt * ((pad_pow2(din) + 4) + (pad16(dout) + 4)
+                 + 2 * (pad_pow2(hid) + 4));
+}
+
+// Zero the entries of a shared [RP, CP] array (row stride ld) outside its
+// [R, C] corner.
+__device__ void zero_pad(float* a, int R, int C, int RP, int CP, int ld) {
+  if (R == RP && C == CP) return;
+  for (int e = threadIdx.x; e < RP * CP; e += BWD_THREADS) {
+    const int r = e / CP, c = e % CP;
+    if (r >= R || c >= C) a[r * ld + c] = 0.f;
+  }
+}
+
+// sum_r a[r * ld], as four interleaved partial sums added in a fixed order.
+template <int R>
+__device__ __forceinline__ float column_sum(const float* a, int ld) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < R; ++r) s[r % 4] += a[r * ld];
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// Copy a row-major [R, C] matrix into shared memory with row stride ld
+// (a multiple of 4; dst 16-byte aligned), asynchronously: 16-byte copies
+// when the rows allow it, else 4-byte ones.  The caller commits and waits.
+__device__ void stage_async(float* dst, int ld, const float* src, int R,
+                            int C) {
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
+  if (C % 4 == 0 && ((uintptr_t)src & 15) == 0) {
+    const int cv = C / 4;
+    for (int e = threadIdx.x; e < R * cv; e += BWD_THREADS) {
+      const int r = e / cv, c = (e % cv) * 4;
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                       base + 4u * (r * ld + c)),
+                   "l"(src + (long long)r * C + c));
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * C; e += BWD_THREADS) {
+      const int r = e / C, c = e % C;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                       base + 4u * (r * ld + c)),
+                   "l"(src + e));
+    }
+  }
+}
+
+// Persistent: each block loops over row tiles of MT rows; MAXFR bounds the
+// dW1 / dW2 fragments a warp keeps in registers (4 up to widths 64, 16 up
+// to 128).  part[block] = [dW1 (din x hid) | db1 | dW2 (hid x dout) | db2].
+template <int VEC, int MT, int MAXFR>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
 gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
                      const long long* __restrict__ col_off, int W,
                      const float* __restrict__ h, long long n, int din,
@@ -246,93 +513,169 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
                      const float* __restrict__ w1,
                      const float* __restrict__ b1, int hid,
                      const float* __restrict__ w2, int dout,
-                     float* __restrict__ gz0,
-                     float* __restrict__ dw1p, float* __restrict__ db1p,
-                     float* __restrict__ dw2p, float* __restrict__ db2p) {
+                     float* __restrict__ gz0, float* __restrict__ part,
+                     int lpr) {
   extern __shared__ float smem[];
-  float* slab = smem;
-  float* win = slab + SLAB;
-  float* z0 = win + KC * din;
-  float* z1 = z0 + ROWS * din;      // pre-activation
-  float* gs = z1 + ROWS * hid;      // this block's rows of g
-  float* gz1 = gs + ROWS * dout;
-  float* sw1 = gz1 + ROWS * hid;    // [din, hid + 1]
-  float* sw2 = sw1 + din * (hid + 1);   // [hid, dout + 1]
-  const int blk = blockIdx.x;
-  const int t = blk / (TILE / ROWS);
-  const int r0 = (blk % (TILE / ROWS)) * ROWS;
-  const long long row0 = (long long)t * TILE + r0;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[RPT][MAXC];
+  const int DP = pad_pow2(din), HP = pad_pow2(hid), OP = pad16(dout);
+  const int LD = DP + 4, LH = HP + 4, LO = OP + 4;
+  float* sw1 = smem;                 // W1[k][j]
+  float* sw2 = sw1 + DP * LH;        // W2[j][o]
+  float* sb1 = sw2 + HP * LO;
+  float* sz0 = sb1 + HP;             // z0 = h + A h
+  float* sg = sz0 + MT * LD;         // this tile's rows of g
+  float* sz1 = sg + MT * LO;         // pre-activation z1
+  float* sgz1 = sz1 + MT * LH;       // (g W2^T) * [z1 > 0]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int fg = lane >> 2, ft = lane & 3;   // fragment row / column group
 
-  stage_padded(w1, din, hid, sw1);
-  stage_padded(w2, hid, dout, sw2);
-  __syncthreads();
-  band_aggregate(blocks, col_off, W, h, din, n, din, t, r0, slab, win, acc);
+  // zeros in the padding of the staged operands, once (the copies never
+  // write there, and the products fill z1 and gz1 whole)
+  zero_pad(sw1, din, hid, DP, HP, LH);
+  zero_pad(sw2, hid, dout, HP, OP, LO);
+  zero_pad(sb1, 1, hid, 1, HP, HP);
+  zero_pad(sz0, MT, din, MT, DP, LD);
+  zero_pad(sg, MT, dout, MT, OP, LO);
+  stage_async(sw1, LH, w1, din, hid);
+  stage_async(sw2, LO, w2, hid, dout);
+  stage_async(sb1, HP, b1, 1, hid);
+  asm volatile("cp.async.commit_group;");
+
+  float dw1[MAXFR][4], dw2[MAXFR][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < MAXFR; ++i)
 #pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int r = ty + 16 * i, c = tx + 16 * j;
-      if (c < din) z0[r * din + c] = acc[i][j] + h[(row0 + r) * din + c];
+    for (int q = 0; q < 4; ++q) dw1[i][q] = dw2[i][q] = 0.f;
+  float db = 0.f;   // threads < 128: db1[tid]; the others db2[tid - 128]
+  const WarpTiles t1 = warp_tiles(DP, HP), t2 = warp_tiles(HP, OP);
+  const WarpTiles tz = warp_tiles(MT, HP), t0 = warp_tiles(MT, DP);
+  const int rpw = 32 / lpr;                  // rows a warp gathers at once
+
+  for (long long tile = blockIdx.x; tile < n / MT; tile += gridDim.x) {
+    const long long row0 = tile * MT;
+    stage_async(sg, LO, g + row0 * dout, MT, dout);
+    asm volatile("cp.async.commit_group;");
+
+    // z0 = h + A h for the tile's rows (one band tile: MT divides 128)
+    const long long off = col_off[row0 / TILE];
+    for (int r1 = 0; r1 < MT; r1 += 8 * rpw) {
+      const int r = r1 + warp * rpw + lane / lpr;
+      const bool active = r < MT;
+      const long long row = row0 + (active ? r : 0);
+      for (int c0 = 0; c0 < din; c0 += lpr * VEC) {
+        const int c = c0 + (lane % lpr) * VEC;
+        const bool col_ok = active && c < din;
+        float acc[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+        if (col_ok) load_vec<VEC>(h + row * din + c, acc);
+        band_row<VEC, 2>(blocks + row * W, active, W, h + off * din,
+                         n - off, din, c, col_ok, lpr, acc);
+        if (col_ok) {
+#pragma unroll
+          for (int j = 0; j < VEC; ++j) sz0[r * LD + c + j] = acc[j];
+        }
+      }
     }
-  for (int e = threadIdx.x; e < ROWS * dout; e += THREADS)
-    gs[e] = g[row0 * dout + e];
-  __syncthreads();
+    asm volatile("cp.async.wait_all;");
+    __syncthreads();
 
-  dense_rows<false>(z0, din, sw1, b1, hid, acc);          // z1
+    // z1 = z0 W1 + b1
+    {
+      float c[4][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+      for (int i = 0; i < 4; ++i) {
+        const int j = tz.n0 + i * tz.step + 2 * ft;
+        c[i][0] = c[i][2] = sb1[j];
+        c[i][1] = c[i][3] = sb1[j + 1];
+      }
+      mma_3xtf32<4>(c, [=](int m, int k) { return sz0[m * LD + k]; },
+                    [=](int k, int j) { return sw1[k * LH + j]; }, tz.m0,
+                    tz.n0, tz.step, tz.cnt, DP);
 #pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int r = ty + 16 * i, c = tx + 16 * j;
-      if (c < hid) z1[r * hid + c] = acc[i][j];
+      for (int i = 0; i < 4; ++i) {
+        if (i < tz.cnt) {
+          float* z = sz1 + (tz.m0 + fg) * LH + tz.n0 + i * tz.step + 2 * ft;
+          z[0] = c[i][0]; z[1] = c[i][1];
+          z[8 * LH] = c[i][2]; z[8 * LH + 1] = c[i][3];
+        }
+      }
     }
-  __syncthreads();
+    __syncthreads();
 
-  dense_rows<true>(gs, dout, sw2, nullptr, hid, acc);     // g W2^T
+    // gz1 = (g W2^T) * [z1 > 0]
+    {
+      float c[4][4] = {};
+      mma_3xtf32<4>(c, [=](int m, int k) { return sg[m * LO + k]; },
+                    [=](int k, int j) { return sw2[j * LO + k]; }, tz.m0,
+                    tz.n0, tz.step, tz.cnt, OP);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+      for (int i = 0; i < 4; ++i) {
+        if (i < tz.cnt) {
+          const int e = (tz.m0 + fg) * LH + tz.n0 + i * tz.step + 2 * ft;
 #pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int r = ty + 16 * i, c = tx + 16 * j;
-      if (c < hid) gz1[r * hid + c] = z1[r * hid + c] > 0.f ? acc[i][j] : 0.f;
+          for (int q = 0; q < 4; ++q) {
+            const int eq = e + (q >> 1) * 8 * LH + (q & 1);
+            sgz1[eq] = sz1[eq] > 0.f ? c[i][q] : 0.f;
+          }
+        }
+      }
     }
-  __syncthreads();
+    __syncthreads();
 
-  dense_rows<true>(gz1, hid, sw1, nullptr, din, acc);     // gz1 W1^T
+    // gz0 = gz1 W1^T, straight to global memory
+    {
+      float c[4][4] = {};
+      mma_3xtf32<4>(c, [=](int m, int k) { return sgz1[m * LH + k]; },
+                    [=](int k, int i) { return sw1[i * LH + k]; }, t0.m0,
+                    t0.n0, t0.step, t0.cnt, HP);
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int r = ty + 16 * i, c = tx + 16 * j;
-      if (c < din) gz0[(row0 + r) * din + c] = acc[i][j];
+      for (int i = 0; i < 4; ++i) {
+        const int col = t0.n0 + i * t0.step + 2 * ft;
+        float* o = gz0 + (row0 + t0.m0 + fg) * din + col;
+        if (i < t0.cnt && col < din) { o[0] = c[i][0]; o[8 * din] = c[i][2]; }
+        if (i < t0.cnt && col + 1 < din) {
+          o[1] = c[i][1]; o[8 * din + 1] = c[i][3];
+        }
+      }
     }
+    // dW2 += relu(z1)^T g and dW1 += z0^T gz1 over the tile's rows
+    mma_3xtf32<MAXFR>(dw2,
+                      [=](int j, int r) {
+                        return fmaxf(sz1[r * LH + j], 0.f);
+                      },
+                      [=](int r, int o) { return sg[r * LO + o]; }, t2.m0,
+                      t2.n0, t2.step, t2.cnt, MT);
+    mma_3xtf32<MAXFR>(dw1, [=](int k, int r) { return sz0[r * LD + k]; },
+                      [=](int r, int j) { return sgz1[r * LH + j]; }, t1.m0,
+                      t1.n0, t1.step, t1.cnt, MT);
+    if (tid < hid) {
+      db += column_sum<MT>(sgz1 + tid, LH);
+    } else if (tid >= 128 && tid - 128 < dout) {
+      db += column_sum<MT>(sg + tid - 128, LO);
+    }
+    __syncthreads();   // the next tile overwrites z0, g, z1 and gz1
+  }
+  asm volatile("cp.async.wait_all;");
 
-  // per-block weight-gradient partials over this block's ROWS rows
-  for (int e = threadIdx.x; e < hid * dout; e += THREADS) {
-    int a = e / dout, b = e % dout;
-    float s = 0.f;
-    for (int r = 0; r < ROWS; ++r)
-      s = fmaf(fmaxf(z1[r * hid + a], 0.f), gs[r * dout + b], s);
-    dw2p[(long long)blk * hid * dout + e] = s;
+  // this block's partial
+  float* pw1 = part + (long long)blockIdx.x
+                          * (din * hid + hid + hid * dout + dout);
+  float* pb1 = pw1 + din * hid;
+  float* pw2 = pb1 + hid;
+  float* pb2 = pw2 + hid * dout;
+#pragma unroll
+  for (int i = 0; i < MAXFR; ++i) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int dm = fg + 8 * (q >> 1), dn = 2 * ft + (q & 1);
+      const int k = t1.m0 + dm, j = t1.n0 + i * t1.step + dn;
+      if (i < t1.cnt && k < din && j < hid) pw1[k * hid + j] = dw1[i][q];
+      const int j2 = t2.m0 + dm, o = t2.n0 + i * t2.step + dn;
+      if (i < t2.cnt && j2 < hid && o < dout) pw2[j2 * dout + o] = dw2[i][q];
+    }
   }
-  for (int e = threadIdx.x; e < din * hid; e += THREADS) {
-    int a = e / hid, b = e % hid;
-    float s = 0.f;
-    for (int r = 0; r < ROWS; ++r) s = fmaf(z0[r * din + a], gz1[r * hid + b], s);
-    dw1p[(long long)blk * din * hid + e] = s;
-  }
-  for (int b = threadIdx.x; b < dout; b += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < ROWS; ++r) s += gs[r * dout + b];
-    db2p[(long long)blk * dout + b] = s;
-  }
-  for (int b = threadIdx.x; b < hid; b += THREADS) {
-    float s = 0.f;
-    for (int r = 0; r < ROWS; ++r) s += gz1[r * hid + b];
-    db1p[(long long)blk * hid + b] = s;
-  }
+  if (tid < hid) pb1[tid] = db;
+  else if (tid >= 128 && tid - 128 < dout) pb2[tid - 128] = db;
 }
 
 // Raise a kernel's dynamic shared-memory cap when a launch needs more than
@@ -347,22 +690,74 @@ int set_smem(const void* kernel, size_t bytes, size_t* granted) {
 }
 
 size_t fwd_smem_granted = 0;
-size_t bwd_smem_granted = 0;
+
+// Lanes a row's group takes: enough to cover d columns in VEC-wide pieces,
+// rounded up to a power of two, at most a warp.
+int lanes_per_row(int d, int vec) {
+  int need = (d + vec - 1) / vec, lpr = 1;
+  while (lpr < need && lpr < 32) lpr *= 2;
+  return lpr;
+}
+
+// The gin_fused_bwd instantiation for these widths, its shared memory and
+// its grid (blocks that fit on the card at once, at most one per tile).
+struct BwdPlan {
+  const void* kernel;
+  size_t* granted;
+  int mt, vec;
+  size_t smem;
+};
+
+template <int VEC, int MT, int MAXFR>
+BwdPlan bwd_plan(int din, int hid, int dout) {
+  static size_t granted = 0;
+  return {(const void*)gin_fused_bwd_kernel<VEC, MT, MAXFR>, &granted, MT,
+          VEC, sizeof(float) * (size_t)bwd_smem_floats(MT, din, hid, dout)};
+}
+
+BwdPlan plan_bwd(int din, int hid, int dout) {
+  const bool narrow = din <= 64 && hid <= 64 && dout <= 64;
+  if (din % 16 == 0)
+    return narrow ? bwd_plan<16, 64, 4>(din, hid, dout)
+                  : bwd_plan<16, 32, 16>(din, hid, dout);
+  return narrow ? bwd_plan<1, 64, 4>(din, hid, dout)
+                : bwd_plan<1, 32, 16>(din, hid, dout);
+}
+
+int bwd_grid(const BwdPlan& p, long long n, int* grid) {
+  int err = set_smem(p.kernel, p.smem, p.granted);
+  if (err) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = (int)cudaGetDevice(&dev))) return err;
+  if ((err = (int)cudaDeviceGetAttribute(
+           &sms, cudaDevAttrMultiProcessorCount, dev)))
+    return err;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, p.kernel, BWD_THREADS, p.smem)))
+    return err;
+  long long tiles = n / p.mt, cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  *grid = (int)(tiles < cap ? tiles : cap);
+  return 0;
+}
 
 }  // namespace
 
 extern "C" {
 
-int scgib_rows_per_block() { return ROWS; }
-
 // out[T*128, d] = A x (+ x when add_self; then x has T*128 rows too).
+// blocks and x 16-byte aligned (the wrapper checks).
 int scgib_banded_spmm(const void* blocks, const void* col_off, int n_tiles,
                       int W, const void* x, long long nx, int d, void* out,
                       int add_self, void* stream) {
-  dim3 grid(n_tiles * (TILE / ROWS), (d + MAXD - 1) / MAXD);
-  banded_spmm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  const int vec = d % 4 == 0 ? 4 : 1;
+  const int lpr = lanes_per_row(d, vec);
+  const long long rows = (long long)n_tiles * TILE;
+  const long long per_block = (SPMM_THREADS / 32) * (32 / lpr);
+  const unsigned grid = (unsigned)((rows + per_block - 1) / per_block);
+  auto* k = vec == 4 ? banded_spmm_kernel<4> : banded_spmm_kernel<1>;
+  k<<<grid, SPMM_THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)blocks, (const long long*)col_off, W,
-      (const float*)x, nx, d, (float*)out, add_self);
+      (const float*)x, nx, d, (float*)out, rows, add_self, lpr);
   return (int)cudaGetLastError();
 }
 
@@ -384,25 +779,62 @@ int scgib_gin_fused_fwd(const void* blocks, const void* col_off, int n_tiles,
   return (int)cudaGetLastError();
 }
 
-int scgib_gin_fused_bwd(const void* blocks, const void* col_off, int n_tiles,
-                        int W, const void* h, long long n, int din,
-                        const void* g, const void* w1, const void* b1,
-                        int hid, const void* w2, int dout, void* gz0,
-                        void* dw1p, void* db1p, void* dw2p, void* db2p,
-                        void* stream) {
-  size_t smem = sizeof(float) * (SLAB + KC * din + ROWS * din + 2 * ROWS * hid
-                                 + ROWS * dout + din * (hid + 1)
-                                 + hid * (dout + 1));
-  int err = set_smem((const void*)gin_fused_bwd_kernel, smem,
-                     &bwd_smem_granted);
+// Blocks gin_fused_bwd launches for n rows at these widths: the number of
+// partials the caller allocates, din * hid + hid + hid * dout + dout floats
+// each.  Returns a CUDA error, or 0.
+int scgib_gin_fused_bwd_grid(long long n, int din, int hid, int dout,
+                             int* grid) {
+  return bwd_grid(plan_bwd(din, hid, dout), n, grid);
+}
+
+// h and blocks 16-byte aligned (the wrapper checks);
+// `grid` from scgib_gin_fused_bwd_grid.
+int scgib_gin_fused_bwd(const void* blocks, const void* col_off, int W,
+                        const void* h, long long n, int din, const void* g,
+                        const void* w1, const void* b1, int hid,
+                        const void* w2, int dout, void* gz0, void* part,
+                        int grid, void* stream) {
+  const BwdPlan p = plan_bwd(din, hid, dout);
+  int err = set_smem(p.kernel, p.smem, p.granted);
   if (err) return err;
-  gin_fused_bwd_kernel<<<n_tiles * (TILE / ROWS), THREADS, smem,
-                         (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)blocks, (const long long*)col_off, W,
-      (const float*)h, n, din, (const float*)g, (const float*)w1,
-      (const float*)b1, hid, (const float*)w2, dout, (float*)gz0,
-      (float*)dw1p, (float*)db1p, (float*)dw2p, (float*)db2p);
-  return (int)cudaGetLastError();
+  const int lpr = lanes_per_row(din, p.vec);
+  void* args[] = {(void*)&blocks, (void*)&col_off, (void*)&W, (void*)&h,
+                  (void*)&n, (void*)&din, (void*)&g, (void*)&w1, (void*)&b1,
+                  (void*)&hid, (void*)&w2, (void*)&dout, (void*)&gz0,
+                  (void*)&part, (void*)&lpr};
+  err = (int)cudaLaunchKernel(p.kernel, dim3(grid), dim3(BWD_THREADS), args,
+                              p.smem, (cudaStream_t)stream);
+  return err ? err : (int)cudaGetLastError();
+}
+
+// For the report: registers a thread, shared memory a block (static +
+// dynamic) and blocks an SM of the kernel a call at these widths launches;
+// which = 0 banded_spmm (width din), 1 gin_fused_bwd.
+int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
+  const void* kernel;
+  size_t dyn = 0;
+  int threads, err;
+  if (which == 0) {
+    kernel = din % 4 == 0 ? (const void*)banded_spmm_kernel<4>
+                          : (const void*)banded_spmm_kernel<1>;
+    threads = SPMM_THREADS;
+  } else {
+    const BwdPlan p = plan_bwd(din, hid, dout);
+    if ((err = set_smem(p.kernel, p.smem, p.granted))) return err;
+    kernel = p.kernel;
+    dyn = p.smem;
+    threads = BWD_THREADS;
+  }
+  cudaFuncAttributes attr;
+  if ((err = (int)cudaFuncGetAttributes(&attr, kernel))) return err;
+  int per_sm = 0;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, dyn)))
+    return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)(attr.sharedSizeBytes + dyn);
+  info[2] = per_sm;
+  return 0;
 }
 
 }  // extern "C"

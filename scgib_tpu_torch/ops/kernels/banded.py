@@ -13,16 +13,27 @@ serve them (the SpMM kernel serves three):
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting each launch that
-succeeded on its ``launches`` attribute; anything else raises.  The
-kernels are built from the repo's sources with ``nvcc`` into
-``scgib_tpu_torch/_build/`` at first use and loaded with ``ctypes``; see
-the source note in ``csrc/banded.cu`` for what bounds them on an H100 and
-how the design answers it.
+succeeded on its ``launches`` attribute; anything else raises, a blocks or
+feature tensor that is not 16-byte aligned included.  The kernels are
+built from the repo's sources with ``nvcc`` into ``scgib_tpu_torch/_build/``
+at first use and loaded with ``ctypes``.
+
+``banded_spmm`` gathers only the x rows where A is nonzero: a group of
+lanes per row reads the row's slab in 16-byte vectors, finds its nonzeros
+with warp ballots and keeps several gathers in flight, summing in fp32 in
+a fixed order.  ``gin_fused_bwd`` is a persistent grid of one block per
+SM that stages the weights once, loops over row tiles, runs the products
+on the tensor cores in 3xTF32 and writes one weight-gradient partial per
+block, which ``gin_bwd`` sums with one ``torch.sum``: no
+atomics, so both are bitwise reproducible on one card.  The source note in
+``csrc/banded.cu`` says what bounds each kernel on an H100 and how the
+design answers it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,8 +41,9 @@ from ..spmm_banded import _banded_spmm_impl
 from .build import load
 
 TILE = 128
-KC = 32          # the kernels stage the band in chunks of this many columns
+BAND_MULTIPLE = 32   # band widths the kernels take
 MAX_FUSED_DIM = 128
+ALIGN = 16           # bytes: the kernels read blocks and x in 16-byte vectors
 
 KERNELS = ("gin_fwd", "gin_bwd", "spmm_self", "spmm", "pool")
 
@@ -49,12 +61,14 @@ def build() -> ctypes.CDLL:
     lib.scgib_banded_spmm.argtypes = [P, P, I, I, P, L, I, P, I, P]
     lib.scgib_gin_fused_fwd.argtypes = [P, P, I, I, P, L, I, P, P, I, P, P,
                                         I, P, P]
-    lib.scgib_gin_fused_bwd.argtypes = [P, P, I, I, P, L, I, P, P, P, I, P,
-                                        I, P, P, P, P, P, P]
+    lib.scgib_gin_fused_bwd_grid.argtypes = [L, I, I, I, P]
+    lib.scgib_gin_fused_bwd.argtypes = [P, P, I, P, L, I, P, P, P, I, P, I,
+                                        P, P, I, P]
+    lib.scgib_kernel_info.argtypes = [I, I, I, I, P]
     for fn in (lib.scgib_banded_spmm, lib.scgib_gin_fused_fwd,
-               lib.scgib_gin_fused_bwd, lib.scgib_rows_per_block):
+               lib.scgib_gin_fused_bwd_grid, lib.scgib_gin_fused_bwd,
+               lib.scgib_kernel_info):
         fn.restype = ctypes.c_int
-    lib.scgib_rows_per_block.argtypes = []
     _lib = lib
     return lib
 
@@ -78,8 +92,9 @@ def _band_args(blocks, col_off, x, name):
     if blocks.dim() != 3 or blocks.shape[1] != TILE:
         raise ValueError(f"{name}: blocks must be [T, {TILE}, W], got "
                          f"{tuple(blocks.shape)}")
-    if blocks.shape[2] % KC != 0:
-        raise ValueError(f"{name}: band width must be a multiple of {KC}")
+    if blocks.shape[2] % BAND_MULTIPLE != 0:
+        raise ValueError(f"{name}: band width must be a multiple of "
+                         f"{BAND_MULTIPLE}")
     if blocks.dtype != torch.bfloat16:
         raise TypeError(f"{name}: blocks must be bfloat16")
     if x.dtype != torch.float32:
@@ -89,8 +104,11 @@ def _band_args(blocks, col_off, x, name):
     for t in (blocks, col_off, x):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name}: operands must share one CUDA device")
-    return (blocks.contiguous(), col_off.to(torch.int64).contiguous(),
-            x.contiguous())
+    blocks, x = blocks.contiguous(), x.contiguous()
+    for t, what in ((blocks, "blocks"), (x, "features")):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: {what} must be {ALIGN}-byte aligned")
+    return blocks, col_off.to(torch.int64).contiguous(), x
 
 
 def _dispatch(name: str, x: torch.Tensor) -> bool:
@@ -206,33 +224,54 @@ def gin_fwd(blocks, col_off, h, w1, b1, w2, b2):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_grid(n, din, hid, dout, device_index):
+    """Blocks (and so weight-gradient partials) of ``gin_fused_bwd`` for
+    these shapes on the current device."""
+    grid = ctypes.c_int(0)
+    _raise_on(build().scgib_gin_fused_bwd_grid(n, din, hid, dout,
+                                               ctypes.byref(grid)), "gin_bwd")
+    return grid.value
+
+
 def gin_bwd(blocks, col_off, h, g, w1, b1, w2):
     """Backward stage 1 (replaces ``_bwd_kernel``): recompute z0, z1 and
-    return (gz0, dW1, db1, dW2, db2); the per-block weight partials are
-    summed here."""
+    return (gz0, dW1, db1, dW2, db2).  The kernel writes one weight-gradient
+    partial per block (a few hundred at most); one ``torch.sum`` adds them
+    in a fixed order."""
     if not _dispatch("gin_bwd", h):
         return gin_bwd_plain(blocks, col_off, h, g, w1, b1, w2)
     blocks, col_off, h = _band_args(blocks, col_off, h, "gin_bwd")
     din, hid, dout = _fused_dims(h, w1, w2, "gin_bwd")
     n_tiles, _, width = blocks.shape
-    if h.shape[0] != n_tiles * TILE or g.shape != (h.shape[0], dout):
+    n = h.shape[0]
+    if n != n_tiles * TILE or g.shape != (n, dout):
         raise ValueError(f"gin_bwd: h and g need T*{TILE} rows")
     g = g.float().contiguous()
     w1, b1, w2 = (t.float().contiguous() for t in (w1, b1, w2))
-    n_blk = n_tiles * (TILE // build().scgib_rows_per_block())
-    dev = h.device
-    gz0 = torch.empty((h.shape[0], din), dtype=torch.float32, device=dev)
-    dw1p = torch.empty((n_blk, din, hid), dtype=torch.float32, device=dev)
-    db1p = torch.empty((n_blk, hid), dtype=torch.float32, device=dev)
-    dw2p = torch.empty((n_blk, hid, dout), dtype=torch.float32, device=dev)
-    db2p = torch.empty((n_blk, dout), dtype=torch.float32, device=dev)
+    grid = _bwd_grid(n, din, hid, dout, h.device.index)
+    sizes = (din * hid, hid, hid * dout, dout)
+    gz0 = torch.empty((n, din), dtype=torch.float32, device=h.device)
+    part = torch.empty((grid, sum(sizes)), dtype=torch.float32,
+                       device=h.device)
     _raise_on(build().scgib_gin_fused_bwd(
-        _ptr(blocks), _ptr(col_off), n_tiles, width, _ptr(h), h.shape[0],
-        din, _ptr(g), _ptr(w1), _ptr(b1), hid, _ptr(w2), dout, _ptr(gz0),
-        _ptr(dw1p), _ptr(db1p), _ptr(dw2p), _ptr(db2p), _stream()),
-        "gin_bwd")
+        _ptr(blocks), _ptr(col_off), width, _ptr(h), n, din, _ptr(g),
+        _ptr(w1), _ptr(b1), hid, _ptr(w2), dout, _ptr(gz0), _ptr(part),
+        grid, _stream()), "gin_bwd")
     gin_bwd.launches += 1
-    return gz0, dw1p.sum(0), db1p.sum(0), dw2p.sum(0), db2p.sum(0)
+    dw1, db1, dw2, db2 = part.sum(0).split(sizes)
+    return gz0, dw1.view(din, hid), db1, dw2.view(hid, dout), db2
+
+
+def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
+    """Registers a thread, shared memory a block and blocks an SM of the
+    kernel that ``spmm`` (width ``din``) or ``gin_bwd`` launches."""
+    info = (ctypes.c_int * 3)()
+    _raise_on(build().scgib_kernel_info(
+        {"banded_spmm": 0, "gin_fused_bwd": 1}[kernel], din, hid, dout,
+        info), kernel)
+    return {"registers": info[0], "smem_bytes": info[1],
+            "blocks_per_sm": info[2]}
 
 
 def launch_counts() -> dict:

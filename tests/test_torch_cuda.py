@@ -8,8 +8,10 @@ test skips.  On a machine with one:
 
 Tolerance: rtol 1e-5 of the largest entry for the products (fp32 FMA on
 0/1 operands; only the summation order differs), 1e-4 for the GIN layer's
-weight gradients (sums over every row) and for the attention kernels
-(exponentials and sums in another order than the plain version's)."""
+backward (3xTF32 products, sums over every row) and for the attention
+kernels (exponentials and sums in another order than the plain
+version's).  ``banded_spmm`` and ``gin_fused_bwd`` use no atomics, so two
+runs on one card agree bitwise."""
 
 import numpy as np
 import pytest
@@ -87,12 +89,13 @@ def test_kernels_match_plain_versions(batch, dev, d):
                                   "spmm_self": 2, "spmm": 2, "pool": 1}
 
 
-def test_gin_layer_kernel_backward_matches_cpu_autograd(batch, dev):
+@pytest.mark.parametrize("din", [32, 64])
+def test_gin_layer_kernel_backward_matches_cpu_autograd(batch, dev, din):
     g, _ = batch
     blocks, off = _resolve_band(g)
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(din)
     arrays = [rng.normal(size=s).astype(np.float32) * c for s, c in
-              (((512, 32), 1.0), ((32, 64), 0.18), ((64,), 0.1),
+              (((512, din), 1.0), ((din, 64), din ** -0.5), ((64,), 0.1),
                ((64, 64), 0.125), ((64,), 0.1))]
     ct = torch.from_numpy(rng.normal(size=(512, 64)).astype(np.float32))
     grads = []
@@ -109,12 +112,110 @@ def test_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
     g, _ = batch
     kb.reset_launch_counts()
     blocks, off = _resolve_band(g)
+    w1, b1, w2 = (torch.zeros(s, device=dev) for s in ((8, 64), 64, (64, 64)))
+    gr = torch.zeros(512, 64, device=dev)
     with pytest.raises(TypeError, match="float32"):
         kb.spmm(blocks, off, torch.zeros(512, 8, device=dev,
                                          dtype=torch.float64))
+    with pytest.raises(TypeError, match="bfloat16"):
+        kb.spmm(blocks.float(), off, torch.zeros(512, 8, device=dev))
     with pytest.raises(ValueError, match="CUDA device"):
         kb.spmm(blocks.cpu(), off, torch.zeros(512, 8, device=dev))
-    assert kb.launch_counts()["spmm"] == 0
+    # contiguous, but 4 bytes past a 16-byte boundary
+    shifted = torch.zeros(512 * 8 + 1, device=dev)[1:].view(512, 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kb.spmm(blocks, off, shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kb.spmm_self(blocks, off, shifted)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kb.gin_bwd(blocks, off, shifted, gr, w1, b1, w2)
+    flat = torch.zeros(blocks.numel() + 1, device=dev, dtype=torch.bfloat16)
+    flat[1:] = blocks.flatten()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kb.pool(flat[1:].view(blocks.shape), off,
+                torch.zeros(512, 8, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        kb.gin_bwd(blocks, off, torch.zeros(512, 8, device=dev,
+                                            dtype=torch.float64),
+                   gr, w1, b1, w2)
+    assert kb.launch_counts() == dict.fromkeys(kb.KERNELS, 0)
+
+
+def _ragged_band(width, n_tiles=3, seed=0):
+    """[T, 128, width] blocks with ~2% ones, some twos (repeated edges),
+    an all-zero tile, a row of ones across the whole window, and window
+    starts (multiples of 64) the last of which runs past T*128 rows."""
+    rng = np.random.default_rng(seed + width)
+    a = (rng.random((n_tiles, 128, width)) < 0.02).astype(np.float32)
+    a[0, 3, ::7] += 1.0
+    a[1] = 0.0
+    a[2, 7, :] = 1.0
+    n = n_tiles * 128
+    off = [0, 64, max(0, (n - width // 2) // 64 * 64)]
+    return (torch.from_numpy(a).to(torch.bfloat16),
+            torch.tensor(off, dtype=torch.int64))
+
+
+def _zero_padded(x, off, width):
+    """x with zero rows appended to cover every window: the plain versions
+    index the windows, where the kernels read rows past the end as 0."""
+    rows = max(int(off.max()) + width, x.shape[0])
+    return torch.cat([x, x.new_zeros(rows - x.shape[0], x.shape[1])])
+
+
+def _gin_bwd_reference(blocks, off, h, g, w1, b1, w2):
+    """``gin_bwd_plain`` over zero-padded windows."""
+    z0 = kb.spmm_plain(blocks, off, _zero_padded(h, off, blocks.shape[2])) + h
+    z1 = z0 @ w1 + b1
+    gz1 = (g @ w2.T) * (z1 > 0).to(g.dtype)
+    return (gz1 @ w1.T, z0.T @ gz1, gz1.sum(0), torch.relu(z1).T @ g,
+            g.sum(0))
+
+
+@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("d", [8, 32, 64, 96, 128, 160])
+def test_banded_spmm_matches_plain_at_ragged_shapes(dev, d, width):
+    blocks, off = (t.to(dev) for t in _ragged_band(width))
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(3 * 128, d, device=dev, generator=gen)
+    data = torch.randn(1000, d, device=dev, generator=gen)
+    xp, dp = _zero_padded(x, off, width), _zero_padded(data, off, width)
+    close(kb.spmm(blocks, off, x), kb.spmm_plain(blocks, off, xp))
+    close(kb.spmm_self(blocks, off, x), x + kb.spmm_plain(blocks, off, xp))
+    close(kb.pool(blocks, off, data), kb.spmm_plain(blocks, off, dp))
+
+
+@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("din", [8, 32, 64, 96, 128])
+def test_gin_bwd_matches_plain_at_ragged_shapes(dev, din, width):
+    blocks, off = (t.to(dev) for t in _ragged_band(width, seed=1))
+    gen = torch.Generator(device=dev).manual_seed(din)
+    for hid, dout in ((64, 64), (40, 24), (128, 96), (16, 8)):
+        h = torch.randn(3 * 128, din, device=dev, generator=gen)
+        w1 = torch.randn(din, hid, device=dev, generator=gen) / din ** 0.5
+        b1 = torch.randn(hid, device=dev, generator=gen) * 0.1
+        w2 = torch.randn(hid, dout, device=dev, generator=gen) / hid ** 0.5
+        gr = torch.randn(3 * 128, dout, device=dev, generator=gen)
+        for a, w in zip(kb.gin_bwd(blocks, off, h, gr, w1, b1, w2),
+                        _gin_bwd_reference(blocks, off, h, gr, w1, b1, w2)):
+            close(a, w, rtol=1e-4)
+
+
+def test_spmm_and_gin_bwd_are_bitwise_reproducible(batch, dev):
+    _, sub = batch
+    blocks, off = _resolve_band(sub)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = sub.num_nodes
+    h = torch.randn(n, 64, device=dev, generator=gen)
+    w1 = torch.randn(64, 64, device=dev, generator=gen) / 8
+    b1 = torch.randn(64, device=dev, generator=gen) * 0.1
+    w2 = torch.randn(64, 64, device=dev, generator=gen) / 8
+    gr = torch.randn(n, 64, device=dev, generator=gen)
+    runs = [(kb.spmm(blocks, off, h),)
+            + kb.gin_bwd(blocks, off, h, gr, w1, b1, w2) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_pretrain_steps_on_card(dev):
