@@ -11,9 +11,9 @@ Phases; any failure raises and exits non-zero before the last line:
      shapes of the benchmark batch (128 molecules of 10-30 atoms, k=1:
      N=3072 graph rows, S=9728 ego-net rows; the attention kernels in the
      narrow (64, 128) geometry, 8 heads of 8): error, kernel / plain /
-     library time (median of 20 replays of a CUDA graph of 10 calls, each
-     between CUDA events), the bound and its share of the kernel time (for
-     gin_bwd also the bound at the 3xTF32 tensor-core rate it runs at);
+     library time (median of 20 CUDA graph replays, each between CUDA
+     events), the bound and its share of the kernel time (gin_bwd's at the
+     3xTF32 tensor-core rate it runs at, with the fp32 SIMT one beside it);
      the merged attention backward against the two-pass one; and the
      registers, shared memory and blocks per SM of banded_spmm and
      gin_fused_bwd at the main path's widths.
@@ -109,14 +109,12 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps=20, calls=10):
-    """Device time of one call of ``fn``: ``calls`` calls in a row are
-    captured in one CUDA graph, the graph is replayed ``reps`` times, each
-    between two CUDA events, and the median over ``calls`` is returned.
-    Replaying a graph keeps the host's per-call Python and launch cost out
-    of the reading; the calls in a row spread the graph's own launch
-    latency, which a one-call graph adds whole to every reading and which
-    varies between machines (``kernel_ab.py`` reads it)."""
+def time_ms(fn, reps=20):
+    """Device time of one call of ``fn``: the call is captured once in a
+    CUDA graph, and the graph is replayed ``reps`` times, each between two
+    CUDA events; the median is returned.  Replaying a graph keeps the
+    host's per-call Python and launch cost out of the reading, which
+    would otherwise exceed these kernels' device time."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -124,8 +122,7 @@ def time_ms(fn, reps=20, calls=10):
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        fn()
     graph.replay()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
@@ -135,7 +132,7 @@ def time_ms(fn, reps=20, calls=10):
         graph.replay()
         b.record()
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events) / calls
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def launch_counts():
@@ -147,9 +144,9 @@ def reset_launch_counts():
     kg.reset_launch_counts()
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -172,7 +169,8 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
           tf32x3=False):
     """Compare one kernel configuration with its plain version and time
     both; returns the record.  ``tf32x3``: the kernel runs its products in
-    3xTF32, so its bound at that rate is recorded beside the fp32 one."""
+    3xTF32, so its bound is taken at that rate, and the bound at the fp32
+    SIMT rate is recorded beside it."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -185,14 +183,15 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
            "max_rel_err": max_rel, "tol_rel": KERNEL_RTOL,
            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
            "library_ms": time_ms(library_fn) if library_fn else None}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbyt, flops)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(
+        nbyt, flops, TF32X3_FLOPS_PER_S if tf32x3 else FP32_FLOPS_PER_S)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     extra = ""
     if tf32x3:
-        rec["bound_3xtf32_ms"] = max(nbyt / HBM_BYTES_PER_S,
-                                     flops / TF32X3_FLOPS_PER_S) * 1e3
-        extra = (f", at the 3xTF32 rate {rec['bound_3xtf32_ms'] * 1e3:.3f} "
-                 f"us (share {rec['bound_3xtf32_ms'] / rec['ms']:.3f})")
+        rec["bound_fp32_ms"] = bound_ms(nbyt, flops)[0]
+        extra = (f" at the 3xTF32 rate; at the fp32 SIMT rate "
+                 f"{rec['bound_fp32_ms'] * 1e3:.3f} us (share "
+                 f"{rec['bound_fp32_ms'] / rec['ms']:.3f})")
     print(f"kernel {name} {shape}: max_abs_err {max_abs:.3e} rel "
           f"{max_rel:.3e} (tol {KERNEL_RTOL}) | ms {rec['ms']:.4f} plain "
           f"{rec['plain_ms']:.4f} library {rec['library_ms']} bound "

@@ -141,24 +141,21 @@ __device__ void band_aggregate(const __nv_bfloat16* __restrict__ blocks,
 }
 
 // Copy a row-major [R, L] matrix from global memory into shared memory with
-// row stride L + 1, so that reading it by rows or by columns across a warp
-// touches distinct banks.
+// row stride L + 1 (the layout dense_rows reads).
 __device__ void stage_padded(const float* __restrict__ src, int R, int L,
                              float* dst) {
   for (int e = threadIdx.x; e < R * L; e += THREADS)
     dst[(e / L) * (L + 1) + e % L] = src[e];
 }
 
-// acc[i][j] = bias[c] + sum_k in[r][k] * Wm(k, c) for rows r of the block
-// (in: shared [ROWS, K]) and columns c < C.  W is staged by stage_padded:
-// Wm(k, c) = W[k][c] of a [K, C] matrix, or W[c][k] of a [C, K] matrix
-// when TRANS (the product with its transpose).
-template <bool TRANS>
+// acc[i][j] = bias[c] + sum_k in[r][k] * W[k][c] for rows r of the block
+// (in: shared [ROWS, K]) and columns c < C; W is a [K, C] matrix staged by
+// stage_padded.
 __device__ void dense_rows(const float* in, int K, const float* W,
                            const float* __restrict__ bias, int C,
                            float acc[RPT][MAXC]) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ld = TRANS ? K + 1 : C + 1;
+  const int ld = C + 1;
 #pragma unroll
   for (int j = 0; j < MAXC; ++j) {
     int c = tx + 16 * j;
@@ -174,7 +171,7 @@ __device__ void dense_rows(const float* in, int K, const float* W,
     for (int j = 0; j < MAXC; ++j) {
       int c = tx + 16 * j;
       if (c < C) {
-        float w = TRANS ? W[c * ld + k] : W[k * ld + c];
+        float w = W[k * ld + c];
 #pragma unroll
         for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
       }
@@ -346,7 +343,7 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
     }
   __syncthreads();
 
-  dense_rows<false>(z0, din, sw1, b1, hid, acc);
+  dense_rows(z0, din, sw1, b1, hid, acc);
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -356,7 +353,7 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
     }
   __syncthreads();
 
-  dense_rows<false>(z1, hid, sw2, b2, dout, acc);
+  dense_rows(z1, hid, sw2, b2, dout, acc);
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
 #pragma unroll

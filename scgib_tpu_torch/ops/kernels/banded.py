@@ -13,8 +13,9 @@ serve them (the SpMM kernel serves three):
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting each launch that
-succeeded on its ``launches`` attribute; anything else raises, a blocks or
-feature tensor that is not 16-byte aligned included.  The kernels are
+succeeded on its ``launches`` attribute; anything else raises, for
+``spmm``, ``spmm_self``, ``pool`` and ``gin_bwd`` a blocks or feature
+tensor that is not 16-byte aligned included.  The kernels are
 built from the repo's sources with ``nvcc`` into ``scgib_tpu_torch/_build/``
 at first use and loaded with ``ctypes``.
 
@@ -43,7 +44,8 @@ from .build import load
 TILE = 128
 BAND_MULTIPLE = 32   # band widths the kernels take
 MAX_FUSED_DIM = 128
-ALIGN = 16           # bytes: the kernels read blocks and x in 16-byte vectors
+ALIGN = 16           # bytes: banded_spmm and gin_fused_bwd read blocks and x
+                     # in 16-byte vectors
 
 KERNELS = ("gin_fwd", "gin_bwd", "spmm_self", "spmm", "pool")
 
@@ -86,9 +88,10 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _band_args(blocks, col_off, x, name):
+def _band_args(blocks, col_off, x, name, aligned=True):
     """Validate the banded operands; returns (blocks, col_off, x)
-    contiguous."""
+    contiguous.  ``aligned``: the kernel reads blocks and x in 16-byte
+    vectors, so both must start on a 16-byte boundary."""
     if blocks.dim() != 3 or blocks.shape[1] != TILE:
         raise ValueError(f"{name}: blocks must be [T, {TILE}, W], got "
                          f"{tuple(blocks.shape)}")
@@ -106,7 +109,7 @@ def _band_args(blocks, col_off, x, name):
             raise ValueError(f"{name}: operands must share one CUDA device")
     blocks, x = blocks.contiguous(), x.contiguous()
     for t, what in ((blocks, "blocks"), (x, "features")):
-        if t.data_ptr() % ALIGN:
+        if aligned and t.data_ptr() % ALIGN:
             raise ValueError(f"{name}: {what} must be {ALIGN}-byte aligned")
     return blocks, col_off.to(torch.int64).contiguous(), x
 
@@ -208,7 +211,8 @@ def gin_fwd(blocks, col_off, h, w1, b1, w2, b2):
     w2 [H, d_out] as in the JAX package."""
     if not _dispatch("gin_fwd", h):
         return gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2)
-    blocks, col_off, h = _band_args(blocks, col_off, h, "gin_fwd")
+    blocks, col_off, h = _band_args(blocks, col_off, h, "gin_fwd",
+                                    aligned=False)
     din, hid, dout = _fused_dims(h, w1, w2, "gin_fwd")
     n_tiles, _, width = blocks.shape
     if h.shape[0] != n_tiles * TILE:

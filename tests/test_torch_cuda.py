@@ -141,6 +141,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
     assert kb.launch_counts() == dict.fromkeys(kb.KERNELS, 0)
 
 
+def test_gin_fwd_takes_features_off_a_16_byte_boundary(batch, dev):
+    """gin_fused_fwd reads x by elements, so its wrapper takes what it took
+    before the vector-loading kernels: features 4 bytes past a boundary."""
+    g, _ = batch
+    blocks, off = _resolve_band(g)
+    rng = np.random.default_rng(2)
+    h = torch.zeros(512 * 8 + 1, device=dev)[1:].view(512, 8)
+    h.copy_(torch.from_numpy(rng.normal(size=(512, 8)).astype(np.float32)))
+    w1, b1, w2, b2 = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                      .to(dev) for s in ((8, 64), 64, (64, 64), 64))
+    assert h.data_ptr() % 16
+    close(kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),
+          kb.gin_fwd_plain(blocks, off, h, w1, b1, w2, b2))
+
+
 def _ragged_band(width, n_tiles=3, seed=0):
     """[T, 128, width] blocks with ~2% ones, some twos (repeated edges),
     an all-zero tile, a row of ones across the whole window, and window
