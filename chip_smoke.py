@@ -15,8 +15,8 @@ Phases; any failure raises and exits non-zero before the last line:
      events), the bound and its share of the kernel time (gin_bwd's at the
      3xTF32 tensor-core rate it runs at, with the fp32 SIMT one beside it);
      the merged attention backward against the two-pass one; and the
-     registers, shared memory and blocks per SM of banded_spmm and
-     gin_fused_bwd at the main path's widths.
+     registers, shared memory and blocks per SM of banded_spmm,
+     gin_fused_bwd, gt_bwd_rows and gt_bwd_cols at the main path's widths.
   4. the full model on that batch, GIN and graph-transformer encoders,
      once on the card and once on the CPU plain path in float64
      (deterministic, dropout off): losses and gradients must agree.
@@ -80,7 +80,7 @@ PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gt_fwd": ("gt_flash", 121, "gt_fwd_kernel"),
         "gt_bwd_rows": ("gt_flash", 146, "gt_bwd_rows_kernel"),
         "gt_bwd_cols": ("gt_flash", 248, "gt_bwd_cols_kernel"),
-        "gt_bwd_merged": ("gt_flash", 181, "gt_bwd_rows_kernel (MERGED)")}
+        "gt_bwd_merged": ("gt_flash", 181, "gt_bwd_merged_kernel")}
 # main-path run -> (run_pretrain arguments, steps, launches per step; the
 # wrappers not named launch 0 times)
 RUNS = {"GIN": ({}, STEPS, {"gin_fwd": 8, "gin_bwd": 8, "spmm_self": 8,
@@ -205,6 +205,9 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
 
 def kernel_phase(g, sub, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
+    one = torch.zeros(1, device=dev)
+    print(f"graph launch floor: a one-element add reads "
+          f"{time_ms(lambda: one.add_(1.0)):.4f} ms one-call", flush=True)
     records = []
     hid = 64
     for label, batch in (("N", g), ("S", sub)):
@@ -334,6 +337,12 @@ def gt_kernel_phase(g, sub, dev, gen):
                                  f"{worst:.3e}")
     for rec in records:
         rec["library_note"] = NO_LIBRARY
+    for kernel in ("gt_bwd_rows", "gt_bwd_cols"):
+        info = kg.kernel_info(kernel, HEAD_DIM)
+        print(f"resources {kernel}_kernel hd={HEAD_DIM}: {info}", flush=True)
+        for rec in records:
+            if rec["name"] == kernel:
+                rec["resources"] = info
     return records
 
 

@@ -30,8 +30,10 @@
 // The group reads the row's slab with 16-byte loads, all issued together
 // with the window offset and, for x + A x, the row of x itself: one round
 // trip.  It then finds the nonzeros with warp ballots, without a barrier or
-// shared memory, and gathers only those x rows, four at a time, all in
-// flight together: the second round trip, a third only past four nonzeros.
+// shared memory (the scan and the walk are gate_walk.cuh, which the
+// attention backward in gt_flash.cu shares), and gathers only those x rows,
+// four at a time, all in flight together: the second round trip, a third
+// only past four nonzeros.
 // Sums are fp32 FMA in registers, exact for the 0/1 operand (the pooling
 // needs no hi/lo split), in the same order in every run.
 //
@@ -64,6 +66,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gate_walk.cuh"
+
 namespace {
 
 constexpr int TILE = 128;         // rows of one banded block
@@ -74,8 +78,8 @@ constexpr int RPT = ROWS / 16;    // rows per thread
 constexpr int MAXC = 8;           // column slots per thread: widths <= 128
 constexpr int SLAB = ROWS * (KC + 1);   // padded against bank conflicts
 
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int SEGV = 8;           // 16-byte slab vectors a lane holds at once
+using gate_walk::FULL;
+using gate_walk::SEGV;
 constexpr int SPMM_THREADS = 128;
 constexpr int BWD_THREADS = 256;  // 8 warps
 
@@ -217,55 +221,24 @@ __device__ void band_row(const __nv_bfloat16* __restrict__ arow, bool active,
                          int W, const float* __restrict__ xw,
                          long long rows_left, int ld, int c, bool col_ok,
                          int lpr, float acc[VEC]) {
-  const int lane = threadIdx.x & 31;
-  const int gbase = lane & ~(lpr - 1), lig = lane - gbase;
-  const unsigned gmask = lpr == 32 ? FULL : ((1u << lpr) - 1u) << gbase;
+  const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
   const int nvec = W / 8;                  // 16-byte vectors in a row
   for (int s0 = 0; s0 < nvec; s0 += SEGV * lpr) {
-    // the row's slab, every load issued before any is used
-    uint4 v[SEGV];
-#pragma unroll
-    for (int i = 0; i < SEGV; ++i) {
-      int q = s0 + i * lpr + lig;
-      v[i] = (active && q < nvec)
-                 ? __ldg(reinterpret_cast<const uint4*>(arow) + q)
-                 : make_uint4(0u, 0u, 0u, 0u);
-    }
-    // bit 8 i + e: element e of this lane's vector i is nonzero
-    unsigned long long m = 0ull;
-#pragma unroll
-    for (int i = 0; i < SEGV; ++i) {
-      const unsigned w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        if (w[h] & 0x7fffu) m |= 1ull << (8 * i + 2 * h);
-        if (w[h] & 0x7fff0000u) m |= 1ull << (8 * i + 2 * h + 1);
-      }
-    }
-    // take the group's nonzeros GATHER at a time, lowest lane and bit
-    // first; every lane of the group gathers its columns of each x row
+    unsigned long long m = gate_walk::gate_mask(arow, active, nvec, s0, grp);
+    // take the group's nonzeros GATHER at a time; every lane of the group
+    // gathers its columns of each x row
     while (__any_sync(FULL, m != 0ull)) {
       int col[GATHER];
-      bool ok[GATHER];
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
-        const unsigned has = __ballot_sync(FULL, m != 0ull) & gmask;
-        const int src = has ? __ffs(has) - 1 : lane;
-        const unsigned lo = __shfl_sync(FULL, (unsigned)m, src);
-        const unsigned hi = __shfl_sync(FULL, (unsigned)(m >> 32), src);
-        const int bit = __ffsll((long long)(((unsigned long long)hi << 32)
-                                            | lo)) - 1;
-        if (has && lane == src) m &= m - 1ull;
-        ok[u] = has != 0u;
-        col[u] = (s0 + (bit >> 3) * lpr + (src - gbase)) * 8 + (bit & 7);
-      }
+      for (int u = 0; u < GATHER; ++u)
+        col[u] = gate_walk::take_nonzero(m, s0, grp);
       float a[GATHER], xv[GATHER][VEC];
 #pragma unroll
       for (int u = 0; u < GATHER; ++u) {
         a[u] = 0.f;
 #pragma unroll
         for (int j = 0; j < VEC; ++j) xv[u][j] = 0.f;
-        if (ok[u] && col[u] < rows_left) {
+        if (col[u] >= 0 && col[u] < rows_left) {
           a[u] = __bfloat162float(arow[col[u]]);
           if (col_ok) load_vec<VEC>(xw + (long long)col[u] * ld + c, xv[u]);
         }

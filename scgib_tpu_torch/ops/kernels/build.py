@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``_build/libscgib_<name>_<hash>.so`` (one
-per source hash, so an edited source rebuilds and an unchanged one is
-reused), and loaded with ``ctypes``.  ``load`` starts one ``nvcc`` for every
+per hash of the source and the ``csrc/*.cuh`` headers, so an edited source
+or header rebuilds and an unchanged one is reused), and loaded with
+``ctypes``.  ``load`` starts one ``nvcc`` for every
 source it is asked for that is not built yet, all at once, and waits for
 them together.  ``logs`` keeps each build's ``-Xptxas -v`` report
 (registers, shared memory and spills per kernel).
@@ -28,9 +29,12 @@ logs: Dict[str, str] = {}
 
 
 def _so_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    return BUILD_DIR / f"libscgib_{name}_{digest}.so"
+    """The library's path, keyed by the source and every header in
+    ``csrc/`` (an edited header rebuilds the sources that include it)."""
+    digest = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"libscgib_{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

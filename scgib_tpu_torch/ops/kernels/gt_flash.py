@@ -18,11 +18,20 @@ band a multiple of 32 up to 256 (the narrow (64, 128) and the wide
 (128, 256) ones) and a head width hd in {1, 2, 4, 8, 16, 32}.  The plain
 versions compute in their inputs' dtype.
 
+``gt_bwd_rows`` and ``gt_bwd_cols`` read a row's features as 16-byte
+vectors, a group of lanes per row with all its heads, and find the gate's
+nonzeros by warp ballot.  So they no longer take H * hd that is not a
+multiple of 4, nor blocks that do not start on a 16-byte boundary: both
+raise.  A feature operand off a 16-byte boundary (a slice of a fused qkv,
+say) is copied first.  ``gt_fwd`` and ``gt_bwd_merged`` take what they
+took before.
+
 ``gt_flash_attention`` is the autograd function: the forward, then the
-two-pass backward (rows, then columns; deterministic) or, with
-``bwd="merged"``, the single pass (the JAX package's default, selected there
-by ``SCGIB_GT_BWD_TWOPASS``).  See ``csrc/gt_flash.cu`` for what bounds the
-kernels on an H100 and how the design answers it.
+two-pass backward (rows, then columns; no atomics, so bitwise the same in
+every run) or, with ``bwd="merged"``, the single pass (the JAX package's
+default, selected there by ``SCGIB_GT_BWD_TWOPASS``).  See
+``csrc/gt_flash.cu`` for what bounds the kernels on an H100 and how the
+design answers it.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import ctypes
 import torch
 
 from ..spmm_banded import gt_scores, gt_windows
-from .banded import _dispatch, _ptr, _raise_on, _stream
+from .banded import ALIGN, _dispatch, _ptr, _raise_on, _stream
 from .build import load
 
 KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged")
@@ -59,8 +68,10 @@ def build() -> ctypes.CDLL:
                                             F, P, P, P]
     lib.scgib_gt_bwd_merged.argtypes = geo + [P, P, P, P, P, I, I, F, F, F,
                                               P, P, P, P]
+    lib.scgib_gt_kernel_info.argtypes = [I, I, P]
     for fn in (lib.scgib_gt_fwd, lib.scgib_gt_bwd_rows,
-               lib.scgib_gt_bwd_cols, lib.scgib_gt_bwd_merged):
+               lib.scgib_gt_bwd_cols, lib.scgib_gt_bwd_merged,
+               lib.scgib_gt_kernel_info):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -149,10 +160,12 @@ def gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
 
 # --- wrappers ----------------------------------------------------------------
 
-def _gt_args(name, blocks, col_off, q, *others):
+def _gt_args(name, blocks, col_off, q, *others, vectors=False):
     """Validate the operands; returns (blocks, col_off int64, (T, tile,
     band), H, hd, [q, *others]), all contiguous.  ``others`` are [N, H, hd]
-    or [N, H] float32."""
+    or [N, H] float32.  ``vectors``: the kernel reads blocks and the
+    feature rows in 16-byte vectors, so H * hd must be a multiple of 4 and
+    blocks 16-byte aligned; a feature operand that is not is copied."""
     if blocks.dim() != 3 or blocks.dtype != torch.bfloat16:
         raise TypeError(f"{name}: blocks must be bfloat16 [T, tile, band]")
     n_tiles, tile, band = blocks.shape
@@ -176,9 +189,18 @@ def _gt_args(name, blocks, col_off, q, *others):
     for t in (blocks, col_off, q) + others:
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name}: operands must share one CUDA device")
-    return (blocks.contiguous(), col_off.to(torch.int64).contiguous(),
-            (n_tiles, tile, band), num_heads, hd,
-            [t.contiguous() for t in (q,) + others])
+    blocks = blocks.contiguous()
+    feats = [t.contiguous() for t in (q,) + others]
+    if vectors:
+        if (num_heads * hd) % 4:
+            raise ValueError(f"{name}: H * hd = {num_heads * hd} features a "
+                             "row must be a multiple of 4")
+        if blocks.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: blocks must be {ALIGN}-byte aligned")
+        feats = [t.clone() if t.dim() == 3 and t.data_ptr() % ALIGN else t
+                 for t in feats]
+    return (blocks, col_off.to(torch.int64).contiguous(),
+            (n_tiles, tile, band), num_heads, hd, feats)
 
 
 def _launch(fn, name, blocks, col_off, geo, tensors, num_heads, hd, clamp,
@@ -207,7 +229,7 @@ def gt_bwd_rows(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
     if not _dispatch("gt_bwd_rows", q):
         return gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_bwd_rows", blocks, col_off, q, k, v, g, z)
+        "gt_bwd_rows", blocks, col_off, q, k, v, g, z, vectors=True)
     dq = torch.empty_like(ts[0])
     rho = torch.empty_like(ts[4])
     _launch(build().scgib_gt_bwd_rows, "gt_bwd_rows", blocks, col_off, geo,
@@ -222,7 +244,7 @@ def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6):
         return gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp,
                                  eps)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_bwd_cols", blocks, col_off, q, k, v, g, z, rho)
+        "gt_bwd_cols", blocks, col_off, q, k, v, g, z, rho, vectors=True)
     dk = torch.empty_like(ts[0])
     dv = torch.empty_like(ts[0])
     _launch(build().scgib_gt_bwd_cols, "gt_bwd_cols", blocks, col_off, geo,
@@ -246,6 +268,17 @@ def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
             geo, ts, num_heads, hd, clamp, eps, (dq, dk, dv))
     gt_bwd_merged.launches += 1
     return dq, dk, dv
+
+
+def kernel_info(kernel: str, hd: int) -> dict:
+    """Registers a thread, shared memory a block and blocks an SM of the
+    kernel that ``gt_bwd_rows`` or ``gt_bwd_cols`` launches at head width
+    ``hd``."""
+    info = (ctypes.c_int * 3)()
+    _raise_on(build().scgib_gt_kernel_info(
+        {"gt_bwd_rows": 0, "gt_bwd_cols": 1}[kernel], hd, info), kernel)
+    return {"registers": info[0], "smem_bytes": info[1],
+            "blocks_per_sm": info[2]}
 
 
 def launch_counts() -> dict:

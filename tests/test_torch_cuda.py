@@ -10,8 +10,8 @@ Tolerance: rtol 1e-5 of the largest entry for the products (fp32 FMA on
 0/1 operands; only the summation order differs), 1e-4 for the GIN layer's
 backward (3xTF32 products, sums over every row) and for the attention
 kernels (exponentials and sums in another order than the plain
-version's).  ``banded_spmm`` and ``gin_fused_bwd`` use no atomics, so two
-runs on one card agree bitwise."""
+version's).  ``banded_spmm``, ``gin_fused_bwd`` and the two-pass attention
+backward use no atomics, so two runs on one card agree bitwise."""
 
 import numpy as np
 import pytest
@@ -27,6 +27,8 @@ from scgib_tpu_torch.models import encoders
 from scgib_tpu_torch.ops.kernels import banded as kb
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention
+
+from gt_cases import CASES, EMPTY, case_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -315,6 +317,98 @@ def test_gt_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
     with pytest.raises(ValueError, match="CUDA device"):
         kg.gt_fwd(blocks.cpu(), off, q, k, v)
     assert kg.launch_counts()["gt_fwd"] == 0
+
+
+def _gt_bwd_check(blocks, off, q, k, v, g):
+    """The two-pass kernels against their plain versions; (dq, rho, dk,
+    dv) from the kernels."""
+    z = kg.gt_fwd_plain(blocks, off, q, k, v)[1]
+    dq, rho = kg.gt_bwd_rows(blocks, off, q, k, v, g, z)
+    dq_p, rho_p = kg.gt_bwd_rows_plain(blocks, off, q, k, v, g, z)
+    close(dq, dq_p, rtol=1e-4)
+    close(rho, rho_p, rtol=1e-4)
+    # the column pass from the plain rho, so that each pass is held alone
+    dk, dv = kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho_p)
+    for a, w in zip((dk, dv), kg.gt_bwd_cols_plain(blocks, off, q, k, v, g,
+                                                   z, rho_p)):
+        close(a, w, rtol=1e-4)
+    return dq, rho, dk, dv
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gt_bwd_passes_match_plain_at_cases(dev, case):
+    """The inputs of the CPU tests against the Pallas kernels: head
+    layouts (4, 16), (16, 4), (2, 32) beside (8, 8), both geometries, and
+    the edge cases (all-zero rows and in the narrow geometry an empty
+    tile, an entry 2, scores past the clamp)."""
+    blocks, off, arrays = case_inputs(case)
+    blocks, off = blocks.to(dev), off.to(dev)
+    q, k, v, g = (torch.from_numpy(a).to(dev) for a in arrays)
+    outs = _gt_bwd_check(blocks, off, q, k, v, g)
+    if CASES[case][3]:
+        lo, hi = EMPTY
+        for x in outs:
+            assert float(x[lo:hi].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hd", kg.HEAD_WIDTHS)
+@pytest.mark.parametrize("gt", [True, False], ids=["narrow", "wide"])
+def test_gt_bwd_passes_match_plain_at_head_widths(batch, dev, gt, hd):
+    """Every (H, hd) with H * hd = 64, the CLI's widths at hidden 64, on
+    the graph (N) and ego-net (S) batches."""
+    for seed, b in enumerate(batch):
+        blocks, off = _resolve_band(b, gt=gt)
+        _gt_bwd_check(blocks, off, *_gt_inputs(b.num_nodes, dev, seed,
+                                               heads=64 // hd, hd=hd))
+
+
+def test_gt_twopass_backward_is_bitwise_reproducible(batch, dev):
+    _, sub = batch
+    blocks, off = _resolve_band(sub, gt=True)
+    q, k, v, ct = _gt_inputs(sub.num_nodes, dev, 7)
+    runs = []
+    for _ in range(2):
+        ts = [x.clone().requires_grad_() for x in (q, k, v)]
+        (kg.gt_flash_attention(blocks, off, *ts) * ct).sum().backward()
+        runs.append([x.grad for x in ts])
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_gt_bwd_passes_reject_what_they_do_not_take(batch, dev):
+    """H * hd not a multiple of 4, or blocks off a 16-byte boundary, raise
+    (launch counts stay 0); features off a 16-byte boundary are copied and
+    give the plain version's result."""
+    g, _ = batch
+    kg.reset_launch_counts()
+    blocks, off = _resolve_band(g, gt=True)
+    n = g.num_nodes
+    q, k, v, gr = _gt_inputs(n, dev, 3, heads=3, hd=1)
+    z = kg.gt_fwd(blocks, off, q, k, v)[1]        # gt_fwd still takes it
+    rho = torch.zeros_like(z)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kg.gt_bwd_rows(blocks, off, q, k, v, gr, z)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kg.gt_bwd_cols(blocks, off, q, k, v, gr, z, rho)
+    q, k, v, gr = _gt_inputs(n, dev, 4)
+    z = kg.gt_fwd_plain(blocks, off, q, k, v)[1]
+    rho = torch.zeros_like(z)
+    flat = torch.zeros(blocks.numel() + 1, device=dev, dtype=torch.bfloat16)
+    flat[1:] = blocks.flatten()
+    shifted = flat[1:].view(blocks.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kg.gt_bwd_rows(shifted, off, q, k, v, gr, z)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kg.gt_bwd_cols(shifted, off, q, k, v, gr, z, rho)
+    assert kg.launch_counts() == {"gt_fwd": 1, "gt_bwd_rows": 0,
+                                  "gt_bwd_cols": 0, "gt_bwd_merged": 0}
+    # q 4 bytes past a boundary, contiguous: copied, then launched
+    qs = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
+    qs.copy_(q)
+    assert qs.data_ptr() % 16
+    _gt_bwd_check(blocks, off, qs, k, v, gr)
+    assert kg.launch_counts()["gt_bwd_rows"] == 1
 
 
 @pytest.mark.parametrize("bwd", ["twopass", "merged"])

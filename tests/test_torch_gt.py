@@ -3,7 +3,9 @@
 The narrow banded geometry and the ``gt_fits`` flags (bit-equal), the COO
 attention ops, the plain attention reference, the plain versions of the
 four attention kernels against the JAX Pallas kernels in TPU interpret mode
-(``bf16_dots=False``), the transformer layer and encoder with bridged
+(``bf16_dots=False``) on the inputs of ``gt_cases.py`` (head layouts, both
+geometries, all-zero rows, an entry 2, scores past the clamp; the card
+tests take the same inputs), the transformer layer and encoder with bridged
 weights, the whole ``PretrainModel(encoder="Transformer")``, three trainer
 steps, the dropout draws and the CLI.
 
@@ -64,12 +66,16 @@ from scgib_tpu_torch.models.scgib import (PretrainModel, _resolve_band,
 from scgib_tpu_torch.ops import segment
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm import sddmm_dot
-from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention
+from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention, gt_scores
 from scgib_tpu_torch.train.trainer import make_pretrain_step
 from scgib_tpu_torch.utils.params import from_jax_variables, init_flax_style_
 
+from gt_cases import (CASES, EMPTY, GEOMETRIES, Q_SCALE, REPEATED,
+                      case_inputs)
+from gt_cases import banded_graph as _banded_graph
+from gt_cases import qkvg as _qkvg
+
 TOL = dict(rtol=2e-5, atol=2e-5)
-GEOMETRIES = {"narrow": (64, 128, 8), "wide": (128, 256, 64)}
 
 
 def t(x):
@@ -210,30 +216,6 @@ def test_sddmm_dot_and_segment_normalize_exp_match_jax(batch):
 
 # --- module 6: the plain attention reference ----------------------------------
 
-def _banded_graph(geometry, n=256, seed=3):
-    """A symmetric edge list with |u - v| <= 20, which fits both
-    geometries, and its bf16 blocks and offsets."""
-    tile, band, align = GEOMETRIES[geometry]
-    rng = np.random.default_rng(seed)
-    send, recv = [], []
-    for v in range(n):
-        for _ in range(3):
-            u = int(np.clip(v + rng.integers(-20, 21), 0, n - 1))
-            send += [u, v]
-            recv += [v, u]
-    b = banded.pack_banded(np.asarray(send, np.int32),
-                           np.asarray(recv, np.int32), None, n, tile=tile,
-                           band=band, align=align)
-    return (torch.from_numpy(b.blocks).to(torch.bfloat16),
-            torch.from_numpy(b.col_off.astype(np.int64)))
-
-
-def _qkvg(n, heads=8, hd=8, seed=4):
-    rng = np.random.default_rng(seed)
-    return [rng.normal(size=(n, heads, hd)).astype(np.float32)
-            for _ in range(4)]
-
-
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_gt_banded_attention_matches_jax(geometry):
     blocks, off = _banded_graph(geometry)
@@ -266,13 +248,13 @@ def test_gt_banded_attention_follows_its_dtype():
 
 # --- module 7: the kernels' plain versions vs the Pallas kernels ---------------
 
-@pytest.fixture(scope="module", params=sorted(GEOMETRIES))
+@pytest.fixture(scope="module", params=list(CASES))
 def pallas_run(request):
-    """Inputs, and the outputs of each of the four Pallas kernels in
+    """Inputs of one of ``gt_cases.CASES`` (geometry, heads x head width,
+    edge cases), and the outputs of each of the four Pallas kernels in
     interpret mode (f32 dots): fwd (out, z), rows (dq, rho), cols (dk, dv)
     and merged (dq, dk, dv)."""
-    blocks, off = _banded_graph(request.param)
-    q, k, v, g = _qkvg(256)
+    blocks, off, (q, k, v, g) = case_inputs(request.param)
     n, heads, hd = q.shape
     flat = [jnp.asarray(x.reshape(n, heads * hd)) for x in (q, k, v, g)]
     jb, jo = jblocks(blocks), jnp.asarray(off.numpy().astype(np.int32))
@@ -319,6 +301,50 @@ def test_plain_versions_match_pallas_kernels(pallas_run, kernel):
     assert len(got) == len(r[kernel])
     for a, b in zip(got, r[kernel]):
         close(a, b)
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_edge_cases_hold_what_they_claim(geometry):
+    """The edge-case inputs have all-zero gate rows (in the narrow geometry
+    a whole empty tile), an entry 2, and scores past the clamp; the plain
+    backward gives those rows zero gradients."""
+    blocks, off, (q, k, v, g) = case_inputs(f"{geometry}-edges")
+    lo, hi = EMPTY
+    a = blocks.float().reshape(-1, blocks.shape[2])
+    assert float(a[lo:hi].abs().max()) == 0.0
+    if geometry == "narrow":
+        assert float(blocks[lo // 64].float().abs().max()) == 0.0
+    u, w = REPEATED
+    assert float(a[u, w - int(off[u // blocks.shape[1]])]) >= 2.0
+    qt, kt, vt, gt = (t(x) for x in (q, k, v, g))
+    s, _ = gt_scores(blocks, off, qt, kt, 5.0)
+    gated = s[blocks.float()[:, None].expand_as(s) != 0]
+    assert float((gated.abs() > 5.0).float().mean()) > 0.5
+    assert float((gated.abs() <= 5.0).float().mean()) > 0.01
+    assert float(qt.abs().max()) > Q_SCALE
+    z = kg.gt_fwd(blocks, off, qt, kt, vt)[1]
+    dq, rho = kg.gt_bwd_rows(blocks, off, qt, kt, vt, gt, z)
+    dk, dv = kg.gt_bwd_cols(blocks, off, qt, kt, vt, gt, z, rho)
+    for x in (dq, rho, dk, dv):
+        assert float(x[lo:hi].abs().max()) == 0.0
+        assert float(x.abs().max()) > 0.0
+
+
+def test_kernel_build_key_covers_the_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header gives every source a new library
+    path, so no stale library is loaded; the source's own edits too."""
+    from scgib_tpu_torch.ops.kernels import build
+
+    (tmp_path / "a.cu").write_text('#include "w.cuh"\n')
+    (tmp_path / "w.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    first = build._so_path("a")
+    assert build._so_path("a") == first
+    (tmp_path / "w.cuh").write_text("// v2\n")
+    second = build._so_path("a")
+    assert second != first and second.name.startswith("libscgib_a_")
+    (tmp_path / "a.cu").write_text('#include "w.cuh"\n// edited\n')
+    assert build._so_path("a") not in (first, second)
 
 
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
