@@ -12,11 +12,12 @@ Phases; any failure raises and exits non-zero before the last line:
      N=3072 graph rows, S=9728 ego-net rows; the attention kernels in the
      narrow (64, 128) geometry, 8 heads of 8): error, kernel / plain /
      library time (median of 20 CUDA graph replays, each between CUDA
-     events), the bound and its share of the kernel time (gin_bwd's at the
-     3xTF32 tensor-core rate it runs at, with the fp32 SIMT one beside it);
-     the merged attention backward against the two-pass one; and the
-     registers, shared memory and blocks per SM of banded_spmm,
-     gin_fused_bwd, gt_bwd_rows and gt_bwd_cols at the main path's widths.
+     events), the bound and its share of the kernel time (gin_fwd's and
+     gin_bwd's at the 3xTF32 tensor-core rate they run at, with the fp32
+     SIMT one beside it); the merged attention backward against the
+     two-pass one; and the registers, shared memory and blocks per SM of
+     banded_spmm, gin_fused_fwd, gin_fused_bwd, gt_fwd, gt_bwd_rows and
+     gt_bwd_cols at the main path's widths.
   4. the full model on that batch, GIN and graph-transformer encoders,
      once on the card and once on the CPU plain path in float64
      (deterministic, dropout off): losses and gradients must agree.
@@ -229,7 +230,7 @@ def kernel_phase(g, sub, dev):
                 lambda: kb.gin_fwd(blocks, col_off, h, w1, b1, w2, b2),
                 lambda: kb.gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2),
                 nbytes(blocks, col_off, h, w1, b1, w2, b2) + n * hid * 4,
-                2 * nnz * d + n * d + mlp))
+                2 * nnz * d + n * d + mlp, tf32x3=True))
             records.append(check(
                 "gin_bwd", shape,
                 lambda: kb.gin_bwd(blocks, col_off, h, gr, w1, b1, w2),
@@ -276,6 +277,7 @@ def kernel_phase(g, sub, dev):
         lambda: torch.bmm(pbf, pwin)))
     for d in (32, 64):
         for kernel, widths in (("banded_spmm", (d,)),
+                               ("gin_fused_fwd", (d, hid, hid)),
                                ("gin_fused_bwd", (d, hid, hid))):
             info = kb.kernel_info(kernel, *widths)
             print(f"resources {kernel} widths {widths}: {info}", flush=True)
@@ -337,7 +339,7 @@ def gt_kernel_phase(g, sub, dev, gen):
                                  f"{worst:.3e}")
     for rec in records:
         rec["library_note"] = NO_LIBRARY
-    for kernel in ("gt_bwd_rows", "gt_bwd_cols"):
+    for kernel in ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols"):
         info = kg.kernel_info(kernel, HEAD_DIM)
         print(f"resources {kernel}_kernel hd={HEAD_DIM}: {info}", flush=True)
         for rec in records:

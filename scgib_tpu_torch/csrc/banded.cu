@@ -18,11 +18,12 @@
 //
 // What bounds them on an H100.  At the main path's widths (d <= 64, N = 3072
 // or 9728 rows) a call moves a few MB and does well under a GFLOP, so the
-// floor is a few microseconds: HBM bytes for the SpMM and the forward, fp32
-// operations for the backward.  What keeps such kernels far above it is
-// latency: walking a band in dense column chunks makes each chunk a
-// dependent load, a barrier and a product over mostly zeros (a band row
-// holds 2-4 ones in 256, a pooling row ~3 in 1024).
+// floor is a few microseconds: HBM bytes for the SpMM and the forward
+// (gin_fused_fwd at S, d = 64: blocks 5.0 MB, h and out 2.5 MB each, 3.0
+// us at 3.35 TB/s), fp32 operations for the backward.  What keeps such
+// kernels far above it is latency: walking a band in dense column chunks
+// makes each chunk a dependent load, a barrier and a product over mostly
+// zeros (a band row holds 2-4 ones in 256, a pooling row ~3 in 1024).
 //
 // banded_spmm (band_row below) is a sparse gather.  A group of lanes owns
 // one row: as many lanes as cover the row's feature columns in float4s
@@ -31,32 +32,51 @@
 // with the window offset and, for x + A x, the row of x itself: one round
 // trip.  It then finds the nonzeros with warp ballots, without a barrier or
 // shared memory (the scan and the walk are gate_walk.cuh, which the
-// attention backward in gt_flash.cu shares), and gathers only those x rows,
+// attention kernels in gt_flash.cu share), and gathers only those x rows,
 // four at a time, all in flight together: the second round trip, a third
 // only past four nonzeros.
 // Sums are fp32 FMA in registers, exact for the 0/1 operand (the pooling
 // needs no hi/lo split), in the same order in every run.
 //
-// gin_fused_bwd is persistent: one block of 8 warps per SM stages W1, W2
-// and b1 in shared memory once (cp.async), loops over row tiles of 64 rows
-// (32 above width 64), and keeps dW1 and dW2 in registers across its tiles,
-// so the grid writes one small partial per block that the caller sums in a
-// fixed order: no atomics, bitwise the same from run to run on one card.
-// Each tile gathers z0 with band_row into shared memory, 16 columns a lane
-// when the width allows, so that one pass covers the tile.  The five
-// products (z1, g W2^T, gz0, dW2, dW1) run on the tensor cores as mma.sync
-// m16n8k8 TF32 with the 3xTF32 split (hi*hi + hi*lo + lo*hi, fp32
-// accumulate; about 21 bits, not TF32's 11), each warp keeping four to
-// sixteen independent accumulator chains so the mma latencies overlap.
-// Widths are padded with zeros in shared memory, so any width up to 128
-// runs.  What bounds it on the card is latency more than the tensor cores:
-// one tile is a chain of the weight and g staging, the gather's two round
-// trips and five dependent products, with 8 warps an SM to hide it (more
-// blocks an SM would cap registers at 128 and spill; measured slower).
+// gin_fused_fwd and gin_fused_bwd share that gather: a tile's z0 = h + A h
+// goes to shared memory by band_row (gather_z0), 16 columns a lane when the
+// width allows, so that one pass covers the tile; their products run on
+// the tensor cores as mma.sync m16n8k8 TF32 with the 3xTF32 split (hi*hi +
+// hi*lo + lo*hi, fp32 accumulate; about 21 bits, not TF32's 11), each warp
+// keeping two to sixteen independent accumulator chains so the mma
+// latencies overlap.  W1, W2 and the biases are staged in shared memory
+// with cp.async while the gather runs.  Widths are padded with zeros in
+// shared memory, so any width up to 128 runs.  Neither kernel uses
+// atomics: both give the same bits from run to run on one card.
 //
-// gin_fused_fwd keeps its first design (ROWS = 32 rows a block, the band in
-// KC = 32 column chunks staged in shared memory, fp32 SIMT products out of
-// shared memory); it is later work.
+// gin_fused_fwd: one block of 8 warps per row tile of 32 rows (304 blocks
+// at S), at most 85 registers a thread so that three blocks share an SM
+// and hide each other's round trips; all 304 fit on the card at once.
+// The products (z0 W1, then relu(z1) W2 at 3xTF32: 159 MFLOP at S, d =
+// 64, about 1 us at the tensor cores' rate against 2.4 us at the fp32
+// SIMT peak) write relu(z1) to shared memory and the output from the
+// fragments straight to global memory.  The weights' copies allocate in
+// L1, which the blocks on an SM share: staged through L2 alone, every
+// block's 32 KB of weights (at width 64) was 40% of the bytes into the SMs
+// at S.  Measured on the card (clock64 per phase, S, d = 64): a block
+// spends ~7200 cycles on the gather and its staging and ~5600 on the two
+// products; the 85-register cap, the L1-allocating copies and 32-row
+// tiles each measured faster than the alternatives tried (64-row tiles, a
+// persistent grid, weights read through L1 in the products; PERF.md).  It
+// is latency-bound.  The first design walked the band in dense
+// 32-column chunks staged in shared memory (a barrier and a product over
+// mostly zeros per chunk) and ran both products as fp32 SIMT out of shared
+// memory: 13x its byte bound.
+//
+// gin_fused_bwd is persistent: one block of 8 warps per SM stages W1, W2
+// and b1 once, loops over row tiles of 64 rows (32 above width 64), and
+// keeps dW1 and dW2 in registers across its tiles, so the grid writes one
+// small partial per block that the caller sums in a fixed order.  Its five
+// products are z1, g W2^T, gz0, dW2 and dW1.  What bounds it on the card
+// is latency more than the tensor cores: one tile is a chain of the weight
+// and g staging, the gather's two round trips and five dependent products,
+// with 8 warps an SM to hide it (more blocks an SM would cap registers at
+// 128 and spill; measured slower).
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/kernels/banded.py).  Every entry launches on the given stream,
@@ -71,119 +91,13 @@
 namespace {
 
 constexpr int TILE = 128;         // rows of one banded block
-constexpr int ROWS = 32;          // rows one gin_fused_fwd block owns
-constexpr int KC = 32;            // band columns gin_fused_fwd stages a chunk
-constexpr int THREADS = 256;      // 16 x 16 threads
-constexpr int RPT = ROWS / 16;    // rows per thread
-constexpr int MAXC = 8;           // column slots per thread: widths <= 128
-constexpr int SLAB = ROWS * (KC + 1);   // padded against bank conflicts
 
 using gate_walk::FULL;
 using gate_walk::SEGV;
 constexpr int SPMM_THREADS = 128;
-constexpr int BWD_THREADS = 256;  // 8 warps
+constexpr int GIN_THREADS = 256;  // 8 warps: gin_fused_fwd, gin_fused_bwd
 
-// Stage chunk [k0, k0 + KC) of this block's [ROWS, W] slab and the matching
-// [KC, d] window rows of x.  Returns (block-uniformly) whether the slab chunk
-// holds a nonzero; the window is staged only then.
-__device__ bool stage_chunk(const __nv_bfloat16* __restrict__ blk, int W,
-                            int k0, const float* __restrict__ x, int ld,
-                            long long nx, int d, long long win0,
-                            float* slab, float* win) {
-  bool nz = false;
-  for (int e = threadIdx.x; e < ROWS * KC; e += THREADS) {
-    int r = e / KC, k = e % KC;
-    float v = __bfloat162float(blk[(long long)r * W + k0 + k]);
-    slab[r * (KC + 1) + k] = v;
-    nz |= (v != 0.f);
-  }
-  if (!__syncthreads_or(nz)) return false;
-  for (int e = threadIdx.x; e < KC * d; e += THREADS) {
-    int k = e / d, c = e % d;
-    long long row = win0 + k;
-    win[k * d + c] = (row < nx) ? x[row * ld + c] : 0.f;
-  }
-  __syncthreads();
-  return true;
-}
-
-// acc[i][j] = sum over the band of slab[r][k] * x[col_off + k][c] for this
-// thread's rows r = ty + 16 i and columns c = tx + 16 j < d.
-__device__ void band_aggregate(const __nv_bfloat16* __restrict__ blocks,
-                               const long long* __restrict__ col_off, int W,
-                               const float* __restrict__ x, int ld,
-                               long long nx, int d, int t, int r0,
-                               float* slab, float* win,
-                               float acc[RPT][MAXC]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) acc[i][j] = 0.f;
-  const __nv_bfloat16* blk = blocks + ((long long)t * TILE + r0) * W;
-  const long long off = col_off[t];
-  for (int k0 = 0; k0 < W; k0 += KC) {
-    if (stage_chunk(blk, W, k0, x, ld, nx, d, off + k0, slab, win)) {
-#pragma unroll 4
-      for (int k = 0; k < KC; ++k) {
-        float a[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) a[i] = slab[(ty + 16 * i) * (KC + 1) + k];
-#pragma unroll
-        for (int j = 0; j < MAXC; ++j) {
-          int c = tx + 16 * j;
-          if (c < d) {
-            float b = win[k * d + c];
-#pragma unroll
-            for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(a[i], b, acc[i][j]);
-          }
-        }
-      }
-    }
-    __syncthreads();   // the next chunk overwrites slab and win
-  }
-}
-
-// Copy a row-major [R, L] matrix from global memory into shared memory with
-// row stride L + 1 (the layout dense_rows reads).
-__device__ void stage_padded(const float* __restrict__ src, int R, int L,
-                             float* dst) {
-  for (int e = threadIdx.x; e < R * L; e += THREADS)
-    dst[(e / L) * (L + 1) + e % L] = src[e];
-}
-
-// acc[i][j] = bias[c] + sum_k in[r][k] * W[k][c] for rows r of the block
-// (in: shared [ROWS, K]) and columns c < C; W is a [K, C] matrix staged by
-// stage_padded.
-__device__ void dense_rows(const float* in, int K, const float* W,
-                           const float* __restrict__ bias, int C,
-                           float acc[RPT][MAXC]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ld = C + 1;
-#pragma unroll
-  for (int j = 0; j < MAXC; ++j) {
-    int c = tx + 16 * j;
-    float b0 = (bias != nullptr && c < C) ? bias[c] : 0.f;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) acc[i][j] = b0;
-  }
-  for (int k = 0; k < K; ++k) {
-    float a[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) a[i] = in[(ty + 16 * i) * K + k];
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int c = tx + 16 * j;
-      if (c < C) {
-        float w = W[k * ld + c];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(a[i], w, acc[i][j]);
-      }
-    }
-  }
-}
-
-// --- sparse gather of one band row (banded_spmm, gin_fused_bwd) ------------
+// --- sparse gather of one band row (banded_spmm, the GIN kernels) ----------
 
 // VEC consecutive floats, as float4s when VEC is a multiple of 4 (p then
 // 16-byte aligned).
@@ -279,61 +193,6 @@ banded_spmm_kernel(const __nv_bfloat16* __restrict__ blocks,
                      lpr, acc);
     if (col_ok) store_vec<VEC>(out + r * d + c, acc);
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
-                     const long long* __restrict__ col_off, int W,
-                     const float* __restrict__ h, long long n, int din,
-                     const float* __restrict__ w1,
-                     const float* __restrict__ b1, int hid,
-                     const float* __restrict__ w2,
-                     const float* __restrict__ b2, int dout,
-                     float* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* slab = smem;
-  float* win = slab + SLAB;
-  float* z0 = win + KC * din;
-  float* z1 = z0 + ROWS * din;
-  float* sw1 = z1 + ROWS * hid;           // [din, hid + 1]
-  float* sw2 = sw1 + din * (hid + 1);     // [hid, dout + 1]
-  const int t = blockIdx.x / (TILE / ROWS);
-  const int r0 = (blockIdx.x % (TILE / ROWS)) * ROWS;
-  const long long row0 = (long long)t * TILE + r0;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[RPT][MAXC];
-
-  stage_padded(w1, din, hid, sw1);
-  stage_padded(w2, hid, dout, sw2);
-  __syncthreads();
-  band_aggregate(blocks, col_off, W, h, din, n, din, t, r0, slab, win, acc);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int r = ty + 16 * i, c = tx + 16 * j;
-      if (c < din) z0[r * din + c] = acc[i][j] + h[(row0 + r) * din + c];
-    }
-  __syncthreads();
-
-  dense_rows(z0, din, sw1, b1, hid, acc);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int r = ty + 16 * i, c = tx + 16 * j;
-      if (c < hid) z1[r * hid + c] = fmaxf(acc[i][j], 0.f);
-    }
-  __syncthreads();
-
-  dense_rows(z1, hid, sw2, b2, dout, acc);
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < MAXC; ++j) {
-      int r = ty + 16 * i, c = tx + 16 * j;
-      if (c < dout) out[(row0 + r) * dout + c] = acc[i][j];
-    }
 }
 
 // --- 3xTF32 tensor-core products (gin_fused_bwd) ---------------------------
@@ -432,7 +291,7 @@ __host__ __device__ constexpr int bwd_smem_floats(int mt, int din, int hid,
 // [R, C] corner.
 __device__ void zero_pad(float* a, int R, int C, int RP, int CP, int ld) {
   if (R == RP && C == CP) return;
-  for (int e = threadIdx.x; e < RP * CP; e += BWD_THREADS) {
+  for (int e = threadIdx.x; e < RP * CP; e += GIN_THREADS) {
     const int r = e / CP, c = e % CP;
     if (r >= R || c >= C) a[r * ld + c] = 0.f;
   }
@@ -450,19 +309,27 @@ __device__ __forceinline__ float column_sum(const float* a, int ld) {
 // Copy a row-major [R, C] matrix into shared memory with row stride ld
 // (a multiple of 4; dst 16-byte aligned), asynchronously: 16-byte copies
 // when the rows allow it, else 4-byte ones.  The caller commits and waits.
+// CACHE_L1: the 16-byte copies allocate in L1 too (cp.async.ca), so that
+// the blocks on one SM share one read from L2 of what they all stage.
+template <bool CACHE_L1 = false>
 __device__ void stage_async(float* dst, int ld, const float* src, int R,
                             int C) {
   const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
   if (C % 4 == 0 && ((uintptr_t)src & 15) == 0) {
     const int cv = C / 4;
-    for (int e = threadIdx.x; e < R * cv; e += BWD_THREADS) {
+    for (int e = threadIdx.x; e < R * cv; e += GIN_THREADS) {
       const int r = e / cv, c = (e % cv) * 4;
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
-                       base + 4u * (r * ld + c)),
-                   "l"(src + (long long)r * C + c));
+      const uint32_t to = base + 4u * (r * ld + c);
+      const float* from = src + (long long)r * C + c;
+      if constexpr (CACHE_L1)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(to),
+                     "l"(from));
+      else
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(to),
+                     "l"(from));
     }
   } else {
-    for (int e = threadIdx.x; e < R * C; e += BWD_THREADS) {
+    for (int e = threadIdx.x; e < R * C; e += GIN_THREADS) {
       const int r = e / C, c = e % C;
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
                        base + 4u * (r * ld + c)),
@@ -471,11 +338,43 @@ __device__ void stage_async(float* dst, int ld, const float* src, int R,
   }
 }
 
+// z0 = h + A h for the MT rows from row0 (inside one band tile: MT divides
+// 128) into shared memory, row stride ld: a lane group of lpr lanes a row,
+// VEC columns a lane, GATHER rows of h in flight (band_row).
+template <int VEC, int MT, int GATHER>
+__device__ __forceinline__ void gather_z0(
+    const __nv_bfloat16* __restrict__ blocks,
+    const long long* __restrict__ col_off, int W, const float* __restrict__ h,
+    long long n, int din, long long row0, int lpr, float* sz0, int ld) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rpw = 32 / lpr;                  // rows a warp gathers at once
+  const long long off = col_off[row0 / TILE];
+  for (int r1 = 0; r1 < MT; r1 += (GIN_THREADS / 32) * rpw) {
+    const int r = r1 + warp * rpw + lane / lpr;
+    const bool active = r < MT;
+    const long long row = row0 + (active ? r : 0);
+    for (int c0 = 0; c0 < din; c0 += lpr * VEC) {
+      const int c = c0 + (lane % lpr) * VEC;
+      const bool col_ok = active && c < din;
+      float acc[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
+      if (col_ok) load_vec<VEC>(h + row * din + c, acc);
+      band_row<VEC, GATHER>(blocks + row * W, active, W, h + off * din,
+                            n - off, din, c, col_ok, lpr, acc);
+      if (col_ok) {
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) sz0[r * ld + c + j] = acc[j];
+      }
+    }
+  }
+}
+
 // Persistent: each block loops over row tiles of MT rows; MAXFR bounds the
 // dW1 / dW2 fragments a warp keeps in registers (4 up to widths 64, 16 up
 // to 128).  part[block] = [dW1 (din x hid) | db1 | dW2 (hid x dout) | db2].
 template <int VEC, int MT, int MAXFR>
-__global__ void __launch_bounds__(BWD_THREADS, 1)
+__global__ void __launch_bounds__(GIN_THREADS, 1)
 gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
                      const long long* __restrict__ col_off, int W,
                      const float* __restrict__ h, long long n, int din,
@@ -495,7 +394,7 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   float* sg = sz0 + MT * LD;         // this tile's rows of g
   float* sz1 = sg + MT * LO;         // pre-activation z1
   float* sgz1 = sz1 + MT * LH;       // (g W2^T) * [z1 > 0]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int fg = lane >> 2, ft = lane & 3;   // fragment row / column group
 
   // zeros in the padding of the staged operands, once (the copies never
@@ -518,34 +417,12 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   float db = 0.f;   // threads < 128: db1[tid]; the others db2[tid - 128]
   const WarpTiles t1 = warp_tiles(DP, HP), t2 = warp_tiles(HP, OP);
   const WarpTiles tz = warp_tiles(MT, HP), t0 = warp_tiles(MT, DP);
-  const int rpw = 32 / lpr;                  // rows a warp gathers at once
 
   for (long long tile = blockIdx.x; tile < n / MT; tile += gridDim.x) {
     const long long row0 = tile * MT;
     stage_async(sg, LO, g + row0 * dout, MT, dout);
     asm volatile("cp.async.commit_group;");
-
-    // z0 = h + A h for the tile's rows (one band tile: MT divides 128)
-    const long long off = col_off[row0 / TILE];
-    for (int r1 = 0; r1 < MT; r1 += 8 * rpw) {
-      const int r = r1 + warp * rpw + lane / lpr;
-      const bool active = r < MT;
-      const long long row = row0 + (active ? r : 0);
-      for (int c0 = 0; c0 < din; c0 += lpr * VEC) {
-        const int c = c0 + (lane % lpr) * VEC;
-        const bool col_ok = active && c < din;
-        float acc[VEC];
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-        if (col_ok) load_vec<VEC>(h + row * din + c, acc);
-        band_row<VEC, 2>(blocks + row * W, active, W, h + off * din,
-                         n - off, din, c, col_ok, lpr, acc);
-        if (col_ok) {
-#pragma unroll
-          for (int j = 0; j < VEC; ++j) sz0[r * LD + c + j] = acc[j];
-        }
-      }
-    }
+    gather_z0<VEC, MT, 2>(blocks, col_off, W, h, n, din, row0, lpr, sz0, LD);
     asm volatile("cp.async.wait_all;");
     __syncthreads();
 
@@ -648,6 +525,108 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   else if (tid >= 128 && tid - 128 < dout) pb2[tid - 128] = db;
 }
 
+// Shared-memory floats of gin_fused_fwd: W1 [DP][HP+4], W2 [HP][OP+4],
+// b1 [HP], b2 [OP], and per tile z0 [MT][DP+4] and relu(z1) [MT][HP+4],
+// padded as in gin_fused_bwd.
+__host__ __device__ constexpr int fwd_smem_floats(int mt, int din, int hid,
+                                                  int dout) {
+  return pad_pow2(din) * (pad_pow2(hid) + 4)
+         + pad_pow2(hid) * (pad16(dout) + 4) + pad_pow2(hid) + pad16(dout)
+         + mt * ((pad_pow2(din) + 4) + (pad_pow2(hid) + 4));
+}
+
+// c[i] = the bias pair of the columns of this lane's fragments of tile i.
+template <int NT>
+__device__ __forceinline__ void bias_frags(float c[NT][4], const float* sb,
+                                           const WarpTiles& t) {
+  const int ft = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int j = t.n0 + (i < t.cnt ? i : 0) * t.step + 2 * ft;
+    c[i][0] = c[i][2] = sb[j];
+    c[i][1] = c[i][3] = sb[j + 1];
+  }
+}
+
+// One row tile of MT rows a block (MT divides 128).  NT bounds the
+// 16 x 8 output tiles a warp takes in either product.  At most 85
+// registers, so that 3 blocks share an SM; the weights' copies allocate
+// in L1 (the source note says why).
+template <int VEC, int MT, int NT>
+__global__ void __launch_bounds__(GIN_THREADS, 3)
+gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
+                     const long long* __restrict__ col_off, int W,
+                     const float* __restrict__ h, long long n, int din,
+                     const float* __restrict__ w1,
+                     const float* __restrict__ b1, int hid,
+                     const float* __restrict__ w2,
+                     const float* __restrict__ b2, int dout,
+                     float* __restrict__ out, int lpr) {
+  extern __shared__ float smem[];
+  const int DP = pad_pow2(din), HP = pad_pow2(hid), OP = pad16(dout);
+  const int LD = DP + 4, LH = HP + 4, LO = OP + 4;
+  float* sw1 = smem;                 // W1[k][j]
+  float* sw2 = sw1 + DP * LH;        // W2[j][o]
+  float* sb1 = sw2 + HP * LO;
+  float* sb2 = sb1 + HP;
+  float* sz0 = sb2 + OP;             // z0 = h + A h
+  float* sz1 = sz0 + MT * LD;        // relu(z0 W1 + b1)
+  const int lane = threadIdx.x & 31;
+  const int fg = lane >> 2, ft = lane & 3;   // fragment row / column group
+
+  // zeros in the padding (the copies never write there, and the first
+  // product fills z1 whole), then the weights, while the gather runs
+  zero_pad(sw1, din, hid, DP, HP, LH);
+  zero_pad(sw2, hid, dout, HP, OP, LO);
+  zero_pad(sb1, 1, hid, 1, HP, HP);
+  zero_pad(sb2, 1, dout, 1, OP, OP);
+  zero_pad(sz0, MT, din, MT, DP, LD);
+  stage_async<true>(sw1, LH, w1, din, hid);
+  stage_async<true>(sw2, LO, w2, hid, dout);
+  stage_async<true>(sb1, HP, b1, 1, hid);
+  stage_async<true>(sb2, OP, b2, 1, dout);
+  asm volatile("cp.async.commit_group;");
+  const long long row0 = (long long)blockIdx.x * MT;
+  gather_z0<VEC, MT, 2>(blocks, col_off, W, h, n, din, row0, lpr, sz0, LD);
+  asm volatile("cp.async.wait_all;");
+  __syncthreads();
+
+  // relu(z1) = relu(z0 W1 + b1)
+  const WarpTiles t1 = warp_tiles(MT, HP), t2 = warp_tiles(MT, OP);
+  {
+    float c[NT][4];
+    bias_frags<NT>(c, sb1, t1);
+    mma_3xtf32<NT>(c, [=](int m, int k) { return sz0[m * LD + k]; },
+                   [=](int k, int j) { return sw1[k * LH + j]; }, t1.m0,
+                   t1.n0, t1.step, t1.cnt, DP);
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      if (i < t1.cnt) {
+        float* z = sz1 + (t1.m0 + fg) * LH + t1.n0 + i * t1.step + 2 * ft;
+        z[0] = fmaxf(c[i][0], 0.f); z[1] = fmaxf(c[i][1], 0.f);
+        z[8 * LH] = fmaxf(c[i][2], 0.f); z[8 * LH + 1] = fmaxf(c[i][3], 0.f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // out = relu(z1) W2 + b2, straight to global memory
+  float c[NT][4];
+  bias_frags<NT>(c, sb2, t2);
+  mma_3xtf32<NT>(c, [=](int m, int k) { return sz1[m * LH + k]; },
+                 [=](int k, int o) { return sw2[k * LO + o]; }, t2.m0, t2.n0,
+                 t2.step, t2.cnt, HP);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    const int col = t2.n0 + i * t2.step + 2 * ft;
+    float* o = out + (row0 + t2.m0 + fg) * dout + col;
+    if (i < t2.cnt && col < dout) { o[0] = c[i][0]; o[8 * dout] = c[i][2]; }
+    if (i < t2.cnt && col + 1 < dout) {
+      o[1] = c[i][1]; o[8 * dout + 1] = c[i][3];
+    }
+  }
+}
+
 // Raise a kernel's dynamic shared-memory cap when a launch needs more than
 // it was last given: once per size in practice, so a launch inside CUDA
 // graph capture makes no attribute call.
@@ -659,8 +638,6 @@ int set_smem(const void* kernel, size_t bytes, size_t* granted) {
   return err;
 }
 
-size_t fwd_smem_granted = 0;
-
 // Lanes a row's group takes: enough to cover d columns in VEC-wide pieces,
 // rounded up to a power of two, at most a warp.
 int lanes_per_row(int d, int vec) {
@@ -669,9 +646,8 @@ int lanes_per_row(int d, int vec) {
   return lpr;
 }
 
-// The gin_fused_bwd instantiation for these widths, its shared memory and
-// its grid (blocks that fit on the card at once, at most one per tile).
-struct BwdPlan {
+// The instantiation of a GIN kernel for these widths and its shared memory.
+struct GinPlan {
   const void* kernel;
   size_t* granted;
   int mt, vec;
@@ -679,13 +655,13 @@ struct BwdPlan {
 };
 
 template <int VEC, int MT, int MAXFR>
-BwdPlan bwd_plan(int din, int hid, int dout) {
+GinPlan bwd_plan(int din, int hid, int dout) {
   static size_t granted = 0;
   return {(const void*)gin_fused_bwd_kernel<VEC, MT, MAXFR>, &granted, MT,
           VEC, sizeof(float) * (size_t)bwd_smem_floats(MT, din, hid, dout)};
 }
 
-BwdPlan plan_bwd(int din, int hid, int dout) {
+GinPlan plan_bwd(int din, int hid, int dout) {
   const bool narrow = din <= 64 && hid <= 64 && dout <= 64;
   if (din % 16 == 0)
     return narrow ? bwd_plan<16, 64, 4>(din, hid, dout)
@@ -694,7 +670,27 @@ BwdPlan plan_bwd(int din, int hid, int dout) {
                 : bwd_plan<1, 32, 16>(din, hid, dout);
 }
 
-int bwd_grid(const BwdPlan& p, long long n, int* grid) {
+template <int VEC, int MT, int NT>
+GinPlan fwd_plan(int din, int hid, int dout) {
+  static size_t granted = 0;
+  return {(const void*)gin_fused_fwd_kernel<VEC, MT, NT>, &granted, MT, VEC,
+          sizeof(float) * (size_t)fwd_smem_floats(MT, din, hid, dout)};
+}
+
+// Row tiles of 32: a warp takes at most two (widths up to 64) or four
+// (up to 128) output tiles of each product.
+GinPlan plan_fwd(int din, int hid, int dout) {
+  const bool narrow = din <= 64 && hid <= 64 && dout <= 64;
+  if (din % 16 == 0)
+    return narrow ? fwd_plan<16, 32, 2>(din, hid, dout)
+                  : fwd_plan<16, 32, 4>(din, hid, dout);
+  return narrow ? fwd_plan<1, 32, 2>(din, hid, dout)
+                : fwd_plan<1, 32, 4>(din, hid, dout);
+}
+
+// gin_fused_bwd's grid: the blocks that fit on the card at once, at most
+// one per tile.
+int bwd_grid(const GinPlan& p, long long n, int* grid) {
   int err = set_smem(p.kernel, p.smem, p.granted);
   if (err) return err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -703,7 +699,7 @@ int bwd_grid(const BwdPlan& p, long long n, int* grid) {
            &sms, cudaDevAttrMultiProcessorCount, dev)))
     return err;
   if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, p.kernel, BWD_THREADS, p.smem)))
+           &per_sm, p.kernel, GIN_THREADS, p.smem)))
     return err;
   long long tiles = n / p.mt, cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
   *grid = (int)(tiles < cap ? tiles : cap);
@@ -731,22 +727,24 @@ int scgib_banded_spmm(const void* blocks, const void* col_off, int n_tiles,
   return (int)cudaGetLastError();
 }
 
+// h and blocks 16-byte aligned (the wrapper checks).
 int scgib_gin_fused_fwd(const void* blocks, const void* col_off, int n_tiles,
                         int W, const void* h, long long n, int din,
                         const void* w1, const void* b1, int hid,
                         const void* w2, const void* b2, int dout, void* out,
                         void* stream) {
-  size_t smem = sizeof(float) * (SLAB + KC * din + ROWS * din + ROWS * hid
-                                 + din * (hid + 1) + hid * (dout + 1));
-  int err = set_smem((const void*)gin_fused_fwd_kernel, smem,
-                     &fwd_smem_granted);
+  const GinPlan p = plan_fwd(din, hid, dout);
+  int err = set_smem(p.kernel, p.smem, p.granted);
   if (err) return err;
-  gin_fused_fwd_kernel<<<n_tiles * (TILE / ROWS), THREADS, smem,
-                         (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)blocks, (const long long*)col_off, W,
-      (const float*)h, n, din, (const float*)w1, (const float*)b1, hid,
-      (const float*)w2, (const float*)b2, dout, (float*)out);
-  return (int)cudaGetLastError();
+  const int lpr = lanes_per_row(din, p.vec);
+  void* args[] = {(void*)&blocks, (void*)&col_off, (void*)&W, (void*)&h,
+                  (void*)&n, (void*)&din, (void*)&w1, (void*)&b1,
+                  (void*)&hid, (void*)&w2, (void*)&b2, (void*)&dout,
+                  (void*)&out, (void*)&lpr};
+  err = (int)cudaLaunchKernel(p.kernel, dim3(n_tiles * (TILE / p.mt)),
+                              dim3(GIN_THREADS), args, p.smem,
+                              (cudaStream_t)stream);
+  return err ? err : (int)cudaGetLastError();
 }
 
 // Blocks gin_fused_bwd launches for n rows at these widths: the number of
@@ -764,7 +762,7 @@ int scgib_gin_fused_bwd(const void* blocks, const void* col_off, int W,
                         const void* w1, const void* b1, int hid,
                         const void* w2, int dout, void* gz0, void* part,
                         int grid, void* stream) {
-  const BwdPlan p = plan_bwd(din, hid, dout);
+  const GinPlan p = plan_bwd(din, hid, dout);
   int err = set_smem(p.kernel, p.smem, p.granted);
   if (err) return err;
   const int lpr = lanes_per_row(din, p.vec);
@@ -772,14 +770,14 @@ int scgib_gin_fused_bwd(const void* blocks, const void* col_off, int W,
                   (void*)&n, (void*)&din, (void*)&g, (void*)&w1, (void*)&b1,
                   (void*)&hid, (void*)&w2, (void*)&dout, (void*)&gz0,
                   (void*)&part, (void*)&lpr};
-  err = (int)cudaLaunchKernel(p.kernel, dim3(grid), dim3(BWD_THREADS), args,
+  err = (int)cudaLaunchKernel(p.kernel, dim3(grid), dim3(GIN_THREADS), args,
                               p.smem, (cudaStream_t)stream);
   return err ? err : (int)cudaGetLastError();
 }
 
 // For the report: registers a thread, shared memory a block (static +
 // dynamic) and blocks an SM of the kernel a call at these widths launches;
-// which = 0 banded_spmm (width din), 1 gin_fused_bwd.
+// which = 0 banded_spmm (width din), 1 gin_fused_bwd, 2 gin_fused_fwd.
 int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
   const void* kernel;
   size_t dyn = 0;
@@ -789,11 +787,12 @@ int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
                           : (const void*)banded_spmm_kernel<1>;
     threads = SPMM_THREADS;
   } else {
-    const BwdPlan p = plan_bwd(din, hid, dout);
+    const GinPlan p = which == 1 ? plan_bwd(din, hid, dout)
+                                 : plan_fwd(din, hid, dout);
     if ((err = set_smem(p.kernel, p.smem, p.granted))) return err;
     kernel = p.kernel;
     dyn = p.smem;
-    threads = BWD_THREADS;
+    threads = GIN_THREADS;
   }
   cudaFuncAttributes attr;
   if ((err = (int)cudaFuncGetAttributes(&attr, kernel))) return err;

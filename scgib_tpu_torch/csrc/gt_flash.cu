@@ -26,52 +26,57 @@
 // [TL, BW] tile per head (the matrix unit wants dense work); here that
 // would be ~50x more exponentials than edges, so every kernel works only
 // on nonzero entries and does little arithmetic.  The floor is the bytes:
-// at the main path's S = 9728 rows (H = 8, hd = 8, narrow) the row pass
-// must read the gate (2.5 MB), q, k, v, g (2.5 MB each) and z and write dq
-// and rho, 15.6 MB, 4.6 us at 3.35 TB/s; the column pass reads z and rho
-// and writes dk and dv, 18.1 MB, 5.4 us.  Reaching it is a matter of
-// latency: the loads of a row depend on its gate.
+// at the main path's S = 9728 rows (H = 8, hd = 8, narrow) the forward
+// must read the gate (2.5 MB) and q, k, v (2.5 MB each) and write out and
+// z, 12.8 MB, 3.8 us at 3.35 TB/s; the row pass reads g and z besides and
+// writes dq and rho, 15.6 MB, 4.6 us; the column pass reads z and rho and
+// writes dk and dv, 18.1 MB, 5.4 us.  Reaching it is a matter of latency:
+// the loads of a row depend on its gate.
 //
-// gt_bwd_rows and gt_bwd_cols (the default, two-pass backward).  Their
-// first design (the one gt_fwd keeps) ran one block per (row tile, head),
-// a warp walking eight rows in turn, each lane testing its columns of the
-// gate two bytes at a time and reading k / v for a nonzero as hd scalar
-// loads: every head re-read the gate (8 x 2.5 MB at S), a row was a chain
-// of dependent loads, and 48-128 registers capped the warps an SM.  It ran
-// at about 7% of the byte bound.
+// gt_fwd, gt_bwd_rows and gt_bwd_cols (the forward and the default,
+// two-pass backward).  Their first design (the one gt_bwd_merged keeps)
+// ran one block per (row tile, head), a warp walking eight rows in turn,
+// each lane testing its columns of the gate two bytes at a time and
+// reading k / v for a nonzero as hd scalar loads: every head re-read the
+// gate (8 x 2.5 MB at S), a row was a chain of dependent loads, and 48-128
+// registers capped the warps an SM.  It ran at 7-9% of the byte bound.
 // Now a group of lanes owns a row (a column in the column pass) with all
 // its heads: as many lanes as cover D in float4s, at least 4 (16 at
 // D = 64, so a warp takes two rows), a head's hd features on hd / 4
 // adjacent lanes (or 4 / hd heads a lane below hd = 4).  The group reads
-// the row's gate once, as 16-byte vectors, together with q_i, g_i and z_i;
-// finds the nonzeros by warp ballot (gate_walk.cuh, shared with
-// banded.cu's band_row); and gathers the rows they name, GATHER at a time,
-// every load in flight before any is used: 256 coalesced bytes a row at
-// D = 64.  Per-head dot products are a segmented butterfly of
-// __shfl_xor_sync over the head's lanes (two steps at hd = 8), after
-// which every lane of a head holds its score, so rho and dS need no
-// further reduction.  The row pass needs rho before dS: it keeps k_j, e,
-// G and the clip flag of its first GATHER nonzeros in registers, so the
-// second trip over them reads nothing; only rows with more nonzeros (rare
-// in molecules) gather the rest again.  The column pass relies on
-// A = A^T (the packers symmetrize every edge list): the rows that attend
-// to column c of tile tc lie in the window col_off[tc], and the gate of
-// (row col_off[tc] + r, column c) is blocks[tc][c - tc * TL][r], row c of
-// the column's own slab; it reads q_i, g_i, z_i and rho_i for each nonzero
-// and needs one trip.  Every output element is summed by one lane over its
-// row's nonzeros in the walk's fixed order: no atomics, the same bits in
-// every run.  These two kernels take D a multiple of 4 and 16-byte aligned
-// feature rows (the wrappers check, and copy a misaligned operand).
+// the row's gate once, as 16-byte vectors, together with q_i (and g_i and
+// z_i in the backward); finds the nonzeros by warp ballot (gate_walk.cuh,
+// shared with banded.cu's band_row); and gathers the rows they name,
+// GATHER at a time, every load in flight before any is used: 256
+// coalesced bytes a row at D = 64.  Per-head dot products are a segmented
+// butterfly of __shfl_xor_sync over the head's lanes (two steps at
+// hd = 8), after which every lane of a head holds its score, so z, rho
+// and dS need no further reduction.  The forward is one trip: each lane
+// adds e to z and e v_j to its features, then divides by z + eps (an
+// all-zero row gives z = 0 and out = 0).  The row pass needs rho before
+// dS: it keeps k_j, e, G and the clip flag of its first GATHER nonzeros in
+// registers, so the second trip over them reads nothing; only rows with
+// more nonzeros (rare in molecules) gather the rest again.  The column
+// pass relies on A = A^T (the packers symmetrize every edge list): the
+// rows that attend to column c of tile tc lie in the window col_off[tc],
+// and the gate of (row col_off[tc] + r, column c) is
+// blocks[tc][c - tc * TL][r], row c of the column's own slab; it reads
+// q_i, g_i, z_i and rho_i for each nonzero and needs one trip.  Every
+// output element is summed by one lane over its row's nonzeros in the
+// walk's fixed order: no atomics, the same bits in every run.  These
+// three kernels take D a multiple of 4 and 16-byte aligned blocks and
+// feature rows (the wrappers check, and copy a misaligned feature
+// operand).
 //
-// gt_fwd and gt_bwd_merged keep that first design: one block per (row
-// tile, head), one warp per row, the lanes walking the window 32 columns
-// at a time, k / v read only where the gate is nonzero, warp shuffles for
-// z, rho and the hd-wide sums.  The merged pass exists because the TPU grid
-// runs its programs in order, which made the read-modify-write of
-// overlapping dk / dv windows race-free there.  CUDA blocks run in no
-// order, so here every edge adds its dk and dv terms to buffers the caller
-// zeroed, with atomicAdd: its sums are taken in an order that changes from
-// run to run.  Two-pass is the default.
+// gt_bwd_merged keeps the first design: one block per (row tile, head),
+// one warp per row, the lanes walking the window 32 columns at a time,
+// k / v read only where the gate is nonzero, warp shuffles for rho and
+// the hd-wide sums.  The merged pass exists because the TPU grid runs its
+// programs in order, which made the read-modify-write of overlapping
+// dk / dv windows race-free there.  CUDA blocks run in no order, so here
+// every edge adds its dk and dv terms to buffers the caller zeroed, with
+// atomicAdd: its sums are taken in an order that changes from run to run.
+// Two-pass is the default.
 //
 // Everything is fp32 FMA, with no max shift in the exponential (as
 // gt_flash.py:133).  A zero gate entry contributes exactly 0 in the TPU
@@ -94,10 +99,10 @@ namespace {
 
 using gate_walk::FULL;
 
-constexpr int THREADS = 256;      // gt_fwd, gt_bwd_merged
+constexpr int THREADS = 256;      // gt_bwd_merged
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_SLOTS = 8;      // window columns per lane: BW <= 256
-constexpr int PASS_THREADS = 128; // gt_bwd_rows, gt_bwd_cols
+constexpr int PASS_THREADS = 128; // gt_fwd, gt_bwd_rows, gt_bwd_cols
 constexpr int GATHER = 4;         // nonzeros whose rows are loaded together
 constexpr int MIN_LANES = 4;      // a row's lanes: at BW = 256 one segment
                                   // of gate vectors (gate_walk::SEGV a lane)
@@ -133,46 +138,6 @@ __device__ __forceinline__ void warp_sum_row(float (&x)[HD]) {
 
 __device__ __forceinline__ float gated_exp(float s, float a, float clamp) {
   return expf(fminf(fmaxf(s, -clamp), clamp)) * a;
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
-              const long long* __restrict__ col_off, int TL, int BW,
-              const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, int H, float scale, float clamp,
-              float eps, float* __restrict__ out, float* __restrict__ z) {
-  const int t = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long D = (long long)H * HD;
-  const long long off = col_off[t];
-  for (int r = warp; r < TL; r += WARPS) {
-    const long long i = (long long)t * TL + r;
-    const __nv_bfloat16* gate = blocks + i * BW;
-    float qi[HD], acc[HD];
-    load_row<HD>(q + i * D + h * HD, qi);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-    float zs = 0.f;
-    for (int j = lane; j < BW; j += 32) {
-      const float a = __bfloat162float(gate[j]);
-      if (a != 0.f) {
-        const long long row = (off + j) * D + h * HD;
-        const float e = gated_exp(dot<HD>(qi, k + row) * scale, a, clamp);
-        zs += e;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] = fmaf(e, v[row + d], acc[d]);
-      }
-    }
-    zs = warp_sum(zs);
-    warp_sum_row<HD>(acc);
-    if (lane == 0) {
-      const float inv = 1.f / (zs + eps);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) out[i * D + h * HD + d] = acc[d] * inv;
-      z[i * H + h] = zs;
-    }
-  }
 }
 
 // The merged pass: the first design's row pass that also adds dk and dv
@@ -247,7 +212,7 @@ gt_bwd_merged_kernel(const __nv_bfloat16* __restrict__ blocks,
   }
 }
 
-// --- the two-pass backward: a lane group per row, all heads --------------
+// --- the forward and the two-pass backward: a lane group per row, all heads
 
 // How a lane's four features c .. c + 3 fall into heads of width HD: NH
 // heads a lane (4 / HD below HD = 4, else 1) of PER features each; one
@@ -298,6 +263,78 @@ int lanes_per_row(int D) {
   int lpr = MIN_LANES;
   while (lpr < 32 && 4 * lpr < D) lpr *= 2;
   return lpr;
+}
+
+// Forward: lane group of `lpr` lanes per row i < n_rows, features as in
+// the row pass.  One trip over the row's nonzeros: per head the gated
+// exponential e, z += e and acc += e v_j, every k / v load of GATHER
+// nonzeros in flight before any is used; then out = acc / (z + eps).
+template <int HD>
+__global__ void __launch_bounds__(PASS_THREADS)
+gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
+              const long long* __restrict__ col_off, int TL, int BW,
+              long long n_rows, const float* __restrict__ q,
+              const float* __restrict__ k, const float* __restrict__ v,
+              int H, float scale, float clamp, float eps, int lpr,
+              float* __restrict__ out, float* __restrict__ z) {
+  using M = Heads<HD>;
+  constexpr int NH = M::NH;
+  const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
+  const long long row =
+      ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) / lpr;
+  const bool active = row < n_rows;
+  const long long i = active ? row : 0;
+  const int D = H * HD;
+  const long long off = col_off[i / TL];
+  const __nv_bfloat16* gate = blocks + i * BW;
+  for (int c0 = 0; c0 < D; c0 += 4 * lpr) {
+    const int c = c0 + 4 * grp.lig;
+    const bool ok = active && c < D;
+    float qi[4], acc[4] = {0.f, 0.f, 0.f, 0.f}, zs[NH];
+    load4(q + i * D + c, ok, qi);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) zs[h] = 0.f;
+    unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
+    while (__any_sync(FULL, m != 0ull)) {
+      float a[GATHER], kj[GATHER][4], vj[GATHER][4];
+#pragma unroll
+      for (int u = 0; u < GATHER; ++u) {
+        const int col = gate_walk::take_nonzero(m, 0, grp);
+        const bool has = col >= 0;
+        const long long j = off + (has ? col : 0);
+        a[u] = has ? __bfloat162float(gate[col]) : 0.f;
+        load4(k + j * D + c, has && ok, kj[u]);
+        load4(v + j * D + c, has && ok, vj[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < GATHER; ++u) {
+        float s[NH];
+        head_dots<HD>(qi, kj[u], s);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const float e = gated_exp(s[h] * scale, a[u], clamp);
+          zs[h] += e;
+#pragma unroll
+          for (int j = 0; j < M::PER; ++j)
+            acc[h * M::PER + j] = fmaf(e, vj[u][h * M::PER + j],
+                                       acc[h * M::PER + j]);
+        }
+      }
+    }
+    if (ok) {
+#pragma unroll
+      for (int h = 0; h < NH; ++h) {
+        const float inv = 1.f / (zs[h] + eps);
+#pragma unroll
+        for (int j = 0; j < M::PER; ++j) acc[h * M::PER + j] *= inv;
+      }
+      store4(out + i * D + c, acc);
+      if (HD < 4 || c % HD == 0) {      // the head's leading lane
+#pragma unroll
+        for (int h = 0; h < NH; ++h) z[i * H + c / HD + h] = zs[h];
+      }
+    }
+  }
 }
 
 // The row pass's terms for up to GATHER nonzero columns (col < 0: none) of
@@ -542,7 +579,8 @@ bool bad_geometry(int BW, int hd) {
          hd > 32 || (hd & (hd - 1)) != 0;
 }
 
-// The two-pass kernels read float4s: D a multiple of 4.
+// The lane-group kernels (gt_fwd and the two-pass backward) read float4s:
+// D a multiple of 4.
 bool bad_pass_geometry(int BW, int H, int hd) {
   return bad_geometry(BW, hd) || H <= 0 || (H * hd) % 4 != 0;
 }
@@ -568,17 +606,21 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
 
 extern "C" {
 
+// q, k, v, out 16-byte aligned and H * hd a multiple of 4 (the wrapper
+// checks).
 int scgib_gt_fwd(const void* blocks, const void* col_off, int n_tiles, int TL,
                  int BW, const void* q, const void* k, const void* v, int H,
                  int hd, float scale, float clamp, float eps, void* out,
                  void* z, void* stream) {
-  if (bad_geometry(BW, hd)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_tiles, H);
+  if (bad_pass_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
+  const int lpr = lanes_per_row(H * hd);
+  const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_HD(hd, gt_fwd_kernel<HD><<<grid, THREADS, 0, s>>>(
-      (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
+  SCGIB_DISPATCH_HD(hd, gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
+                                            PASS_THREADS, 0, s>>>(
+      (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW, rows,
       (const float*)q, (const float*)k, (const float*)v, H, scale, clamp,
-      eps, (float*)out, (float*)z));
+      eps, lpr, (float*)out, (float*)z));
   return (int)cudaGetLastError();
 }
 
@@ -640,13 +682,14 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
 }
 
 // For the report: registers a thread, shared memory a block and blocks an
-// SM of gt_bwd_rows_kernel (which = 0) or gt_bwd_cols_kernel (1) at head
-// width hd.
+// SM of gt_bwd_rows_kernel (which = 0), gt_bwd_cols_kernel (1) or
+// gt_fwd_kernel (2) at head width hd.
 int scgib_gt_kernel_info(int which, int hd, int* info) {
   const void* kernel = nullptr;
-  SCGIB_DISPATCH_HD(hd, kernel = which == 0
-                                     ? (const void*)gt_bwd_rows_kernel<HD>
-                                     : (const void*)gt_bwd_cols_kernel<HD>);
+  SCGIB_DISPATCH_HD(
+      hd, kernel = which == 0   ? (const void*)gt_bwd_rows_kernel<HD>
+                   : which == 1 ? (const void*)gt_bwd_cols_kernel<HD>
+                                : (const void*)gt_fwd_kernel<HD>);
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;

@@ -13,20 +13,23 @@ serve them (the SpMM kernel serves three):
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting each launch that
-succeeded on its ``launches`` attribute; anything else raises, for
-``spmm``, ``spmm_self``, ``pool`` and ``gin_bwd`` a blocks or feature
-tensor that is not 16-byte aligned included.  The kernels are
-built from the repo's sources with ``nvcc`` into ``scgib_tpu_torch/_build/``
-at first use and loaded with ``ctypes``.
+succeeded on its ``launches`` attribute; anything else raises, a blocks
+tensor that is not 16-byte aligned included, and for ``spmm``,
+``spmm_self``, ``pool`` and ``gin_bwd`` a feature tensor that is not
+(``gin_fwd`` copies it).  The kernels are built from the repo's sources
+with ``nvcc`` into ``scgib_tpu_torch/_build/`` at first use and loaded
+with ``ctypes``.
 
 ``banded_spmm`` gathers only the x rows where A is nonzero: a group of
 lanes per row reads the row's slab in 16-byte vectors, finds its nonzeros
 with warp ballots and keeps several gathers in flight, summing in fp32 in
-a fixed order.  ``gin_fused_bwd`` is a persistent grid of one block per
-SM that stages the weights once, loops over row tiles, runs the products
-on the tensor cores in 3xTF32 and writes one weight-gradient partial per
-block, which ``gin_bwd`` sums with one ``torch.sum``: no
-atomics, so both are bitwise reproducible on one card.  The source note in
+a fixed order.  ``gin_fused_fwd`` gathers a row tile's h + A h the same
+way into shared memory and runs both products on the tensor cores in
+3xTF32.  ``gin_fused_bwd`` is a persistent grid of one block per SM that
+stages the weights once, loops over row tiles, runs its products the same
+way and writes one weight-gradient partial per block, which ``gin_bwd``
+sums with one ``torch.sum``: no atomics, so all three are bitwise
+reproducible on one card.  The source note in
 ``csrc/banded.cu`` says what bounds each kernel on an H100 and how the
 design answers it.
 """
@@ -44,8 +47,8 @@ from .build import load
 TILE = 128
 BAND_MULTIPLE = 32   # band widths the kernels take
 MAX_FUSED_DIM = 128
-ALIGN = 16           # bytes: banded_spmm and gin_fused_bwd read blocks and x
-                     # in 16-byte vectors
+ALIGN = 16           # bytes: the kernels read blocks and x in 16-byte
+                     # vectors
 
 KERNELS = ("gin_fwd", "gin_bwd", "spmm_self", "spmm", "pool")
 
@@ -88,10 +91,11 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _band_args(blocks, col_off, x, name, aligned=True):
+def _band_args(blocks, col_off, x, name, copy=False):
     """Validate the banded operands; returns (blocks, col_off, x)
-    contiguous.  ``aligned``: the kernel reads blocks and x in 16-byte
-    vectors, so both must start on a 16-byte boundary."""
+    contiguous.  The kernels read blocks and x in 16-byte vectors, so both
+    must start on a 16-byte boundary: a misaligned operand raises or, for
+    x with ``copy``, is copied."""
     if blocks.dim() != 3 or blocks.shape[1] != TILE:
         raise ValueError(f"{name}: blocks must be [T, {TILE}, W], got "
                          f"{tuple(blocks.shape)}")
@@ -108,8 +112,10 @@ def _band_args(blocks, col_off, x, name, aligned=True):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name}: operands must share one CUDA device")
     blocks, x = blocks.contiguous(), x.contiguous()
+    if copy and x.data_ptr() % ALIGN:
+        x = x.clone()
     for t, what in ((blocks, "blocks"), (x, "features")):
-        if aligned and t.data_ptr() % ALIGN:
+        if t.data_ptr() % ALIGN:
             raise ValueError(f"{name}: {what} must be {ALIGN}-byte aligned")
     return blocks, col_off.to(torch.int64).contiguous(), x
 
@@ -212,7 +218,7 @@ def gin_fwd(blocks, col_off, h, w1, b1, w2, b2):
     if not _dispatch("gin_fwd", h):
         return gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2)
     blocks, col_off, h = _band_args(blocks, col_off, h, "gin_fwd",
-                                    aligned=False)
+                                    copy=True)
     din, hid, dout = _fused_dims(h, w1, w2, "gin_fwd")
     n_tiles, _, width = blocks.shape
     if h.shape[0] != n_tiles * TILE:
@@ -269,11 +275,12 @@ def gin_bwd(blocks, col_off, h, g, w1, b1, w2):
 
 def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
     """Registers a thread, shared memory a block and blocks an SM of the
-    kernel that ``spmm`` (width ``din``) or ``gin_bwd`` launches."""
+    kernel that ``spmm`` (width ``din``), ``gin_bwd`` or ``gin_fwd``
+    launches."""
     info = (ctypes.c_int * 3)()
     _raise_on(build().scgib_kernel_info(
-        {"banded_spmm": 0, "gin_fused_bwd": 1}[kernel], din, hid, dout,
-        info), kernel)
+        {"banded_spmm": 0, "gin_fused_bwd": 1, "gin_fused_fwd": 2}[kernel],
+        din, hid, dout, info), kernel)
     return {"registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
 

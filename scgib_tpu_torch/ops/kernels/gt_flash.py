@@ -18,13 +18,12 @@ band a multiple of 32 up to 256 (the narrow (64, 128) and the wide
 (128, 256) ones) and a head width hd in {1, 2, 4, 8, 16, 32}.  The plain
 versions compute in their inputs' dtype.
 
-``gt_bwd_rows`` and ``gt_bwd_cols`` read a row's features as 16-byte
-vectors, a group of lanes per row with all its heads, and find the gate's
-nonzeros by warp ballot.  So they no longer take H * hd that is not a
+``gt_fwd``, ``gt_bwd_rows`` and ``gt_bwd_cols`` read a row's features as
+16-byte vectors, a group of lanes per row with all its heads, and find the
+gate's nonzeros by warp ballot.  So they do not take H * hd that is not a
 multiple of 4, nor blocks that do not start on a 16-byte boundary: both
 raise.  A feature operand off a 16-byte boundary (a slice of a fused qkv,
-say) is copied first.  ``gt_fwd`` and ``gt_bwd_merged`` take what they
-took before.
+say) is copied first.  ``gt_bwd_merged`` takes any H.
 
 ``gt_flash_attention`` is the autograd function: the forward, then the
 two-pass backward (rows, then columns; no atomics, so bitwise the same in
@@ -215,7 +214,7 @@ def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6):
     if not _dispatch("gt_fwd", q):
         return gt_fwd_plain(blocks, col_off, q, k, v, clamp, eps)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_fwd", blocks, col_off, q, k, v)
+        "gt_fwd", blocks, col_off, q, k, v, vectors=True)
     out = torch.empty_like(ts[0])
     z = torch.empty(ts[0].shape[:2], dtype=torch.float32, device=q.device)
     _launch(build().scgib_gt_fwd, "gt_fwd", blocks, col_off, geo, ts,
@@ -272,11 +271,12 @@ def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
 
 def kernel_info(kernel: str, hd: int) -> dict:
     """Registers a thread, shared memory a block and blocks an SM of the
-    kernel that ``gt_bwd_rows`` or ``gt_bwd_cols`` launches at head width
-    ``hd``."""
+    kernel that ``gt_bwd_rows``, ``gt_bwd_cols`` or ``gt_fwd`` launches at
+    head width ``hd``."""
     info = (ctypes.c_int * 3)()
     _raise_on(build().scgib_gt_kernel_info(
-        {"gt_bwd_rows": 0, "gt_bwd_cols": 1}[kernel], hd, info), kernel)
+        {"gt_bwd_rows": 0, "gt_bwd_cols": 1, "gt_fwd": 2}[kernel], hd,
+        info), kernel)
     return {"registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
 

@@ -10,8 +10,9 @@ Tolerance: rtol 1e-5 of the largest entry for the products (fp32 FMA on
 0/1 operands; only the summation order differs), 1e-4 for the GIN layer's
 backward (3xTF32 products, sums over every row) and for the attention
 kernels (exponentials and sums in another order than the plain
-version's).  ``banded_spmm``, ``gin_fused_bwd`` and the two-pass attention
-backward use no atomics, so two runs on one card agree bitwise."""
+version's).  The GIN forward's 3xTF32 products keep about 21 bits, inside
+1e-5.  Every kernel but the merged attention backward uses no atomics, so
+two runs on one card agree bitwise."""
 
 import numpy as np
 import pytest
@@ -28,6 +29,8 @@ from scgib_tpu_torch.ops.kernels import banded as kb
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention
 
+from gin_cases import CASES as GIN_CASES
+from gin_cases import case_inputs as gin_case_inputs
 from gt_cases import CASES, EMPTY, case_inputs
 
 pytestmark = pytest.mark.cuda
@@ -136,6 +139,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
     with pytest.raises(ValueError, match="16-byte aligned"):
         kb.pool(flat[1:].view(blocks.shape), off,
                 torch.zeros(512, 8, device=dev))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kb.gin_fwd(flat[1:].view(blocks.shape), off,
+                   torch.zeros(512, 8, device=dev), w1, b1, w2, b1)
     with pytest.raises(TypeError, match="float32"):
         kb.gin_bwd(blocks, off, torch.zeros(512, 8, device=dev,
                                             dtype=torch.float64),
@@ -144,8 +150,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
 
 
 def test_gin_fwd_takes_features_off_a_16_byte_boundary(batch, dev):
-    """gin_fused_fwd reads x by elements, so its wrapper takes what it took
-    before the vector-loading kernels: features 4 bytes past a boundary."""
+    """gin_fused_fwd reads h in 16-byte vectors, but its wrapper takes what
+    it took before: features 4 bytes past a boundary are copied first."""
     g, _ = batch
     blocks, off = _resolve_band(g)
     rng = np.random.default_rng(2)
@@ -216,6 +222,55 @@ def test_gin_bwd_matches_plain_at_ragged_shapes(dev, din, width):
         for a, w in zip(kb.gin_bwd(blocks, off, h, gr, w1, b1, w2),
                         _gin_bwd_reference(blocks, off, h, gr, w1, b1, w2)):
             close(a, w, rtol=1e-4)
+
+
+def _gin_fwd_reference(blocks, off, h, w1, b1, w2, b2):
+    """``gin_fwd_plain`` over zero-padded windows."""
+    z0 = kb.spmm_plain(blocks, off, _zero_padded(h, off, blocks.shape[2])) + h
+    return torch.relu(z0 @ w1 + b1) @ w2 + b2
+
+
+@pytest.mark.parametrize("case", list(GIN_CASES))
+def test_gin_fwd_matches_plain_at_cases(dev, case):
+    """The inputs of the CPU tests against the Pallas kernel: ragged
+    widths, bands 128-1024, an empty tile, a repeated edge."""
+    blocks, off, arrays = gin_case_inputs(case)
+    blocks, off = blocks.to(dev), off.to(dev)
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    kb.reset_launch_counts()
+    close(kb.gin_fwd(blocks, off, *args), kb.gin_fwd_plain(blocks, off, *args))
+    assert kb.launch_counts()["gin_fwd"] == 1
+
+
+@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("din", [8, 32, 64, 96, 128])
+def test_gin_fwd_matches_plain_at_ragged_shapes(dev, din, width):
+    """Every (hid, dout) in {8, 32, 64, 96, 128}^2 at this din, on blocks
+    with an empty tile, a full row, repeated edges and windows past the
+    end of h."""
+    blocks, off = (t.to(dev) for t in _ragged_band(width, seed=2))
+    gen = torch.Generator(device=dev).manual_seed(din + width)
+    for hid in (8, 32, 64, 96, 128):
+        for dout in (8, 32, 64, 96, 128):
+            h = torch.randn(3 * 128, din, device=dev, generator=gen)
+            w1 = torch.randn(din, hid, device=dev, generator=gen) / din ** 0.5
+            b1 = torch.randn(hid, device=dev, generator=gen) * 0.1
+            w2 = torch.randn(hid, dout, device=dev, generator=gen) / hid ** 0.5
+            b2 = torch.randn(dout, device=dev, generator=gen) * 0.1
+            close(kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),
+                  _gin_fwd_reference(blocks, off, h, w1, b1, w2, b2))
+
+
+def test_gin_fwd_is_bitwise_reproducible(batch, dev):
+    _, sub = batch
+    blocks, off = _resolve_band(sub)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = sub.num_nodes
+    args = [torch.randn(s, device=dev, generator=gen) for s in
+            ((n, 64), (64, 64), 64, (64, 64), 64)]
+    runs = [kb.gin_fwd(blocks, off, *args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*runs)
 
 
 def test_spmm_and_gin_bwd_are_bitwise_reproducible(batch, dev):
@@ -335,6 +390,51 @@ def _gt_bwd_check(blocks, off, q, k, v, g):
     return dq, rho, dk, dv
 
 
+def _gt_fwd_check(blocks, off, q, k, v):
+    """The forward kernel against its plain version; (out, z) from the
+    kernel."""
+    out, z = kg.gt_fwd(blocks, off, q, k, v)
+    for a, w in zip((out, z), kg.gt_fwd_plain(blocks, off, q, k, v)):
+        close(a, w, rtol=1e-4)
+    return out, z
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gt_fwd_matches_plain_at_cases(dev, case):
+    """As the backward's case test below: in the edge cases an all-zero
+    row gives z = 0 and out = 0, and an entry 2 weighs its edge twice."""
+    blocks, off, arrays = case_inputs(case)
+    blocks, off = blocks.to(dev), off.to(dev)
+    q, k, v = (torch.from_numpy(a).to(dev) for a in arrays[:3])
+    outs = _gt_fwd_check(blocks, off, q, k, v)
+    if CASES[case][3]:
+        lo, hi = EMPTY
+        for x in outs:
+            assert float(x[lo:hi].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hd", kg.HEAD_WIDTHS)
+@pytest.mark.parametrize("gt", [True, False], ids=["narrow", "wide"])
+def test_gt_fwd_matches_plain_at_head_widths(batch, dev, gt, hd):
+    """Every (H, hd) with H * hd = 64 on the N and S batches, and at
+    hd = 32 also 8 heads (256 features a row: two passes of 128)."""
+    for seed, b in enumerate(batch):
+        blocks, off = _resolve_band(b, gt=gt)
+        for heads in (64 // hd,) + ((8,) if hd == 32 else ()):
+            _gt_fwd_check(blocks, off, *_gt_inputs(b.num_nodes, dev, seed,
+                                                   heads=heads, hd=hd)[:3])
+
+
+def test_gt_fwd_is_bitwise_reproducible(batch, dev):
+    _, sub = batch
+    blocks, off = _resolve_band(sub, gt=True)
+    q, k, v, _ = _gt_inputs(sub.num_nodes, dev, 8)
+    runs = [kg.gt_fwd(blocks, off, q, k, v) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_gt_bwd_passes_match_plain_at_cases(dev, case):
     """The inputs of the CPU tests against the Pallas kernels: head
@@ -378,14 +478,16 @@ def test_gt_twopass_backward_is_bitwise_reproducible(batch, dev):
 
 def test_gt_bwd_passes_reject_what_they_do_not_take(batch, dev):
     """H * hd not a multiple of 4, or blocks off a 16-byte boundary, raise
-    (launch counts stay 0); features off a 16-byte boundary are copied and
-    give the plain version's result."""
+    in the two passes and the forward (launch counts stay 0); features off
+    a 16-byte boundary are copied and give the plain version's result."""
     g, _ = batch
     kg.reset_launch_counts()
     blocks, off = _resolve_band(g, gt=True)
     n = g.num_nodes
     q, k, v, gr = _gt_inputs(n, dev, 3, heads=3, hd=1)
-    z = kg.gt_fwd(blocks, off, q, k, v)[1]        # gt_fwd still takes it
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kg.gt_fwd(blocks, off, q, k, v)
+    z = kg.gt_fwd_plain(blocks, off, q, k, v)[1]
     rho = torch.zeros_like(z)
     with pytest.raises(ValueError, match="multiple of 4"):
         kg.gt_bwd_rows(blocks, off, q, k, v, gr, z)
@@ -398,17 +500,20 @@ def test_gt_bwd_passes_reject_what_they_do_not_take(batch, dev):
     flat[1:] = blocks.flatten()
     shifted = flat[1:].view(blocks.shape)
     with pytest.raises(ValueError, match="16-byte aligned"):
+        kg.gt_fwd(shifted, off, q, k, v)
+    with pytest.raises(ValueError, match="16-byte aligned"):
         kg.gt_bwd_rows(shifted, off, q, k, v, gr, z)
     with pytest.raises(ValueError, match="16-byte aligned"):
         kg.gt_bwd_cols(shifted, off, q, k, v, gr, z, rho)
-    assert kg.launch_counts() == {"gt_fwd": 1, "gt_bwd_rows": 0,
-                                  "gt_bwd_cols": 0, "gt_bwd_merged": 0}
+    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 0)
     # q 4 bytes past a boundary, contiguous: copied, then launched
     qs = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
     qs.copy_(q)
     assert qs.data_ptr() % 16
     _gt_bwd_check(blocks, off, qs, k, v, gr)
+    _gt_fwd_check(blocks, off, qs, k, v)
     assert kg.launch_counts()["gt_bwd_rows"] == 1
+    assert kg.launch_counts()["gt_fwd"] == 1
 
 
 @pytest.mark.parametrize("bwd", ["twopass", "merged"])
