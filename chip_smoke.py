@@ -28,10 +28,27 @@ Phases; any failure raises and exits non-zero before the last line:
      starts with every launch count at 0, and each kernel's count must be
      its expected per-step count times the steps, the pooling must take
      its kernel branch and the encoders their band branches.
-  6. where the step time goes: 3 steady steps of each encoder's main path
+  6. the pretrain verb and its options, at the same width, batch and
+     optimizer: (a) the committed JAX checkpoint
+     outputs/pre_training_PCQM4Mv2_GIN_64_4_1.msgpack, read by the port's
+     own codec, gives on the card the float64 CPU losses on the benchmark
+     batch; (b) ``cli.main(["pretrain", "--curriculum", ...])`` on 512
+     synthetic molecules for 2 epochs with autosave: three stages, every
+     loss finite, each stage's checkpoint written, the launch counts those
+     of the steps taken, every stage skipped on a rerun; a run stopped
+     after epoch 0 and resumed to epoch 1 against one never stopped
+     (epoch losses rtol 1e-3, weights atol 10 lr: the card's index_add_
+     sums with atomics); (c) each new option (s2s readout, attention off,
+     reference KL, logM reconstruction, dense reconstruction): card losses
+     against float64 CPU, then one optimizer step; (d) the repaired widths,
+     4 steps each of ``run_pretrain``: GIN at hidden 256 (banded SpMM
+     branch) and 30 (fused kernels), the transformer at 1 head of 64 and
+     at hidden 96 with 8 heads of 12 (zero-padded to 16), with their
+     launch and branch counts and step times.
+  7. where the step time goes: 3 steady steps of each encoder's main path
      under torch.profiler; device time by kernel and the device's busy
      share.
-  7. one JSON line of the kernels, the nvidia-smi line, and
+  8. one JSON line of the kernels, the nvidia-smi line, and
      {"ok": true, "device": {...}} as the last line.
 """
 
@@ -39,15 +56,19 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
+from scgib_tpu_torch import cli  # noqa: E402
 from scgib_tpu_torch.cli import run_pretrain  # noqa: E402
 from scgib_tpu_torch.data.loader import (GraphDataset,  # noqa: E402
                                          batch_iterator, plan_capacities)
@@ -59,7 +80,11 @@ from scgib_tpu_torch.ops import pool as pool_mod  # noqa: E402
 from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
 from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
 from scgib_tpu_torch.ops.kernels import gt_flash as kg  # noqa: E402
-from scgib_tpu_torch.utils.params import init_flax_style_  # noqa: E402
+from scgib_tpu_torch.train import checkpoint  # noqa: E402
+from scgib_tpu_torch.train.trainer import make_pretrain_step  # noqa: E402
+from scgib_tpu_torch.utils.msgpack_codec import unpackb  # noqa: E402
+from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
+                                          init_flax_style_, sorted_leaves)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -70,6 +95,16 @@ GRAD_RTOL = 1e-3              # gradients, card vs float64 CPU, per tensor
 GRAD_FLOOR = 1e-3             # ... relative to max(|that tensor|, this
                               # fraction of the largest gradient)
 STEPS = 6                     # main-path optimizer steps (1 warm-up)
+RESUME_RTOL = 1e-3            # epoch losses, resumed run vs uninterrupted
+RESUME_ATOL_LR = 10           # weights, resumed vs uninterrupted: 10 lr
+WIDTH_STEPS = 4               # steps of each repaired width (1 warm-up)
+CHECKPOINT = os.path.join(ROOT, "outputs",
+                          "pre_training_PCQM4Mv2_GIN_64_4_1.msgpack")
+VERB_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_verb")
+GIN_PER_STEP = {"gin_fwd": 8, "gin_bwd": 8, "spmm_self": 8, "spmm": 2,
+                "pool": 1}
+GT_PER_STEP = {"gt_fwd": 10, "gt_bwd_rows": 10, "gt_bwd_cols": 10,
+               "spmm": 2, "pool": 1}
 MERGED_STEPS = 2              # steps with the merged attention backward
 HEADS, HEAD_DIM = 8, 8        # the graph transformer's attention
 # wrapper -> (source, TPU kernel line, CUDA kernel)
@@ -84,11 +119,8 @@ PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gt_bwd_merged": ("gt_flash", 181, "gt_bwd_merged_kernel")}
 # main-path run -> (run_pretrain arguments, steps, launches per step; the
 # wrappers not named launch 0 times)
-RUNS = {"GIN": ({}, STEPS, {"gin_fwd": 8, "gin_bwd": 8, "spmm_self": 8,
-                            "spmm": 2, "pool": 1}),
-        "Transformer": ({"encoder": "Transformer"}, STEPS,
-                        {"gt_fwd": 10, "gt_bwd_rows": 10, "gt_bwd_cols": 10,
-                         "spmm": 2, "pool": 1}),
+RUNS = {"GIN": ({}, STEPS, GIN_PER_STEP),
+        "Transformer": ({"encoder": "Transformer"}, STEPS, GT_PER_STEP),
         "Transformer-merged": ({"encoder": "Transformer",
                                 "gt_bwd": "merged"}, MERGED_STEPS,
                                {"gt_fwd": 10, "gt_bwd_merged": 10,
@@ -339,13 +371,58 @@ def gt_kernel_phase(g, sub, dev, gen):
                                  f"{worst:.3e}")
     for rec in records:
         rec["library_note"] = NO_LIBRARY
-    for kernel in ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols"):
+    for kernel in ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged"):
         info = kg.kernel_info(kernel, HEAD_DIM)
         print(f"resources {kernel}_kernel hd={HEAD_DIM}: {info}", flush=True)
         for rec in records:
             if rec["name"] == kernel:
                 rec["resources"] = info
     return records
+
+
+def card_vs_float64(model, g, sub, label, grads=True):
+    """Deterministic losses (and, with ``grads``, gradients) of ``model`` on
+    the card against a float64 copy of it on the CPU plain path, on the
+    same batch; raises where they disagree."""
+    ref = copy.deepcopy(model).to("cpu", torch.float64)
+    model.to(g.node_feat.device)
+    g64, sub64 = g.to("cpu"), sub.to("cpu")
+    for name in ("node_feat", "logm_targets", "logm_weights"):
+        if getattr(g64, name) is not None:
+            setattr(g64, name, getattr(g64, name).double())
+    results = []
+    for m, gb, sb in ((model, g, sub), (ref, g64, sub64)):
+        m.train()
+        with torch.set_grad_enabled(grads):
+            losses = m(gb, sb)
+            if grads:
+                losses.total.backward()
+        results.append(([float(v.detach()) for v in losses],
+                        {k: p.grad.detach().cpu().double()
+                         for k, p in m.named_parameters()} if grads else {}))
+    (l_dev, g_dev), (l_ref, g_ref) = results
+    for a, b, name in zip(l_dev, l_ref, ("kl", "contrastive", "recon")):
+        if not (math.isfinite(a) and abs(a - b) <= MODEL_RTOL * abs(b)):
+            raise AssertionError(f"{label}: loss {name}: card {a} vs "
+                                 f"float64 {b}")
+    if not grads:
+        print(f"model ({label}) card vs float64 CPU: losses {l_dev} vs "
+              f"{l_ref} (tol {MODEL_RTOL})", flush=True)
+        return
+    # Some gradients are zero but for rounding (biases feeding a BatchNorm,
+    # the attention scorer's bias); they are held against GRAD_FLOOR of the
+    # largest gradient.  On the CPU, float32 against float64 leaves them
+    # 3e-4 of that apart at this batch.
+    floor = GRAD_FLOOR * max(float(v.abs().max()) for v in g_ref.values())
+    errs = sorted((float((g_dev[k] - g_ref[k]).abs().max())
+                   / max(float(g_ref[k].abs().max()), floor), k)
+                  for k in g_ref)
+    worst = errs[-1][0]
+    print(f"model ({label}) card vs float64 CPU: losses {l_dev} vs "
+          f"{l_ref}; worst "
+          f"gradient rel errs {errs[-3:]} (tol {GRAD_RTOL})", flush=True)
+    if not worst <= GRAD_RTOL:
+        raise AssertionError(f"gradients disagree: {worst:.3e}")
 
 
 def model_phase(g, sub, dev, encoder="GIN"):
@@ -358,36 +435,7 @@ def model_phase(g, sub, dev, encoder="GIN"):
     for m in model.modules():
         if isinstance(m, encoders.GraphTransformerLayer):
             m.dropout = 0.0
-    ref = copy.deepcopy(model).double()
-    model.to(dev)
-    g64, sub64 = g.to("cpu"), sub.to("cpu")
-    g64.node_feat = g64.node_feat.double()
-    results = []
-    for m, gb, sb in ((model, g, sub), (ref, g64, sub64)):
-        m.train()
-        losses = m(gb, sb)
-        losses.total.backward()
-        results.append(([float(v.detach()) for v in losses],
-                        {k: p.grad.detach().cpu().double()
-                         for k, p in m.named_parameters()}))
-    (l_dev, g_dev), (l_ref, g_ref) = results
-    for a, b, name in zip(l_dev, l_ref, ("kl", "contrastive", "recon")):
-        if not (math.isfinite(a) and abs(a - b) <= MODEL_RTOL * abs(b)):
-            raise AssertionError(f"loss {name}: card {a} vs float64 {b}")
-    # Some gradients are zero but for rounding (biases feeding a BatchNorm,
-    # the attention scorer's bias); they are held against GRAD_FLOOR of the
-    # largest gradient.  On the CPU, float32 against float64 leaves them
-    # 3e-4 of that apart at this batch.
-    floor = GRAD_FLOOR * max(float(v.abs().max()) for v in g_ref.values())
-    errs = sorted((float((g_dev[k] - g_ref[k]).abs().max())
-                   / max(float(g_ref[k].abs().max()), floor), k)
-                  for k in g_ref)
-    worst = errs[-1][0]
-    print(f"model ({encoder}) card vs float64 CPU: losses {l_dev} vs "
-          f"{l_ref}; worst "
-          f"gradient rel errs {errs[-3:]} (tol {GRAD_RTOL})", flush=True)
-    if not worst <= GRAD_RTOL:
-        raise AssertionError(f"gradients disagree: {worst:.3e}")
+    card_vs_float64(model.to(dev), g, sub, encoder)
 
 
 def profile_phase(encoder="GIN"):
@@ -444,12 +492,20 @@ def main():
     print(f"device: {kind} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | nvidia-smi: {smi}", flush=True)
 
+    phase_s = {}
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        phase_s[phase] = now - clock[0]
+        clock[0] = now
+        print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
+
     # 2. build
-    t0 = time.perf_counter()
     kbuild.load(*sorted({src for src, _, _ in PATH.values()}))
     kb.build()
     kg.build()
-    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    lap("2 build")
     for name, log in kbuild.logs.items():
         print(f"nvcc {name}.cu:\n{log}", flush=True)
 
@@ -466,19 +522,27 @@ def main():
         raise AssertionError("benchmark batch does not fit the narrow "
                              "attention geometry")
     records = kernel_phase(g, sub, dev)
+    lap("3 kernels")
 
     # 4. full model, card vs CPU
     for encoder in ("GIN", "Transformer"):
         model_phase(g, sub, dev, encoder)
+    lap("4 model")
 
     # 5. main paths
     runs = {name: main_path(name, *spec) for name, spec in RUNS.items()}
+    lap("5 main paths")
 
-    # 6. where the step time goes
+    # 6. the pretrain verb, its options and the repaired widths
+    verb = verb_phase(g, sub, dev, ds, caps)
+    lap("6 verb, options, widths")
+
+    # 7. where the step time goes
     profiles = {encoder: profile_phase(encoder)
                 for encoder in ("GIN", "Transformer")}
+    lap("7 profile")
 
-    # 7. report
+    # 8. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -499,17 +563,20 @@ def main():
     print(json.dumps({"kernels": kernels,
                       "step_ms": {k: r["step_ms"] for k, r in runs.items()},
                       "steps": {k: r["steps"] for k, r in runs.items()},
-                      "profile": profiles}), flush=True)
+                      "verb": verb, "profile": profiles,
+                      "phase_s": phase_s}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def main_path(name, kwargs, steps, per_step):
+def main_path(name, kwargs, steps, per_step, band=None):
     """One main-path run: every launch count set to 0, ``run_pretrain`` at
     full width, the counts read; each must be its per-step count times
-    the steps (0 for the wrappers not in ``per_step``)."""
+    the steps (0 for the wrappers not in ``per_step``), and every conv or
+    attention must take the ``band`` branch (by default the fused GIN
+    layer's, or the narrow attention's)."""
     reset_launch_counts()
     pool_mod.branch_counts.clear()
     encoders.branch_counts.clear()
@@ -534,10 +601,190 @@ def main_path(name, kwargs, steps, per_step):
             raise AssertionError(f"{name}: {kernel} launched "
                                  f"{counts[kernel]} times, expected {want}")
     layers = 10 if "encoder" in kwargs else 8      # 2 encoders x layers
-    band = "gt_band_64x128" if "encoder" in kwargs else "band"
+    band = band or ("gt_band_64x128" if "encoder" in kwargs else "band")
     if branches != ({"banded": steps}, {band: layers * steps}):
         raise AssertionError(f"{name} left the kernel branches: {branches}")
     return {"counts": counts, "step_ms": step_ms, "steps": records}
+
+
+# --- 6. the pretrain verb, its options and the repaired widths ---------------
+
+OPTIONS = {"readout s2s": {"readout": "s2s"}, "use_att 0": {"use_att": False},
+           "kl_mode reference": {"kl_mode": "reference"},
+           "recons_type logM": {"recons_type": "logM"},
+           "recons_impl dense": {"recons_impl": "dense"}}
+# run -> (run_pretrain arguments, launches per step, encoder branch)
+WIDTH_RUNS = {
+    "GIN hidden 256": ({"hidden": 256}, {"spmm": 8 * 2 + 2, "pool": 1},
+                       "band_spmm"),
+    "GIN hidden 30": ({"hidden": 30}, GIN_PER_STEP, "band"),
+    "Transformer 1 head of 64": ({"encoder": "Transformer", "num_heads": 1},
+                                 GT_PER_STEP, "gt_band_64x128"),
+    "Transformer hidden 96, 8 heads of 12": (
+        {"encoder": "Transformer", "hidden": 96}, GT_PER_STEP,
+        "gt_band_64x128")}
+
+
+def expect_counts(label, per_step, steps):
+    counts = launch_counts()
+    for kernel in PATH:
+        want = per_step.get(kernel, 0) * steps
+        if counts[kernel] != want:
+            raise AssertionError(f"{label}: {kernel} launched "
+                                 f"{counts[kernel]} times, expected {want}")
+    return counts
+
+
+def verb_run(label, argv):
+    """``cli.main(argv)`` with the counts set to 0 before; returns its
+    result, the counts and the seconds it took."""
+    reset_launch_counts()
+    pool_mod.branch_counts.clear()
+    encoders.branch_counts.clear()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"verb {label}: {secs:.2f} s; launches {launch_counts()}; "
+          f"branches {dict(pool_mod.branch_counts)} "
+          f"{dict(encoders.branch_counts)}", flush=True)
+    return out, secs
+
+
+def check_verb_counts(label, steps):
+    """The launch and branch counts of ``steps`` GIN steps, as
+    ``main_path`` checks them."""
+    expect_counts(label, GIN_PER_STEP, steps)
+    branches = (dict(pool_mod.branch_counts), dict(encoders.branch_counts))
+    if branches != ({"banded": steps}, {"band": 8 * steps}):
+        raise AssertionError(f"{label} left the kernel branches: {branches}")
+
+
+def verb_phase(g, sub, dev, ds, caps):
+    """Phase 6; returns its times and readings."""
+    report = {}
+
+    # (a) the committed JAX checkpoint, read by the port's codec
+    t0 = time.perf_counter()
+    variables, meta = checkpoint.load_checkpoint(CHECKPOINT)
+    model = PretrainModel(9, hidden=64, d_transfer=32, deterministic=True)
+    model.load_state_dict(from_jax_variables(variables))
+    card_vs_float64(model.to(dev), g, sub, "committed checkpoint",
+                    grads=False)
+    report["checkpoint_s"] = time.perf_counter() - t0
+
+    # (b) the verb: curriculum with autosave, skip on rerun, resume
+    shutil.rmtree(VERB_DIR, ignore_errors=True)
+    os.makedirs(VERB_DIR)
+    base = ["pretrain", "--synthetic", "512", "--batch_size", "128",
+            "--lr", "1e-4", "--weight_decay", "5e-5", "--epochs", "2"]
+    curriculum = base + ["--curriculum", "--out",
+                         os.path.join(VERB_DIR, "x"), "--autosave",
+                         os.path.join(VERB_DIR, "auto.msgpack")]
+    stages, secs = verb_run("curriculum", curriculum)
+    steps = sum(st["info"]["throughput"]["steps"] for st in stages)
+    check_verb_counts("curriculum", steps)
+    for st in stages:
+        if not all(math.isfinite(x) for x in st["info"]["history"]):
+            raise AssertionError(f"stage {st['stage']}: non-finite loss "
+                                 f"{st['info']['history']}")
+        checkpoint.load_checkpoint(st["path"])
+    report["curriculum"] = {"s": secs, "steps": steps,
+                            "history": [st["info"]["history"]
+                                        for st in stages]}
+    stages, secs = verb_run("curriculum rerun", curriculum)
+    if [st["skipped"] for st in stages] != [True] * 3:
+        raise AssertionError(f"the rerun did not skip every stage: {stages}")
+    expect_counts("curriculum rerun", {}, 0)
+    report["rerun_s"] = secs
+
+    full, secs = verb_run("2 epochs", base + ["--out", os.path.join(
+        VERB_DIR, "full.msgpack")])
+    check_verb_counts("2 epochs", full["throughput"]["steps"])
+    resumed_args = ["--autosave", os.path.join(VERB_DIR, "resume.msgpack"),
+                    "--out", os.path.join(VERB_DIR, "resumed.msgpack")]
+    first, _ = verb_run("epoch 0, autosaved",
+                        base[:-1] + ["1"] + resumed_args)
+    resumed, _ = verb_run("resumed to epoch 1", base + resumed_args)
+    check_verb_counts("resumed to epoch 1", resumed["throughput"]["steps"])
+    if resumed["throughput"]["steps"] != first["throughput"]["steps"]:
+        raise AssertionError("the resumed run did not take epoch 1 alone")
+    for a, b in zip(resumed["history"], full["history"]):
+        if not abs(a - b) <= RESUME_RTOL * abs(b):
+            raise AssertionError(f"resumed epoch losses {resumed['history']} "
+                                 f"vs uninterrupted {full['history']}")
+    # Weights: entries whose gradient is zero but for rounding (Adam's
+    # second moment below 1e-5 of the largest, in RMS; the gradient mask of
+    # tests/test_torch_trainer.py) step +-lr by the sign of the rounding, so
+    # two runs may part by up to 2 lr a step on them; every other entry is
+    # held at RESUME_ATOL_LR lr.
+    with open(os.path.join(VERB_DIR, "resume.msgpack"), "rb") as f:
+        nu = unpackb(f.read())["state"]["opt_state"]["0"]["1"]["nu"]
+    rms = np.sqrt(nu)
+    trap = rms <= 1e-5 * rms.max()
+    names, diffs = [], []
+    for (path, a), (_, b) in zip(
+            sorted_leaves(resumed["best_variables"]["params"]),
+            sorted_leaves(full["best_variables"]["params"])):
+        names += [".".join(path)] * a.size
+        diffs.append(np.abs(a - b).ravel())
+    diffs = np.concatenate(diffs)
+    steps = first["throughput"]["steps"] + resumed["throughput"]["steps"]
+    kept, trapped = diffs[~trap], diffs[trap]
+    worst = float(kept.max())
+    worst_trap = float(trapped.max()) if trapped.size else 0.0
+    top = [(float(diffs[i]), names[i], bool(trap[i]))
+           for i in np.argsort(diffs)[-3:]]
+    print(f"resume vs uninterrupted: epoch losses {resumed['history']} vs "
+          f"{full['history']} (rtol {RESUME_RTOL}); best epochs "
+          f"{resumed['best_epoch']} {full['best_epoch']}; worst weight "
+          f"difference {worst:.3e} over {kept.size} entries (atol "
+          f"{RESUME_ATOL_LR} lr), {worst_trap:.3e} over the {trapped.size} "
+          f"rounding-gradient entries (atol 2 lr x {steps} steps); largest "
+          f"(difference, parameter, rounding-gradient): {top}", flush=True)
+    if not (resumed["best_epoch"] == full["best_epoch"]
+            and worst <= RESUME_ATOL_LR * 1e-4
+            and worst_trap <= 2 * steps * 1e-4):
+        raise AssertionError("resumed weights differ from uninterrupted")
+    report["resume"] = {"history": resumed["history"],
+                        "uninterrupted": full["history"],
+                        "worst_weight_diff": worst,
+                        "worst_rounding_gradient_diff": worst_trap,
+                        "rounding_gradient_entries": int(trapped.size),
+                        "largest": top}
+    shutil.rmtree(VERB_DIR)
+
+    # (c) each new option: card vs float64 CPU, then one optimizer step
+    lg, lsub = next(batch_iterator(ds, 128, caps, shuffle=False, logm_k=1))
+    report["options"] = {}
+    for label, kw in OPTIONS.items():
+        t0 = time.perf_counter()
+        gb, sb = (lg.to(dev), lsub.to(dev)) if "recons_type" in kw else \
+            (g, sub)
+        model = PretrainModel(9, hidden=64, d_transfer=32,
+                              deterministic=True, **kw)
+        init_flax_style_(model, torch.Generator().manual_seed(3))
+        card_vs_float64(model.to(dev), gb, sb, label, grads=False)
+        step = make_pretrain_step(model, torch.optim.Adam(
+            model.parameters(), lr=1e-4, weight_decay=5e-5))
+        reset_launch_counts()
+        losses = step(gb, sb)
+        torch.cuda.synchronize()
+        if not all(math.isfinite(float(v)) for v in losses):
+            raise AssertionError(f"{label}: non-finite step {losses}")
+        adjacency = "recons_type" not in kw and "recons_impl" not in kw
+        expect_counts(label, GIN_PER_STEP if adjacency else
+                      dict(GIN_PER_STEP, spmm=0), 1)
+        report["options"][label] = time.perf_counter() - t0
+
+    # (d) the repaired widths
+    report["widths"] = {}
+    for label, (kwargs, per_step, band) in WIDTH_RUNS.items():
+        run = main_path(label, kwargs, WIDTH_STEPS, per_step, band)
+        report["widths"][label] = {"step_ms": run["step_ms"],
+                                   "counts": run["counts"]}
+    print(f"phase 6: {json.dumps(report)}", flush=True)
+    return report
 
 
 if __name__ == "__main__":

@@ -5,5 +5,7 @@ module layout and names and imports nothing of it (nor of JAX).  Hand-written
 CUDA kernels for the banded adjacency products and the graph-transformer
 attention live in ``csrc/`` and are built at first use
 (``ops/kernels/build.py``; wrappers in ``ops/kernels/banded.py`` and
-``ops/kernels/gt_flash.py``).
+``ops/kernels/gt_flash.py``).  ``cli.py`` is the ``pretrain`` verb; its
+checkpoints and autosaves are the JAX package's format
+(``train/checkpoint.py``).
 """

@@ -43,7 +43,9 @@
 // Now a group of lanes owns a row (a column in the column pass) with all
 // its heads: as many lanes as cover D in float4s, at least 4 (16 at
 // D = 64, so a warp takes two rows), a head's hd features on hd / 4
-// adjacent lanes (or 4 / hd heads a lane below hd = 4).  The group reads
+// adjacent lanes (or 4 / hd heads a lane below hd = 4; hd is a power of
+// two up to 128, so a head never leaves its warp, and the wrapper pads
+// any other width with zeros up to the next one).  The group reads
 // the row's gate once, as 16-byte vectors, together with q_i (and g_i and
 // z_i in the backward); finds the nonzeros by warp ballot (gate_walk.cuh,
 // shared with banded.cu's band_row); and gathers the rows they name,
@@ -107,6 +109,8 @@ constexpr int GATHER = 4;         // nonzeros whose rows are loaded together
 constexpr int MIN_LANES = 4;      // a row's lanes: at BW = 256 one segment
                                   // of gate vectors (gate_walk::SEGV a lane)
                                   // then covers the band
+constexpr int MAX_MERGED_HD = 32;  // gt_bwd_merged keeps 3 hd floats a lane
+constexpr int MAX_PASS_HD = 128;   // a head on hd / 4 <= 32 lanes
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -574,15 +578,16 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
   }
 }
 
-bool bad_geometry(int BW, int hd) {
+// Head widths: a power of two up to max_hd.
+bool bad_geometry(int BW, int hd, int max_hd) {
   return BW <= 0 || BW % 32 != 0 || BW > 32 * MAX_SLOTS || hd <= 0 ||
-         hd > 32 || (hd & (hd - 1)) != 0;
+         hd > max_hd || (hd & (hd - 1)) != 0;
 }
 
 // The lane-group kernels (gt_fwd and the two-pass backward) read float4s:
-// D a multiple of 4.
+// D a multiple of 4.  A head spans at most a warp (hd <= 128).
 bool bad_pass_geometry(int BW, int H, int hd) {
-  return bad_geometry(BW, hd) || H <= 0 || (H * hd) % 4 != 0;
+  return bad_geometry(BW, hd, MAX_PASS_HD) || H <= 0 || (H * hd) % 4 != 0;
 }
 
 unsigned pass_grid(int n_tiles, int TL, int lpr) {
@@ -592,7 +597,8 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
 
 }  // namespace
 
-// Instantiate CALL for the head width: hd in {1, 2, 4, 8, 16, 32}.
+// Instantiate CALL for the head width: hd in {1, 2, 4, 8, 16, 32} (the
+// merged pass, whose lanes hold a head's hd features three times over).
 #define SCGIB_DISPATCH_HD(hd, ...)                         \
   switch (hd) {                                            \
     case 1: { constexpr int HD = 1; __VA_ARGS__; } break;  \
@@ -602,6 +608,23 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
     case 16: { constexpr int HD = 16; __VA_ARGS__; } break; \
     case 32: { constexpr int HD = 32; __VA_ARGS__; } break; \
     default: return (int)cudaErrorInvalidValue;            \
+  }
+
+// The lane-group kernels also take hd = 64 and 128: a lane holds four
+// features whatever hd is, and a head spans 16 or 32 lanes, so the per-head
+// butterfly stays inside a warp and the registers do not grow.  Other
+// widths are zero-padded up to one of these by the wrapper.
+#define SCGIB_DISPATCH_PASS_HD(hd, ...)                      \
+  switch (hd) {                                              \
+    case 1: { constexpr int HD = 1; __VA_ARGS__; } break;    \
+    case 2: { constexpr int HD = 2; __VA_ARGS__; } break;    \
+    case 4: { constexpr int HD = 4; __VA_ARGS__; } break;    \
+    case 8: { constexpr int HD = 8; __VA_ARGS__; } break;    \
+    case 16: { constexpr int HD = 16; __VA_ARGS__; } break;  \
+    case 32: { constexpr int HD = 32; __VA_ARGS__; } break;  \
+    case 64: { constexpr int HD = 64; __VA_ARGS__; } break;  \
+    case 128: { constexpr int HD = 128; __VA_ARGS__; } break; \
+    default: return (int)cudaErrorInvalidValue;              \
   }
 
 extern "C" {
@@ -616,8 +639,9 @@ int scgib_gt_fwd(const void* blocks, const void* col_off, int n_tiles, int TL,
   const int lpr = lanes_per_row(H * hd);
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_HD(hd, gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
-                                            PASS_THREADS, 0, s>>>(
+  SCGIB_DISPATCH_PASS_HD(
+      hd, gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0,
+                              s>>>(
       (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW, rows,
       (const float*)q, (const float*)k, (const float*)v, H, scale, clamp,
       eps, lpr, (float*)out, (float*)z));
@@ -635,8 +659,9 @@ int scgib_gt_bwd_rows(const void* blocks, const void* col_off, int n_tiles,
   const int lpr = lanes_per_row(H * hd);
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_HD(hd, gt_bwd_rows_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
-                                                 PASS_THREADS, 0, s>>>(
+  SCGIB_DISPATCH_PASS_HD(
+      hd, gt_bwd_rows_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
+                                   PASS_THREADS, 0, s>>>(
       (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW, rows,
       (const float*)q, (const float*)k, (const float*)v, (const float*)g,
       (const float*)z, H, scale, clamp, eps, lpr, (float*)dq, (float*)rho));
@@ -655,8 +680,9 @@ int scgib_gt_bwd_cols(const void* blocks, const void* col_off, int n_tiles,
   const int lpr = lanes_per_row(H * hd);
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_HD(hd, gt_bwd_cols_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
-                                                 PASS_THREADS, 0, s>>>(
+  SCGIB_DISPATCH_PASS_HD(
+      hd, gt_bwd_cols_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
+                                   PASS_THREADS, 0, s>>>(
       (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW, rows,
       (const float*)q, (const float*)k, (const float*)v, (const float*)g,
       (const float*)z, (const float*)rho, H, scale, clamp, eps, lpr,
@@ -670,7 +696,7 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
                         const void* v, const void* g, const void* z, int H,
                         int hd, float scale, float clamp, float eps,
                         void* dq, void* dk, void* dv, void* stream) {
-  if (bad_geometry(BW, hd)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(BW, hd, MAX_MERGED_HD)) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_tiles, H);
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(hd, gt_bwd_merged_kernel<HD><<<grid, THREADS, 0, s>>>(
@@ -682,20 +708,26 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
 }
 
 // For the report: registers a thread, shared memory a block and blocks an
-// SM of gt_bwd_rows_kernel (which = 0), gt_bwd_cols_kernel (1) or
-// gt_fwd_kernel (2) at head width hd.
+// SM of gt_bwd_rows_kernel (which = 0), gt_bwd_cols_kernel (1),
+// gt_fwd_kernel (2) or gt_bwd_merged_kernel (3) at head width hd.
 int scgib_gt_kernel_info(int which, int hd, int* info) {
   const void* kernel = nullptr;
-  SCGIB_DISPATCH_HD(
-      hd, kernel = which == 0   ? (const void*)gt_bwd_rows_kernel<HD>
-                   : which == 1 ? (const void*)gt_bwd_cols_kernel<HD>
-                                : (const void*)gt_fwd_kernel<HD>);
+  int threads = PASS_THREADS;
+  if (which == 3) {
+    SCGIB_DISPATCH_HD(hd, kernel = (const void*)gt_bwd_merged_kernel<HD>);
+    threads = THREADS;
+  } else {
+    SCGIB_DISPATCH_PASS_HD(
+        hd, kernel = which == 0   ? (const void*)gt_bwd_rows_kernel<HD>
+                     : which == 1 ? (const void*)gt_bwd_cols_kernel<HD>
+                                  : (const void*)gt_fwd_kernel<HD>);
+  }
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
   int per_sm = 0;
   if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, PASS_THREADS, 0)))
+           &per_sm, kernel, threads, 0)))
     return err;
   info[0] = attr.numRegs;
   info[1] = (int)attr.sharedSizeBytes;

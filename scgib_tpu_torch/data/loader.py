@@ -2,7 +2,9 @@
 
 Counterpart of ``scgib_tpu/data/loader.py`` without the native packer, the
 wire format and device prefetch: ego-nets come from the NumPy BFS
-(``graph/egonet.py``) and batches from the per-graph packers.
+(``graph/egonet.py``) and batches from the per-graph packers.  With
+``logm_k`` a batch carries the block-diagonal k-step transition targets of
+the logM reconstruction loss (``graph/transition.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from ..graph.batching import (BucketSpec, EgoNets, GraphData, pack_graphs,
                               pack_subgraphs)
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..graph.egonet import extract_egonets
+from ..graph.transition import (pack_logm_targets, transition_logm,
+                                transition_logm_batched)
 
 
 @dataclasses.dataclass
@@ -33,6 +37,19 @@ class GraphDataset:
 
     def __len__(self) -> int:
         return len(self.graphs)
+
+    def logms(self, k: int) -> List[List[np.ndarray]]:
+        """Each graph's [logM_1 .. logM_k], computed once for ``k`` and
+        kept (the batched form from 32 graphs on, as in the JAX
+        package)."""
+        cache = getattr(self, "_logms", None)
+        if cache is None or cache[0] != k:
+            if len(self.graphs) >= 32:
+                cache = (k, transition_logm_batched(self.graphs, k))
+            else:
+                cache = (k, [transition_logm(g, k) for g in self.graphs])
+            self._logms = cache
+        return cache[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +120,13 @@ def plan_batches(ds: GraphDataset, batch_size: int, caps: Capacities,
     return plans
 
 
-def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities
+def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
+               logm_k: Optional[int] = None
                ) -> Tuple[GraphBatch, SubgraphBatch]:
     """Pack the graphs ``sel`` of ``ds``.  ``gt_fits`` comes from the
     dataset's largest graph and ego-net (computed once, kept on ``ds``),
-    so it is the same for every batch of the dataset."""
+    so it is the same for every batch of the dataset.  ``logm_k``: attach
+    the k-step logM targets and weights to the GraphBatch."""
     graphs = [ds.graphs[j] for j in sel]
     egos = [ds.egonets[j] for j in sel]
     maxima = getattr(ds, "_gt_maxima", None)
@@ -120,13 +139,18 @@ def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities
                     gt_fits=gt_band_fits(maxima[0], caps.nodes))
     sub = pack_subgraphs(graphs, egos, caps.sub_nodes, caps.sub_edges,
                          gt_fits=gt_band_fits(maxima[1], caps.sub_nodes))
+    if logm_k:
+        logms = ds.logms(logm_k)
+        T, W = pack_logm_targets(graphs, [logms[j] for j in sel], caps.nodes,
+                                 logm_k)
+        g = dataclasses.replace(g, logm_targets=T, logm_weights=W)
     return g, sub
 
 
 def batch_iterator(ds: GraphDataset, batch_size: int, caps: Capacities,
                    shuffle: bool = True, seed: int = 0,
-                   drop_last: bool = False
+                   drop_last: bool = False, logm_k: Optional[int] = None
                    ) -> Iterator[Tuple[GraphBatch, SubgraphBatch]]:
     """Yield packed (GraphBatch, SubgraphBatch) pairs of NumPy arrays."""
     for sel in plan_batches(ds, batch_size, caps, shuffle, seed, drop_last):
-        yield pack_batch(ds, sel, caps)
+        yield pack_batch(ds, sel, caps, logm_k)

@@ -80,6 +80,9 @@ class GraphBatch(_Batch):
       band_blocks  [T, 128, 256] bf16 0/1 banded adjacency, or None
       band_col_off [T]  index   64-aligned window starts, or None
       gt_fits      bool         the narrow (64, 128) geometry fits
+      logm_targets [k, N, N] float  block-diagonal k-step logM targets,
+                                    or None (``pack_batch(logm_k=...)``)
+      logm_weights [N, N] float     1/n_g^2 inside each graph's block
     """
 
     node_feat: object
@@ -92,6 +95,8 @@ class GraphBatch(_Batch):
     band_blocks: Optional[object] = None
     band_col_off: Optional[object] = None
     gt_fits: bool = False
+    logm_targets: Optional[object] = None
+    logm_weights: Optional[object] = None
 
     @property
     def num_nodes(self) -> int:

@@ -4,9 +4,12 @@ Counterpart of ``scgib_tpu/models/encoders.py``.
 
 ``GIN``: ``num_convs`` layers of ``MLP(h_v + sum_{u->v} h_u)`` (GINConv,
 eps = 0) -> masked BatchNorm -> ReLU, re-zeroing padding rows after each.
-With a banded adjacency the conv is the fused layer
-(``ops/kernels/banded.py::gin_banded_layer``): its CUDA kernels on the card,
-its plain version on the CPU, with no size gate.
+With a banded adjacency a conv up to ``MAX_FUSED_DIM`` wide is the fused
+layer (``ops/kernels/banded.py::gin_banded_layer``): its CUDA kernels on the
+card, its plain version on the CPU, with no size gate.  A wider conv is
+``mlp(h + A h)`` with the banded product ``spmm_banded_fast`` (its kernel on
+the card) and the two Linear layers as plain products: the JAX package's
+XLA branch.  The choice depends on the conv's widths only.
 
 ``GraphTransformer``: a bias-free embedding, then ``num_layers + 1`` layers of
 per-edge attention with the unshifted ``exp(clamp(score / sqrt(hd), +-5))``
@@ -15,7 +18,8 @@ residual + LayerNorm; padding rows are masked once, after the last layer
 (every op of a layer is row-local or gated by the adjacency, so padding
 cannot leak into real rows).  With a banded adjacency the attention is
 ``ops/kernels/gt_flash.py::gt_flash_attention``: its CUDA kernels on the
-card, its plain versions on the CPU.
+card, its plain versions on the CPU, at any head width up to 128 (32
+with ``bwd="merged"``; a layer wider than that raises when it is built).
 
 A batch that does not fit the band takes the COO gather + segment-sum path;
 ``branch_counts`` records which path each conv or attention took (for the
@@ -31,8 +35,9 @@ from typing import Callable, Optional, Tuple
 import torch
 from torch import nn
 
-from ..ops.kernels.banded import gin_banded_layer
-from ..ops.kernels.gt_flash import gt_flash_attention
+from ..ops.kernels.banded import (MAX_FUSED_DIM, gin_banded_layer,
+                                   spmm_banded_fast)
+from ..ops.kernels.gt_flash import gt_flash_attention, served_head_width
 from ..ops.segment import segment_normalize_exp, segment_sum
 from ..ops.spmm import gather_sum, sddmm_dot
 from .layers import MLP2, MaskedBatchNorm
@@ -61,11 +66,16 @@ class GIN(nn.Module):
         h = _mask_rows(h, node_mask)
         for i in range(self.num_convs):
             mlp = getattr(self, f"conv{i}")
-            if band is not None:
+            fused = max(mlp.Dense_0.in_features, mlp.Dense_0.out_features,
+                        mlp.Dense_1.out_features) <= MAX_FUSED_DIM
+            if band is not None and fused:
                 branch_counts["band"] += 1
                 h = gin_banded_layer(band[0], band[1], h,
                                      mlp.Dense_0.weight.t(), mlp.Dense_0.bias,
                                      mlp.Dense_1.weight.t(), mlp.Dense_1.bias)
+            elif band is not None:
+                branch_counts["band_spmm"] += 1
+                h = mlp(h + spmm_banded_fast(band[0], band[1], h))
             else:
                 branch_counts["coo"] += 1
                 h = mlp(h + gather_sum(h, senders, receivers, n, edge_mask))
@@ -89,7 +99,7 @@ class GraphTransformerLayer(nn.Module):
     Linear [d, 3d], sliced [q | k | v]; LayerNorm eps 1e-6 as in flax.
     ``dropout`` is the FFN's rate (0.5); set it to 0 to turn it off.
     ``bwd`` picks the attention kernels' backward ("twopass" or
-    "merged")."""
+    "merged").  A head width the kernels cannot serve raises here."""
 
     def __init__(self, hidden: int, num_heads: int, dropout: float = 0.5,
                  bwd: str = "twopass"):
@@ -97,6 +107,7 @@ class GraphTransformerLayer(nn.Module):
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} is not a multiple of "
                              f"num_heads {num_heads}")
+        served_head_width(num_heads, hidden // num_heads, bwd)
         self.hidden = hidden
         self.num_heads = num_heads
         self.dropout = dropout

@@ -1,10 +1,14 @@
 """The S-CGIB pretraining model.
 
-Counterpart of ``scgib_tpu/models/scgib.py`` for the main path:
+Counterpart of ``scgib_tpu/models/scgib.py`` for pretraining:
 ``SCGIBCore`` (twin GIN or graph-transformer encoders, concrete-relaxation
 compression gate with per-graph noise, core<->candidate attention) in
-``coo`` sub-graph mode with the ``sum`` readout and attention on, and
-``PretrainModel`` with gram-form adjacency reconstruction.
+``coo`` sub-graph mode, with the ``sum`` or ``s2s`` (Set2Set) readout and
+the attention on or off, and ``PretrainModel`` with the ``corrected`` or
+``reference`` KL and the adjacency (gram or dense) or k-step logM
+reconstruction.  Submodules exist only where the JAX model has parameters
+for them (no ``attn_layer`` without the attention, ``reduce_d`` only with
+the ``s2s`` readout and the attention), so the two trees match.
 
 Noise: the compression gate takes two uniform draws per call (reference
 ``torch.rand`` at models.py:599, 650), and the graph transformer's dropout
@@ -29,7 +33,8 @@ from ..ops.segment import (segment_broadcast, segment_softmax,
 from .encoders import GraphTransformer, make_encoder
 from .layers import MLP2, SegmentBatchNorm
 from .losses import (contrastive_infonce, kl_loss, l2_normalize,
-                     recon_adj_loss)
+                     recon_adj_loss, recon_logm_loss)
+from .set2set import Set2Set
 
 Rand = Callable[[tuple], torch.Tensor]
 
@@ -93,7 +98,7 @@ class CoreFeatures(NamedTuple):
     interaction_map: torch.Tensor   # [N, 2d]
     kl_node: torch.Tensor           # [N, d]
     noisy: torch.Tensor             # [N, d]
-    clean_readout: torch.Tensor     # [G, d]
+    clean_readout: torch.Tensor     # [G, d] ([G, 2d] with s2s)
 
 
 class Compressor(nn.Module):
@@ -115,9 +120,14 @@ class SCGIBCore(nn.Module):
 
     def __init__(self, in_dim: int, hidden: int = 64, encoder: str = "GIN",
                  num_layers: int = 4, num_heads: int = 8,
+                 readout: str = "sum", use_att: bool = True,
                  gt_bwd: str = "twopass", gate_bias: float = 1e-4,
                  std_eps: float = 1e-7, deterministic: bool = False):
         super().__init__()
+        if readout not in ("sum", "s2s"):
+            raise ValueError(f"unknown readout {readout!r}")
+        self.readout = readout
+        self.use_att = use_att
         self.gate_bias = gate_bias
         self.std_eps = std_eps
         self.deterministic = deterministic
@@ -126,7 +136,18 @@ class SCGIBCore(nn.Module):
         self.encoder2 = make_encoder(encoder, in_dim, hidden, num_layers,
                                      num_heads, gt_bwd)
         self.compressor = Compressor(hidden)
-        self.attn_layer = nn.Linear(2 * hidden, 1)
+        if use_att:
+            self.attn_layer = nn.Linear(2 * hidden, 1)
+        if readout == "s2s":
+            self.s2s = Set2Set(hidden)
+            if use_att:
+                self.reduce_d = nn.Linear(2 * hidden, hidden)
+
+    def graph_readout(self, h, g: GraphBatch):
+        if self.readout == "sum":
+            return segment_sum(h, g.node_graph, g.num_graphs,
+                               mask=g.node_mask)
+        return self.s2s(h, g.node_graph, g.num_graphs, mask=g.node_mask)
 
     def compress(self, h, g: GraphBatch, rand: Optional[Rand]):
         """Gate lambda = sigmoid(logit(eps) + p), eps ~ U(bias, 1 - bias)."""
@@ -176,13 +197,16 @@ class SCGIBCore(nn.Module):
                               node_mask=sub.node_mask,
                               edge_mask=sub.edge_mask,
                               band=_resolve_band(sub, gt), **kw)
-        clean_readout = segment_sum(h, g.node_graph, g.num_graphs,
-                                    mask=g.node_mask)
+        clean_readout = self.graph_readout(h, g)
         noisy, kl_node = self.compression(h, g, rand)
         cand = sorted_segment_sum_banded(h_sub, sub.node_center, g.num_nodes,
                                          mask=sub.node_mask)
-        noisy_readout = segment_sum(noisy, g.node_graph, g.num_graphs,
-                                    mask=g.node_mask)
+        if not self.use_att:
+            return CoreFeatures(torch.cat([noisy, cand], -1), kl_node, noisy,
+                                clean_readout)
+        noisy_readout = self.graph_readout(noisy, g)
+        if self.readout == "s2s":
+            noisy_readout = self.reduce_d(noisy_readout)
         inter = torch.cat([segment_broadcast(noisy_readout, g.node_graph,
                                              g.num_graphs), cand], -1)
         att = self.attn_layer(inter)[:, 0]
@@ -204,35 +228,74 @@ class PretrainLosses(NamedTuple):
 
 
 class PretrainModel(nn.Module):
-    """Projection + core + head MLP + the three losses (KL, InfoNCE, gram
-    adjacency reconstruction), unit weights."""
+    """Projection + core + head MLP + the three losses (KL, InfoNCE,
+    reconstruction), unit weights.
+
+    ``kl_mode``: 'corrected' (mean over every graph) or 'reference' (the
+    last graph only, models.py:659).  ``recons_type``: 'adj' (adjacency,
+    ``recons_impl`` 'gram' or the literal 'dense') or 'logM' (k-step
+    transition targets of ``k_transition`` steps, passed in or carried by
+    the batch from ``batch_iterator(logm_k=...)``); any other value gives
+    a reconstruction term of 0, as in the JAX package."""
 
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
-                 num_heads: int = 8, gt_bwd: str = "twopass",
+                 num_heads: int = 8, readout: str = "sum",
+                 use_att: bool = True, recons_type: str = "adj",
+                 recons_impl: str = "gram", kl_mode: str = "corrected",
+                 k_transition: int = 1, gt_bwd: str = "twopass",
                  deterministic: bool = False, normalize_input: bool = True):
         super().__init__()
+        self.readout = readout
+        self.recons_type = recons_type
+        self.recons_impl = recons_impl
+        self.kl_mode = kl_mode
+        self.k_transition = k_transition
         self.normalize_input = normalize_input
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
+                              readout=readout, use_att=use_att,
                               gt_bwd=gt_bwd, deterministic=deterministic)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
+        if readout == "s2s":
+            self.s2s = Set2Set(hidden)
 
     def forward(self, g: GraphBatch, sub: SubgraphBatch,
-                rand: Optional[Rand] = None) -> PretrainLosses:
+                rand: Optional[Rand] = None,
+                logm_targets: Optional[torch.Tensor] = None,
+                logm_weights: Optional[torch.Tensor] = None
+                ) -> PretrainLosses:
         if rand is None:
             rand = uniform_draws(None, g.node_feat.device)
         x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub,
                                              self.normalize_input)
         feats = self.core.extract_features(g, sub, x_proj, x_sub_proj, rand)
         im = self.head_mlp(feats.interaction_map)
-        kl = kl_loss(feats.kl_node, g.node_mask)
-        noisy_readout = segment_sum(feats.noisy, g.node_graph, g.num_graphs,
-                                    mask=g.node_mask)
+        kl = kl_loss(feats.kl_node, g.node_mask, g.node_graph, g.graph_mask,
+                     mode=self.kl_mode)
+        if self.readout == "sum":
+            noisy_readout = segment_sum(feats.noisy, g.node_graph,
+                                        g.num_graphs, mask=g.node_mask)
+        else:
+            noisy_readout = self.s2s(feats.noisy, g.node_graph, g.num_graphs,
+                                     mask=g.node_mask)
         contrastive = contrastive_infonce(noisy_readout, feats.clean_readout,
                                           g.graph_mask)
-        recon = recon_adj_loss(im, g.senders, g.receivers, g.edge_mask,
-                               g.node_mask, band=_resolve_band(g))
+        if self.recons_type == "adj":
+            band = _resolve_band(g) if self.recons_impl == "gram" else None
+            recon = recon_adj_loss(im, g.senders, g.receivers, g.edge_mask,
+                                   g.node_mask, band=band,
+                                   impl=self.recons_impl)
+        elif self.recons_type == "logM":
+            if logm_targets is None:
+                logm_targets, logm_weights = g.logm_targets, g.logm_weights
+            if logm_targets is None or logm_weights is None:
+                raise ValueError("recons_type='logM' requires logm targets "
+                                 "(pass them or pack with logm_k)")
+            recon = recon_logm_loss(im, logm_targets, logm_weights,
+                                    self.k_transition)
+        else:
+            recon = im.new_zeros(())
         return PretrainLosses(kl=kl, contrastive=contrastive,
                               reconstruction=recon)

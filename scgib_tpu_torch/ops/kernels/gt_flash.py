@@ -15,8 +15,9 @@ and launches its kernel for a CUDA tensor, counting each launch that
 succeeded on its ``launches`` attribute; anything else raises.  The kernels
 compute in float32 and take any banded geometry [T, tile, band] with
 band a multiple of 32 up to 256 (the narrow (64, 128) and the wide
-(128, 256) ones) and a head width hd in {1, 2, 4, 8, 16, 32}.  The plain
-versions compute in their inputs' dtype.
+(128, 256) ones) and a head width hd in ``HEAD_WIDTHS`` (powers of two up
+to 128; ``gt_bwd_merged`` up to 32).  The plain versions compute in their
+inputs' dtype.  Each takes the score scale, 1 / sqrt(hd) by default.
 
 ``gt_fwd``, ``gt_bwd_rows`` and ``gt_bwd_cols`` read a row's features as
 16-byte vectors, a group of lanes per row with all its heads, and find the
@@ -28,7 +29,10 @@ say) is copied first.  ``gt_bwd_merged`` takes any H.
 ``gt_flash_attention`` is the autograd function: the forward, then the
 two-pass backward (rows, then columns; no atomics, so bitwise the same in
 every run) or, with ``bwd="merged"``, the single pass (the JAX package's
-default, selected there by ``SCGIB_GT_BWD_TWOPASS``).  See
+default, selected there by ``SCGIB_GT_BWD_TWOPASS``).  It takes any head
+width up to 128 (32 with ``bwd="merged"``): a width the kernels do not
+take is zero-padded up to ``served_head_width``, with the scale kept at
+1 / sqrt(hd), which changes no score and no gradient.  See
 ``csrc/gt_flash.cu`` for what bounds the kernels on an H100 and how the
 design answers it.
 """
@@ -44,7 +48,8 @@ from .banded import ALIGN, _dispatch, _ptr, _raise_on, _stream
 from .build import load
 
 KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged")
-HEAD_WIDTHS = (1, 2, 4, 8, 16, 32)
+HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
+MERGED_HEAD_WIDTHS = (1, 2, 4, 8, 16, 32)
 MAX_BAND = 256
 BWD = ("twopass", "merged")
 
@@ -80,6 +85,18 @@ def _scale(hd: int) -> float:
     return 1.0 / float(hd) ** 0.5
 
 
+def served_head_width(num_heads: int, hd: int, bwd: str = "twopass") -> int:
+    """The head width the kernels run a head of width ``hd`` at: the
+    smallest they take that is at least ``hd`` and gives a multiple of 4
+    features a row.  Raises ``ValueError`` past the widest."""
+    widths = MERGED_HEAD_WIDTHS if bwd == "merged" else HEAD_WIDTHS
+    for width in widths:
+        if width >= hd and (num_heads * width) % 4 == 0:
+            return width
+    raise ValueError(f"head width {hd} is wider than the attention kernels "
+                     f"take with bwd={bwd!r} (at most {widths[-1]})")
+
+
 # --- plain versions ----------------------------------------------------------
 
 def _per_tile(x, n_tiles, tile):
@@ -92,12 +109,13 @@ def _per_row(x):
     return x.permute(0, 2, 1).reshape(-1, x.shape[1])
 
 
-def _backward_entries(blocks, col_off, q, k, v, g, z, rho, clamp, eps):
+def _backward_entries(blocks, col_off, q, k, v, g, z, rho, clamp, eps,
+                      scale):
     """(W, dS, rho) per entry; rho [T, H, tile] is the row sums of G * W,
     computed when ``rho`` is None."""
     n_tiles, tile, band = blocks.shape
     _, num_heads, hd = q.shape
-    s, e = gt_scores(blocks, col_off, q, k, clamp)
+    s, e = gt_scores(blocks, col_off, q, k, clamp, scale)
     inv = (1.0 / (_per_tile(z, n_tiles, tile) + eps))[..., None]
     w = e * inv
     G = torch.einsum("tihd,tjhd->thij",
@@ -117,54 +135,62 @@ def _add_windows(col_off, win, n):
     return out.index_add_(0, idx.reshape(-1), win.flatten(0, 1))
 
 
-def gt_fwd_plain(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6):
+def gt_fwd_plain(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6,
+                 scale=None):
     """(out [N, H, hd], z [N, H])."""
     band = blocks.shape[2]
-    _, e = gt_scores(blocks, col_off, q, k, clamp)
+    _, e = gt_scores(blocks, col_off, q, k, clamp, scale)
     z = e.sum(-1)                                        # [T, H, tile]
     w = e / (z + eps)[..., None]
     out = torch.einsum("thij,tjhd->tihd", w, gt_windows(col_off, band, v))
     return out.reshape(q.shape), _per_row(z)
 
 
-def gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
+def gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
+                      scale=None):
     """(dq [N, H, hd], rho [N, H])."""
     band = blocks.shape[2]
+    scale = _scale(q.shape[2]) if scale is None else scale
     _, ds, rho = _backward_entries(blocks, col_off, q, k, v, g, z, None,
-                                   clamp, eps)
+                                   clamp, eps, scale)
     dq = torch.einsum("thij,tjhd->tihd", ds, gt_windows(col_off, band, k))
-    return dq.reshape(q.shape) * _scale(q.shape[2]), _per_row(rho)
+    return dq.reshape(q.shape) * scale, _per_row(rho)
 
 
 def gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp=5.0,
-                      eps=1e-6):
+                      eps=1e-6, scale=None):
     """(dk, dv) [N, H, hd] from the row pass's z and rho."""
     n_tiles, tile, _ = blocks.shape
     n, num_heads, hd = q.shape
+    scale = _scale(hd) if scale is None else scale
     w, ds, _ = _backward_entries(blocks, col_off, q, k, v, g, z, rho, clamp,
-                                 eps)
+                                 eps, scale)
     q_t = q.reshape(n_tiles, tile, num_heads, hd)
     g_t = g.reshape(n_tiles, tile, num_heads, hd)
     dk = _add_windows(col_off, torch.einsum("thij,tihd->tjhd", ds, q_t), n)
     dv = _add_windows(col_off, torch.einsum("thij,tihd->tjhd", w, g_t), n)
-    return dk * _scale(hd), dv
+    return dk * scale, dv
 
 
-def gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
+def gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
+                        scale=None):
     """(dq, dk, dv) [N, H, hd] in one pass."""
-    dq, rho = gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps)
+    dq, rho = gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps,
+                                scale)
     return (dq,) + gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho,
-                                     clamp, eps)
+                                     clamp, eps, scale)
 
 
 # --- wrappers ----------------------------------------------------------------
 
-def _gt_args(name, blocks, col_off, q, *others, vectors=False):
+def _gt_args(name, blocks, col_off, q, *others, vectors=False,
+             widths=HEAD_WIDTHS):
     """Validate the operands; returns (blocks, col_off int64, (T, tile,
     band), H, hd, [q, *others]), all contiguous.  ``others`` are [N, H, hd]
-    or [N, H] float32.  ``vectors``: the kernel reads blocks and the
-    feature rows in 16-byte vectors, so H * hd must be a multiple of 4 and
-    blocks 16-byte aligned; a feature operand that is not is copied."""
+    or [N, H] float32; hd one of ``widths``.  ``vectors``: the kernel reads
+    blocks and the feature rows in 16-byte vectors, so H * hd must be a
+    multiple of 4 and blocks 16-byte aligned; a feature operand that is not
+    is copied."""
     if blocks.dim() != 3 or blocks.dtype != torch.bfloat16:
         raise TypeError(f"{name}: blocks must be bfloat16 [T, tile, band]")
     n_tiles, tile, band = blocks.shape
@@ -175,8 +201,8 @@ def _gt_args(name, blocks, col_off, q, *others, vectors=False):
         raise ValueError(f"{name}: q must be [T*tile >= band, H, hd], got "
                          f"{tuple(q.shape)} for blocks {tuple(blocks.shape)}")
     n, num_heads, hd = q.shape
-    if hd not in HEAD_WIDTHS:
-        raise ValueError(f"{name}: head width {hd} not in {HEAD_WIDTHS}")
+    if hd not in widths:
+        raise ValueError(f"{name}: head width {hd} not in {widths}")
     if col_off.shape != (n_tiles,):
         raise ValueError(f"{name}: col_off must be [T]")
     for t in (q,) + others:
@@ -203,80 +229,86 @@ def _gt_args(name, blocks, col_off, q, *others, vectors=False):
 
 
 def _launch(fn, name, blocks, col_off, geo, tensors, num_heads, hd, clamp,
-            eps, outs):
+            eps, scale, outs):
+    scale = _scale(hd) if scale is None else scale
     _raise_on(fn(_ptr(blocks), _ptr(col_off), *geo,
-                 *(_ptr(t) for t in tensors), num_heads, hd, _scale(hd),
-                 clamp, eps, *(_ptr(t) for t in outs), _stream()), name)
+                 *(_ptr(t) for t in tensors), num_heads, hd, scale, clamp,
+                 eps, *(_ptr(t) for t in outs), _stream()), name)
 
 
-def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6):
+def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None):
     """(out, z) (replaces ``_fwd_kernel``)."""
     if not _dispatch("gt_fwd", q):
-        return gt_fwd_plain(blocks, col_off, q, k, v, clamp, eps)
+        return gt_fwd_plain(blocks, col_off, q, k, v, clamp, eps, scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
         "gt_fwd", blocks, col_off, q, k, v, vectors=True)
     out = torch.empty_like(ts[0])
     z = torch.empty(ts[0].shape[:2], dtype=torch.float32, device=q.device)
     _launch(build().scgib_gt_fwd, "gt_fwd", blocks, col_off, geo, ts,
-            num_heads, hd, clamp, eps, (out, z))
+            num_heads, hd, clamp, eps, scale, (out, z))
     gt_fwd.launches += 1
     return out, z
 
 
-def gt_bwd_rows(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
+def gt_bwd_rows(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
+                scale=None):
     """(dq, rho) (replaces ``_bwd_rows_kernel``)."""
     if not _dispatch("gt_bwd_rows", q):
-        return gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps)
+        return gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps,
+                                 scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
         "gt_bwd_rows", blocks, col_off, q, k, v, g, z, vectors=True)
     dq = torch.empty_like(ts[0])
     rho = torch.empty_like(ts[4])
     _launch(build().scgib_gt_bwd_rows, "gt_bwd_rows", blocks, col_off, geo,
-            ts, num_heads, hd, clamp, eps, (dq, rho))
+            ts, num_heads, hd, clamp, eps, scale, (dq, rho))
     gt_bwd_rows.launches += 1
     return dq, rho
 
 
-def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6):
+def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6,
+                scale=None):
     """(dk, dv) (replaces ``_bwd_cols_kernel``).  Needs a symmetric A."""
     if not _dispatch("gt_bwd_cols", q):
         return gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp,
-                                 eps)
+                                 eps, scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
         "gt_bwd_cols", blocks, col_off, q, k, v, g, z, rho, vectors=True)
     dk = torch.empty_like(ts[0])
     dv = torch.empty_like(ts[0])
     _launch(build().scgib_gt_bwd_cols, "gt_bwd_cols", blocks, col_off, geo,
-            ts, num_heads, hd, clamp, eps, (dk, dv))
+            ts, num_heads, hd, clamp, eps, scale, (dk, dv))
     gt_bwd_cols.launches += 1
     return dk, dv
 
 
-def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6):
+def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
+                  scale=None):
     """(dq, dk, dv) in one pass (replaces ``_bwd_merged_kernel``); dk and
     dv are summed with atomics, so their last bits vary between runs."""
     if not _dispatch("gt_bwd_merged", q):
         return gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp,
-                                   eps)
+                                   eps, scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_bwd_merged", blocks, col_off, q, k, v, g, z)
+        "gt_bwd_merged", blocks, col_off, q, k, v, g, z,
+        widths=MERGED_HEAD_WIDTHS)
     dq = torch.empty_like(ts[0])
     dk = torch.zeros_like(ts[0])
     dv = torch.zeros_like(ts[0])
     _launch(build().scgib_gt_bwd_merged, "gt_bwd_merged", blocks, col_off,
-            geo, ts, num_heads, hd, clamp, eps, (dq, dk, dv))
+            geo, ts, num_heads, hd, clamp, eps, scale, (dq, dk, dv))
     gt_bwd_merged.launches += 1
     return dq, dk, dv
 
 
 def kernel_info(kernel: str, hd: int) -> dict:
     """Registers a thread, shared memory a block and blocks an SM of the
-    kernel that ``gt_bwd_rows``, ``gt_bwd_cols`` or ``gt_fwd`` launches at
-    head width ``hd``."""
+    kernel that ``gt_bwd_rows``, ``gt_bwd_cols``, ``gt_fwd`` or
+    ``gt_bwd_merged`` launches at head width ``hd``."""
     info = (ctypes.c_int * 3)()
     _raise_on(build().scgib_gt_kernel_info(
-        {"gt_bwd_rows": 0, "gt_bwd_cols": 1, "gt_fwd": 2}[kernel], hd,
-        info), kernel)
+        {"gt_bwd_rows": 0, "gt_bwd_cols": 1, "gt_fwd": 2,
+         "gt_bwd_merged": 3}[kernel], hd, info), kernel)
     return {"registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
 
@@ -297,22 +329,23 @@ reset_launch_counts()
 
 class _GtFlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, blocks, col_off, q, k, v, clamp, eps, bwd):
-        out, z = gt_fwd(blocks, col_off, q, k, v, clamp, eps)
+    def forward(ctx, blocks, col_off, q, k, v, clamp, eps, bwd, scale):
+        out, z = gt_fwd(blocks, col_off, q, k, v, clamp, eps, scale)
         ctx.save_for_backward(blocks, col_off, q, k, v, z)
-        ctx.clamp, ctx.eps, ctx.bwd = clamp, eps, bwd
+        ctx.clamp, ctx.eps, ctx.bwd, ctx.scale = clamp, eps, bwd, scale
         return out
 
     @staticmethod
     def backward(ctx, g):
         blocks, col_off, q, k, v, z = ctx.saved_tensors
         args = (blocks, col_off, q, k, v, g.contiguous(), z)
+        consts = (ctx.clamp, ctx.eps, ctx.scale)
         if ctx.bwd == "merged":
-            dq, dk, dv = gt_bwd_merged(*args, ctx.clamp, ctx.eps)
+            dq, dk, dv = gt_bwd_merged(*args, *consts)
         else:
-            dq, rho = gt_bwd_rows(*args, ctx.clamp, ctx.eps)
-            dk, dv = gt_bwd_cols(*args, rho, ctx.clamp, ctx.eps)
-        return None, None, dq, dk, dv, None, None, None
+            dq, rho = gt_bwd_rows(*args, *consts)
+            dk, dv = gt_bwd_cols(*args, rho, *consts)
+        return None, None, dq, dk, dv, None, None, None, None
 
 
 def gt_flash_attention(blocks, col_off, q, k, v, clamp: float = 5.0,
@@ -320,7 +353,18 @@ def gt_flash_attention(blocks, col_off, q, k, v, clamp: float = 5.0,
     """Graph-transformer banded attention, q/k/v [N, H, hd] -> [N, H, hd]
     (the semantics of ``spmm_banded.gt_banded_attention``) with the kernel
     backward: ``bwd`` is "twopass" (rows then columns) or "merged".  The
-    column pass and the merged pass need a symmetric A."""
+    column pass and the merged pass need a symmetric A.  A head width the
+    kernels do not take runs zero-padded to ``served_head_width``: the zero
+    features add nothing to a score, their outputs are dropped, and the
+    scale stays 1 / sqrt(hd)."""
     if bwd not in BWD:
         raise ValueError(f"bwd must be one of {BWD}, got {bwd!r}")
-    return _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps, bwd)
+    num_heads, hd = q.shape[1:]
+    width = served_head_width(num_heads, hd, bwd)
+    if width == hd:
+        return _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps,
+                                       bwd, None)
+    q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
+    out = _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps, bwd,
+                                  _scale(hd))
+    return out[..., :hd]

@@ -57,14 +57,16 @@ def gt_windows(col_off: torch.Tensor, band: int,
 
 
 def gt_scores(blocks: torch.Tensor, col_off: torch.Tensor, q: torch.Tensor,
-              k: torch.Tensor, clamp: float = 5.0):
-    """(S, E), each [T, H, tile, band]: S = Q_tile K_win^T / sqrt(hd) and
-    E = exp(clip(S, +-clamp)) * blocks[t], in the inputs' dtype."""
+              k: torch.Tensor, clamp: float = 5.0, scale=None):
+    """(S, E), each [T, H, tile, band]: S = Q_tile K_win^T * scale (default
+    1 / sqrt(hd)) and E = exp(clip(S, +-clamp)) * blocks[t], in the inputs'
+    dtype."""
     n_tiles, tile, band = blocks.shape
     _, num_heads, hd = q.shape
     s = torch.einsum("tihd,tjhd->thij",
                      q.reshape(n_tiles, tile, num_heads, hd),
-                     gt_windows(col_off, band, k)) / math.sqrt(hd)
+                     gt_windows(col_off, band, k))
+    s = s / math.sqrt(hd) if scale is None else s * scale
     return s, torch.exp(s.clamp(-clamp, clamp)) * blocks.to(s.dtype)[:, None]
 
 

@@ -64,3 +64,10 @@ def case_inputs(case, n=256):
     blocks, off = banded_graph(geometry, n, edge_cases=edge_cases)
     return blocks, off, qkvg(n, heads, hd,
                              q_scale=Q_SCALE if edge_cases else 1.0)
+
+
+# (heads, head width) the kernels serve since the widths were opened up: hd
+# 64 and 128 as they are, 12 (hidden 96, 8 heads), 10 (hidden 30, 3 heads)
+# and 1 with 3 heads (3 features a row) zero-padded to 16, 16 and 4
+WIDTHS = {"8x12": (8, 12), "1x64": (1, 64), "1x128": (1, 128),
+          "3x10": (3, 10), "3x1": (3, 1)}

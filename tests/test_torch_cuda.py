@@ -14,6 +14,8 @@ version's).  The GIN forward's 3xTF32 products keep about 21 bits, inside
 1e-5.  Every kernel but the merged attention backward uses no atomics, so
 two runs on one card agree bitwise."""
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -22,16 +24,18 @@ from scgib_tpu_torch import cli
 from scgib_tpu_torch.data.synthetic import random_dataset
 from scgib_tpu_torch.graph.batching import pack_graphs, pack_subgraphs
 from scgib_tpu_torch.graph.egonet import extract_egonets
-from scgib_tpu_torch.models.scgib import _resolve_band
+from scgib_tpu_torch.models.scgib import PretrainModel, _resolve_band
 from scgib_tpu_torch.ops import pool
 from scgib_tpu_torch.models import encoders
 from scgib_tpu_torch.ops.kernels import banded as kb
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention
+from scgib_tpu_torch.train import checkpoint
+from scgib_tpu_torch.utils.params import from_jax_variables, to_jax_variables
 
 from gin_cases import CASES as GIN_CASES
 from gin_cases import case_inputs as gin_case_inputs
-from gt_cases import CASES, EMPTY, case_inputs
+from gt_cases import CASES, EMPTY, WIDTHS, banded_graph, case_inputs, qkvg
 
 pytestmark = pytest.mark.cuda
 
@@ -416,11 +420,12 @@ def test_gt_fwd_matches_plain_at_cases(dev, case):
 @pytest.mark.parametrize("hd", kg.HEAD_WIDTHS)
 @pytest.mark.parametrize("gt", [True, False], ids=["narrow", "wide"])
 def test_gt_fwd_matches_plain_at_head_widths(batch, dev, gt, hd):
-    """Every (H, hd) with H * hd = 64 on the N and S batches, and at
-    hd = 32 also 8 heads (256 features a row: two passes of 128)."""
+    """Every (H, hd) with H * hd = 64 (one head from hd = 64 on) on the N
+    and S batches, and at hd = 32 also 8 heads (256 features a row: two
+    passes of 128)."""
     for seed, b in enumerate(batch):
         blocks, off = _resolve_band(b, gt=gt)
-        for heads in (64 // hd,) + ((8,) if hd == 32 else ()):
+        for heads in (max(1, 64 // hd),) + ((8,) if hd == 32 else ()):
             _gt_fwd_check(blocks, off, *_gt_inputs(b.num_nodes, dev, seed,
                                                    heads=heads, hd=hd)[:3])
 
@@ -454,12 +459,13 @@ def test_gt_bwd_passes_match_plain_at_cases(dev, case):
 @pytest.mark.parametrize("hd", kg.HEAD_WIDTHS)
 @pytest.mark.parametrize("gt", [True, False], ids=["narrow", "wide"])
 def test_gt_bwd_passes_match_plain_at_head_widths(batch, dev, gt, hd):
-    """Every (H, hd) with H * hd = 64, the CLI's widths at hidden 64, on
-    the graph (N) and ego-net (S) batches."""
+    """Every (H, hd) with H * hd = 64, the CLI's widths at hidden 64 (one
+    head from hd = 64 on), on the graph (N) and ego-net (S) batches."""
     for seed, b in enumerate(batch):
         blocks, off = _resolve_band(b, gt=gt)
         _gt_bwd_check(blocks, off, *_gt_inputs(b.num_nodes, dev, seed,
-                                               heads=64 // hd, hd=hd))
+                                               heads=max(1, 64 // hd),
+                                               hd=hd))
 
 
 def test_gt_twopass_backward_is_bitwise_reproducible(batch, dev):
@@ -534,3 +540,107 @@ def test_gt_pretrain_steps_on_card(dev, bwd):
     assert dict(encoders.branch_counts) == {"gt_band_64x128": per_call}
     assert kb.launch_counts()["gin_fwd"] == 0
     assert kb.launch_counts()["spmm"] == 2 * 2
+
+
+# --- the widths the card path now serves, checkpoints and the verb ----------
+
+@pytest.mark.parametrize("hidden", [30, 130, 160, 256])
+def test_gin_at_any_width_matches_cpu(batch, dev, hidden):
+    """The GIN encoder on the card against itself on the CPU, forward and
+    backward: at 30 (not a multiple of 4) through the fused kernels, past
+    128 through the banded SpMM with the MLP as plain products."""
+    g, _ = batch
+    band = _resolve_band(g)
+    rng = np.random.default_rng(hidden)
+    x = rng.normal(size=(512, 32)).astype(np.float32)
+    ct = torch.from_numpy(rng.normal(size=(512, hidden)).astype(np.float32))
+    gin = encoders.GIN(32, hidden=hidden, num_convs=2)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        kb.reset_launch_counts()
+        encoders.branch_counts.clear()
+        m = copy.deepcopy(gin).to(device)
+        xt = torch.from_numpy(x).to(device).requires_grad_()
+        out = m(xt, g.senders.to(device), g.receivers.to(device),
+                node_mask=g.node_mask.to(device),
+                edge_mask=g.edge_mask.to(device),
+                band=tuple(t.to(device) for t in band))
+        (out * ct.to(device)).sum().backward()
+        runs.append([out.detach().cpu(), xt.grad.cpu()]
+                    + [p.grad.cpu() for p in m.parameters()])
+        if device == dev:
+            counts = kb.launch_counts()
+            branches = dict(encoders.branch_counts)
+    for a, w in zip(*runs):
+        close(a, w, rtol=1e-4)
+    if hidden <= kb.MAX_FUSED_DIM:
+        assert branches == {"band": 2}
+        assert counts == {"gin_fwd": 2, "gin_bwd": 2, "spmm_self": 2,
+                          "spmm": 0, "pool": 0}
+    else:
+        assert branches == {"band_spmm": 2}
+        assert counts == {"gin_fwd": 0, "gin_bwd": 0, "spmm_self": 0,
+                          "spmm": 4, "pool": 0}
+
+
+@pytest.mark.parametrize("case,bwd", [
+    (case, bwd) for case in sorted(WIDTHS) for bwd in ("twopass", "merged")
+    if bwd == "twopass" or WIDTHS[case][1] <= 32])
+def test_attention_at_new_head_widths_matches_cpu(dev, case, bwd):
+    """``gt_flash_attention`` on the card at the head widths served since
+    they were opened up (zero-padded where the kernels do not take them)
+    against autograd through the plain reference in float64 on the CPU;
+    the merged backward up to hd 32, the widest it serves."""
+    heads, hd = WIDTHS[case]
+    blocks, off = banded_graph("narrow")
+    q, k, v, ct = qkvg(256, heads=heads, hd=hd, seed=6)
+    kg.reset_launch_counts()
+    grads = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        ts = [torch.from_numpy(a).to(device, dtype).requires_grad_()
+              for a in (q, k, v)]
+        bl, of = blocks.to(device), off.to(device)
+        out = (kg.gt_flash_attention(bl, of, *ts, bwd=bwd) if device == dev
+               else gt_banded_attention(bl, of, *ts))
+        (out * torch.from_numpy(ct).to(device, dtype)).sum().backward()
+        grads.append([out.detach().cpu().double()]
+                     + [t.grad.cpu().double() for t in ts])
+    for a, w in zip(*grads):
+        assert torch.allclose(a, w, rtol=1e-4, atol=1e-4)
+    rows = int(bwd == "twopass")
+    assert kg.launch_counts() == {"gt_fwd": 1, "gt_bwd_rows": rows,
+                                  "gt_bwd_cols": rows,
+                                  "gt_bwd_merged": 1 - rows}
+
+
+def test_checkpoint_saved_on_card_reloads_to_the_same_losses(batch, dev,
+                                                             tmp_path):
+    g, sub = batch
+    model = PretrainModel(9, hidden=64, d_transfer=32,
+                          deterministic=True).to(dev).train()
+    with torch.no_grad():
+        want = model(g, sub)
+    path = str(tmp_path / "card.msgpack")
+    checkpoint.save_checkpoint(path, to_jax_variables(model))
+    variables, _ = checkpoint.load_checkpoint(path)
+    again = PretrainModel(9, hidden=64, d_transfer=32, deterministic=True)
+    again.load_state_dict(from_jax_variables(variables))
+    with torch.no_grad():
+        got = again.to(dev).train()(g, sub)
+    for a, b in zip(got, want):      # segment sums add with atomics
+        assert abs(float(a) - float(b)) <= 1e-6 * abs(float(b))
+
+
+def test_pretrain_verb_one_epoch_on_card(dev, tmp_path):
+    kb.reset_launch_counts()
+    pool.branch_counts.clear()
+    info = cli.main(["pretrain", "--synthetic", "48", "--batch_size", "16",
+                     "--epochs", "1", "--out", str(tmp_path / "p.msgpack")])
+    assert len(info["history"]) == 1 and np.isfinite(info["history"][0])
+    steps = info["throughput"]["steps"]
+    assert steps > 0
+    assert kb.launch_counts() == {"gin_fwd": 8 * steps, "gin_bwd": 8 * steps,
+                                  "spmm_self": 8 * steps, "spmm": 2 * steps,
+                                  "pool": pool.branch_counts["banded"]}
+    variables, meta = checkpoint.load_checkpoint(str(tmp_path / "p.msgpack"))
+    assert meta["step"] == 0 and "core" in variables["params"]

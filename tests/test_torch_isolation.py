@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: ``scgib_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX, flax, optax or the JAX package ``scgib_tpu``, and
+import nothing of JAX, flax, optax or the JAX package ``scgib_tpu``, nor the
+``msgpack`` package (the card's machine may not have it), and
 import cleanly on a machine without a GPU, ``nvcc`` or ``triton`` (the
 kernels are built at first use, never at import)."""
 
@@ -11,7 +12,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BANNED = ("jax", "jaxlib", "flax", "optax", "scgib_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "scgib_tpu", "msgpack")
 SOURCES = sorted((ROOT / "scgib_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
