@@ -36,11 +36,13 @@ Phases; any failure raises and exits non-zero before the last line:
      synthetic molecules for 2 epochs with autosave: three stages, every
      loss finite, each stage's checkpoint written, the launch counts those
      of the steps taken, every stage skipped on a rerun; a run stopped
-     after epoch 0 and resumed to epoch 1 against one never stopped
-     (epoch losses rtol 1e-3, weights atol 10 lr: the card's index_add_
-     sums with atomics); (c) each new option (s2s readout, attention off,
-     reference KL, logM reconstruction, dense reconstruction): card losses
-     against float64 CPU, then one optimizer step; (d) the repaired widths,
+     after epoch 0 and resumed to epoch 1 against one never stopped, both
+     under torch's deterministic algorithms: their final autosaves must be
+     byte-equal, and must differ when the resume drops the Adam state or
+     shuffles epoch 1 with seed + 1 (planted faults); (c) each new option
+     (s2s readout, attention off, reference KL, logM reconstruction, dense
+     reconstruction): card losses against float64 CPU, then one optimizer
+     step; (d) the repaired widths,
      4 steps each of ``run_pretrain``: GIN at hidden 256 (banded SpMM
      branch) and 30 (fused kernels), the transformer at 1 head of 64 and
      at hidden 96 with 8 heads of 12 (zero-padded to 16), with their
@@ -52,6 +54,7 @@ Phases; any failure raises and exits non-zero before the last line:
      {"ok": true, "device": {...}} as the last line.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -62,8 +65,12 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# torch's deterministic algorithms (phase 6's resume check) refuse cuBLAS
+# products unless its workspace is fixed before the first one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -80,7 +87,7 @@ from scgib_tpu_torch.ops import pool as pool_mod  # noqa: E402
 from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
 from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
 from scgib_tpu_torch.ops.kernels import gt_flash as kg  # noqa: E402
-from scgib_tpu_torch.train import checkpoint  # noqa: E402
+from scgib_tpu_torch.train import checkpoint, loops  # noqa: E402
 from scgib_tpu_torch.train.trainer import make_pretrain_step  # noqa: E402
 from scgib_tpu_torch.utils.msgpack_codec import unpackb  # noqa: E402
 from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
@@ -95,8 +102,7 @@ GRAD_RTOL = 1e-3              # gradients, card vs float64 CPU, per tensor
 GRAD_FLOOR = 1e-3             # ... relative to max(|that tensor|, this
                               # fraction of the largest gradient)
 STEPS = 6                     # main-path optimizer steps (1 warm-up)
-RESUME_RTOL = 1e-3            # epoch losses, resumed run vs uninterrupted
-RESUME_ATOL_LR = 10           # weights, resumed vs uninterrupted: 10 lr
+LR = 1e-4                     # the verb's learning rate in phase 6
 WIDTH_STEPS = 4               # steps of each repaired width (1 warm-up)
 CHECKPOINT = os.path.join(ROOT, "outputs",
                           "pre_training_PCQM4Mv2_GIN_64_4_1.msgpack")
@@ -613,6 +619,14 @@ OPTIONS = {"readout s2s": {"readout": "s2s"}, "use_att 0": {"use_att": False},
            "kl_mode reference": {"kl_mode": "reference"},
            "recons_type logM": {"recons_type": "logM"},
            "recons_impl dense": {"recons_impl": "dense"}}
+# planted resume faults -> (module, name, stand-in made from the real one)
+RESUME_FAULTS = {
+    "Adam state not loaded": (checkpoint, "load_adam_state",
+                              lambda real: lambda *args: None),
+    "epoch 1 shuffled with seed + 1": (
+        loops, "batch_iterator",
+        lambda real: lambda *args, seed, **kw: real(*args, seed=seed + 1,
+                                                    **kw))}
 # run -> (run_pretrain arguments, launches per step, encoder branch)
 WIDTH_RUNS = {
     "GIN hidden 256": ({"hidden": 256}, {"spmm": 8 * 2 + 2, "pool": 1},
@@ -660,6 +674,35 @@ def check_verb_counts(label, steps):
         raise AssertionError(f"{label} left the kernel branches: {branches}")
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (index_add_ and the gathers'
+    backward sum in a fixed order), uninitialized memory left as it is."""
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
+def autosaves_apart(path, ref):
+    """How far the autosave at ``path`` is from ``ref``: byte-equal or not,
+    the largest weight difference in units of the learning rate, the
+    largest relative epoch-loss difference."""
+    with open(path, "rb") as f, open(ref, "rb") as r:
+        blob, ref_blob = f.read(), r.read()
+    got, want = unpackb(blob), unpackb(ref_blob)
+    weights = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(
+        sorted_leaves(got["state"]["params"]),
+        sorted_leaves(want["state"]["params"])))
+    a, b = (np.asarray(x["extra"]["history"]) for x in (got, want))
+    return {"bitwise": blob == ref_blob, "weights_lr": weights / LR,
+            "epoch_loss_rel": float(np.max(np.abs(a - b) / np.abs(b)))}
+
+
 def verb_phase(g, sub, dev, ds, caps):
     """Phase 6; returns its times and readings."""
     report = {}
@@ -677,7 +720,7 @@ def verb_phase(g, sub, dev, ds, caps):
     shutil.rmtree(VERB_DIR, ignore_errors=True)
     os.makedirs(VERB_DIR)
     base = ["pretrain", "--synthetic", "512", "--batch_size", "128",
-            "--lr", "1e-4", "--weight_decay", "5e-5", "--epochs", "2"]
+            "--lr", str(LR), "--weight_decay", "5e-5", "--epochs", "2"]
     curriculum = base + ["--curriculum", "--out",
                          os.path.join(VERB_DIR, "x"), "--autosave",
                          os.path.join(VERB_DIR, "auto.msgpack")]
@@ -698,60 +741,53 @@ def verb_phase(g, sub, dev, ds, caps):
     expect_counts("curriculum rerun", {}, 0)
     report["rerun_s"] = secs
 
-    full, secs = verb_run("2 epochs", base + ["--out", os.path.join(
-        VERB_DIR, "full.msgpack")])
-    check_verb_counts("2 epochs", full["throughput"]["steps"])
-    resumed_args = ["--autosave", os.path.join(VERB_DIR, "resume.msgpack"),
-                    "--out", os.path.join(VERB_DIR, "resumed.msgpack")]
-    first, _ = verb_run("epoch 0, autosaved",
-                        base[:-1] + ["1"] + resumed_args)
-    resumed, _ = verb_run("resumed to epoch 1", base + resumed_args)
-    check_verb_counts("resumed to epoch 1", resumed["throughput"]["steps"])
-    if resumed["throughput"]["steps"] != first["throughput"]["steps"]:
-        raise AssertionError("the resumed run did not take epoch 1 alone")
-    for a, b in zip(resumed["history"], full["history"]):
-        if not abs(a - b) <= RESUME_RTOL * abs(b):
-            raise AssertionError(f"resumed epoch losses {resumed['history']} "
-                                 f"vs uninterrupted {full['history']}")
-    # Weights: entries whose gradient is zero but for rounding (Adam's
-    # second moment below 1e-5 of the largest, in RMS; the gradient mask of
-    # tests/test_torch_trainer.py) step +-lr by the sign of the rounding, so
-    # two runs may part by up to 2 lr a step on them; every other entry is
-    # held at RESUME_ATOL_LR lr.
-    with open(os.path.join(VERB_DIR, "resume.msgpack"), "rb") as f:
-        nu = unpackb(f.read())["state"]["opt_state"]["0"]["1"]["nu"]
-    rms = np.sqrt(nu)
-    trap = rms <= 1e-5 * rms.max()
-    names, diffs = [], []
-    for (path, a), (_, b) in zip(
-            sorted_leaves(resumed["best_variables"]["params"]),
-            sorted_leaves(full["best_variables"]["params"])):
-        names += [".".join(path)] * a.size
-        diffs.append(np.abs(a - b).ravel())
-    diffs = np.concatenate(diffs)
-    steps = first["throughput"]["steps"] + resumed["throughput"]["steps"]
-    kept, trapped = diffs[~trap], diffs[trap]
-    worst = float(kept.max())
-    worst_trap = float(trapped.max()) if trapped.size else 0.0
-    top = [(float(diffs[i]), names[i], bool(trap[i]))
-           for i in np.argsort(diffs)[-3:]]
-    print(f"resume vs uninterrupted: epoch losses {resumed['history']} vs "
-          f"{full['history']} (rtol {RESUME_RTOL}); best epochs "
-          f"{resumed['best_epoch']} {full['best_epoch']}; worst weight "
-          f"difference {worst:.3e} over {kept.size} entries (atol "
-          f"{RESUME_ATOL_LR} lr), {worst_trap:.3e} over the {trapped.size} "
-          f"rounding-gradient entries (atol 2 lr x {steps} steps); largest "
-          f"(difference, parameter, rounding-gradient): {top}", flush=True)
-    if not (resumed["best_epoch"] == full["best_epoch"]
-            and worst <= RESUME_ATOL_LR * 1e-4
-            and worst_trap <= 2 * steps * 1e-4):
-        raise AssertionError("resumed weights differ from uninterrupted")
+    # Resume: under deterministic algorithms (index_add_ without atomics)
+    # a run stopped after epoch 0 and resumed must write the very autosave
+    # bytes of a run never stopped: weights, Adam state, generator, history.
+    # Two planted faults, each resuming from the same epoch-0 autosave, must
+    # not: the Adam state left unloaded, and epoch 1 shuffled with seed + 1.
+    auto = os.path.join(VERB_DIR, "auto.msgpack")
+    full_auto = os.path.join(VERB_DIR, "full_auto.msgpack")
+    resumed_args = ["--autosave", auto, "--out",
+                    os.path.join(VERB_DIR, "resumed.msgpack")]
+    shutil.rmtree(VERB_DIR)
+    os.makedirs(VERB_DIR)
+    with deterministic():
+        full, _ = verb_run("2 epochs", base + [
+            "--autosave", full_auto, "--out",
+            os.path.join(VERB_DIR, "full.msgpack")])
+        check_verb_counts("2 epochs", full["throughput"]["steps"])
+        first, _ = verb_run("epoch 0, autosaved",
+                            base[:-1] + ["1"] + resumed_args)
+        shutil.copy(auto, auto + ".epoch0")
+        resumed, _ = verb_run("resumed to epoch 1", base + resumed_args)
+        check_verb_counts("resumed to epoch 1",
+                          resumed["throughput"]["steps"])
+        if resumed["throughput"]["steps"] != first["throughput"]["steps"]:
+            raise AssertionError("the resumed run did not take epoch 1 alone")
+        sound = autosaves_apart(auto, full_auto)
+        faults = {}
+        for fault, (module, name, stand_in) in RESUME_FAULTS.items():
+            shutil.copy(auto + ".epoch0", auto)
+            real = getattr(module, name)
+            setattr(module, name, stand_in(real))
+            try:
+                verb_run(f"resumed to epoch 1, {fault}", base + resumed_args)
+            finally:
+                setattr(module, name, real)
+            faults[fault] = autosaves_apart(auto, full_auto)
+    print(f"resume vs uninterrupted: {sound}; planted faults: {faults} "
+          f"(weights in lr, epoch losses relative; the bound is bitwise)",
+          flush=True)
+    if not sound["bitwise"]:
+        raise AssertionError(f"the resumed run's autosave differs from the "
+                             f"uninterrupted run's: {sound}")
+    missed = [fault for fault, r in faults.items() if r["bitwise"]]
+    if missed:
+        raise AssertionError(f"a planted resume fault went unseen: {missed}")
     report["resume"] = {"history": resumed["history"],
-                        "uninterrupted": full["history"],
-                        "worst_weight_diff": worst,
-                        "worst_rounding_gradient_diff": worst_trap,
-                        "rounding_gradient_entries": int(trapped.size),
-                        "largest": top}
+                        "uninterrupted": full["history"], "sound": sound,
+                        "faults": faults}
     shutil.rmtree(VERB_DIR)
 
     # (c) each new option: card vs float64 CPU, then one optimizer step

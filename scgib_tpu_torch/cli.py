@@ -30,7 +30,8 @@ whose modules are not ported yet raise ``SystemExit`` naming the
 Two flags are the port's own: ``--device`` (``cuda``, the default, or
 ``cpu`` for the plain path) and ``--steps N``, which instead of the epoch
 loop takes N optimizer steps on molecules of 10-30 atoms (the benchmark's
-recipe) and prints each step's three losses and time (``run_pretrain``).
+recipe) and prints each step's three losses and time (``run_pretrain``);
+with it ``--synthetic`` defaults to 1024 and ``--seed`` to 7.
 """
 
 from __future__ import annotations
@@ -253,7 +254,13 @@ def _run_curriculum(args, dev):
     return stages
 
 
-def build_parser() -> argparse.ArgumentParser:
+# --steps keeps the defaults it had before the epoch loop was ported
+_STEPS_DEFAULTS = {"synthetic": 1024, "seed": 7}
+
+
+def build_parser(steps: bool = False) -> argparse.ArgumentParser:
+    """The verb's parser; ``steps=True`` gives ``--steps``' own defaults
+    (``_STEPS_DEFAULTS``) to the flags it was not given."""
     p = argparse.ArgumentParser(prog="scgib_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -312,12 +319,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="take N optimizer steps instead of the epoch loop")
     sp.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu for the plain path")
-    sp.set_defaults(fn=cmd_pretrain)
+    sp.set_defaults(fn=cmd_pretrain, **(_STEPS_DEFAULTS if steps else {}))
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.steps is not None:
+        args = build_parser(steps=True).parse_args(argv)
     return args.fn(args)
 
 

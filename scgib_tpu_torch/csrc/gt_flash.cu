@@ -109,8 +109,6 @@ constexpr int GATHER = 4;         // nonzeros whose rows are loaded together
 constexpr int MIN_LANES = 4;      // a row's lanes: at BW = 256 one segment
                                   // of gate vectors (gate_walk::SEGV a lane)
                                   // then covers the band
-constexpr int MAX_MERGED_HD = 32;  // gt_bwd_merged keeps 3 hd floats a lane
-constexpr int MAX_PASS_HD = 128;   // a head on hd / 4 <= 32 lanes
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -578,16 +576,15 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
   }
 }
 
-// Head widths: a power of two up to max_hd.
-bool bad_geometry(int BW, int hd, int max_hd) {
-  return BW <= 0 || BW % 32 != 0 || BW > 32 * MAX_SLOTS || hd <= 0 ||
-         hd > max_hd || (hd & (hd - 1)) != 0;
+// The band; a head width is checked by the dispatch below.
+bool bad_geometry(int BW) {
+  return BW <= 0 || BW % 32 != 0 || BW > 32 * MAX_SLOTS;
 }
 
 // The lane-group kernels (gt_fwd and the two-pass backward) read float4s:
-// D a multiple of 4.  A head spans at most a warp (hd <= 128).
+// D a multiple of 4.
 bool bad_pass_geometry(int BW, int H, int hd) {
-  return bad_geometry(BW, hd, MAX_PASS_HD) || H <= 0 || (H * hd) % 4 != 0;
+  return bad_geometry(BW) || H <= 0 || (H * hd) % 4 != 0;
 }
 
 unsigned pass_grid(int n_tiles, int TL, int lpr) {
@@ -597,16 +594,21 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
 
 }  // namespace
 
-// Instantiate CALL for the head width: hd in {1, 2, 4, 8, 16, 32} (the
-// merged pass, whose lanes hold a head's hd features three times over).
-#define SCGIB_DISPATCH_HD(hd, ...)                         \
-  switch (hd) {                                            \
+// The head widths every attention kernel takes, as switch cases that
+// instantiate CALL: the merged pass, whose lanes hold a head's hd features
+// three times over, goes no further.  The wrapper's MERGED_HEAD_WIDTHS and
+// HEAD_WIDTHS state the same sets; build() checks them against these.
+#define SCGIB_HD_CASES(...)                                \
     case 1: { constexpr int HD = 1; __VA_ARGS__; } break;  \
     case 2: { constexpr int HD = 2; __VA_ARGS__; } break;  \
     case 4: { constexpr int HD = 4; __VA_ARGS__; } break;  \
     case 8: { constexpr int HD = 8; __VA_ARGS__; } break;  \
     case 16: { constexpr int HD = 16; __VA_ARGS__; } break; \
-    case 32: { constexpr int HD = 32; __VA_ARGS__; } break; \
+    case 32: { constexpr int HD = 32; __VA_ARGS__; } break;
+
+#define SCGIB_DISPATCH_HD(hd, ...)                         \
+  switch (hd) {                                            \
+    SCGIB_HD_CASES(__VA_ARGS__)                            \
     default: return (int)cudaErrorInvalidValue;            \
   }
 
@@ -614,17 +616,12 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
 // features whatever hd is, and a head spans 16 or 32 lanes, so the per-head
 // butterfly stays inside a warp and the registers do not grow.  Other
 // widths are zero-padded up to one of these by the wrapper.
-#define SCGIB_DISPATCH_PASS_HD(hd, ...)                      \
-  switch (hd) {                                              \
-    case 1: { constexpr int HD = 1; __VA_ARGS__; } break;    \
-    case 2: { constexpr int HD = 2; __VA_ARGS__; } break;    \
-    case 4: { constexpr int HD = 4; __VA_ARGS__; } break;    \
-    case 8: { constexpr int HD = 8; __VA_ARGS__; } break;    \
-    case 16: { constexpr int HD = 16; __VA_ARGS__; } break;  \
-    case 32: { constexpr int HD = 32; __VA_ARGS__; } break;  \
-    case 64: { constexpr int HD = 64; __VA_ARGS__; } break;  \
+#define SCGIB_DISPATCH_PASS_HD(hd, ...)                       \
+  switch (hd) {                                               \
+    SCGIB_HD_CASES(__VA_ARGS__)                               \
+    case 64: { constexpr int HD = 64; __VA_ARGS__; } break;   \
     case 128: { constexpr int HD = 128; __VA_ARGS__; } break; \
-    default: return (int)cudaErrorInvalidValue;              \
+    default: return (int)cudaErrorInvalidValue;               \
   }
 
 extern "C" {
@@ -696,7 +693,7 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
                         const void* v, const void* g, const void* z, int H,
                         int hd, float scale, float clamp, float eps,
                         void* dq, void* dk, void* dv, void* stream) {
-  if (bad_geometry(BW, hd, MAX_MERGED_HD)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(BW)) return (int)cudaErrorInvalidValue;
   const dim3 grid(n_tiles, H);
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(hd, gt_bwd_merged_kernel<HD><<<grid, THREADS, 0, s>>>(

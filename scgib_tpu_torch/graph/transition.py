@@ -6,8 +6,8 @@ Counterpart of ``scgib_tpu/graph/transition.py`` (the reference's
 binary adjacency's powers A^1 .. A^k, each column-normalized, log'ed,
 shifted by -log(1/n) and clamped at 0.  ``transition_logm`` is the per-graph
 NumPy form, ``transition_logm_batched`` the batched one (one padded
-[B, N, N] product chain in torch, where the JAX package runs it jitted on
-its device), and ``pack_logm_targets`` lays a batch's matrices out
+[B, N, N] product chain in torch on the CPU, where the JAX package runs it
+jitted on its device), and ``pack_logm_targets`` lays a batch's matrices out
 block-diagonally for the loss.
 """
 
@@ -58,11 +58,10 @@ def logm_batch(adj: torch.Tensor, n_valid: torch.Tensor,
 
 
 def transition_logm_batched(graphs: Sequence[GraphData], k: int,
-                            chunk: int = 512,
-                            device="cpu") -> List[List[np.ndarray]]:
+                            chunk: int = 512) -> List[List[np.ndarray]]:
     """``transition_logm`` for many graphs: chunks of graphs sorted by
     size, each padded to a multiple of 16 nodes and run through
-    ``logm_batch`` on ``device``, the valid blocks cropped back out.  Path
+    ``logm_batch`` on the CPU, the valid blocks cropped back out.  Path
     counts are exact integers in float32 at molecular sizes, so this agrees
     with the per-graph form to float32 rounding of the log."""
     out: List[List[np.ndarray]] = [None] * len(graphs)
@@ -77,8 +76,8 @@ def transition_logm_batched(graphs: Sequence[GraphData], k: int,
             g = graphs[i]
             adj[b, g.senders, g.receivers] = 1.0
             nv[b] = g.num_nodes
-        res = logm_batch(torch.from_numpy(adj).to(device),
-                         torch.from_numpy(nv).to(device), k).cpu().numpy()
+        res = logm_batch(torch.from_numpy(adj), torch.from_numpy(nv),
+                         k).numpy()
         for b, i in enumerate(idx):
             n = int(graphs[i].num_nodes)
             out[i] = [res[b, j, :n, :n].copy() for j in range(k)]

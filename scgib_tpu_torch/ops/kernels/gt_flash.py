@@ -77,8 +77,22 @@ def build() -> ctypes.CDLL:
                lib.scgib_gt_bwd_cols, lib.scgib_gt_bwd_merged,
                lib.scgib_gt_kernel_info):
         fn.restype = ctypes.c_int
+    _check_head_widths(lib)
     _lib = lib
     return lib
+
+
+def _check_head_widths(lib):
+    """``HEAD_WIDTHS`` and ``MERGED_HEAD_WIDTHS`` must be the widths the
+    source's dispatch instantiates (``SCGIB_DISPATCH_PASS_HD`` and
+    ``SCGIB_DISPATCH_HD``): ``scgib_gt_kernel_info`` fails for any other."""
+    info = (ctypes.c_int * 3)()
+    for which, widths in ((2, HEAD_WIDTHS), (3, MERGED_HEAD_WIDTHS)):
+        taken = tuple(hd for hd in range(1, 2 * HEAD_WIDTHS[-1] + 1)
+                      if lib.scgib_gt_kernel_info(which, hd, info) == 0)
+        if taken != widths:
+            raise RuntimeError(f"csrc/gt_flash.cu takes head widths {taken}, "
+                               f"the wrapper states {widths}")
 
 
 def _scale(hd: int) -> float:

@@ -227,6 +227,17 @@ def test_cli_has_every_jax_flag_with_its_default():
     assert set(got) - set(want) == {"steps", "device"}
 
 
+@pytest.mark.parametrize("flags,want", [
+    ([], {"synthetic": 1024, "seed": 7}),
+    (["--synthetic", "24", "--seed", "42"], {"synthetic": 24, "seed": 42})])
+def test_cli_steps_keeps_its_own_defaults(monkeypatch, flags, want):
+    """``--steps`` runs 1024 molecules from seed 7 unless told otherwise,
+    as it did before the epoch loop took the JAX verb's defaults."""
+    monkeypatch.setattr(cli, "run_pretrain", lambda **kw: kw)
+    got = cli.main(["pretrain", "--steps", "1", "--device", "cpu"] + flags)
+    assert {k: got[k] for k in want} == want
+
+
 SMALL = ["pretrain", "--synthetic", "24", "--batch_size", "8", "--hidden",
          str(HID), "--d_transfer", str(DT), "--device", "cpu"]
 
