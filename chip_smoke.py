@@ -6,30 +6,46 @@
 Phases; any failure raises and exits non-zero before the last line:
   1. environment: the card's name and power limit; TF32 off.
   2. build the CUDA kernels from scgib_tpu_torch/csrc/ (one nvcc per
-     source, sm_90a, all started together).
+     source, sm_90a, all started together), and beside them a probe build
+     of gt_flash.cu at the narrowest head width the wrapper refuses
+     (1024): ptxas's registers and spills of its column pass must be the
+     ones the refusal names.
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the benchmark batch (128 molecules of 10-30 atoms, k=1:
      N=3072 graph rows, S=9728 ego-net rows; the attention kernels in the
-     narrow (64, 128) geometry, 8 heads of 8): error, kernel / plain /
-     library time (median of 20 CUDA graph replays, each between CUDA
-     events), the bound and its share of the kernel time (gin_fwd's and
-     gin_bwd's at the 3xTF32 tensor-core rate they run at, with the fp32
-     SIMT one beside it); the merged attention backward against the
-     two-pass one; and the registers, shared memory and blocks per SM of
-     banded_spmm, gin_fused_fwd, gin_fused_bwd, gt_fwd, gt_bwd_rows and
-     gt_bwd_cols at the main path's widths.
+     narrow (64, 128) geometry, 8 heads of 8, and at S also 1 head of 64,
+     128, 256 and 512): error, kernel / plain / library time (median of 20 CUDA
+     graph replays, each between CUDA events), the bound and its share of
+     the kernel time (gin_fwd's and gin_bwd's at the 3xTF32 tensor-core
+     rate they run at, with the fp32 SIMT one beside it); the merged
+     attention backward against the two-pass one; and the registers,
+     shared memory and blocks per SM of every kernel at the main path's
+     widths (and the attention's at hd 64, 128, 256 and 512).
   4. the full model on that batch, GIN and graph-transformer encoders,
      once on the card and once on the CPU plain path in float64
      (deterministic, dropout off): losses and gradients must agree.
   5. the main paths: ``cli.run_pretrain`` at full width (PretrainModel(9,
      64, 32), batch 128, lr 1e-4, wd 5e-5) for 6 optimizer steps with GIN
      encoders, then 6 with graph transformers (5 layers, 8 heads, dropout
-     0.5, two-pass backward), then 2 with the merged backward; each run
+     0.5, two-pass backward), then 2 with the merged backward; the step is
+     captured (the first step eager, then CUDA-graph replays); each run
      starts with every launch count at 0, and each kernel's count must be
      its expected per-step count times the steps, the pooling must take
-     its kernel branch and the encoders their band branches.
+     its kernel branch and the encoders their band branches.  Then:
+     (a) captured against eager, 6 steps from one start on 6 batches,
+     under torch's deterministic algorithms: losses every step, the final
+     parameters, BatchNorm statistics, Adam state and generator state
+     byte-equal for GIN and the transformer (the merged backward sums with
+     atomics, so its run is held to tolerances, beside two eager runs'
+     spread), and a planted fault (replays that stop copying their
+     inputs) must break it; the scan step of 3 inner steps against 3 eager
+     steps likewise; (b) a skewed batch (one center tile owning more
+     sub-rows than the pooling window) through the captured step: the
+     scatter branch inside the graph, losses within 1e-4 of float64;
+     (c) step medians of the eager and the captured step, alternating,
+     for both encoders.
   6. the pretrain verb and its options, at the same width, batch and
-     optimizer: (a) the committed JAX checkpoint
+     optimizer, on the captured step: (a) the committed JAX checkpoint
      outputs/pre_training_PCQM4Mv2_GIN_64_4_1.msgpack, read by the port's
      own codec, gives on the card the float64 CPU losses on the benchmark
      batch; (b) ``cli.main(["pretrain", "--curriculum", ...])`` on 512
@@ -39,26 +55,30 @@ Phases; any failure raises and exits non-zero before the last line:
      after epoch 0 and resumed to epoch 1 against one never stopped, both
      under torch's deterministic algorithms: their final autosaves must be
      byte-equal, and must differ when the resume drops the Adam state or
-     shuffles epoch 1 with seed + 1 (planted faults); (c) each new option
+     shuffles epoch 1 with seed + 1 (planted faults); (c) each option
      (s2s readout, attention off, reference KL, logM reconstruction, dense
      reconstruction): card losses against float64 CPU, then one optimizer
-     step; (d) the repaired widths,
-     4 steps each of ``run_pretrain``: GIN at hidden 256 (banded SpMM
-     branch) and 30 (fused kernels), the transformer at 1 head of 64 and
-     at hidden 96 with 8 heads of 12 (zero-padded to 16), with their
-     launch and branch counts and step times.
+     step; (d) the widths, 4 steps each of ``run_pretrain``: GIN at hidden
+     256 (banded SpMM branch) and 30 (fused kernels), the transformer at 1
+     head of 64 (both backwards), at hidden 96 with 8 heads of 12
+     (zero-padded to 16) and at hidden 256 and 512 with 1 head (both
+     backwards), with their launch and branch counts and step times.
   7. where the step time goes: 3 steady steps of each encoder's main path
-     under torch.profiler; device time by kernel and the device's busy
-     share.
+     under torch.profiler, captured and eager: device time by kernel, the
+     device's busy share, and the host's kernel and graph launches a step.
   8. one JSON line of the kernels, the nvidia-smi line, and
      {"ok": true, "device": {...}} as the last line.
 """
 
+import collections
 import contextlib
 import copy
+import functools
+import itertools
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -88,7 +108,13 @@ from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
 from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
 from scgib_tpu_torch.ops.kernels import gt_flash as kg  # noqa: E402
 from scgib_tpu_torch.train import checkpoint, loops  # noqa: E402
-from scgib_tpu_torch.train.trainer import make_pretrain_step  # noqa: E402
+from scgib_tpu_torch.graph.batching import (GraphData,  # noqa: E402
+                                            pack_graphs, pack_subgraphs)
+from scgib_tpu_torch.graph.egonet import extract_egonets  # noqa: E402
+from scgib_tpu_torch.models.scgib import PretrainLosses  # noqa: E402
+from scgib_tpu_torch.train import trainer  # noqa: E402
+from scgib_tpu_torch.train.trainer import (  # noqa: E402
+    adam_l2, make_pretrain_scan_step, make_pretrain_step, pretrain_step_eager)
 from scgib_tpu_torch.utils.msgpack_codec import unpackb  # noqa: E402
 from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
                                           init_flax_style_, sorted_leaves)
@@ -111,8 +137,11 @@ GIN_PER_STEP = {"gin_fwd": 8, "gin_bwd": 8, "spmm_self": 8, "spmm": 2,
                 "pool": 1}
 GT_PER_STEP = {"gt_fwd": 10, "gt_bwd_rows": 10, "gt_bwd_cols": 10,
                "spmm": 2, "pool": 1}
+MERGED_PER_STEP = {"gt_fwd": 10, "gt_bwd_merged": 10, "spmm": 2, "pool": 1}
 MERGED_STEPS = 2              # steps with the merged attention backward
+SCAN_INNER = 3                # inner steps of the scan step
 HEADS, HEAD_DIM = 8, 8        # the graph transformer's attention
+WIDE_HDS = (64, 128, 256, 512)  # one head of each, checked at S
 # wrapper -> (source, TPU kernel line, CUDA kernel)
 PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gin_bwd": ("banded", 141, "gin_fused_bwd_kernel"),
@@ -120,17 +149,16 @@ PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "spmm": ("banded", 266, "banded_spmm_kernel"),
         "pool": ("banded", 405, "banded_spmm_kernel"),
         "gt_fwd": ("gt_flash", 121, "gt_fwd_kernel"),
-        "gt_bwd_rows": ("gt_flash", 146, "gt_bwd_rows_kernel"),
+        "gt_bwd_rows": ("gt_flash", 146, "gt_row_pass_kernel"),
         "gt_bwd_cols": ("gt_flash", 248, "gt_bwd_cols_kernel"),
-        "gt_bwd_merged": ("gt_flash", 181, "gt_bwd_merged_kernel")}
+        "gt_bwd_merged": ("gt_flash", 181, "gt_row_pass_kernel")}
 # main-path run -> (run_pretrain arguments, steps, launches per step; the
 # wrappers not named launch 0 times)
 RUNS = {"GIN": ({}, STEPS, GIN_PER_STEP),
         "Transformer": ({"encoder": "Transformer"}, STEPS, GT_PER_STEP),
         "Transformer-merged": ({"encoder": "Transformer",
                                 "gt_bwd": "merged"}, MERGED_STEPS,
-                               {"gt_fwd": 10, "gt_bwd_merged": 10,
-                                "spmm": 2, "pool": 1})}
+                               MERGED_PER_STEP)}
 # which run's count each kernel reports
 REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
               "gt_bwd_cols": "Transformer",
@@ -242,6 +270,61 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
     return rec
 
 
+def start_refused_probe():
+    """Start compiling csrc/gt_flash.cu with one more head width, the
+    narrowest the wrapper refuses (``kg.REFUSED_HD``), to a cubin under
+    the build directory; ptxas reports each kernel's registers and
+    spills."""
+    src = (kbuild.CSRC / "gt_flash.cu").read_text()
+    last = max(kg.HEAD_WIDTHS)
+    case = (f"    case {last}: {{ constexpr int HD = {last}; __VA_ARGS__; }} "
+            "break; \\\n")
+    if case not in src:
+        raise AssertionError("no dispatch case of the widest head width")
+    kbuild.BUILD_DIR.mkdir(exist_ok=True)
+    path = kbuild.BUILD_DIR / "gt_flash_refused_probe.cu"
+    path.write_text(src.replace(case, case + case.replace(
+        str(last), str(kg.REFUSED_HD))))
+    return subprocess.Popen(
+        [kbuild._nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(kbuild.CSRC),
+         "-o", str(path.with_suffix(".cubin")), str(path)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_refused_probe(proc):
+    """Each kernel's registers and spill bytes at the refused width, as
+    ptxas reports them (the refusal counts the column pass's operands)."""
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"the refused-width probe did not build:\n"
+                             f"{out}\n{err}")
+    found, name = {}, None
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        if not name or f"ILi{kg.REFUSED_HD}E" not in name:
+            continue
+        kernel = re.search(r"(gt_row_pass_kernel|gt_bwd_cols_kernel|"
+                           r"gt_fwd_kernel)", name).group(1)
+        if "ELb1E" in name:
+            kernel = "gt_row_pass_kernel merged"
+        rec = found.setdefault(kernel, {})
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            rec["spill_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+    print(f"refused head width {kg.REFUSED_HD}, ptxas: {found}", flush=True)
+    if "gt_bwd_cols_kernel" not in found:
+        raise AssertionError(f"the probe built no column pass at hd "
+                             f"{kg.REFUSED_HD}: {found}")
+    return found
+
+
 def kernel_phase(g, sub, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     one = torch.zeros(1, device=dev)
@@ -297,10 +380,10 @@ def kernel_phase(g, sub, dev):
     # the candidate pooling: S ego-net rows onto N centers
     s_rows, n_seg = sub.num_nodes, g.num_nodes
     window = pool_mod.default_window(s_rows, n_seg)
-    off, span = pool_mod.window_offsets(sub.node_center, sub.node_mask,
-                                        n_seg, 128, window)
-    if not bool(span <= window):
+    if not sub.pool_fits:
         raise AssertionError("benchmark batch does not fit the pool window")
+    off = pool_mod.window_offsets(sub.node_center, sub.node_mask, n_seg, 128,
+                                  window)
     pblocks, _ = pool_mod.pool_blocks(sub.node_center, sub.node_mask, off,
                                       n_seg, 128, window)
     data = torch.randn(s_rows, hid, device=dev, generator=gen)
@@ -328,43 +411,48 @@ def kernel_phase(g, sub, dev):
 
 def gt_kernel_phase(g, sub, dev, gen):
     """The four attention kernels at the bench shapes, in the narrow
-    geometry the main path gives them; then the merged backward against
-    the two-pass one.  Operations are counted per edge and head (the
-    kernels skip zero gate entries): 2 hd per product of two hd-vectors,
-    plus the clip, exponential, gate and sums."""
+    geometry the main path gives them (8 heads of 8), and at S also at one
+    head of 64, 128 and 256; then the merged backward against the two-pass
+    one.  Operations are counted per edge and head (the kernels skip zero
+    gate entries): 2 hd per product of two hd-vectors, plus the clip,
+    exponential, gate and sums."""
     records = []
-    for label, batch in (("N", g), ("S", sub)):
+    for label, batch, heads, hd in (("N", g, HEADS, HEAD_DIM),
+                                    ("S", sub, HEADS, HEAD_DIM),
+                                    *(("S", sub, 1, w) for w in WIDE_HDS)):
         blocks, off = _resolve_band(batch, gt=True)
         n = blocks.shape[0] * blocks.shape[1]
-        edges = int((blocks != 0).sum()) * HEADS
-        q, k, v, gr = (torch.randn(n, HEADS, HEAD_DIM, device=dev,
-                                   generator=gen) for _ in range(4))
+        edges = int((blocks != 0).sum()) * heads
+        q, k, v, gr = (torch.randn(n, heads, hd, device=dev, generator=gen)
+                       for _ in range(4))
         z = kg.gt_fwd_plain(blocks, off, q, k, v)[1]
         rho = kg.gt_bwd_rows_plain(blocks, off, q, k, v, gr, z)[1]
-        shape = (f"{label}={n} H={HEADS} hd={HEAD_DIM} "
+        shape = (f"{label}={n} H={heads} hd={hd} "
                  f"blocks={tuple(blocks.shape)}")
         ins = nbytes(blocks, off, q, k, v)
         feat, stat = nbytes(q), nbytes(z)
-        hd = HEAD_DIM
-        records.append(check(
+        new = [check(
             "gt_fwd", shape, lambda: kg.gt_fwd(blocks, off, q, k, v),
             lambda: kg.gt_fwd_plain(blocks, off, q, k, v),
-            ins + feat + stat, edges * (4 * hd + 5)))
-        records.append(check(
+            ins + feat + stat, edges * (4 * hd + 5))]
+        new.append(check(
             "gt_bwd_rows", shape,
             lambda: kg.gt_bwd_rows(blocks, off, q, k, v, gr, z),
             lambda: kg.gt_bwd_rows_plain(blocks, off, q, k, v, gr, z),
             ins + feat + stat + feat + stat, edges * (6 * hd + 8)))
-        records.append(check(
+        new.append(check(
             "gt_bwd_cols", shape,
             lambda: kg.gt_bwd_cols(blocks, off, q, k, v, gr, z, rho),
             lambda: kg.gt_bwd_cols_plain(blocks, off, q, k, v, gr, z, rho),
             ins + feat + 2 * stat + 2 * feat, edges * (8 * hd + 10)))
-        records.append(check(
+        new.append(check(
             "gt_bwd_merged", shape,
             lambda: kg.gt_bwd_merged(blocks, off, q, k, v, gr, z),
             lambda: kg.gt_bwd_merged_plain(blocks, off, q, k, v, gr, z),
             ins + feat + stat + 3 * feat, edges * (10 * hd + 10)))
+        for rec in new:
+            rec["main"] = hd == HEAD_DIM
+        records += new
         dq, rho_k = kg.gt_bwd_rows(blocks, off, q, k, v, gr, z)
         twopass = (dq,) + kg.gt_bwd_cols(blocks, off, q, k, v, gr, z, rho_k)
         merged = kg.gt_bwd_merged(blocks, off, q, k, v, gr, z)
@@ -377,12 +465,14 @@ def gt_kernel_phase(g, sub, dev, gen):
                                  f"{worst:.3e}")
     for rec in records:
         rec["library_note"] = NO_LIBRARY
-    for kernel in ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged"):
-        info = kg.kernel_info(kernel, HEAD_DIM)
-        print(f"resources {kernel}_kernel hd={HEAD_DIM}: {info}", flush=True)
-        for rec in records:
-            if rec["name"] == kernel:
-                rec["resources"] = info
+    for hd in (HEAD_DIM,) + WIDE_HDS:
+        for kernel in ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols",
+                       "gt_bwd_merged"):
+            info = kg.kernel_info(kernel, hd)
+            print(f"resources {kernel} hd={hd}: {info}", flush=True)
+            for rec in records:
+                if rec["name"] == kernel and f"hd={hd} " in rec["shape"]:
+                    rec["resources"] = info
     return records
 
 
@@ -444,34 +534,73 @@ def model_phase(g, sub, dev, encoder="GIN"):
     card_vs_float64(model.to(dev), g, sub, encoder)
 
 
-def profile_phase(encoder="GIN"):
+# host API calls a step the profile counts: kernel launches, graph
+# launches, and the copies (the captured step's input copies among them)
+HOST_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+              "cudaGraphLaunch", "cudaMemcpyAsync")
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """``run_pretrain`` and the verb with the eager step in place of the
+    captured one (the comparisons of phases 5 and 7)."""
+    real = cli.make_pretrain_step
+    cli.make_pretrain_step = lambda model, opt: functools.partial(
+        pretrain_step_eager, model, opt)
+    try:
+        yield
+    finally:
+        cli.make_pretrain_step = real
+
+
+def profile_phase(encoder="GIN", eager=False):
     """Device time by kernel over 3 steady steps of a main path (after
-    2 unprofiled ones), and the device's busy share of those steps' wall
-    time (host clock, with the profiler's own overhead in it); ``port``:
-    [ms, calls] per step of each of the port's CUDA kernels."""
+    2 unprofiled ones; the captured path's first is its eager warm-up and
+    capture), the device's busy share of those steps' wall time (host
+    clock, with the profiler's own overhead in it), and the host's launch
+    and copy calls a step; ``port``: [ms, calls] per step of each of the
+    port's CUDA kernels.  Where the profiler records no device time (a
+    replay it does not break into kernels), the device ms come from CUDA
+    events around each step instead, and ``device_ms_from`` says so."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    schedule=schedule(wait=1, warmup=1, active=3))
-    with prof:
+    with prof, (eager_steps() if eager else contextlib.nullcontext()):
         steps = run_pretrain(synthetic=1024, batch_size=128, steps=5,
                              lr=1e-4, weight_decay=5e-5, device="cuda",
                              encoder=encoder, log=lambda _: None,
                              profiler=prof)
     wall_ms = sum(r["ms"] for r in steps[2:]) / 3
+    events = prof.key_averages()
     # device-side events, less the user annotations (ProfilerStep*, the
     # optimizer's step), which span kernels rather than being one
     kernels = sorted(
         ((e.self_device_time_total / 1e3 / 3, e.count / 3, e.key)
-         for e in prof.key_averages()
+         for e in events
          if e.device_type == torch.autograd.DeviceType.CUDA
          and not getattr(e, "is_user_annotation", False)
          and not e.key.startswith("ProfilerStep")),
         reverse=True)
     busy_ms = sum(k[0] for k in kernels)
-    summary = {"wall_ms_per_step": wall_ms, "device_ms_per_step": busy_ms,
+    host = {name: sum(e.count for e in events if e.key == name) / 3
+            for name in HOST_CALLS}
+    # what each host kernel launch of the profiled steps was for
+    parents = collections.Counter(
+        (e.cpu_parent.name if e.cpu_parent is not None else "-")
+        for e in prof.events() if e.name in HOST_CALLS[:3])
+    summary = {"path": "eager" if eager else "captured",
+               "wall_ms_per_step": wall_ms, "device_ms_per_step": busy_ms,
+               "device_ms_from": "profiler",
                "device_busy_share": busy_ms / wall_ms if busy_ms else None,
                "device_kernels_per_step": sum(k[1] for k in kernels),
+               "host_calls_per_step": host,
+               "kernel_launches_by_op": {k: n / 3 for k, n in
+                                         parents.most_common(8)},
+               "index_kernels": [{"kernel": name[:100], "ms_per_step": ms,
+                                  "calls_per_step": n}
+                                 for ms, n, name in kernels
+                                 if "index" in name.lower()],
                "top": [{"kernel": name[:80], "ms_per_step": ms,
                         "calls_per_step": n}
                        for ms, n, name in kernels[:12]],
@@ -479,11 +608,282 @@ def profile_phase(encoder="GIN"):
                             sum(n for _, n, name in kernels if k in name)]
                         for k in sorted({v[2].split()[0]
                                          for v in PATH.values()})}}
-    print(f"profile ({encoder}): {json.dumps(summary)}", flush=True)
     if not busy_ms:
-        print("profile: the profiler recorded no device time; device busy "
-              "share not measured", flush=True)
+        summary["device_ms_per_step"] = event_device_ms(encoder, eager)
+        summary["device_ms_from"] = "CUDA events around the step"
+        summary["device_busy_share"] = (summary["device_ms_per_step"]
+                                        / wall_ms)
+    print(f"profile ({encoder}, {summary['path']}): {json.dumps(summary)}",
+          flush=True)
     return summary
+
+
+def event_device_ms(encoder, eager):
+    """Median device time of a steady step, between CUDA events recorded
+    before and after it on the current stream."""
+    times = []
+
+    class Timed:
+        def step(self):
+            pass
+
+    real = cli.make_pretrain_step
+
+    def timed(model, opt):
+        inner = (functools.partial(pretrain_step_eager, model, opt) if eager
+                 else real(model, opt))
+
+        def step(*args):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            out = inner(*args)
+            b.record()
+            times.append((a, b))
+            return out
+        return step
+    cli.make_pretrain_step = timed
+    try:
+        run_pretrain(synthetic=1024, batch_size=128, steps=5, lr=1e-4,
+                     weight_decay=5e-5, device="cuda", encoder=encoder,
+                     log=lambda _: None, profiler=Timed())
+    finally:
+        cli.make_pretrain_step = real
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in times[2:])
+
+
+# --- 5. the captured step against the eager one ------------------------------
+
+def step_bytes(model, opt, gen):
+    """Everything a step changes, as bytes: the parameters and BatchNorm
+    statistics, Adam's state and the generator's."""
+    out = {f"model {k}": v.detach().cpu().numpy().tobytes()
+           for k, v in model.state_dict().items()}
+    for name, p in model.named_parameters():
+        for key, t in opt.state[p].items():
+            out[f"adam {name} {key}"] = t.detach().cpu().numpy().tobytes()
+    out["generator"] = gen.get_state().numpy().tobytes()
+    return out
+
+
+def bytes_apart(a, b):
+    """The entries of two ``step_bytes`` (or loss lists) that differ."""
+    return [k for k in a if a[k] != b[k]]
+
+
+def compared_run(dev, batches, kwargs, how):
+    """One step a batch from one start (PretrainModel(9, 64, 32), seeded
+    weights, Adam, generator) on ``batches``; ``how``: "eager", "captured"
+    or "scan" (calls of the scan step of SCAN_INNER inner steps on the
+    first batch, the first eager and the rest replays; the eager run to
+    compare it with takes the first batch every step).  Returns (losses as
+    bytes per step, step_bytes, launch counts, (model, optimizer))."""
+    model = PretrainModel(9, hidden=64, d_transfer=32, num_heads=HEADS,
+                          **kwargs)
+    init_flax_style_(model, torch.Generator().manual_seed(11))
+    model.to(dev)
+    opt = adam_l2(model, 1e-4, 5e-5)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    reset_launch_counts()
+    if how == "scan":
+        step = make_pretrain_scan_step(model, opt, SCAN_INNER)
+        losses = [[t[i] for t in out] for out in (
+            step(*batches[0], gen) for _ in range(len(batches) // SCAN_INNER))
+            for i in range(SCAN_INNER)]
+    else:
+        step = (make_pretrain_step(model, opt) if how == "captured"
+                else functools.partial(pretrain_step_eager, model, opt))
+        losses = [step(g, s, gen) for g, s in batches]
+    torch.cuda.synchronize()
+    as_bytes = {f"step {i} {name}": t.detach().cpu().numpy().tobytes()
+                for i, ls in enumerate(losses)
+                for name, t in zip(("kl", "contrastive", "recon"), ls)}
+    return as_bytes, step_bytes(model, opt, gen), launch_counts(), (
+        model, opt)
+
+
+def stale_inputs(real):
+    """A planted fault: replays copy their inputs only the first time, and
+    then run on the batch they were first given."""
+    seen = set()
+
+    def replay(self, entry, g, sub):
+        if id(entry) not in seen:
+            seen.add(id(entry))
+            return real(self, entry, g, sub)
+        graph, _, out, added = entry
+        graph.replay()
+        trainer._add_tally(added)
+        return PretrainLosses(*(t.clone() for t in out))
+    return replay
+
+
+COMPARED = {"GIN": ({}, GIN_PER_STEP),
+            "Transformer": ({"encoder": "Transformer"}, GT_PER_STEP),
+            "Transformer-merged": ({"encoder": "Transformer",
+                                    "gt_bwd": "merged"}, MERGED_PER_STEP)}
+
+
+def captured_phase(dev, ds, caps):
+    """Phase 5 (a): the captured step against the eager one."""
+    batches = [(g.to(dev), s.to(dev)) for g, s in itertools.islice(
+        batch_iterator(ds, 128, caps, seed=7), STEPS)]
+    report = {}
+    with deterministic():
+        for label, (kwargs, per_step) in COMPARED.items():
+            eager = compared_run(dev, batches, kwargs, "eager")
+            captured = compared_run(dev, batches, kwargs, "captured")
+            real = trainer._CapturedSteps._replay
+            trainer._CapturedSteps._replay = stale_inputs(real)
+            try:
+                fault = compared_run(dev, batches, kwargs, "captured")
+            finally:
+                trainer._CapturedSteps._replay = real
+            rec = {"losses_apart": bytes_apart(eager[0], captured[0]),
+                   "state_apart": bytes_apart(eager[1], captured[1]),
+                   "fault_losses_apart": len(bytes_apart(eager[0],
+                                                         fault[0])),
+                   "fault_state_apart": len(bytes_apart(eager[1],
+                                                        fault[1]))}
+            for name, run in (("eager", eager), ("captured", captured)):
+                want = {k: n * STEPS for k, n in per_step.items()}
+                got = {k: n for k, n in run[2].items() if n}
+                if got != want:
+                    raise AssertionError(f"{label} {name}: launches {got}, "
+                                         f"expected {want}")
+            if "merged" in label:
+                # dk and dv summed with atomics: held to tolerances, beside
+                # the spread of a second eager run
+                again = compared_run(dev, batches, kwargs, "eager")
+                rec["eager_twice_state_apart"] = len(bytes_apart(eager[1],
+                                                                 again[1]))
+                rec.update(merged_apart(eager, captured))
+                ok = (rec["loss_rel"] <= 1e-5
+                      and rec["weights_lr"] <= 2 * STEPS)
+            else:
+                ok = not rec["losses_apart"] and not rec["state_apart"]
+            print(f"captured vs eager ({label}), {STEPS} steps: "
+                  f"{json.dumps(rec)}", flush=True)
+            if not ok:
+                raise AssertionError(f"{label}: the captured step is not "
+                                     f"the eager one: {rec}")
+            if not (rec["fault_losses_apart"] and rec["fault_state_apart"]):
+                raise AssertionError(f"{label}: the planted fault went "
+                                     "unseen")
+            report[label] = rec
+        # the scan step: two calls of SCAN_INNER steps on one batch, the
+        # second one graph launch for all of them
+        first = [batches[0]] * STEPS
+        eager = compared_run(dev, first, {}, "eager")
+        scan = compared_run(dev, first, {}, "scan")
+        rec = {"losses_apart": bytes_apart(eager[0], scan[0]),
+               "state_apart": bytes_apart(eager[1], scan[1]),
+               "launches": {k: n for k, n in scan[2].items() if n}}
+        print(f"scan step, {STEPS // SCAN_INNER} calls of {SCAN_INNER} vs "
+              f"{STEPS} eager steps (GIN): {json.dumps(rec)}", flush=True)
+        want = {k: n * STEPS for k, n in GIN_PER_STEP.items()}
+        if rec["losses_apart"] or rec["state_apart"] or \
+                rec["launches"] != want:
+            raise AssertionError(f"the scan step is not {STEPS} eager "
+                                 f"steps: {rec}")
+        report["GIN scan"] = rec
+    return report
+
+
+def merged_apart(eager, captured):
+    """The largest relative loss difference and weight difference (in
+    units of the learning rate) between two runs."""
+    (l1, _, _, (m1, _)), (l2, _, _, (m2, _)) = eager, captured
+    loss = max(abs(float(np.frombuffer(l1[k], np.float32)[0])
+                   - float(np.frombuffer(l2[k], np.float32)[0]))
+               / abs(float(np.frombuffer(l1[k], np.float32)[0]))
+               for k in l1)
+    weights = max(float((a - b).abs().max()) for a, b in
+                  zip(m1.parameters(), m2.parameters())) / LR
+    return {"loss_rel": loss, "weights_lr": weights}
+
+
+def skewed_batch():
+    """11 dense graphs of 12 nodes (each pair joined with probability 0.8,
+    so a 1-hop ego-net holds about 10 rows) and 50 small molecules at N =
+    512, S = 2048: the first tile of 128 centers owns about 1250 ego-net
+    rows, more than the pooling window's 1024.  (Not complete graphs: a
+    GIN conv makes every node of a complete graph equal, and the KL's
+    division by a per-graph std of 0 then turns float32 rounding into the
+    loss.)"""
+    rng = np.random.default_rng(3)
+    graphs = []
+    for _ in range(11):
+        upper = np.triu(rng.random((12, 12)) < 0.8, 1)
+        s, r = np.nonzero(upper | upper.T)
+        graphs.append(GraphData(
+            senders=s.astype(np.int32), receivers=r.astype(np.int32),
+            node_feat=rng.normal(size=(12, 9)).astype(np.float32)))
+    graphs += random_dataset(50, seed=4, min_nodes=4, max_nodes=6)
+    egos = [extract_egonets(x, 1) for x in graphs]
+    return (pack_graphs(graphs, 512, 2048, 64),
+            pack_subgraphs(graphs, egos, 2048, 16384, num_centers=512))
+
+
+def skewed_phase(dev):
+    """Phase 5 (b): the skewed batch through the captured step (eager
+    first, then replays): the pooling's scatter branch inside the graph,
+    and each replay's losses within MODEL_RTOL of the float64 CPU model
+    (the state before that step)."""
+    g, sub = (b.to(dev) for b in skewed_batch())
+    if sub.pool_fits is not False:
+        raise AssertionError("the skewed batch fits the pooling window")
+    model = PretrainModel(9, hidden=64, d_transfer=32, deterministic=True)
+    init_flax_style_(model, torch.Generator().manual_seed(5))
+    model.to(dev)
+    step = make_pretrain_step(model, adam_l2(model, 1e-4, 5e-5))
+    reset_launch_counts()
+    pool_mod.branch_counts.clear()
+    worst = 0.0
+    for i in range(3):
+        ref = copy.deepcopy(model).to("cpu", torch.float64).train()
+        g64, sub64 = g.to("cpu"), sub.to("cpu")
+        g64.node_feat = g64.node_feat.double()
+        before = trainer._tally()
+        with torch.no_grad():
+            want = [float(v) for v in ref(g64, sub64)]
+        after = trainer._tally()               # the reference's branches
+        trainer._add_tally({k: n - before.get(k, 0)
+                            for k, n in after.items()}, -1)
+        got = [float(v) for v in step(g, sub)]
+        if i:
+            worst = max(worst, max(abs(a - b) / abs(b)
+                                   for a, b in zip(got, want)))
+    counts = launch_counts()
+    branches = dict(pool_mod.branch_counts)
+    rec = {"replay_loss_rel": worst, "pool_branches": branches,
+           "pool_launches": counts["pool"], "graphs": len(step.graphs)}
+    print(f"skewed batch, captured: {json.dumps(rec)} (tol {MODEL_RTOL})",
+          flush=True)
+    if not (worst <= MODEL_RTOL and branches == {"scatter": 3}
+            and counts["pool"] == 0 and len(step.graphs) == 1):
+        raise AssertionError(f"skewed batch: {rec}")
+    return rec
+
+
+def medians_phase():
+    """Phase 5 (c): step medians (steps 1-5 of 6) of the eager and the
+    captured step, eager / captured / captured / eager, for both
+    encoders."""
+    out = {}
+    for encoder in ("GIN", "Transformer"):
+        runs = []
+        for eager in (True, False, False, True):
+            with (eager_steps() if eager else contextlib.nullcontext()):
+                recs = run_pretrain(synthetic=1024, batch_size=128,
+                                    steps=STEPS, lr=1e-4, weight_decay=5e-5,
+                                    device="cuda", encoder=encoder,
+                                    log=lambda _: None)
+            runs.append(("eager" if eager else "captured",
+                         statistics.median(r["ms"] for r in recs[1:])))
+        out[encoder] = runs
+        print(f"step medians ({encoder}), ms: {runs}", flush=True)
+    return out
 
 
 def main():
@@ -507,10 +907,12 @@ def main():
         clock[0] = now
         print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
 
-    # 2. build
+    # 2. build, with the probe of the narrowest refused head width beside
+    probe = start_refused_probe()
     kbuild.load(*sorted({src for src, _, _ in PATH.values()}))
     kb.build()
     kg.build()
+    refused = finish_refused_probe(probe)
     lap("2 build")
     for name, log in kbuild.logs.items():
         print(f"nvcc {name}.cu:\n{log}", flush=True)
@@ -535,8 +937,10 @@ def main():
         model_phase(g, sub, dev, encoder)
     lap("4 model")
 
-    # 5. main paths
+    # 5. main paths, captured; the captured step against the eager one
     runs = {name: main_path(name, *spec) for name, spec in RUNS.items()}
+    compiled = {"captured_vs_eager": captured_phase(dev, ds, caps),
+                "skewed": skewed_phase(dev), "medians": medians_phase()}
     lap("5 main paths")
 
     # 6. the pretrain verb, its options and the repaired widths
@@ -544,15 +948,18 @@ def main():
     lap("6 verb, options, widths")
 
     # 7. where the step time goes
-    profiles = {encoder: profile_phase(encoder)
-                for encoder in ("GIN", "Transformer")}
+    profiles = {f"{encoder} {path}": profile_phase(encoder,
+                                                   path == "eager")
+                for encoder in ("GIN", "Transformer")
+                for path in ("captured", "eager")}
     lap("7 profile")
 
     # 8. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
-        widest = max(recs, key=lambda r: r["bound_ms"])
+        widest = max((r for r in recs if r.get("main", True)),
+                     key=lambda r: r["bound_ms"])
         run = REPORT_RUN.get(name, "GIN")
         kernels.append({
             "name": name, "route": "cuda",
@@ -569,7 +976,9 @@ def main():
     print(json.dumps({"kernels": kernels,
                       "step_ms": {k: r["step_ms"] for k, r in runs.items()},
                       "steps": {k: r["steps"] for k, r in runs.items()},
-                      "verb": verb, "profile": profiles,
+                      "verb": verb, "compiled": compiled,
+                      "refused_head_width": {kg.REFUSED_HD: refused},
+                      "profile": profiles,
                       "phase_s": phase_s}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -634,9 +1043,24 @@ WIDTH_RUNS = {
     "GIN hidden 30": ({"hidden": 30}, GIN_PER_STEP, "band"),
     "Transformer 1 head of 64": ({"encoder": "Transformer", "num_heads": 1},
                                  GT_PER_STEP, "gt_band_64x128"),
+    "Transformer 1 head of 64, merged": (
+        {"encoder": "Transformer", "num_heads": 1, "gt_bwd": "merged"},
+        MERGED_PER_STEP, "gt_band_64x128"),
     "Transformer hidden 96, 8 heads of 12": (
         {"encoder": "Transformer", "hidden": 96}, GT_PER_STEP,
-        "gt_band_64x128")}
+        "gt_band_64x128"),
+    "Transformer hidden 256, 1 head of 256": (
+        {"encoder": "Transformer", "hidden": 256, "num_heads": 1},
+        GT_PER_STEP, "gt_band_64x128"),
+    "Transformer hidden 256, 1 head of 256, merged": (
+        {"encoder": "Transformer", "hidden": 256, "num_heads": 1,
+         "gt_bwd": "merged"}, MERGED_PER_STEP, "gt_band_64x128"),
+    "Transformer hidden 512, 1 head of 512": (
+        {"encoder": "Transformer", "hidden": 512, "num_heads": 1},
+        GT_PER_STEP, "gt_band_64x128"),
+    "Transformer hidden 512, 1 head of 512, merged": (
+        {"encoder": "Transformer", "hidden": 512, "num_heads": 1,
+         "gt_bwd": "merged"}, MERGED_PER_STEP, "gt_band_64x128")}
 
 
 def expect_counts(label, per_step, steps):
@@ -801,8 +1225,7 @@ def verb_phase(g, sub, dev, ds, caps):
                               deterministic=True, **kw)
         init_flax_style_(model, torch.Generator().manual_seed(3))
         card_vs_float64(model.to(dev), gb, sb, label, grads=False)
-        step = make_pretrain_step(model, torch.optim.Adam(
-            model.parameters(), lr=1e-4, weight_decay=5e-5))
+        step = make_pretrain_step(model, adam_l2(model, 1e-4, 5e-5))
         reset_launch_counts()
         losses = step(gb, sb)
         torch.cuda.synchronize()

@@ -50,7 +50,7 @@ from .data.synthetic import random_dataset
 from .models.scgib import PretrainModel
 from .train import checkpoint as ckpt
 from .train.loops import run_pretraining
-from .train.trainer import TrainState, make_pretrain_step
+from .train.trainer import TrainState, adam_l2, make_pretrain_step
 from .utils.device import resolve_device
 from .utils.params import (from_jax_variables, init_flax_style_,
                            to_jax_variables)
@@ -64,7 +64,9 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
                  log: Callable[[str], None] = print,
                  profiler=None, hidden: int = 64, d_transfer: int = 32,
                  k: int = 1, **options) -> List[dict]:
-    """Pack ``steps`` batches of ``batch_size`` graphs and train on them.
+    """Pack ``steps`` batches of ``batch_size`` graphs and train on them
+    with ``make_pretrain_step`` (on the card the first step eager, then
+    CUDA-graph replays).
 
     Returns one record per step: its three losses and its time in ms
     (host clock around the step, ended by a device synchronize; batches
@@ -94,8 +96,7 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
                           k_transition=k, **options)
     init_flax_style_(model, torch.Generator().manual_seed(seed))
     model.to(dev)
-    step = make_pretrain_step(model, torch.optim.Adam(
-        model.parameters(), lr=lr, weight_decay=weight_decay))
+    step = make_pretrain_step(model, adam_l2(model, lr, weight_decay))
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
     records = []
@@ -157,10 +158,10 @@ def _model(args, feat_dim: int) -> PretrainModel:
 
 
 def _train(model, ds, args, seed: int, autosave):
-    """One stage of ``run_pretraining`` with a fresh Adam."""
+    """One stage of ``run_pretraining`` with a fresh Adam and a fresh
+    (captured, on the card) step, whose graphs go with it."""
     caps = plan_capacities(ds, args.batch_size)
-    optimizer = torch.optim.Adam(model.parameters(), lr=args.lr,
-                                 weight_decay=args.weight_decay)
+    optimizer = adam_l2(model, args.lr, args.weight_decay)
     state = TrainState(model, optimizer)
     return run_pretraining(
         make_pretrain_step(model, optimizer), state, ds, caps,

@@ -13,6 +13,8 @@
 //                  Replaces _bwd_cols_kernel.
 //   gt_bwd_merged  the row pass that also adds each entry's dk and dv terms
 //                  with atomicAdd.  Replaces _bwd_merged_kernel.
+//                  The row pass and the merged pass are one template,
+//                  gt_row_pass_kernel<HD, MERGED>.
 //
 // Layout (graph/banded.py): blocks [T, TL, BW] bf16 (TL = 64, BW = 128 in
 // the narrow graph-transformer geometry; 128, 256 in the wide one), col_off
@@ -33,19 +35,20 @@
 // writes dk and dv, 18.1 MB, 5.4 us.  Reaching it is a matter of latency:
 // the loads of a row depend on its gate.
 //
-// gt_fwd, gt_bwd_rows and gt_bwd_cols (the forward and the default,
-// two-pass backward).  Their first design (the one gt_bwd_merged keeps)
-// ran one block per (row tile, head), a warp walking eight rows in turn,
-// each lane testing its columns of the gate two bytes at a time and
-// reading k / v for a nonzero as hd scalar loads: every head re-read the
-// gate (8 x 2.5 MB at S), a row was a chain of dependent loads, and 48-128
-// registers capped the warps an SM.  It ran at 7-9% of the byte bound.
-// Now a group of lanes owns a row (a column in the column pass) with all
-// its heads: as many lanes as cover D in float4s, at least 4 (16 at
-// D = 64, so a warp takes two rows), a head's hd features on hd / 4
-// adjacent lanes (or 4 / hd heads a lane below hd = 4; hd is a power of
-// two up to 128, so a head never leaves its warp, and the wrapper pads
-// any other width with zeros up to the next one).  The group reads
+// All four kernels (the forward, the default two-pass backward and the
+// merged backward).  Their first design ran one block per (row
+// tile, head), a warp walking eight rows in turn, each lane testing its
+// columns of the gate two bytes at a time and reading k / v for a nonzero
+// as hd scalar loads: every head re-read the gate (8 x 2.5 MB at S), a row
+// was a chain of dependent loads, and 48-128 registers capped the warps an
+// SM.  It ran at 7-9% of the byte bound.  Now a group of lanes owns a row
+// (a column in the column pass) with all its heads: as many lanes as cover
+// D in pieces of F features, at least 4 (16 at D = 64, so a warp takes two
+// rows).  A lane holds F = 4 features (one float4) up to hd = 128, and
+// hd / 32 past it, so a head's features lie on at most 32 adjacent lanes
+// (or 4 / hd heads a lane below hd = 4; hd is a power of two up to 512, so
+// a head never leaves its warp, and the wrapper pads any other width with
+// zeros up to the next one).  The group reads
 // the row's gate once, as 16-byte vectors, together with q_i (and g_i and
 // z_i in the backward); finds the nonzeros by warp ballot (gate_walk.cuh,
 // shared with banded.cu's band_row); and gathers the rows they name,
@@ -57,7 +60,8 @@
 // adds e to z and e v_j to its features, then divides by z + eps (an
 // all-zero row gives z = 0 and out = 0).  The row pass needs rho before
 // dS: it keeps k_j, e, G and the clip flag of its first GATHER nonzeros in
-// registers, so the second trip over them reads nothing; only rows with
+// registers (half as many at 8 features a lane), so the second trip over
+// them reads nothing; only rows with
 // more nonzeros (rare in molecules) gather the rest again.  The column
 // pass relies on A = A^T (the packers symmetrize every edge list): the
 // rows that attend to column c of tile tc lie in the window col_off[tc],
@@ -65,20 +69,22 @@
 // blocks[tc][c - tc * TL][r], row c of the column's own slab; it reads
 // q_i, g_i, z_i and rho_i for each nonzero and needs one trip.  Every
 // output element is summed by one lane over its row's nonzeros in the
-// walk's fixed order: no atomics, the same bits in every run.  These
-// three kernels take D a multiple of 4 and 16-byte aligned blocks and
-// feature rows (the wrappers check, and copy a misaligned feature
-// operand).
+// walk's fixed order: no atomics, the same bits in every run.  All four
+// kernels take D a multiple of 4 and 16-byte aligned blocks and feature
+// rows (the wrappers check, and copy a misaligned feature operand).
 //
-// gt_bwd_merged keeps the first design: one block per (row tile, head),
-// one warp per row, the lanes walking the window 32 columns at a time,
-// k / v read only where the gate is nonzero, warp shuffles for rho and
-// the hd-wide sums.  The merged pass exists because the TPU grid runs its
-// programs in order, which made the read-modify-write of overlapping
-// dk / dv windows race-free there.  CUDA blocks run in no order, so here
-// every edge adds its dk and dv terms to buffers the caller zeroed, with
-// atomicAdd: its sums are taken in an order that changes from run to run.
-// Two-pass is the default.
+// gt_bwd_merged is the row pass with the column pass folded into its
+// second trip: each nonzero (i, j) adds this lane's features of its dk_j
+// and dv_j terms with atomicAdd into buffers the caller zeroed, and no rho
+// is written.  The merged pass exists because the TPU grid runs its
+// programs in order, which made the read-modify-write of overlapping dk /
+// dv windows race-free there.  CUDA blocks run in no order, hence the
+// atomics, and its sums are taken in an order that changes from run to
+// run.  Its first design (a block per (row tile, head), a warp per row,
+// hd features three times over in every lane) re-read the gate per head,
+// ran at 7% of the byte bound and could not go past hd = 32; in the
+// lane-group layout it serves every width the two passes serve.  Two-pass
+// is the default.
 //
 // Everything is fp32 FMA, with no max shift in the exponential (as
 // gt_flash.py:133).  A zero gate entry contributes exactly 0 in the TPU
@@ -101,148 +107,59 @@ namespace {
 
 using gate_walk::FULL;
 
-constexpr int THREADS = 256;      // gt_bwd_merged
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_SLOTS = 8;      // window columns per lane: BW <= 256
-constexpr int PASS_THREADS = 128; // gt_fwd, gt_bwd_rows, gt_bwd_cols
+constexpr int PASS_THREADS = 128; // every kernel's block
 constexpr int GATHER = 4;         // nonzeros whose rows are loaded together
+                                  // (at 4 features a lane)
+constexpr int MAX_BAND = 256;     // one segment of gate vectors
+                                  // (gate_walk::SEGV a lane) covers it
 constexpr int MIN_LANES = 4;      // a row's lanes: at BW = 256 one segment
-                                  // of gate vectors (gate_walk::SEGV a lane)
                                   // then covers the band
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-  return x;
-}
-
-template <int HD>
-__device__ __forceinline__ void load_row(const float* __restrict__ p,
-                                         float (&x)[HD]) {
-#pragma unroll
-  for (int d = 0; d < HD; ++d) x[d] = p[d];
-}
-
-template <int HD>
-__device__ __forceinline__ float dot(const float (&a)[HD],
-                                     const float* __restrict__ b) {
-  float s = 0.f;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) s = fmaf(a[d], b[d], s);
-  return s;
-}
-
-template <int HD>
-__device__ __forceinline__ void warp_sum_row(float (&x)[HD]) {
-#pragma unroll
-  for (int d = 0; d < HD; ++d) x[d] = warp_sum(x[d]);
-}
 
 __device__ __forceinline__ float gated_exp(float s, float a, float clamp) {
   return expf(fminf(fmaxf(s, -clamp), clamp)) * a;
 }
 
-// The merged pass: the first design's row pass that also adds dk and dv
-// (zeroed by the caller) with atomicAdd.  Block (t, h), one warp per row
-// of tile t.
+// How a lane's F features c .. c + F - 1 fall into heads of width HD: F is
+// 4, or HD / 32 past HD = 128 so that a head never spans more than a warp;
+// NH heads a lane (4 / HD below HD = 4, else 1) of PER features each; one
+// head spans LPH adjacent lanes.  NG nonzeros are gathered at once: half
+// as many at 8 features a lane, which keeps the registers of hd <= 128.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-gt_bwd_merged_kernel(const __nv_bfloat16* __restrict__ blocks,
-                     const long long* __restrict__ col_off, int TL, int BW,
-                     const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ g,
-                     const float* __restrict__ z, int H, float scale,
-                     float clamp, float eps, float* __restrict__ dq,
-                     float* __restrict__ dk, float* __restrict__ dv) {
-  const int t = blockIdx.x, h = blockIdx.y;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long D = (long long)H * HD;
-  const long long off = col_off[t];
-  for (int r = warp; r < TL; r += WARPS) {
-    const long long i = (long long)t * TL + r;
-    const __nv_bfloat16* gate = blocks + i * BW;
-    float qi[HD], gi[HD], acc[HD];
-    load_row<HD>(q + i * D + h * HD, qi);
-    load_row<HD>(g + i * D + h * HD, gi);
-    const float inv = 1.f / (z[i * H + h] + eps);
-    // this lane's window columns j = lane + 32 m: the gated exponential,
-    // whether the score is inside the clip, and G = g_i . v_j
-    float e[MAX_SLOTS], G[MAX_SLOTS];
-    bool inside[MAX_SLOTS];
-    float rh = 0.f;
+struct Heads {
+  static constexpr int F = HD > 128 ? HD / 32 : 4;
+  static constexpr int NH = HD >= 4 ? 1 : 4 / HD;
+  static constexpr int PER = HD >= 4 ? F : HD;
+  static constexpr int LPH = HD >= 4 ? HD / F : 1;
+  static constexpr int NG = F > 4 ? GATHER / 2 : GATHER;
+};
+
+// F features from p in 16-byte vectors (zeros where !ok).
+template <int F>
+__device__ __forceinline__ void loadf(const float* __restrict__ p, bool ok,
+                                      float* x) {
 #pragma unroll
-    for (int m = 0; m < MAX_SLOTS; ++m) {
-      e[m] = 0.f;
-      G[m] = 0.f;
-      inside[m] = false;
-      const int j = lane + 32 * m;
-      if (j < BW) {
-        const float a = __bfloat162float(gate[j]);
-        if (a != 0.f) {
-          const long long row = (off + j) * D + h * HD;
-          const float s = dot<HD>(qi, k + row) * scale;
-          e[m] = gated_exp(s, a, clamp);
-          inside[m] = (s >= -clamp) && (s <= clamp);
-          G[m] = dot<HD>(gi, v + row);
-          rh = fmaf(G[m], e[m] * inv, rh);
-        }
-      }
-    }
-    rh = warp_sum(rh);
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-#pragma unroll
-    for (int m = 0; m < MAX_SLOTS; ++m) {
-      if (e[m] != 0.f) {
-        const long long row = (off + lane + 32 * m) * D + h * HD;
-        const float ds = inside[m] ? e[m] * (G[m] - rh) * inv : 0.f;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, k[row + d], acc[d]);
-        const float w = e[m] * inv;
-#pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          atomicAdd(dk + row + d, ds * scale * qi[d]);
-          atomicAdd(dv + row + d, w * gi[d]);
-        }
-      }
-    }
-    warp_sum_row<HD>(acc);
-    if (lane == 0) {
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dq[i * D + h * HD + d] = acc[d] * scale;
-    }
+  for (int i = 0; i < F / 4; ++i) {
+    const float4 v = ok ? __ldg(reinterpret_cast<const float4*>(p) + i)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    x[4 * i] = v.x; x[4 * i + 1] = v.y; x[4 * i + 2] = v.z;
+    x[4 * i + 3] = v.w;
   }
 }
 
-// --- the forward and the two-pass backward: a lane group per row, all heads
-
-// How a lane's four features c .. c + 3 fall into heads of width HD: NH
-// heads a lane (4 / HD below HD = 4, else 1) of PER features each; one
-// head spans LPH adjacent lanes.
-template <int HD>
-struct Heads {
-  static constexpr int NH = HD >= 4 ? 1 : 4 / HD;
-  static constexpr int PER = HD >= 4 ? 4 : HD;
-  static constexpr int LPH = HD >= 4 ? HD / 4 : 1;
-};
-
-__device__ __forceinline__ void load4(const float* __restrict__ p, bool ok,
-                                      float x[4]) {
-  const float4 v = ok ? __ldg(reinterpret_cast<const float4*>(p))
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-
-__device__ __forceinline__ void store4(float* p, const float x[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+template <int F>
+__device__ __forceinline__ void storef(float* p, const float* x) {
+#pragma unroll
+  for (int i = 0; i < F / 4; ++i)
+    reinterpret_cast<float4*>(p)[i] =
+        make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
 }
 
 // out[u] = a . b over head u of this lane, in every lane of the head: each
 // lane sums its own features, then a butterfly over the head's lanes.
 // Every lane of the warp calls this together.
 template <int HD>
-__device__ __forceinline__ void head_dots(const float a[4], const float b[4],
-                                          float out[Heads<HD>::NH]) {
+__device__ __forceinline__ void head_dots(const float* a, const float* b,
+                                          float* out) {
   using M = Heads<HD>;
 #pragma unroll
   for (int u = 0; u < M::NH; ++u) {
@@ -258,19 +175,19 @@ __device__ __forceinline__ void head_dots(const float a[4], const float b[4],
     for (int u = 0; u < M::NH; ++u) out[u] += __shfl_xor_sync(FULL, out[u], o);
 }
 
-// Lanes a row's group takes for D features: enough for D / 4 float4s,
-// rounded up to a power of two, at least MIN_LANES and at most a warp (D
-// above 128 is covered in passes of 128).
-int lanes_per_row(int D) {
+// Lanes a row's group takes for D features at F a lane: enough for D / F
+// pieces, rounded up to a power of two, at least MIN_LANES and at most a
+// warp (wider rows are covered in passes of 32 F features).
+int lanes_per_row(int D, int F) {
   int lpr = MIN_LANES;
-  while (lpr < 32 && 4 * lpr < D) lpr *= 2;
+  while (lpr < 32 && F * lpr < D) lpr *= 2;
   return lpr;
 }
 
 // Forward: lane group of `lpr` lanes per row i < n_rows, features as in
 // the row pass.  One trip over the row's nonzeros: per head the gated
-// exponential e, z += e and acc += e v_j, every k / v load of GATHER
-// nonzeros in flight before any is used; then out = acc / (z + eps).
+// exponential e, z += e and acc += e v_j, every k / v load of NG nonzeros
+// in flight before any is used; then out = acc / (z + eps).
 template <int HD>
 __global__ void __launch_bounds__(PASS_THREADS)
 gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
@@ -280,7 +197,7 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
               int H, float scale, float clamp, float eps, int lpr,
               float* __restrict__ out, float* __restrict__ z) {
   using M = Heads<HD>;
-  constexpr int NH = M::NH;
+  constexpr int NH = M::NH, F = M::F, NG = M::NG;
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
   const long long row =
       ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) / lpr;
@@ -289,27 +206,29 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   const int D = H * HD;
   const long long off = col_off[i / TL];
   const __nv_bfloat16* gate = blocks + i * BW;
-  for (int c0 = 0; c0 < D; c0 += 4 * lpr) {
-    const int c = c0 + 4 * grp.lig;
+  for (int c0 = 0; c0 < D; c0 += F * lpr) {
+    const int c = c0 + F * grp.lig;
     const bool ok = active && c < D;
-    float qi[4], acc[4] = {0.f, 0.f, 0.f, 0.f}, zs[NH];
-    load4(q + i * D + c, ok, qi);
+    float qi[F], acc[F], zs[NH];
+    loadf<F>(q + i * D + c, ok, qi);
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
 #pragma unroll
     for (int h = 0; h < NH; ++h) zs[h] = 0.f;
     unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
     while (__any_sync(FULL, m != 0ull)) {
-      float a[GATHER], kj[GATHER][4], vj[GATHER][4];
+      float a[NG], kj[NG][F], vj[NG][F];
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
+      for (int u = 0; u < NG; ++u) {
         const int col = gate_walk::take_nonzero(m, 0, grp);
         const bool has = col >= 0;
         const long long j = off + (has ? col : 0);
         a[u] = has ? __bfloat162float(gate[col]) : 0.f;
-        load4(k + j * D + c, has && ok, kj[u]);
-        load4(v + j * D + c, has && ok, vj[u]);
+        loadf<F>(k + j * D + c, has && ok, kj[u]);
+        loadf<F>(v + j * D + c, has && ok, vj[u]);
       }
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
+      for (int u = 0; u < NG; ++u) {
         float s[NH];
         head_dots<HD>(qi, kj[u], s);
 #pragma unroll
@@ -330,7 +249,7 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
         for (int j = 0; j < M::PER; ++j) acc[h * M::PER + j] *= inv;
       }
-      store4(out + i * D + c, acc);
+      storef<F>(out + i * D + c, acc);
       if (HD < 4 || c % HD == 0) {      // the head's leading lane
 #pragma unroll
         for (int h = 0; h < NH; ++h) z[i * H + c / HD + h] = zs[h];
@@ -339,30 +258,31 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   }
 }
 
-// The row pass's terms for up to GATHER nonzero columns (col < 0: none) of
-// row i's window at `off`: this lane's features of each k_j (kept for dq),
+// The row pass's terms for up to NG nonzero columns (col < 0: none) of row
+// i's window at `off`: this lane's features of each k_j (kept for dq),
 // and per head the gated exponential e, the clip flag and G = g_i . v_j.
 // Every k / v load is issued before any is used.
 template <int HD>
 __device__ __forceinline__ void row_terms(
-    const int col[GATHER], const __nv_bfloat16* __restrict__ gate,
-    long long off, int D, int c, bool ok, const float* __restrict__ k,
-    const float* __restrict__ v, const float qi[4], const float gi[4],
-    float scale, float clamp, float kj[GATHER][4],
-    float e[GATHER][Heads<HD>::NH], float G[GATHER][Heads<HD>::NH],
-    bool inside[GATHER][Heads<HD>::NH]) {
-  constexpr int NH = Heads<HD>::NH;
-  float a[GATHER], vj[GATHER][4];
+    const int* col, const __nv_bfloat16* __restrict__ gate, long long off,
+    int D, int c, bool ok, const float* __restrict__ k,
+    const float* __restrict__ v, const float* qi, const float* gi,
+    float scale, float clamp, float (*kj)[Heads<HD>::F],
+    float (*e)[Heads<HD>::NH], float (*G)[Heads<HD>::NH],
+    bool (*inside)[Heads<HD>::NH]) {
+  using M = Heads<HD>;
+  constexpr int NH = M::NH, F = M::F, NG = M::NG;
+  float a[NG], vj[NG][F];
 #pragma unroll
-  for (int u = 0; u < GATHER; ++u) {
+  for (int u = 0; u < NG; ++u) {
     const bool has = col[u] >= 0;
     const long long j = off + (has ? col[u] : 0);
     a[u] = has ? __bfloat162float(gate[col[u]]) : 0.f;
-    load4(k + j * D + c, has && ok, kj[u]);
-    load4(v + j * D + c, has && ok, vj[u]);
+    loadf<F>(k + j * D + c, has && ok, kj[u]);
+    loadf<F>(v + j * D + c, has && ok, vj[u]);
   }
 #pragma unroll
-  for (int u = 0; u < GATHER; ++u) {
+  for (int u = 0; u < NG; ++u) {
     float s[NH];
     head_dots<HD>(qi, kj[u], s);
     head_dots<HD>(gi, vj[u], G[u]);
@@ -375,41 +295,65 @@ __device__ __forceinline__ void row_terms(
   }
 }
 
-// dq[f] += dS(head of f) * k_j[f] for the GATHER terms (e = 0 adds 0).
-template <int HD>
-__device__ __forceinline__ void add_dq(
-    const float kj[GATHER][4], const float e[GATHER][Heads<HD>::NH],
-    const float G[GATHER][Heads<HD>::NH],
-    const bool inside[GATHER][Heads<HD>::NH],
-    const float rh[Heads<HD>::NH], const float inv[Heads<HD>::NH],
-    float acc[4]) {
+// The second trip's work for NG terms: dq[f] += dS(head of f) * k_j[f] (e =
+// 0 adds 0); and, in the merged pass, this lane's features of
+// dk_j += dS q_i scale and dv_j += W g_i, with atomicAdd into buffers the
+// caller zeroed.
+template <int HD, bool MERGED>
+__device__ __forceinline__ void add_terms(
+    const int* col, long long off, int D, int c, bool ok,
+    const float (*kj)[Heads<HD>::F], const float (*e)[Heads<HD>::NH],
+    const float (*G)[Heads<HD>::NH], const bool (*inside)[Heads<HD>::NH],
+    const float* rh, const float* inv, const float* qi, const float* gi,
+    float scale, float* acc, float* __restrict__ dk,
+    float* __restrict__ dv) {
   using M = Heads<HD>;
 #pragma unroll
-  for (int u = 0; u < GATHER; ++u)
+  for (int u = 0; u < M::NG; ++u) {
+    float ds[M::NH];
 #pragma unroll
     for (int h = 0; h < M::NH; ++h) {
-      const float ds = inside[u][h] ? e[u][h] * (G[u][h] - rh[h]) * inv[h]
-                                    : 0.f;
+      ds[h] = inside[u][h] ? e[u][h] * (G[u][h] - rh[h]) * inv[h] : 0.f;
 #pragma unroll
       for (int j = 0; j < M::PER; ++j)
-        acc[h * M::PER + j] = fmaf(ds, kj[u][h * M::PER + j],
+        acc[h * M::PER + j] = fmaf(ds[h], kj[u][h * M::PER + j],
                                    acc[h * M::PER + j]);
     }
+    if (MERGED && ok && col[u] >= 0) {
+      float* dkj = dk + (off + col[u]) * D + c;
+      float* dvj = dv + (off + col[u]) * D + c;
+#pragma unroll
+      for (int h = 0; h < M::NH; ++h) {
+        const float w = e[u][h] * inv[h];
+#pragma unroll
+        for (int j = 0; j < M::PER; ++j) {
+          const int f = h * M::PER + j;
+          atomicAdd(dkj + f, ds[h] * scale * qi[f]);
+          atomicAdd(dvj + f, w * gi[f]);
+        }
+      }
+    }
+  }
 }
 
 // Row pass: lane group of `lpr` lanes per row i < n_rows; in each pass c0
-// over the features, lane lig holds features c = c0 + 4 lig of heads
-// c / HD onwards.
-template <int HD>
+// over the features, lane lig holds features c = c0 + F lig of heads
+// c / HD onwards.  Two trips over the row's nonzeros: rho first, then dq.
+// MERGED: the merged backward, which in its second trip also adds each
+// nonzero's dk and dv terms (and writes no rho); else the two-pass
+// backward's row pass, which writes dq and rho.
+template <int HD, bool MERGED>
 __global__ void __launch_bounds__(PASS_THREADS)
-gt_bwd_rows_kernel(const __nv_bfloat16* __restrict__ blocks,
+gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
                    const long long* __restrict__ col_off, int TL, int BW,
                    long long n_rows, const float* __restrict__ q,
                    const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ g, const float* __restrict__ z,
                    int H, float scale, float clamp, float eps, int lpr,
-                   float* __restrict__ dq, float* __restrict__ rho) {
-  constexpr int NH = Heads<HD>::NH;
+                   float* __restrict__ dq, float* __restrict__ rho,
+                   float* __restrict__ dk, float* __restrict__ dv) {
+  using M = Heads<HD>;
+  constexpr int NH = M::NH, F = M::F, NG = M::NG;
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
   const long long row =
       ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) / lpr;
@@ -418,13 +362,13 @@ gt_bwd_rows_kernel(const __nv_bfloat16* __restrict__ blocks,
   const int D = H * HD;
   const long long off = col_off[i / TL];
   const __nv_bfloat16* gate = blocks + i * BW;
-  for (int c0 = 0; c0 < D; c0 += 4 * lpr) {
-    const int c = c0 + 4 * grp.lig;
+  for (int c0 = 0; c0 < D; c0 += F * lpr) {
+    const int c = c0 + F * grp.lig;
     const bool ok = active && c < D;
     const int h0 = c / HD;              // this lane's first head
-    float qi[4], gi[4], inv[NH], rh[NH];
-    load4(q + i * D + c, ok, qi);
-    load4(g + i * D + c, ok, gi);
+    float qi[F], gi[F], inv[NH], rh[NH];
+    loadf<F>(q + i * D + c, ok, qi);
+    loadf<F>(g + i * D + c, ok, gi);
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
       inv[h] = ok ? 1.f / (z[i * H + h0 + h] + eps) : 0.f;
@@ -432,57 +376,62 @@ gt_bwd_rows_kernel(const __nv_bfloat16* __restrict__ blocks,
     }
     unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
 
-    // first trip: rho; the first GATHER nonzeros' terms stay in registers
-    int col0[GATHER];
-    float k0[GATHER][4], e0[GATHER][NH], G0[GATHER][NH];
-    bool in0[GATHER][NH];
+    // first trip: rho; the first NG nonzeros' terms stay in registers
+    int col0[NG];
+    float k0[NG][F], e0[NG][NH], G0[NG][NH];
+    bool in0[NG][NH];
 #pragma unroll
-    for (int u = 0; u < GATHER; ++u)
+    for (int u = 0; u < NG; ++u)
       col0[u] = gate_walk::take_nonzero(m, 0, grp);
     row_terms<HD>(col0, gate, off, D, c, ok, k, v, qi, gi, scale, clamp, k0,
                   e0, G0, in0);
 #pragma unroll
-    for (int u = 0; u < GATHER; ++u)
+    for (int u = 0; u < NG; ++u)
 #pragma unroll
       for (int h = 0; h < NH; ++h) rh[h] = fmaf(G0[u][h], e0[u][h] * inv[h],
                                                 rh[h]);
-    const unsigned long long rest = m;   // the nonzeros past the first GATHER
+    const unsigned long long rest = m;   // the nonzeros past the first NG
     while (__any_sync(FULL, m != 0ull)) {
-      int col[GATHER];
-      float kj[GATHER][4], e[GATHER][NH], G[GATHER][NH];
-      bool in[GATHER][NH];
+      int col[NG];
+      float kj[NG][F], e[NG][NH], G[NG][NH];
+      bool in[NG][NH];
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u)
+      for (int u = 0; u < NG; ++u)
         col[u] = gate_walk::take_nonzero(m, 0, grp);
       row_terms<HD>(col, gate, off, D, c, ok, k, v, qi, gi, scale, clamp, kj,
                     e, G, in);
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u)
+      for (int u = 0; u < NG; ++u)
 #pragma unroll
         for (int h = 0; h < NH; ++h) rh[h] = fmaf(G[u][h], e[u][h] * inv[h],
                                                   rh[h]);
     }
 
-    // second trip: dS and dq, from the registers, then the rest again
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    add_dq<HD>(k0, e0, G0, in0, rh, inv, acc);
+    // second trip: dS and dq (and the merged pass's dk, dv), from the
+    // registers, then the rest again
+    float acc[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = 0.f;
+    add_terms<HD, MERGED>(col0, off, D, c, ok, k0, e0, G0, in0, rh, inv, qi,
+                          gi, scale, acc, dk, dv);
     m = rest;
     while (__any_sync(FULL, m != 0ull)) {
-      int col[GATHER];
-      float kj[GATHER][4], e[GATHER][NH], G[GATHER][NH];
-      bool in[GATHER][NH];
+      int col[NG];
+      float kj[NG][F], e[NG][NH], G[NG][NH];
+      bool in[NG][NH];
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u)
+      for (int u = 0; u < NG; ++u)
         col[u] = gate_walk::take_nonzero(m, 0, grp);
       row_terms<HD>(col, gate, off, D, c, ok, k, v, qi, gi, scale, clamp, kj,
                     e, G, in);
-      add_dq<HD>(kj, e, G, in, rh, inv, acc);
+      add_terms<HD, MERGED>(col, off, D, c, ok, kj, e, G, in, rh, inv, qi,
+                            gi, scale, acc, dk, dv);
     }
     if (ok) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] *= scale;
-      store4(dq + i * D + c, acc);
-      if (HD < 4 || c % HD == 0) {      // the head's leading lane
+      for (int f = 0; f < F; ++f) acc[f] *= scale;
+      storef<F>(dq + i * D + c, acc);
+      if (!MERGED && (HD < 4 || c % HD == 0)) {   // the head's leading lane
 #pragma unroll
         for (int h = 0; h < NH; ++h) rho[i * H + h0 + h] = rh[h];
       }
@@ -504,7 +453,7 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
                    float clamp, float eps, int lpr, float* __restrict__ dk,
                    float* __restrict__ dv) {
   using M = Heads<HD>;
-  constexpr int NH = M::NH;
+  constexpr int NH = M::NH, F = M::F, NG = M::NG;
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
   const long long col =
       ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) / lpr;
@@ -514,30 +463,30 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
   const long long off = col_off[cr / TL];
   // A[off + r, c] = A[c, off + r]: row c of this tile's slab
   const __nv_bfloat16* gate = blocks + cr * BW;
-  for (int c0 = 0; c0 < D; c0 += 4 * lpr) {
-    const int c = c0 + 4 * grp.lig;
+  for (int c0 = 0; c0 < D; c0 += F * lpr) {
+    const int c = c0 + F * grp.lig;
     const bool ok = active && c < D;
     const int h0 = c / HD;
-    float kc[4], vc[4];
-    load4(k + cr * D + c, ok, kc);
-    load4(v + cr * D + c, ok, vc);
-    unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
-    float ak[4] = {0.f, 0.f, 0.f, 0.f}, av[4] = {0.f, 0.f, 0.f, 0.f};
-    while (__any_sync(FULL, m != 0ull)) {
-      int rr[GATHER];
+    float kc[F], vc[F], ak[F], av[F];
+    loadf<F>(k + cr * D + c, ok, kc);
+    loadf<F>(v + cr * D + c, ok, vc);
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u)
+    for (int f = 0; f < F; ++f) ak[f] = av[f] = 0.f;
+    unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
+    while (__any_sync(FULL, m != 0ull)) {
+      int rr[NG];
+#pragma unroll
+      for (int u = 0; u < NG; ++u)
         rr[u] = gate_walk::take_nonzero(m, 0, grp);
       // rows i = off + rr: q_i, g_i, z_i and rho_i, all loads in flight
-      float a[GATHER], qi[GATHER][4], gi[GATHER][4], zi[GATHER][NH],
-          ri[GATHER][NH];
+      float a[NG], qi[NG][F], gi[NG][F], zi[NG][NH], ri[NG][NH];
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
+      for (int u = 0; u < NG; ++u) {
         const bool has = rr[u] >= 0;
         const long long i = off + (has ? rr[u] : 0);
         a[u] = has ? __bfloat162float(gate[rr[u]]) : 0.f;
-        load4(q + i * D + c, has && ok, qi[u]);
-        load4(g + i * D + c, has && ok, gi[u]);
+        loadf<F>(q + i * D + c, has && ok, qi[u]);
+        loadf<F>(g + i * D + c, has && ok, gi[u]);
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           zi[u][h] = has && ok ? z[i * H + h0 + h] : 0.f;
@@ -545,7 +494,7 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
         }
       }
 #pragma unroll
-      for (int u = 0; u < GATHER; ++u) {
+      for (int u = 0; u < NG; ++u) {
         float s[NH], G[NH];
         head_dots<HD>(kc, qi[u], s);
         head_dots<HD>(vc, gi[u], G);
@@ -569,22 +518,18 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
     }
     if (ok) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ak[j] *= scale;
-      store4(dk + cr * D + c, ak);
-      store4(dv + cr * D + c, av);
+      for (int f = 0; f < F; ++f) ak[f] *= scale;
+      storef<F>(dk + cr * D + c, ak);
+      storef<F>(dv + cr * D + c, av);
     }
   }
 }
 
-// The band; a head width is checked by the dispatch below.
-bool bad_geometry(int BW) {
-  return BW <= 0 || BW % 32 != 0 || BW > 32 * MAX_SLOTS;
-}
-
-// The lane-group kernels (gt_fwd and the two-pass backward) read float4s:
-// D a multiple of 4.
-bool bad_pass_geometry(int BW, int H, int hd) {
-  return bad_geometry(BW) || H <= 0 || (H * hd) % 4 != 0;
+// Every kernel reads float4s: D a multiple of 4, and a band of whole
+// 32-column pieces up to MAX_BAND.
+bool bad_geometry(int BW, int H, int hd) {
+  return BW <= 0 || BW % 32 != 0 || BW > MAX_BAND || H <= 0 ||
+         (H * hd) % 4 != 0;
 }
 
 unsigned pass_grid(int n_tiles, int TL, int lpr) {
@@ -594,96 +539,84 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
 
 }  // namespace
 
-// The head widths every attention kernel takes, as switch cases that
-// instantiate CALL: the merged pass, whose lanes hold a head's hd features
-// three times over, goes no further.  The wrapper's MERGED_HEAD_WIDTHS and
-// HEAD_WIDTHS state the same sets; build() checks them against these.
-#define SCGIB_HD_CASES(...)                                \
-    case 1: { constexpr int HD = 1; __VA_ARGS__; } break;  \
-    case 2: { constexpr int HD = 2; __VA_ARGS__; } break;  \
-    case 4: { constexpr int HD = 4; __VA_ARGS__; } break;  \
-    case 8: { constexpr int HD = 8; __VA_ARGS__; } break;  \
-    case 16: { constexpr int HD = 16; __VA_ARGS__; } break; \
-    case 32: { constexpr int HD = 32; __VA_ARGS__; } break;
-
-#define SCGIB_DISPATCH_HD(hd, ...)                         \
-  switch (hd) {                                            \
-    SCGIB_HD_CASES(__VA_ARGS__)                            \
-    default: return (int)cudaErrorInvalidValue;            \
-  }
-
-// The lane-group kernels also take hd = 64 and 128: a lane holds four
-// features whatever hd is, and a head spans 16 or 32 lanes, so the per-head
-// butterfly stays inside a warp and the registers do not grow.  Other
-// widths are zero-padded up to one of these by the wrapper.
-#define SCGIB_DISPATCH_PASS_HD(hd, ...)                       \
+// The head widths the attention kernels take, as switch cases that
+// instantiate their body with HD: a lane holds 4 features up to hd = 128
+// (a head on hd / 4 lanes) and hd / 32 past it, so the per-head butterfly
+// stays inside a warp.  Other widths are zero-padded up to one of these
+// by the wrapper; the wrapper's HEAD_WIDTHS states the same set, and
+// build() checks it against this one.
+#define SCGIB_DISPATCH_HD(hd, ...)                            \
   switch (hd) {                                               \
-    SCGIB_HD_CASES(__VA_ARGS__)                               \
+    case 1: { constexpr int HD = 1; __VA_ARGS__; } break;     \
+    case 2: { constexpr int HD = 2; __VA_ARGS__; } break;     \
+    case 4: { constexpr int HD = 4; __VA_ARGS__; } break;     \
+    case 8: { constexpr int HD = 8; __VA_ARGS__; } break;     \
+    case 16: { constexpr int HD = 16; __VA_ARGS__; } break;   \
+    case 32: { constexpr int HD = 32; __VA_ARGS__; } break;   \
     case 64: { constexpr int HD = 64; __VA_ARGS__; } break;   \
     case 128: { constexpr int HD = 128; __VA_ARGS__; } break; \
+    case 256: { constexpr int HD = 256; __VA_ARGS__; } break; \
+    case 512: { constexpr int HD = 512; __VA_ARGS__; } break; \
     default: return (int)cudaErrorInvalidValue;               \
   }
 
 extern "C" {
 
-// q, k, v, out 16-byte aligned and H * hd a multiple of 4 (the wrapper
-// checks).
+// Every entry: blocks, the feature operands and the outputs 16-byte
+// aligned and H * hd a multiple of 4 (the wrapper checks).
+
 int scgib_gt_fwd(const void* blocks, const void* col_off, int n_tiles, int TL,
                  int BW, const void* q, const void* k, const void* v, int H,
                  int hd, float scale, float clamp, float eps, void* out,
                  void* z, void* stream) {
-  if (bad_pass_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
-  const int lpr = lanes_per_row(H * hd);
+  if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_PASS_HD(
-      hd, gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0,
-                              s>>>(
-      (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW, rows,
-      (const float*)q, (const float*)k, (const float*)v, H, scale, clamp,
-      eps, lpr, (float*)out, (float*)z));
+  SCGIB_DISPATCH_HD(
+      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
+          (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
+          rows, (const float*)q, (const float*)k, (const float*)v, H, scale,
+          clamp, eps, lpr, (float*)out, (float*)z));
   return (int)cudaGetLastError();
 }
 
-// q, k, v, g, dq 16-byte aligned and H * hd a multiple of 4 (the wrapper
-// checks).
 int scgib_gt_bwd_rows(const void* blocks, const void* col_off, int n_tiles,
                       int TL, int BW, const void* q, const void* k,
                       const void* v, const void* g, const void* z, int H,
                       int hd, float scale, float clamp, float eps, void* dq,
                       void* rho, void* stream) {
-  if (bad_pass_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
-  const int lpr = lanes_per_row(H * hd);
+  if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_PASS_HD(
-      hd, gt_bwd_rows_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
-                                   PASS_THREADS, 0, s>>>(
-      (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW, rows,
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      (const float*)z, H, scale, clamp, eps, lpr, (float*)dq, (float*)rho));
+  SCGIB_DISPATCH_HD(
+      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      gt_row_pass_kernel<HD, false><<<pass_grid(n_tiles, TL, lpr),
+                                      PASS_THREADS, 0, s>>>(
+          (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
+          rows, (const float*)q, (const float*)k, (const float*)v,
+          (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
+          (float*)dq, (float*)rho, nullptr, nullptr));
   return (int)cudaGetLastError();
 }
 
-// q, k, v, g, dk, dv 16-byte aligned and H * hd a multiple of 4 (the
-// wrapper checks).
 int scgib_gt_bwd_cols(const void* blocks, const void* col_off, int n_tiles,
                       int TL, int BW, const void* q, const void* k,
                       const void* v, const void* g, const void* z,
                       const void* rho, int H, int hd, float scale,
                       float clamp, float eps, void* dk, void* dv,
                       void* stream) {
-  if (bad_pass_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
-  const int lpr = lanes_per_row(H * hd);
+  if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_PASS_HD(
-      hd, gt_bwd_cols_kernel<HD><<<pass_grid(n_tiles, TL, lpr),
-                                   PASS_THREADS, 0, s>>>(
-      (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW, rows,
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      (const float*)z, (const float*)rho, H, scale, clamp, eps, lpr,
-      (float*)dk, (float*)dv));
+  SCGIB_DISPATCH_HD(
+      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      gt_bwd_cols_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0,
+                               s>>>(
+          (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
+          rows, (const float*)q, (const float*)k, (const float*)v,
+          (const float*)g, (const float*)z, (const float*)rho, H, scale,
+          clamp, eps, lpr, (float*)dk, (float*)dv));
   return (int)cudaGetLastError();
 }
 
@@ -693,38 +626,36 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
                         const void* v, const void* g, const void* z, int H,
                         int hd, float scale, float clamp, float eps,
                         void* dq, void* dk, void* dv, void* stream) {
-  if (bad_geometry(BW)) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n_tiles, H);
+  if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
-  SCGIB_DISPATCH_HD(hd, gt_bwd_merged_kernel<HD><<<grid, THREADS, 0, s>>>(
-      (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
-      (const float*)q, (const float*)k, (const float*)v, (const float*)g,
-      (const float*)z, H, scale, clamp, eps, (float*)dq, (float*)dk,
-      (float*)dv));
+  SCGIB_DISPATCH_HD(
+      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      gt_row_pass_kernel<HD, true><<<pass_grid(n_tiles, TL, lpr),
+                                     PASS_THREADS, 0, s>>>(
+          (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
+          rows, (const float*)q, (const float*)k, (const float*)v,
+          (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
+          (float*)dq, nullptr, (float*)dk, (float*)dv));
   return (int)cudaGetLastError();
 }
 
 // For the report: registers a thread, shared memory a block and blocks an
-// SM of gt_bwd_rows_kernel (which = 0), gt_bwd_cols_kernel (1),
-// gt_fwd_kernel (2) or gt_bwd_merged_kernel (3) at head width hd.
+// SM of the kernel that gt_bwd_rows (which = 0), gt_bwd_cols (1), gt_fwd
+// (2) or gt_bwd_merged (3) launches at head width hd.
 int scgib_gt_kernel_info(int which, int hd, int* info) {
   const void* kernel = nullptr;
-  int threads = PASS_THREADS;
-  if (which == 3) {
-    SCGIB_DISPATCH_HD(hd, kernel = (const void*)gt_bwd_merged_kernel<HD>);
-    threads = THREADS;
-  } else {
-    SCGIB_DISPATCH_PASS_HD(
-        hd, kernel = which == 0   ? (const void*)gt_bwd_rows_kernel<HD>
-                     : which == 1 ? (const void*)gt_bwd_cols_kernel<HD>
-                                  : (const void*)gt_fwd_kernel<HD>);
-  }
+  SCGIB_DISPATCH_HD(
+      hd, kernel = which == 0   ? (const void*)gt_row_pass_kernel<HD, false>
+                   : which == 1 ? (const void*)gt_bwd_cols_kernel<HD>
+                   : which == 2 ? (const void*)gt_fwd_kernel<HD>
+                                : (const void*)gt_row_pass_kernel<HD, true>);
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;
   int per_sm = 0;
   if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, threads, 0)))
+           &per_sm, kernel, PASS_THREADS, 0)))
     return err;
   info[0] = attr.numRegs;
   info[1] = (int)attr.sharedSizeBytes;

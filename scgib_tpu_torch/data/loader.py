@@ -125,8 +125,9 @@ def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
                ) -> Tuple[GraphBatch, SubgraphBatch]:
     """Pack the graphs ``sel`` of ``ds``.  ``gt_fits`` comes from the
     dataset's largest graph and ego-net (computed once, kept on ``ds``),
-    so it is the same for every batch of the dataset.  ``logm_k``: attach
-    the k-step logM targets and weights to the GraphBatch."""
+    so it is the same for every batch of the dataset; ``pool_fits`` is the
+    batch's own.  ``logm_k``: attach the k-step logM targets and weights to
+    the GraphBatch."""
     graphs = [ds.graphs[j] for j in sel]
     egos = [ds.egonets[j] for j in sel]
     maxima = getattr(ds, "_gt_maxima", None)
@@ -138,7 +139,8 @@ def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
     g = pack_graphs(graphs, caps.nodes, caps.edges, caps.graphs,
                     gt_fits=gt_band_fits(maxima[0], caps.nodes))
     sub = pack_subgraphs(graphs, egos, caps.sub_nodes, caps.sub_edges,
-                         gt_fits=gt_band_fits(maxima[1], caps.sub_nodes))
+                         gt_fits=gt_band_fits(maxima[1], caps.sub_nodes),
+                         num_centers=caps.nodes)
     if logm_k:
         logms = ds.logms(logm_k)
         T, W = pack_logm_targets(graphs, [logms[j] for j in sel], caps.nodes,

@@ -8,7 +8,7 @@ dense [tile, band] slab whose columns start at ``col_off[t]``, and
     agg[t*tile:(t+1)*tile] = blocks[t] @ h[col_off[t] : col_off[t]+band]
 
 The NumPy helpers run on the host; ``build_blocks`` builds the same blocks
-from the COO edge list on the device.
+from the COO edge list on the device, and ``device_col_off`` the offsets.
 
 The graph-transformer attention takes a narrower geometry, tile
 ``GT_TILE`` = 64, band ``GT_BAND`` = 128, offsets aligned to ``GT_ALIGN`` = 8:
@@ -44,6 +44,16 @@ def banded_col_off(num_nodes: int, tile: int = 128, band: int = 256,
     all_lo = np.maximum(all_t0 + tile // 2 - band // 2, 0)
     col_off = (all_lo // align) * align
     return np.minimum(col_off, max(num_nodes - band, 0)).astype(np.int32)
+
+
+def device_col_off(num_nodes: int, tile: int, band: int, align: int,
+                   device) -> torch.Tensor:
+    """``banded_col_off`` as int64 on ``device``, computed there: a step on
+    the card makes no copy from the host (which a CUDA graph cannot
+    capture)."""
+    t0 = torch.arange(num_nodes // tile, device=device) * tile
+    lo = (t0 + (tile // 2 - band // 2)).clamp_min(0)
+    return ((lo // align) * align).clamp_max(max(num_nodes - band, 0))
 
 
 GT_TILE = 64

@@ -14,6 +14,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..ops.pool import window_fits
 from .banded import banded_col_off, fits_band_masked, gt_band_fits
 from .container import GraphBatch, SubgraphBatch
 
@@ -192,12 +193,14 @@ class FlatEgoNets:
 def pack_subgraphs(graphs: Sequence[GraphData], egonets: Sequence[EgoNets],
                    num_sub_nodes: int, num_sub_edges: int,
                    banded: bool = True,
-                   gt_fits: Optional[bool] = None) -> SubgraphBatch:
+                   gt_fits: Optional[bool] = None,
+                   num_centers: Optional[int] = None) -> SubgraphBatch:
     """Flatten the ego-nets of a batch into one padded SubgraphBatch, in
     (graph, node) order, so ``node_center`` is the center's global id in
     the GraphBatch.  Sub-node features are left to the device gather
     ``g.node_feat[node_orig]``.  ``gt_fits`` as in ``pack_graphs``, from
-    the largest ego-net."""
+    the largest ego-net.  ``num_centers``, the GraphBatch's node capacity:
+    the batch's ``pool_fits`` is taken from it (None without it)."""
     flats = [e.flat() for e in egonets]
     total_s = int(sum(f.node_off[-1] for f in flats))
     total_q = int(sum(f.edge_off[-1] for f in flats))
@@ -245,8 +248,10 @@ def pack_subgraphs(graphs: Sequence[GraphData], egonets: Sequence[EgoNets],
         gt_fits = gt_band_fits(
             max((int(np.diff(f.node_off).max(initial=0)) for f in flats),
                 default=0), num_sub_nodes)
+    pool_fits = (None if num_centers is None
+                 else window_fits(node_center, node_mask, num_centers))
     return SubgraphBatch(node_feat=None, node_center=node_center,
                          node_orig=node_orig, node_mask=node_mask,
                          senders=senders, receivers=receivers,
                          edge_mask=edge_mask, band_col_off=col_off,
-                         gt_fits=gt_fits)
+                         gt_fits=gt_fits, pool_fits=pool_fits)

@@ -12,8 +12,11 @@ eager counterpart of XLA hoisting the block build out of a scanned step.
 
 ``gt_fits`` is a plain bool, not an array: every graph (ego-net) of the
 dataset fits the graph-transformer's narrow banded geometry
-(``graph/banded.py::gt_band_fits``).  ``.to`` and ``from_numpy`` pass it
-through unchanged.
+(``graph/banded.py::gt_band_fits``).  So is a ``SubgraphBatch``'s
+``pool_fits``: the candidate pooling's window holds every center tile's
+sub-rows (``ops/pool.py::window_fits``), or None where the packer was not
+given the centers' capacity.  ``.to`` and ``from_numpy`` pass both through
+unchanged.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ _MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask")
 def _to_tensor(name: str, value, device: torch.device):
     if name == "gt_fits":
         return bool(value)
+    if name == "pool_fits":
+        return None if value is None else bool(value)
     if value is None:
         return None
     if name in _INDEX_FIELDS:
@@ -121,6 +126,8 @@ class SubgraphBatch(_Batch):
       node_mask   [S]    bool
       senders/receivers/edge_mask [Q]  COO over sub-nodes, receivers sorted
       band_blocks / band_col_off / gt_fits   as in GraphBatch
+      pool_fits    bool or None  the pooling window holds every center
+                                 tile's sub-rows (None: not computed)
     """
 
     node_feat: Optional[object]
@@ -133,6 +140,7 @@ class SubgraphBatch(_Batch):
     band_blocks: Optional[object] = None
     band_col_off: Optional[object] = None
     gt_fits: bool = False
+    pool_fits: Optional[bool] = None
 
     @property
     def num_nodes(self) -> int:

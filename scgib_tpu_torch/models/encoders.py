@@ -18,8 +18,8 @@ residual + LayerNorm; padding rows are masked once, after the last layer
 (every op of a layer is row-local or gated by the adjacency, so padding
 cannot leak into real rows).  With a banded adjacency the attention is
 ``ops/kernels/gt_flash.py::gt_flash_attention``: its CUDA kernels on the
-card, its plain versions on the CPU, at any head width up to 128 (32
-with ``bwd="merged"``; a layer wider than that raises when it is built).
+card, its plain versions on the CPU, at any head width up to 512 with
+either backward (a layer wider than that raises when it is built).
 
 A batch that does not fit the band takes the COO gather + segment-sum path;
 ``branch_counts`` records which path each conv or attention took (for the
@@ -107,7 +107,7 @@ class GraphTransformerLayer(nn.Module):
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} is not a multiple of "
                              f"num_heads {num_heads}")
-        served_head_width(num_heads, hidden // num_heads, bwd)
+        served_head_width(num_heads, hidden // num_heads)
         self.hidden = hidden
         self.num_heads = num_heads
         self.dropout = dropout

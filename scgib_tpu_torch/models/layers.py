@@ -40,7 +40,7 @@ class MaskedBatchNorm(nn.Module):
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training:
             if mask is None:
-                count = torch.tensor(float(x.shape[0]), device=x.device)
+                count = x.new_full((), float(x.shape[0]))
                 total = x.sum(0)
                 total_sq = (x * x).sum(0)
             else:

@@ -24,8 +24,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..graph.banded import (GT_ALIGN, GT_BAND, GT_TILE, banded_col_off,
-                           build_blocks)
+from ..graph.banded import (GT_ALIGN, GT_BAND, GT_TILE, build_blocks,
+                           device_col_off)
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..ops.pool import sorted_segment_sum_banded
 from ..ops.segment import (segment_broadcast, segment_softmax,
@@ -51,9 +51,10 @@ def _resolve_band(batch, gt: bool = False):
     """(blocks, col_off) of a batch's banded adjacency, or None.
 
     When the packer shipped only the offsets, the bf16 blocks are built on
-    the device at first use and kept on the batch, so both encoders' uses
-    and the reconstruction loss's share one build per batch.  With ``gt``
-    and the batch's ``gt_fits``, the graph transformer's narrow
+    the device at first use and kept on the batch object (not in its
+    ``band_blocks`` field, which stays what the packer shipped), so both
+    encoders' uses and the reconstruction loss's share one build per batch.
+    With ``gt`` and the batch's ``gt_fits``, the graph transformer's narrow
     (GT_TILE, GT_BAND) geometry instead, built once per batch likewise."""
     col_off = batch.band_col_off
     if col_off is None:
@@ -62,19 +63,22 @@ def _resolve_band(batch, gt: bool = False):
         band = getattr(batch, "_gt_band", None)
         if band is None:
             n = batch.node_mask.shape[0]
-            off = torch.from_numpy(banded_col_off(
-                n, GT_TILE, GT_BAND, GT_ALIGN)).to(col_off.device,
-                                                   torch.int64)
+            off = device_col_off(n, GT_TILE, GT_BAND, GT_ALIGN,
+                                 col_off.device)
             band = (build_blocks(batch.senders, batch.receivers,
                                  batch.edge_mask, off, n, tile=GT_TILE,
                                  band=GT_BAND), off)
             batch._gt_band = band
         return band
-    if batch.band_blocks is None:
-        batch.band_blocks = build_blocks(
-            batch.senders, batch.receivers, batch.edge_mask, col_off,
-            batch.node_mask.shape[0])
-    return batch.band_blocks, col_off
+    if batch.band_blocks is not None:
+        return batch.band_blocks, col_off
+    blocks = getattr(batch, "_band", None)
+    if blocks is None:
+        blocks = build_blocks(batch.senders, batch.receivers,
+                              batch.edge_mask, col_off,
+                              batch.node_mask.shape[0])
+        batch._band = blocks
+    return blocks, col_off
 
 
 def _sub_features(g: GraphBatch, sub: SubgraphBatch) -> torch.Tensor:
@@ -200,7 +204,8 @@ class SCGIBCore(nn.Module):
         clean_readout = self.graph_readout(h, g)
         noisy, kl_node = self.compression(h, g, rand)
         cand = sorted_segment_sum_banded(h_sub, sub.node_center, g.num_nodes,
-                                         mask=sub.node_mask)
+                                         mask=sub.node_mask,
+                                         fits=sub.pool_fits)
         if not self.use_att:
             return CoreFeatures(torch.cat([noisy, cand], -1), kl_node, noisy,
                                 clean_readout)

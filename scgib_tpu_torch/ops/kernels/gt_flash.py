@@ -16,23 +16,22 @@ succeeded on its ``launches`` attribute; anything else raises.  The kernels
 compute in float32 and take any banded geometry [T, tile, band] with
 band a multiple of 32 up to 256 (the narrow (64, 128) and the wide
 (128, 256) ones) and a head width hd in ``HEAD_WIDTHS`` (powers of two up
-to 128; ``gt_bwd_merged`` up to 32).  The plain versions compute in their
-inputs' dtype.  Each takes the score scale, 1 / sqrt(hd) by default.
+to 512).  The plain versions compute in their inputs' dtype.  Each takes
+the score scale, 1 / sqrt(hd) by default.
 
-``gt_fwd``, ``gt_bwd_rows`` and ``gt_bwd_cols`` read a row's features as
-16-byte vectors, a group of lanes per row with all its heads, and find the
-gate's nonzeros by warp ballot.  So they do not take H * hd that is not a
-multiple of 4, nor blocks that do not start on a 16-byte boundary: both
-raise.  A feature operand off a 16-byte boundary (a slice of a fused qkv,
-say) is copied first.  ``gt_bwd_merged`` takes any H.
+Every kernel reads a row's features as 16-byte vectors, a group of lanes
+per row with all its heads, and finds the gate's nonzeros by warp ballot.
+So they do not take H * hd that is not a multiple of 4, nor blocks that do
+not start on a 16-byte boundary: both raise.  A feature operand off a
+16-byte boundary (a slice of a fused qkv, say) is copied first.
 
 ``gt_flash_attention`` is the autograd function: the forward, then the
 two-pass backward (rows, then columns; no atomics, so bitwise the same in
 every run) or, with ``bwd="merged"``, the single pass (the JAX package's
 default, selected there by ``SCGIB_GT_BWD_TWOPASS``).  It takes any head
-width up to 128 (32 with ``bwd="merged"``): a width the kernels do not
-take is zero-padded up to ``served_head_width``, with the scale kept at
-1 / sqrt(hd), which changes no score and no gradient.  See
+width up to 512 with either backward: a width the kernels do not take is
+zero-padded up to ``served_head_width``, with the scale kept at 1 /
+sqrt(hd), which changes no score and no gradient.  See
 ``csrc/gt_flash.cu`` for what bounds the kernels on an H100 and how the
 design answers it.
 """
@@ -48,10 +47,15 @@ from .banded import ALIGN, _dispatch, _ptr, _raise_on, _stream
 from .build import load
 
 KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged")
-HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
-MERGED_HEAD_WIDTHS = (1, 2, 4, 8, 16, 32)
+HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 MAX_BAND = 256
 BWD = ("twopass", "merged")
+# The narrowest width refused, and why: past hd 128 a lane holds hd / 32
+# features of each operand, and the column pass keeps four of them (k_c,
+# v_c and its two sums) across its walk while it loads four more (q_i and
+# g_i of two nonzeros); ``chip_smoke.py`` builds this width apart and
+# reports what ptxas makes of it.
+REFUSED_HD = 1024
 
 _lib = None
 
@@ -83,32 +87,36 @@ def build() -> ctypes.CDLL:
 
 
 def _check_head_widths(lib):
-    """``HEAD_WIDTHS`` and ``MERGED_HEAD_WIDTHS`` must be the widths the
-    source's dispatch instantiates (``SCGIB_DISPATCH_PASS_HD`` and
-    ``SCGIB_DISPATCH_HD``): ``scgib_gt_kernel_info`` fails for any other."""
+    """``HEAD_WIDTHS`` must be the widths the source's dispatch instantiates
+    (``SCGIB_DISPATCH_HD``): ``scgib_gt_kernel_info`` fails for any
+    other."""
     info = (ctypes.c_int * 3)()
-    for which, widths in ((2, HEAD_WIDTHS), (3, MERGED_HEAD_WIDTHS)):
+    for which in range(4):
         taken = tuple(hd for hd in range(1, 2 * HEAD_WIDTHS[-1] + 1)
                       if lib.scgib_gt_kernel_info(which, hd, info) == 0)
-        if taken != widths:
+        if taken != HEAD_WIDTHS:
             raise RuntimeError(f"csrc/gt_flash.cu takes head widths {taken}, "
-                               f"the wrapper states {widths}")
+                               f"the wrapper states {HEAD_WIDTHS}")
 
 
 def _scale(hd: int) -> float:
     return 1.0 / float(hd) ** 0.5
 
 
-def served_head_width(num_heads: int, hd: int, bwd: str = "twopass") -> int:
+def served_head_width(num_heads: int, hd: int) -> int:
     """The head width the kernels run a head of width ``hd`` at: the
     smallest they take that is at least ``hd`` and gives a multiple of 4
-    features a row.  Raises ``ValueError`` past the widest."""
-    widths = MERGED_HEAD_WIDTHS if bwd == "merged" else HEAD_WIDTHS
-    for width in widths:
+    features a row.  Raises ``ValueError`` past the widest, saying why."""
+    for width in HEAD_WIDTHS:
         if width >= hd and (num_heads * width) % 4 == 0:
             return width
-    raise ValueError(f"head width {hd} is wider than the attention kernels "
-                     f"take with bwd={bwd!r} (at most {widths[-1]})")
+    f = REFUSED_HD // 32
+    raise ValueError(
+        f"head width {hd} is wider than the attention kernels take (at most "
+        f"{HEAD_WIDTHS[-1]}): at hd {REFUSED_HD} a lane would hold {f} "
+        f"features of each operand, and the column pass would keep {4 * f} "
+        f"floats across its walk and load {4 * f} more, {8 * f} registers "
+        "against the 255 a thread may have")
 
 
 # --- plain versions ----------------------------------------------------------
@@ -197,14 +205,13 @@ def gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
 
 # --- wrappers ----------------------------------------------------------------
 
-def _gt_args(name, blocks, col_off, q, *others, vectors=False,
-             widths=HEAD_WIDTHS):
+def _gt_args(name, blocks, col_off, q, *others):
     """Validate the operands; returns (blocks, col_off int64, (T, tile,
     band), H, hd, [q, *others]), all contiguous.  ``others`` are [N, H, hd]
-    or [N, H] float32; hd one of ``widths``.  ``vectors``: the kernel reads
-    blocks and the feature rows in 16-byte vectors, so H * hd must be a
-    multiple of 4 and blocks 16-byte aligned; a feature operand that is not
-    is copied."""
+    or [N, H] float32; hd one of ``HEAD_WIDTHS``.  The kernels read blocks
+    and the feature rows in 16-byte vectors, so H * hd must be a multiple
+    of 4 and blocks 16-byte aligned; a feature operand that is not is
+    copied."""
     if blocks.dim() != 3 or blocks.dtype != torch.bfloat16:
         raise TypeError(f"{name}: blocks must be bfloat16 [T, tile, band]")
     n_tiles, tile, band = blocks.shape
@@ -215,8 +222,8 @@ def _gt_args(name, blocks, col_off, q, *others, vectors=False,
         raise ValueError(f"{name}: q must be [T*tile >= band, H, hd], got "
                          f"{tuple(q.shape)} for blocks {tuple(blocks.shape)}")
     n, num_heads, hd = q.shape
-    if hd not in widths:
-        raise ValueError(f"{name}: head width {hd} not in {widths}")
+    if hd not in HEAD_WIDTHS:
+        raise ValueError(f"{name}: head width {hd} not in {HEAD_WIDTHS}")
     if col_off.shape != (n_tiles,):
         raise ValueError(f"{name}: col_off must be [T]")
     for t in (q,) + others:
@@ -229,15 +236,13 @@ def _gt_args(name, blocks, col_off, q, *others, vectors=False,
         if not t.is_cuda or t.device != q.device:
             raise ValueError(f"{name}: operands must share one CUDA device")
     blocks = blocks.contiguous()
-    feats = [t.contiguous() for t in (q,) + others]
-    if vectors:
-        if (num_heads * hd) % 4:
-            raise ValueError(f"{name}: H * hd = {num_heads * hd} features a "
-                             "row must be a multiple of 4")
-        if blocks.data_ptr() % ALIGN:
-            raise ValueError(f"{name}: blocks must be {ALIGN}-byte aligned")
-        feats = [t.clone() if t.dim() == 3 and t.data_ptr() % ALIGN else t
-                 for t in feats]
+    if (num_heads * hd) % 4:
+        raise ValueError(f"{name}: H * hd = {num_heads * hd} features a "
+                         "row must be a multiple of 4")
+    if blocks.data_ptr() % ALIGN:
+        raise ValueError(f"{name}: blocks must be {ALIGN}-byte aligned")
+    feats = [t.clone() if t.dim() == 3 and t.data_ptr() % ALIGN else t
+             for t in (t.contiguous() for t in (q,) + others)]
     return (blocks, col_off.to(torch.int64).contiguous(),
             (n_tiles, tile, band), num_heads, hd, feats)
 
@@ -255,7 +260,7 @@ def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None):
     if not _dispatch("gt_fwd", q):
         return gt_fwd_plain(blocks, col_off, q, k, v, clamp, eps, scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_fwd", blocks, col_off, q, k, v, vectors=True)
+        "gt_fwd", blocks, col_off, q, k, v)
     out = torch.empty_like(ts[0])
     z = torch.empty(ts[0].shape[:2], dtype=torch.float32, device=q.device)
     _launch(build().scgib_gt_fwd, "gt_fwd", blocks, col_off, geo, ts,
@@ -271,7 +276,7 @@ def gt_bwd_rows(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
         return gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps,
                                  scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_bwd_rows", blocks, col_off, q, k, v, g, z, vectors=True)
+        "gt_bwd_rows", blocks, col_off, q, k, v, g, z)
     dq = torch.empty_like(ts[0])
     rho = torch.empty_like(ts[4])
     _launch(build().scgib_gt_bwd_rows, "gt_bwd_rows", blocks, col_off, geo,
@@ -287,7 +292,7 @@ def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6,
         return gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp,
                                  eps, scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_bwd_cols", blocks, col_off, q, k, v, g, z, rho, vectors=True)
+        "gt_bwd_cols", blocks, col_off, q, k, v, g, z, rho)
     dk = torch.empty_like(ts[0])
     dv = torch.empty_like(ts[0])
     _launch(build().scgib_gt_bwd_cols, "gt_bwd_cols", blocks, col_off, geo,
@@ -304,8 +309,7 @@ def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
         return gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp,
                                    eps, scale)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
-        "gt_bwd_merged", blocks, col_off, q, k, v, g, z,
-        widths=MERGED_HEAD_WIDTHS)
+        "gt_bwd_merged", blocks, col_off, q, k, v, g, z)
     dq = torch.empty_like(ts[0])
     dk = torch.zeros_like(ts[0])
     dv = torch.zeros_like(ts[0])
@@ -374,7 +378,7 @@ def gt_flash_attention(blocks, col_off, q, k, v, clamp: float = 5.0,
     if bwd not in BWD:
         raise ValueError(f"bwd must be one of {BWD}, got {bwd!r}")
     num_heads, hd = q.shape[1:]
-    width = served_head_width(num_heads, hd, bwd)
+    width = served_head_width(num_heads, hd)
     if width == hd:
         return _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps,
                                        bwd, None)

@@ -39,11 +39,32 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     return out.index_add(0, ids, data)
 
 
+class _SegmentBroadcast(torch.autograd.Function):
+    """The gather and its backward as ``_segment_broadcast_take`` of the JAX
+    package has them: the cotangent goes through ``segment_sum`` (one
+    ``index_add_``), not through the gather's own backward (a sort-based
+    ``index_put_`` on the card)."""
+
+    @staticmethod
+    def forward(ctx, values, segment_ids, num_segments):
+        ids = segment_ids.clamp(0, num_segments - 1)
+        ctx.save_for_backward(ids)
+        ctx.num_segments = num_segments
+        return values.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        out = g.new_zeros((ctx.num_segments,) + tuple(g.shape[1:]))
+        return out.index_add_(0, ids, g), None, None
+
+
 def segment_broadcast(values: torch.Tensor, segment_ids: torch.Tensor,
                       num_segments: int) -> torch.Tensor:
     """``values[segment_ids]`` with out-of-range ids clamped (``jnp.take``'s
-    clip mode); its gradient is the segment sum of the cotangent."""
-    return values[segment_ids.clamp(0, num_segments - 1)]
+    clip mode); its gradient is the segment sum of the cotangent over the
+    clamped ids.  ``num_segments`` must equal ``values.shape[0]``."""
+    return _SegmentBroadcast.apply(values, segment_ids, num_segments)
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,

@@ -252,11 +252,22 @@ def load_adam_state(model: nn.Module, optimizer: torch.optim.Optimizer,
         raise ValueError("the Adam state does not match the model's "
                          f"parameters: {sorted(set(moments[0]) ^ set(named))}")
     step = float(np.asarray(adam["count"]))
+    # capturable Adam (a CUDA-graph step) keeps its step count beside the
+    # parameter; otherwise on the host, as Adam creates it
+    on_device = optimizer.param_groups[0].get("capturable", False)
     for name, p in named.items():
-        optimizer.state[p] = {
-            "step": torch.tensor(step),
-            "exp_avg": moments[0][name].to(p.device, p.dtype),
-            "exp_avg_sq": moments[1][name].to(p.device, p.dtype)}
+        loaded = {"step": torch.tensor(step, device=p.device if on_device
+                                       else "cpu"),
+                  "exp_avg": moments[0][name].to(p.device, p.dtype),
+                  "exp_avg_sq": moments[1][name].to(p.device, p.dtype)}
+        state = optimizer.state.get(p)
+        if state and set(state) == set(loaded):
+            # in place: a captured step reads these very tensors
+            with torch.no_grad():
+                for key, value in loaded.items():
+                    state[key].copy_(value)
+        else:
+            optimizer.state[p] = loaded
 
 
 @torch.no_grad()

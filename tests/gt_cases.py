@@ -67,7 +67,9 @@ def case_inputs(case, n=256):
 
 
 # (heads, head width) the kernels serve since the widths were opened up: hd
-# 64 and 128 as they are, 12 (hidden 96, 8 heads), 10 (hidden 30, 3 heads)
-# and 1 with 3 heads (3 features a row) zero-padded to 16, 16 and 4
+# 64, 128, 256 and 512 as they are, 12 (hidden 96, 8 heads), 10 (hidden
+# 30, 3 heads), 1 with 3 heads (3 features a row) and 200 zero-padded to
+# 16, 16, 4 and 256
 WIDTHS = {"8x12": (8, 12), "1x64": (1, 64), "1x128": (1, 128),
-          "3x10": (3, 10), "3x1": (3, 1)}
+          "3x10": (3, 10), "3x1": (3, 1), "1x256": (1, 256),
+          "1x200": (1, 200), "1x512": (1, 512)}

@@ -15,6 +15,8 @@ version's).  The GIN forward's 3xTF32 products keep about 21 bits, inside
 two runs on one card agree bitwise."""
 
 import copy
+import functools
+import os
 
 import numpy as np
 import pytest
@@ -30,14 +32,19 @@ from scgib_tpu_torch.models import encoders
 from scgib_tpu_torch.ops.kernels import banded as kb
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention
-from scgib_tpu_torch.train import checkpoint
-from scgib_tpu_torch.utils.params import from_jax_variables, to_jax_variables
+from scgib_tpu_torch.train import checkpoint, trainer
+from scgib_tpu_torch.utils.params import (from_jax_variables,
+                                          init_flax_style_, to_jax_variables)
 
 from gin_cases import CASES as GIN_CASES
 from gin_cases import case_inputs as gin_case_inputs
 from gt_cases import CASES, EMPTY, WIDTHS, banded_graph, case_inputs, qkvg
 
 pytestmark = pytest.mark.cuda
+
+# torch's deterministic algorithms (the captured-against-eager tests) refuse
+# cuBLAS products unless its workspace is fixed before the first one
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +60,7 @@ def batch(dev):
     graphs = random_dataset(16, seed=5, min_nodes=8, max_nodes=28)
     egos = [extract_egonets(g, 1) for g in graphs]
     g = pack_graphs(graphs, 512, 2048, 16).to(dev)
-    sub = pack_subgraphs(graphs, egos, 1536, 4096).to(dev)
+    sub = pack_subgraphs(graphs, egos, 1536, 4096, num_centers=512).to(dev)
     return g, sub
 
 
@@ -87,9 +94,9 @@ def test_kernels_match_plain_versions(batch, dev, d):
                         kb.gin_bwd_plain(blocks, off, h, gr, w1, b1, w2)):
             close(a, w, rtol=1e-4)
     window = pool.default_window(1536, 512)
-    off, span = pool.window_offsets(sub.node_center, sub.node_mask, 512,
-                                    128, window)
-    assert bool(span <= window)
+    assert sub.pool_fits
+    off = pool.window_offsets(sub.node_center, sub.node_mask, 512, 128,
+                              window)
     pblocks, _ = pool.pool_blocks(sub.node_center, sub.node_mask, off, 512,
                                   128, window)
     x = torch.randn(1536, d, device=dev, generator=gen)
@@ -468,6 +475,99 @@ def test_gt_bwd_passes_match_plain_at_head_widths(batch, dev, gt, hd):
                                                hd=hd))
 
 
+@pytest.mark.parametrize("hd", kg.HEAD_WIDTHS)
+@pytest.mark.parametrize("gt", [True, False], ids=["narrow", "wide"])
+def test_gt_bwd_merged_matches_plain_at_head_widths(batch, dev, gt, hd):
+    """The merged backward in the lane-group layout against its plain
+    version and against the two-pass kernels, at every head width (one
+    head from hd = 64 on), on the N and S batches."""
+    for seed, b in enumerate(batch):
+        blocks, off = _resolve_band(b, gt=gt)
+        q, k, v, g = _gt_inputs(b.num_nodes, dev, seed, heads=max(
+            1, 64 // hd), hd=hd)
+        z = kg.gt_fwd_plain(blocks, off, q, k, v)[1]
+        merged = kg.gt_bwd_merged(blocks, off, q, k, v, g, z)
+        for a, w in zip(merged, kg.gt_bwd_merged_plain(blocks, off, q, k, v,
+                                                       g, z)):
+            close(a, w, rtol=1e-4)
+        dq, rho = kg.gt_bwd_rows(blocks, off, q, k, v, g, z)
+        for a, w in zip(merged, (dq,) + kg.gt_bwd_cols(blocks, off, q, k, v,
+                                                       g, z, rho)):
+            close(a, w, rtol=1e-4)
+
+
+def test_attention_kernels_fit_the_registers_at_every_width(dev):
+    """Every attention kernel at every head width keeps at least one block
+    of 128 threads an SM, and the row pass at hd 256 no more than twice
+    its registers at hd 8."""
+    for kernel in ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged"):
+        infos = {hd: kg.kernel_info(kernel, hd) for hd in kg.HEAD_WIDTHS}
+        assert all(i["blocks_per_sm"] >= 1 for i in infos.values()), infos
+        assert infos[256]["registers"] <= 2 * infos[8]["registers"], infos
+
+
+def test_pool_without_the_flag_refuses_ids_on_the_card(batch, dev):
+    _, sub = batch
+    with pytest.raises(ValueError, match="pool_fits"):
+        pool.sorted_segment_sum_banded(torch.zeros(1536, 8, device=dev),
+                                       sub.node_center, 512,
+                                       mask=sub.node_mask)
+
+
+def _steps(dev, batches, kwargs, captured):
+    """Three steps from one start; (losses, state_dict, Adam state,
+    generator state) on the host."""
+    model = PretrainModel(9, hidden=32, d_transfer=16, num_layers=2,
+                          num_heads=4, **kwargs)
+    init_flax_style_(model, torch.Generator().manual_seed(1))
+    model.to(dev)
+    opt = trainer.adam_l2(model, 1e-3, 5e-5)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    step = (trainer.make_pretrain_step(model, opt) if captured else
+            functools.partial(trainer.pretrain_step_eager, model, opt))
+    losses = [torch.stack(list(step(g, s, gen))).cpu() for g, s in batches]
+    adam = [t.cpu() for p in model.parameters()
+            for t in opt.state[p].values()]
+    return (losses, {k: v.cpu() for k, v in model.state_dict().items()},
+            adam, gen.get_state(), step)
+
+
+@pytest.mark.parametrize("encoder", ["GIN", "Transformer"])
+def test_captured_step_is_the_eager_step(dev, encoder):
+    """Under torch's deterministic algorithms, three captured steps (the
+    first eager, then two replays of one graph) write the very bits of
+    three eager steps: losses, weights, BatchNorm statistics, Adam state,
+    generator state; and the launch counts are per optimizer step."""
+    from scgib_tpu_torch.data.loader import (GraphDataset, batch_iterator,
+                                             plan_capacities)
+    ds = GraphDataset(random_dataset(48, seed=3, min_nodes=8, max_nodes=24),
+                      k=1)
+    caps = plan_capacities(ds, 16)
+    batches = [(g.to(dev), s.to(dev)) for g, s in
+               list(batch_iterator(ds, 16, caps, shuffle=False))[:3]]
+    assert len({trainer.batch_key(*b) for b in batches}) == 1
+    kw = {"encoder": encoder}
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = _steps(dev, batches, kw, False)
+        kb.reset_launch_counts()
+        kg.reset_launch_counts()
+        captured = _steps(dev, batches, kw, True)
+        counts = {**kb.launch_counts(), **kg.launch_counts()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(captured[4].graphs) == 1
+    for a, b in zip(eager[0], captured[0]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(eager[1][k], captured[1][k]) for k in eager[1])
+    assert all(torch.equal(a, b) for a, b in zip(eager[2], captured[2]))
+    assert torch.equal(eager[3], captured[3])
+    if encoder == "GIN":
+        assert counts["gin_fwd"] == 3 * 4 and counts["pool"] == 3
+    else:
+        assert counts["gt_fwd"] == 3 * 6 and counts["gt_bwd_rows"] == 3 * 6
+
+
 def test_gt_twopass_backward_is_bitwise_reproducible(batch, dev):
     _, sub = batch
     blocks, off = _resolve_band(sub, gt=True)
@@ -584,13 +684,12 @@ def test_gin_at_any_width_matches_cpu(batch, dev, hidden):
 
 
 @pytest.mark.parametrize("case,bwd", [
-    (case, bwd) for case in sorted(WIDTHS) for bwd in ("twopass", "merged")
-    if bwd == "twopass" or WIDTHS[case][1] <= 32])
+    (case, bwd) for case in sorted(WIDTHS) for bwd in ("twopass", "merged")])
 def test_attention_at_new_head_widths_matches_cpu(dev, case, bwd):
     """``gt_flash_attention`` on the card at the head widths served since
     they were opened up (zero-padded where the kernels do not take them)
-    against autograd through the plain reference in float64 on the CPU;
-    the merged backward up to hd 32, the widest it serves."""
+    against autograd through the plain reference in float64 on the CPU,
+    with either backward."""
     heads, hd = WIDTHS[case]
     blocks, off = banded_graph("narrow")
     q, k, v, ct = qkvg(256, heads=heads, hd=hd, seed=6)

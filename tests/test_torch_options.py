@@ -269,12 +269,7 @@ def test_attention_at_padded_head_widths_matches_jax(case, bwd):
     to one they do, keeping the scale at 1 / sqrt(hd); values and
     gradients against the JAX reference at the original width."""
     heads, hd = WIDTHS[case]
-    width = kg.served_head_width(heads, hd, bwd) if hd <= 32 or \
-        bwd == "twopass" else None
-    if width is None:
-        with pytest.raises(ValueError, match="wider than"):
-            kg.served_head_width(heads, hd, bwd)
-        return
+    width = kg.served_head_width(heads, hd)
     assert width >= hd and (heads * width) % 4 == 0
     assert (width == hd) == (hd in kg.HEAD_WIDTHS and (heads * hd) % 4 == 0)
     blocks, off = banded_graph("narrow")
@@ -298,17 +293,23 @@ def test_attention_at_padded_head_widths_matches_jax(case, bwd):
 
 
 def test_head_widths_served_and_refused():
+    """Every width up to 512 is served with either backward (the merged
+    one included); a wider head raises when the layer is built, saying
+    which registers forbid it."""
     assert [kg.served_head_width(h, d) for h, d in
-            ((8, 8), (8, 12), (3, 10), (3, 1), (2, 1), (1, 64), (2, 100))] \
-        == [8, 16, 16, 4, 2, 64, 128]
-    assert kg.served_head_width(8, 12, "merged") == 16
+            ((8, 8), (8, 12), (3, 10), (3, 1), (2, 1), (1, 64), (2, 100),
+             (1, 256), (1, 200), (2, 129), (1, 512), (2, 300))] \
+        == [8, 16, 16, 4, 2, 64, 128, 256, 256, 256, 512, 512]
     GraphTransformerLayer(96, 8)
     GraphTransformerLayer(30, 3)
     GraphTransformerLayer(128, 1)
-    with pytest.raises(ValueError, match="wider than"):
-        GraphTransformerLayer(256, 1)
-    with pytest.raises(ValueError, match="wider than"):
-        GraphTransformerLayer(64, 1, bwd="merged")
+    GraphTransformerLayer(256, 1)
+    GraphTransformerLayer(256, 1, bwd="merged")
+    GraphTransformerLayer(64, 1, bwd="merged")
+    GraphTransformerLayer(512, 1, bwd="merged")
+    for bwd in ("twopass", "merged"):
+        with pytest.raises(ValueError, match="wider than.*registers"):
+            GraphTransformerLayer(1024, 1, bwd=bwd)
 
 
 def test_transformer_at_hidden_30_matches_jax():
