@@ -6,21 +6,24 @@
 Phases; any failure raises and exits non-zero before the last line:
   1. environment: the card's name and power limit; TF32 off.
   2. build the CUDA kernels from scgib_tpu_torch/csrc/ (one nvcc per
-     source, sm_90a, all started together), and beside them a probe build
-     of gt_flash.cu at the narrowest head width the wrapper refuses
-     (1024): ptxas's registers and spills of its column pass must be the
-     ones the refusal names.
+     source, sm_90a, all started together); ptxas's registers and spills
+     of the attention's WIDE instantiation (head widths past 512, swept
+     512 features at a time) must show no spill.
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the benchmark batch (128 molecules of 10-30 atoms, k=1:
      N=3072 graph rows, S=9728 ego-net rows; the attention kernels in the
      narrow (64, 128) geometry, 8 heads of 8, and at S also 1 head of 64,
-     128, 256 and 512): error, kernel / plain / library time (median of 20 CUDA
-     graph replays, each between CUDA events), the bound and its share of
+     128, 256, 512 and 1024): error, kernel / plain / library time (median
+     of 20 CUDA graph replays, each between CUDA events), the bound and its
+     share of
      the kernel time (gin_fwd's and gin_bwd's at the 3xTF32 tensor-core
      rate they run at, with the fp32 SIMT one beside it); the merged
      attention backward against the two-pass one; and the registers,
      shared memory and blocks per SM of every kernel at the main path's
-     widths (and the attention's at hd 64, 128, 256 and 512).
+     widths (and the attention's at hd 64 to 1024); and head widths past
+     512 through ``gt_flash_attention`` (1024, and 1100 zero-padded to
+     1536), output and gradients with either backward against the plain
+     attention by autograd.
   4. the full model on that batch, GIN and graph-transformer encoders,
      once on the card and once on the CPU plain path in float64
      (deterministic, dropout off): losses and gradients must agree.
@@ -66,7 +69,26 @@ Phases; any failure raises and exits non-zero before the last line:
   7. where the step time goes: 3 steady steps of each encoder's main path
      under torch.profiler, captured and eager: device time by kernel, the
      device's busy share, and the host's kernel and graph launches a step.
-  8. one JSON line of the kernels, the nvidia-smi line, and
+  8. the supervised path (the finetune, eval and adapt verbs) at full
+     width on BACE-sized data (1513 labelled molecules, the reference's
+     900 / 313 / 300 split): FinetuneModel's BCE loss and the gradients of
+     what the ``reference`` freeze mask trains, and DomainAdaptModel's
+     loss and gradients, card against float64 CPU; the captured
+     fine-tuning step byte-equal to the eager one (GIN, GIN with gradient
+     accumulation over 2 batches, the transformer) under deterministic
+     algorithms, the stale-input fault breaking it; the launches of one
+     fine-tuning step and of one evaluation batch, and the medians of the
+     eager and captured step, an evaluation batch and an adaptation step,
+     both encoders; then the verbs: ``pretrain`` a checkpoint, ``finetune
+     --dataset BACE --synthetic 1513 --pretrained ... --epochs 2 --out ...
+     --journal ...``, ``eval --split all`` (its test metric the run's
+     final one to 1e-6), ``adapt`` for one epoch, one epoch each at 2
+     convs of ESOL (rmse), Peptides-func (ap, gradient accumulation 2) and
+     Mutagenicity (ce, acc, 14 features, 2 repeats), and one transformer
+     fine-tuning epoch; each run's launch counts those of its steps and
+     evaluation batches.
+  9. one JSON line of the kernels (with the launches of a fine-tuning step
+     and an evaluation batch), the nvidia-smi line, and
      {"ok": true, "device": {...}} as the last line.
 """
 
@@ -98,11 +120,12 @@ sys.path.insert(0, ROOT)
 from scgib_tpu_torch import cli  # noqa: E402
 from scgib_tpu_torch.cli import run_pretrain  # noqa: E402
 from scgib_tpu_torch.data.loader import (GraphDataset,  # noqa: E402
-                                         batch_iterator, plan_capacities)
+                                         batch_iterator, plan_batches,
+                                         plan_capacities)
 from scgib_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from scgib_tpu_torch.models import encoders  # noqa: E402
-from scgib_tpu_torch.models.scgib import (PretrainModel,  # noqa: E402
-                                          _resolve_band)
+from scgib_tpu_torch.models.scgib import (  # noqa: E402
+    DomainAdaptModel, FinetuneModel, PretrainModel, _resolve_band)
 from scgib_tpu_torch.ops import pool as pool_mod  # noqa: E402
 from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
 from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
@@ -111,10 +134,13 @@ from scgib_tpu_torch.train import checkpoint, loops  # noqa: E402
 from scgib_tpu_torch.graph.batching import (GraphData,  # noqa: E402
                                             pack_graphs, pack_subgraphs)
 from scgib_tpu_torch.graph.egonet import extract_egonets  # noqa: E402
-from scgib_tpu_torch.models.scgib import PretrainLosses  # noqa: E402
+from scgib_tpu_torch.ops.spmm_banded import (  # noqa: E402
+    gt_banded_attention)
 from scgib_tpu_torch.train import trainer  # noqa: E402
 from scgib_tpu_torch.train.trainer import (  # noqa: E402
-    adam_l2, make_pretrain_scan_step, make_pretrain_step, pretrain_step_eager)
+    adam_l2, finetune_trainable_mask, make_domainadapt_step, make_eval_fn,
+    make_finetune_step, make_pretrain_scan_step, make_pretrain_step,
+    masked_adam, pretrain_step_eager)
 from scgib_tpu_torch.utils.msgpack_codec import unpackb  # noqa: E402
 from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
                                           init_flax_style_, sorted_leaves)
@@ -141,7 +167,8 @@ MERGED_PER_STEP = {"gt_fwd": 10, "gt_bwd_merged": 10, "spmm": 2, "pool": 1}
 MERGED_STEPS = 2              # steps with the merged attention backward
 SCAN_INNER = 3                # inner steps of the scan step
 HEADS, HEAD_DIM = 8, 8        # the graph transformer's attention
-WIDE_HDS = (64, 128, 256, 512)  # one head of each, checked at S
+WIDE_HDS = (64, 128, 256, 512, 1024)  # one head of each, checked at S
+SERVED_HDS = (1024, 1100)     # through gt_flash_attention (1100 padded)
 # wrapper -> (source, TPU kernel line, CUDA kernel)
 PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gin_bwd": ("banded", 141, "gin_fused_bwd_kernel"),
@@ -270,42 +297,21 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
     return rec
 
 
-def start_refused_probe():
-    """Start compiling csrc/gt_flash.cu with one more head width, the
-    narrowest the wrapper refuses (``kg.REFUSED_HD``), to a cubin under
-    the build directory; ptxas reports each kernel's registers and
-    spills."""
-    src = (kbuild.CSRC / "gt_flash.cu").read_text()
-    last = max(kg.HEAD_WIDTHS)
-    case = (f"    case {last}: {{ constexpr int HD = {last}; __VA_ARGS__; }} "
-            "break; \\\n")
-    if case not in src:
-        raise AssertionError("no dispatch case of the widest head width")
-    kbuild.BUILD_DIR.mkdir(exist_ok=True)
-    path = kbuild.BUILD_DIR / "gt_flash_refused_probe.cu"
-    path.write_text(src.replace(case, case + case.replace(
-        str(last), str(kg.REFUSED_HD))))
-    return subprocess.Popen(
-        [kbuild._nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
-         "-std=c++17", "-O3", "-Xptxas", "-v", "-I", str(kbuild.CSRC),
-         "-o", str(path.with_suffix(".cubin")), str(path)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def finish_refused_probe(proc):
-    """Each kernel's registers and spill bytes at the refused width, as
-    ptxas reports them (the refusal counts the column pass's operands)."""
-    out, err = proc.communicate(timeout=600)
-    if proc.returncode:
-        raise AssertionError(f"the refused-width probe did not build:\n"
-                             f"{out}\n{err}")
+def wide_ptxas():
+    """Registers and spill bytes of each kernel of csrc/gt_flash.cu's WIDE
+    instantiation (head widths past 512, swept 512 at a time), from the
+    ``-Xptxas -v`` report of this run's build; none may spill."""
+    log = kbuild.logs.get("gt_flash")
+    if log is None:
+        raise AssertionError("gt_flash.cu was not built in this run, so "
+                             "ptxas's report is missing")
     found, name = {}, None
-    for line in err.splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
             continue
-        if not name or f"ILi{kg.REFUSED_HD}E" not in name:
+        if not name or "ILi0E" not in name:          # HD = WIDE = 0
             continue
         kernel = re.search(r"(gt_row_pass_kernel|gt_bwd_cols_kernel|"
                            r"gt_fwd_kernel)", name).group(1)
@@ -318,11 +324,51 @@ def finish_refused_probe(proc):
         m = re.search(r"Used (\d+) registers", line)
         if m:
             rec["registers"] = int(m.group(1))
-    print(f"refused head width {kg.REFUSED_HD}, ptxas: {found}", flush=True)
-    if "gt_bwd_cols_kernel" not in found:
-        raise AssertionError(f"the probe built no column pass at hd "
-                             f"{kg.REFUSED_HD}: {found}")
+    print(f"head widths past {kg.SWEEP} (WIDE), ptxas: {found}", flush=True)
+    if len(found) != 4 or any(r.get("spill_bytes", 1) or "registers" not in r
+                              for r in found.values()):
+        raise AssertionError(f"the WIDE kernels spill or are missing: "
+                             f"{found}")
     return found
+
+
+def served_phase(sub, dev, gen):
+    """Head widths past 512 through ``gt_flash_attention`` on the card, at
+    S in the narrow geometry, one head: 1024 as the kernels take it (two
+    sweeps) and 1100 zero-padded to 1536 (three sweeps).  The output and
+    the gradients of q, k and v, with either backward, against
+    ``gt_banded_attention`` (plain torch ops, by autograd) at the original
+    width."""
+    blocks, off = _resolve_band(sub, gt=True)
+    n = blocks.shape[0] * blocks.shape[1]
+    out = {}
+    for hd in SERVED_HDS:
+        q, k, v, ct = (torch.randn(n, 1, hd, device=dev, generator=gen)
+                       for _ in range(4))
+        ref = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = gt_banded_attention(blocks, off, *ref)
+        (want * ct).sum().backward()
+        for bwd in kg.BWD:
+            ts = [t.clone().requires_grad_() for t in (q, k, v)]
+            before = launch_counts()
+            got = kg.gt_flash_attention(blocks, off, *ts, bwd=bwd)
+            (got * ct).sum().backward()
+            torch.cuda.synchronize()
+            launched = {k: n - before[k] for k, n in launch_counts().items()
+                        if n != before[k]}
+            errs = [rel_err(got.detach(), want.detach())[1]] + [
+                rel_err(a.grad, b.grad)[1] for a, b in zip(ts, ref)]
+            rec = {"served_as": kg.served_head_width(1, hd),
+                   "max_rel_err": max(errs), "launches": launched}
+            out[f"hd {hd} {bwd}"] = rec
+            print(f"served head width {hd} ({bwd}): {json.dumps(rec)} (tol "
+                  f"{KERNEL_RTOL})", flush=True)
+            if not (max(errs) <= KERNEL_RTOL
+                    and launched.get("gt_fwd") == 1
+                    and sum(launched.values()) == (2 if bwd == "merged"
+                                                   else 3)):
+                raise AssertionError(f"head width {hd}, {bwd}: {rec}")
+    return out
 
 
 def kernel_phase(g, sub, dev):
@@ -707,14 +753,14 @@ def stale_inputs(real):
     then run on the batch they were first given."""
     seen = set()
 
-    def replay(self, entry, g, sub):
+    def replay(self, entry, batches):
         if id(entry) not in seen:
             seen.add(id(entry))
-            return real(self, entry, g, sub)
+            return real(self, entry, batches)
         graph, _, out, added = entry
         graph.replay()
         trainer._add_tally(added)
-        return PretrainLosses(*(t.clone() for t in out))
+        return trainer._clone(out)
     return replay
 
 
@@ -907,12 +953,11 @@ def main():
         clock[0] = now
         print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
 
-    # 2. build, with the probe of the narrowest refused head width beside
-    probe = start_refused_probe()
+    # 2. build; the wide heads' registers and spills
     kbuild.load(*sorted({src for src, _, _ in PATH.values()}))
     kb.build()
     kg.build()
-    refused = finish_refused_probe(probe)
+    wide = wide_ptxas()
     lap("2 build")
     for name, log in kbuild.logs.items():
         print(f"nvcc {name}.cu:\n{log}", flush=True)
@@ -930,6 +975,7 @@ def main():
         raise AssertionError("benchmark batch does not fit the narrow "
                              "attention geometry")
     records = kernel_phase(g, sub, dev)
+    served = served_phase(sub, dev, torch.Generator(device=dev).manual_seed(1))
     lap("3 kernels")
 
     # 4. full model, card vs CPU
@@ -954,13 +1000,18 @@ def main():
                 for path in ("captured", "eager")}
     lap("7 profile")
 
-    # 8. report
+    # 8. the supervised path
+    supervised = supervised_phase(dev)
+    lap("8 supervised")
+
+    # 9. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
         widest = max((r for r in recs if r.get("main", True)),
                      key=lambda r: r["bound_ms"])
         run = REPORT_RUN.get(name, "GIN")
+        sup = supervised["steps"]["GIN" if run == "GIN" else "Transformer"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"scgib_tpu_torch/csrc/{src}.cu",
@@ -968,6 +1019,9 @@ def main():
             "status": "ported",
             "port_kernel": f"scgib_tpu_torch/csrc/{src}.cu::{port_kernel}",
             "launches": runs[run]["counts"][name], "launches_run": run,
+            "finetune_step_launches": sup["finetune_step_launches"].get(
+                name, 0),
+            "eval_batch_launches": sup["eval_batch_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": widest["ms"], "plain_ms": widest["plain_ms"],
             "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
@@ -977,7 +1031,8 @@ def main():
                       "step_ms": {k: r["step_ms"] for k, r in runs.items()},
                       "steps": {k: r["steps"] for k, r in runs.items()},
                       "verb": verb, "compiled": compiled,
-                      "refused_head_width": {kg.REFUSED_HD: refused},
+                      "supervised": supervised,
+                      "wide_heads": {"ptxas": wide, "served": served},
                       "profile": profiles,
                       "phase_s": phase_s}), flush=True)
     print(smi_line(), flush=True)
@@ -1243,6 +1298,408 @@ def verb_phase(g, sub, dev, ds, caps):
         report["widths"][label] = {"step_ms": run["step_ms"],
                                    "counts": run["counts"]}
     print(f"phase 6: {json.dumps(report)}", flush=True)
+    return report
+
+
+# --- 8. the supervised path --------------------------------------------------
+
+SUP_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_supervised")
+BACE_N = 1513                 # BACE's size: the reference's own prefix split
+FT_LR, FT_WD = 1e-3, 1e-5     # the finetune and adapt verbs' defaults
+GT_FT_PER_STEP = {"gt_fwd": 10, "gt_bwd_rows": 10, "gt_bwd_cols": 10,
+                  "pool": 1}
+# launches of one supervised step (no reconstruction, so no spmm) and of one
+# evaluation batch, per encoder
+FT_PER_STEP = {"GIN": {"gin_fwd": 8, "gin_bwd": 8, "spmm_self": 8,
+                       "pool": 1},
+               "Transformer": GT_FT_PER_STEP}
+EVAL_PER_BATCH = {"GIN": {"gin_fwd": 8, "pool": 1},
+                  "Transformer": {"gt_fwd": 10, "pool": 1}}
+FT_COMPARED = {"GIN": ({}, 1), "GIN grad_accum 2": ({}, 2),
+               "Transformer": ({"encoder": "Transformer"}, 1)}
+# one epoch each at small depth: (dataset, graphs, extra flags)
+SPEC_RUNS = {"ESOL (rmse, regression head)": ("ESOL", 400, []),
+             "Peptides-func (ap, grad_accum 2)": ("Peptides-func", 600, []),
+             "Mutagenicity (ce, acc, 14 features, 2 repeats)": (
+                 "Mutagenicity", 400, ["--repeats", "2"])}
+
+
+def add_counts(*parts):
+    """Sum of (per-unit counts, units) pairs."""
+    out = collections.Counter()
+    for per, n in parts:
+        for k, v in per.items():
+            out[k] += v * n
+    return dict(out)
+
+
+def expect_exact(label, want):
+    got = {k: n for k, n in launch_counts().items() if n}
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def bace(dev, n_batches=STEPS):
+    """BACE-sized labelled data (the verb's generator and seed) and its
+    first ``n_batches`` shuffled training batches on the card."""
+    ds = GraphDataset(random_dataset(BACE_N, seed=42, num_tasks=1), k=1)
+    caps = plan_capacities(ds, 128)
+    batches = [(g.to(dev), s.to(dev)) for g, s in itertools.islice(
+        batch_iterator(ds, 128, caps, seed=7), n_batches)]
+    return ds, caps, batches
+
+
+def fresh(batch, dev):
+    """A copy of a card batch for evaluation (inference-mode tensors cached
+    on a batch, its banded blocks, cannot serve a training step later)."""
+    return tuple(b.to("cpu").to(dev) for b in batch)
+
+
+def supervised_vs_float64(dev, batch):
+    """``FinetuneModel``'s BCE loss and the gradients of the parameters the
+    ``reference`` freeze mask trains, and ``DomainAdaptModel``'s loss and
+    gradients: the card (kernels, float32) against the CPU plain path in
+    float64, deterministic gate."""
+    g, sub = batch
+    g64, sub64 = g.to("cpu"), sub.to("cpu")
+    g64.node_feat, g64.labels = g64.node_feat.double(), g64.labels.double()
+    out = {}
+    for label, model in (("finetune", FinetuneModel(
+            9, hidden=64, d_transfer=32, deterministic=True)),
+            ("domainadapt", DomainAdaptModel(9, hidden=64, d_transfer=32,
+                                             deterministic=True))):
+        init_flax_style_(model, torch.Generator().manual_seed(3))
+        keep = set(finetune_trainable_mask(model) if label == "finetune"
+                   else (n for n, _ in model.named_parameters()))
+        for n, p in model.named_parameters():
+            p.requires_grad_(n in keep)
+        ref = copy.deepcopy(model).to("cpu", torch.float64)
+        res = []
+        for m, gb, sb in ((model.to(dev), g, sub), (ref, g64, sub64)):
+            m.train()
+            loss = (trainer.finetune_loss(m, gb, sb, "bce", None)
+                    if label == "finetune" else m(gb, sb))
+            loss.backward()
+            res.append((float(loss.detach()),
+                        {n: p.grad.detach().cpu().double()
+                         for n, p in m.named_parameters()
+                         if p.requires_grad}))
+        (l_dev, g_dev), (l_ref, g_ref) = res
+        floor = GRAD_FLOOR * max(float(v.abs().max()) for v in g_ref.values())
+        worst = max(float((g_dev[k] - g_ref[k]).abs().max())
+                    / max(float(g_ref[k].abs().max()), floor) for k in g_ref)
+        rec = {"loss": l_dev, "loss_float64": l_ref,
+               "loss_rel": abs(l_dev - l_ref) / abs(l_ref),
+               "grad_rel": worst, "trained_tensors": len(g_ref)}
+        print(f"supervised ({label}) card vs float64 CPU: {json.dumps(rec)} "
+              f"(tol {MODEL_RTOL}, {GRAD_RTOL})", flush=True)
+        if not (rec["loss_rel"] <= MODEL_RTOL and worst <= GRAD_RTOL):
+            raise AssertionError(f"{label} disagrees with float64: {rec}")
+        out[label] = rec
+    return out
+
+
+def ft_model(dev, kwargs, seed=11):
+    model = FinetuneModel(9, hidden=64, d_transfer=32, num_heads=HEADS,
+                          **kwargs)
+    init_flax_style_(model, torch.Generator().manual_seed(seed))
+    model.to(dev)
+    opt = masked_adam(model, finetune_trainable_mask(model), FT_LR, FT_WD)
+    return model, opt
+
+
+def ft_compared_run(dev, batches, kwargs, accum, how):
+    """One fine-tuning step per group of ``accum`` batches from one start
+    (``reference`` freeze, BCE), eager or captured."""
+    model, opt = ft_model(dev, kwargs)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    reset_launch_counts()
+    groups = [batches[i:i + accum] for i in range(0, len(batches), accum)]
+    if how == "captured":
+        step = make_finetune_step(model, opt, "bce", accum)
+        losses = [step(*((grp[0]) if accum == 1 else
+                         ([b[0] for b in grp], [b[1] for b in grp])), gen)
+                  for grp in groups]
+    else:
+        losses = [trainer.finetune_step_eager(model, opt, grp, "bce", gen)
+                  for grp in groups]
+    torch.cuda.synchronize()
+    as_bytes = {f"step {i}": t.cpu().numpy().tobytes()
+                for i, t in enumerate(losses)}
+    return as_bytes, step_bytes(model, opt, gen), launch_counts()
+
+
+def ft_captured_phase(dev, batches):
+    """The captured fine-tuning step against the eager one under torch's
+    deterministic algorithms: losses, weights, BatchNorm statistics, the
+    masked Adam state and the generator byte-equal; the stale-input fault
+    must break it."""
+    report = {}
+    with deterministic():
+        for label, (kwargs, accum) in FT_COMPARED.items():
+            enc = kwargs.get("encoder", "GIN")
+            want = {k: n * len(batches) for k, n in FT_PER_STEP[enc].items()}
+            eager = ft_compared_run(dev, batches, kwargs, accum, "eager")
+            captured = ft_compared_run(dev, batches, kwargs, accum,
+                                       "captured")
+            real = trainer._CapturedSteps._replay
+            trainer._CapturedSteps._replay = stale_inputs(real)
+            try:
+                fault = ft_compared_run(dev, batches, kwargs, accum,
+                                        "captured")
+            finally:
+                trainer._CapturedSteps._replay = real
+            rec = {"losses_apart": bytes_apart(eager[0], captured[0]),
+                   "state_apart": bytes_apart(eager[1], captured[1]),
+                   "fault_losses_apart": len(bytes_apart(eager[0],
+                                                         fault[0])),
+                   "fault_state_apart": len(bytes_apart(eager[1],
+                                                        fault[1]))}
+            print(f"finetune captured vs eager ({label}), {len(batches)} "
+                  f"batches: {json.dumps(rec)}", flush=True)
+            for name, run in (("eager", eager), ("captured", captured)):
+                got = {k: n for k, n in run[2].items() if n}
+                if got != want:
+                    raise AssertionError(f"finetune {label} {name}: "
+                                         f"launches {got}, expected {want}")
+            if rec["losses_apart"] or rec["state_apart"]:
+                raise AssertionError(f"finetune {label}: the captured step "
+                                     f"is not the eager one: {rec}")
+            if not (rec["fault_losses_apart"] and rec["fault_state_apart"]):
+                raise AssertionError(f"finetune {label}: the planted fault "
+                                     "went unseen")
+            report[label] = rec
+    return report
+
+
+def ft_launches_and_medians(dev, batches):
+    """Per encoder: the launches of one captured fine-tuning step and of
+    one evaluation batch, each with every count set to 0 before; then the
+    step medians of the eager and the captured step (alternating), of one
+    evaluation batch and of one captured adaptation step (host clock, each
+    ended by a device synchronize; the first call of each, the eager
+    warm-up and capture, left out)."""
+    out = {}
+    for enc, kwargs in (("GIN", {}), ("Transformer",
+                                      {"encoder": "Transformer"})):
+        model, opt = ft_model(dev, kwargs)
+        step = make_finetune_step(model, opt, "bce")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        step(*batches[0], gen)                    # eager warm-up, capture
+        reset_launch_counts()
+        step(*batches[1], gen)
+        torch.cuda.synchronize()
+        step_counts = expect_exact(f"one finetune step ({enc})",
+                                   FT_PER_STEP[enc])
+        run = make_eval_fn(model)
+        evals = [fresh(b, dev) for b in batches]
+        reset_launch_counts()
+        run(*evals[0], gen)
+        torch.cuda.synchronize()
+        eval_counts = expect_exact(f"one eval batch ({enc})",
+                                   EVAL_PER_BATCH[enc])
+
+        def timed(fn, items):
+            times = []
+            for item in items:
+                t0 = time.perf_counter()
+                fn(*item)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times[1:])
+        medians = []
+        for how in ("eager", "captured", "captured", "eager"):
+            model, opt = ft_model(dev, kwargs)
+            fn = (make_finetune_step(model, opt, "bce") if how == "captured"
+                  else lambda g, s, m=model, o=opt: trainer.
+                  finetune_step_eager(m, o, [(g, s)], "bce", gen))
+            medians.append((how, timed(fn, batches)))
+        eval_ms = timed(lambda g, s: run(g, s, gen), evals)
+        da = DomainAdaptModel(9, hidden=64, d_transfer=32, num_heads=HEADS,
+                              **kwargs)
+        init_flax_style_(da, torch.Generator().manual_seed(4))
+        da.to(dev)
+        adapt_ms = timed(make_domainadapt_step(da, adam_l2(da, FT_LR, FT_WD)),
+                         batches)
+        out[enc] = {"finetune_step_launches": step_counts,
+                    "eval_batch_launches": eval_counts,
+                    "finetune_step_ms": medians, "eval_batch_ms": eval_ms,
+                    "adapt_step_ms": adapt_ms}
+        print(f"supervised ({enc}), ms (medians of {len(batches) - 1} after "
+              f"the first): finetune step {medians}, eval batch "
+              f"{eval_ms:.3f}, adapt step {adapt_ms:.3f} | {smi_line()}",
+              flush=True)
+    return out
+
+
+def device_kernels(prof, steps):
+    """(ms a step, calls a step, name) of each device kernel a profile
+    recorded, largest first, less the user annotations."""
+    return sorted(
+        ((e.self_device_time_total / 1e3 / steps, e.count / steps, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not getattr(e, "is_user_annotation", False)
+         and not e.key.startswith("ProfilerStep")), reverse=True)
+
+
+def ft_profile(dev, batches):
+    """Where the captured fine-tuning step's time goes, per encoder: 3
+    steady steps (after the eager warm-up and one replay) under
+    torch.profiler: wall and device ms a step, the device's busy share,
+    kernels a step, the top kernels and the port's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for enc, kwargs in (("GIN", {}), ("Transformer",
+                                      {"encoder": "Transformer"})):
+        model, opt = ft_model(dev, kwargs)
+        step = make_finetune_step(model, opt, "bce")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for g, sub in batches[:2]:
+            float(step(g, sub, gen))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for g, sub in batches[2:5]:
+                float(step(g, sub, gen))
+            wall = (time.perf_counter() - t0) * 1e3 / 3
+        kernels = device_kernels(prof, 3)
+        busy = sum(k[0] for k in kernels)
+        rec = {"wall_ms_per_step": wall, "device_ms_per_step": busy,
+               "device_busy_share": busy / wall,
+               "device_kernels_per_step": sum(k[1] for k in kernels),
+               "top": [{"kernel": name[:80], "ms_per_step": ms,
+                        "calls_per_step": n}
+                       for ms, n, name in kernels[:10]],
+               "port": {k: [sum(ms for ms, _, name in kernels if k in name),
+                            sum(n for _, n, name in kernels if k in name)]
+                        for k in sorted({v[2].split()[0]
+                                         for v in PATH.values()})}}
+        out[enc] = rec
+        print(f"profile (finetune, {enc}, captured): {json.dumps(rec)}",
+              flush=True)
+    return out
+
+
+def split_batches(spec, graphs, feat_dim, epochs=1, seed=42,
+                  batch_size=128):
+    """What the verbs' runs on ``graphs`` synthetic molecules of ``spec``
+    (seed 42, batches of 128) take: ``steps``, the fine-tuning optimizer
+    steps of ``epochs`` epochs (each shuffled with seed + epoch, ragged
+    accumulation groups dropped); ``evals``, the val and test batches of
+    one evaluation; ``train_evals``, the train split's batches in order
+    (``eval --split all``); ``adapt``, the batches of one adaptation
+    epoch over the whole dataset."""
+    ds = GraphDataset(random_dataset(graphs, seed=seed, feat_dim=feat_dim,
+                                     num_tasks=spec.num_tasks), k=1)
+    caps = plan_capacities(ds, batch_size)
+    train, val, test = cli._splits(ds, spec, seed)
+    return {"steps": sum(len(plan_batches(train, batch_size, caps,
+                                          seed=seed + e)) // spec.grad_accum
+                         for e in range(epochs)),
+            "evals": sum(len(plan_batches(d, batch_size, caps,
+                                          shuffle=False))
+                         for d in (val, test)),
+            "train_evals": len(plan_batches(train, batch_size, caps,
+                                            shuffle=False)),
+            "adapt": len(plan_batches(ds, batch_size, caps, seed=seed))}
+
+
+def supervised_verbs(dev):
+    """``pretrain`` a checkpoint at full width, ``finetune`` BACE from it
+    for 2 epochs with ``--out`` and ``--journal``, ``eval --split all``
+    (which must give the run's final test metric), ``adapt`` for one
+    epoch; then one epoch of a regression spec, a ``grad_accum`` 2 spec
+    and a ``ce``/``acc`` spec with repeats at 2 convs, and one Transformer
+    fine-tuning epoch at hidden 64, 8 heads.  Every run's launch counts
+    must be its steps' and evaluation batches'."""
+    shutil.rmtree(SUP_DIR, ignore_errors=True)
+    os.makedirs(SUP_DIR)
+    pre, ft, ad = (os.path.join(SUP_DIR, f) for f in
+                   ("pre.msgpack", "bace.msgpack", "adapted.msgpack"))
+    journal = os.path.join(SUP_DIR, "journal.jsonl")
+    report = {}
+    info, secs = verb_run("pretrain (full width)", [
+        "pretrain", "--synthetic", "512", "--epochs", "1", "--out", pre])
+    check_verb_counts("pretrain (full width)", info["throughput"]["steps"])
+    report["pretrain_s"] = secs
+    bace_data = ["--dataset", "BACE", "--synthetic", str(BACE_N)]
+    spec = cli.DATASETS["BACE"]
+    for enc, extra, epochs, label in (
+            ("GIN", ["--pretrained", pre, "--out", ft, "--journal",
+                     journal], 2, "finetune BACE"),
+            ("Transformer", ["--encoder", "Transformer"], 1,
+             "finetune BACE, Transformer")):
+        run, secs = verb_run(label, ["finetune"] + bace_data + [
+            "--epochs", str(epochs)] + extra)
+        got_steps = run["last"]["throughput"]["steps"]
+        want = split_batches(spec, BACE_N, 9, epochs)
+        if got_steps != want["steps"]:
+            raise AssertionError(f"{label}: {got_steps} steps, expected "
+                                 f"{want['steps']}")
+        expect_exact(label, add_counts((FT_PER_STEP[enc], got_steps),
+                                       (EVAL_PER_BATCH[enc],
+                                        want["evals"] * epochs)))
+        hist = run["last"]["history"]
+        if not all(math.isfinite(x) for row in hist for x in row):
+            raise AssertionError(f"{label}: non-finite history {hist}")
+        report[label] = {"s": secs, "steps": got_steps, "history": hist,
+                         "test_at_best_val": run["mean"]}
+    final_test = report["finetune BACE"]["history"][-1][2]
+    out, secs = verb_run("eval --split all", [
+        "eval"] + bace_data + ["--checkpoint", ft, "--split", "all"])
+    want = split_batches(spec, BACE_N, 9)
+    expect_exact("eval --split all", add_counts(
+        (EVAL_PER_BATCH["GIN"], want["evals"] + want["train_evals"])))
+    print(f"eval reproduces the run's final test metric: {out['test']!r} "
+          f"vs {final_test!r}", flush=True)
+    if not abs(out["test"] - final_test) <= 1e-6:
+        raise AssertionError(f"eval's test {out['test']} is not the run's "
+                             f"final {final_test}")
+    report["eval"] = {"s": secs, **out, "run_final_test": final_test}
+    with open(journal) as f:
+        if json.loads(f.readline())["dataset"] != "BACE":
+            raise AssertionError("the journal holds no BACE record")
+    info, secs = verb_run("adapt", ["adapt", "--synthetic", str(BACE_N),
+                                    "--pretrained", pre, "--epochs", "1",
+                                    "--out", ad])
+    expect_exact("adapt", add_counts((FT_PER_STEP["GIN"], want["adapt"])))
+    checkpoint.load_checkpoint(ad)
+    if not math.isfinite(info["best_loss"]):
+        raise AssertionError(f"adapt: loss {info['best_loss']}")
+    report["adapt"] = {"s": secs, "loss": info["best_loss"]}
+    for label, (dataset, graphs, extra) in SPEC_RUNS.items():
+        spec = cli.DATASETS[dataset]
+        run, secs = verb_run(label, [
+            "finetune", "--dataset", dataset, "--synthetic", str(graphs),
+            "--epochs", "1", "--num_layers", "2"] + extra)
+        want = split_batches(spec, graphs, spec.feat_dim)
+        reps = 2 if extra else 1
+        per = {k: v // 2 if k.startswith(("gin", "spmm")) else v
+               for k, v in FT_PER_STEP["GIN"].items()}     # 2 convs
+        expect_exact(label, add_counts(
+            (per, want["steps"] * spec.grad_accum * reps),
+            ({"gin_fwd": 4, "pool": 1}, want["evals"] * reps)))
+        if not all(math.isfinite(v) for v in run["runs"]):
+            raise AssertionError(f"{label}: {run['runs']}")
+        report[label] = {"s": secs, "runs": run["runs"],
+                         "history": run["last"]["history"]}
+    shutil.rmtree(SUP_DIR)
+    print(f"phase 8 verbs: {json.dumps(report)}", flush=True)
+    return report
+
+
+def supervised_phase(dev):
+    """Phase 8; returns its readings."""
+    _, _, batches = bace(dev)
+    report = {"vs_float64": supervised_vs_float64(dev, fresh(batches[0],
+                                                             dev))}
+    report["captured_vs_eager"] = ft_captured_phase(dev, batches)
+    report["steps"] = ft_launches_and_medians(dev, batches)
+    report["profile"] = ft_profile(dev, batches)
+    report["verbs"] = supervised_verbs(dev)
     return report
 
 

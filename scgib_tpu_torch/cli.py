@@ -1,37 +1,61 @@
-"""Command-line entry point: the ``pretrain`` verb.
+"""Command-line entry point: the ``pretrain``, ``finetune``, ``eval`` and
+``adapt`` verbs.
 
   python -m scgib_tpu_torch.cli pretrain --synthetic 2000 --epochs 3
   python -m scgib_tpu_torch.cli pretrain --curriculum --synthetic 2000 \\
       --epochs 3 --autosave outputs/auto.msgpack --out outputs/x
   python -m scgib_tpu_torch.cli pretrain --synthetic 1024 --steps 5 \\
       [--encoder Transformer --num_layers 4 --num_heads 8]
+  python -m scgib_tpu_torch.cli finetune --dataset BACE --synthetic 1513 \\
+      --pretrained outputs/pretrain.msgpack --out outputs/bace.msgpack
+  python -m scgib_tpu_torch.cli eval --dataset BACE --synthetic 1513 \\
+      --checkpoint outputs/bace.msgpack --split all
+  python -m scgib_tpu_torch.cli adapt --synthetic 1513 \\
+      --pretrained outputs/pretrain.msgpack --out outputs/adapted.msgpack
 
-Counterpart of the JAX package's ``cli.py pretrain`` (``scgib_tpu/cli.py:
-141-311, 585-677``), with its flags and defaults: ``PretrainModel`` of
-``--hidden`` / ``--d_transfer`` / ``--encoder`` / ``--num_layers`` /
-``--num_heads`` / ``--readout`` / ``--use_att`` / ``--kl_mode`` /
-``--recons_type`` / ``--k``, trained for ``--epochs`` with early stopping
-after ``--patience`` epochs without a better loss, torch-style Adam with
-coupled L2, the best epoch's weights saved to ``--out`` (default
-``outputs/pretrain.msgpack``) in the JAX package's checkpoint format.
-``--pretrained`` starts from a checkpoint; ``--autosave PATH`` writes the
-whole training state every ``--autosave_every`` epochs and resumes from it
-after a crash.  ``--curriculum`` runs the three stages (PCQM4Mv2 -> QM9 ->
-mol-PCBA, synthetic stand-ins of feature width 9, 11, 9), each seeded
-``--seed + stage``, carrying the core forward and skipping a stage whose
-checkpoint exists in ``--out``'s directory.
+Counterpart of the JAX package's ``cli.py`` verbs of the same names
+(``scgib_tpu/cli.py:141-563, 585-727``), with their flags and defaults.
 
-Data come from ``--synthetic N`` molecules only.  The flags of the JAX verb
-whose modules are not ported yet raise ``SystemExit`` naming the
+``pretrain``: ``PretrainModel`` of ``--hidden`` / ``--d_transfer`` /
+``--encoder`` / ``--num_layers`` / ``--num_heads`` / ``--readout`` /
+``--use_att`` / ``--kl_mode`` / ``--recons_type`` / ``--k``, trained for
+``--epochs`` with early stopping after ``--patience`` epochs without a
+better loss, torch-style Adam with coupled L2, the best epoch's weights
+saved to ``--out`` (default ``outputs/pretrain.msgpack``) in the JAX
+package's checkpoint format.  ``--pretrained`` starts from a checkpoint;
+``--autosave PATH`` writes the whole training state every
+``--autosave_every`` epochs and resumes from it after a crash.
+``--curriculum`` runs the three stages (PCQM4Mv2 -> QM9 -> mol-PCBA,
+synthetic stand-ins of feature width 9, 11, 9), each seeded ``--seed +
+stage``, carrying the core forward and skipping a stage whose checkpoint
+exists in ``--out``'s directory.
+
+``finetune``: ``FinetuneModel`` on ``--dataset``'s task (``config.DATASETS``:
+outputs, loss, metric, split, gradient accumulation, repeats), the data
+shuffled with ``--seed`` and cut by the reference's prefix split, the core
+from ``--pretrained``, frozen by ``--freeze_mode``; test-at-best-val
+selection over ``--epochs``; ``--repeats`` runs re-initialize the heads
+(seeds ``--seed + 100 + rep``); ``--out`` saves the last run's final
+weights for ``eval``; ``--journal`` appends a JSON record, ``--xlsx``
+writes the reference's sheet (it needs pandas).  ``eval``: a ``finetune
+--out`` checkpoint on ``--split``, the model's config taken from the
+checkpoint.  ``adapt``: ``DomainAdaptModel`` around ``--pretrained``'s
+core, patience 20, the best weights to ``--out`` (default
+``outputs/adapted.msgpack``).
+
+Data come from ``--synthetic N`` molecules only.  The flags of the JAX
+verbs whose modules are not ported yet raise ``SystemExit`` naming the
 ``ROADMAP.md`` item that ports them: the other data sources and
 ``--synthetic_mode structured`` (Queue 1 item 12), ``--superbatch`` (item
-14), ``--encoder GCN`` / ``GraphSAGE`` (item 6).
+14), ``--encoder GCN`` / ``GraphSAGE`` (item 6) and a reference ``.pt``
+checkpoint as ``--pretrained`` (item 11).
 
 Two flags are the port's own: ``--device`` (``cuda``, the default, or
-``cpu`` for the plain path) and ``--steps N``, which instead of the epoch
-loop takes N optimizer steps on molecules of 10-30 atoms (the benchmark's
-recipe) and prints each step's three losses and time (``run_pretrain``);
-with it ``--synthetic`` defaults to 1024 and ``--seed`` to 7.
+``cpu`` for the plain path), on every verb, and ``pretrain --steps N``,
+which instead of the epoch loop takes N optimizer steps on molecules of
+10-30 atoms (the benchmark's recipe) and prints each step's three losses
+and time (``run_pretrain``); with it ``--synthetic`` defaults to 1024 and
+``--seed`` to 7.
 """
 
 from __future__ import annotations
@@ -42,15 +66,20 @@ import os
 import time
 from typing import Callable, List
 
+import numpy as np
 import torch
 
-from .config import PRETRAIN_STAGES
+from .config import DATASETS, PRETRAIN_STAGES, reference_split
 from .data.loader import GraphDataset, batch_iterator, plan_capacities
 from .data.synthetic import random_dataset
-from .models.scgib import PretrainModel
+from .models.scgib import DomainAdaptModel, FinetuneModel, PretrainModel
 from .train import checkpoint as ckpt
-from .train.loops import run_pretraining
-from .train.trainer import TrainState, adam_l2, make_pretrain_step
+from .train.loops import (evaluate, run_domain_adaptation, run_finetune,
+                          run_pretraining)
+from .train.trainer import (TrainState, adam_l2, finetune_trainable_mask,
+                            make_domainadapt_step, make_eval_fn,
+                            make_finetune_step, make_pretrain_step,
+                            masked_adam)
 from .utils.device import resolve_device
 from .utils.params import (from_jax_variables, init_flax_style_,
                            to_jax_variables)
@@ -120,28 +149,33 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
 
 # --- the verb ----------------------------------------------------------------
 
-# flags of the JAX verb whose modules are not ported yet -> ROADMAP.md item
-_UNPORTED_SOURCES = ("cache", "molnet_root", "ogb_raw", "smiles_csv",
-                     "qm9_root", "pcqm4mv2_root", "peptides_root",
-                     "zinc_root", "stage_caches")
+# flags of the JAX verbs whose modules are not ported yet -> ROADMAP.md item
+_SOURCES = ("cache", "molnet_root", "ogb_raw", "smiles_csv", "qm9_root",
+            "pcqm4mv2_root", "peptides_root", "zinc_root")
+_UNPORTED_SOURCES = _SOURCES + ("stage_caches", "tudataset_root")
 
 
 def _refuse_unported(args):
     for name in _UNPORTED_SOURCES:
-        if getattr(args, name):
+        if getattr(args, name, None):
             raise SystemExit(f"--{name}: the dataset readers are not ported "
                              "yet (ROADMAP.md Queue 1 item 12); use "
                              "--synthetic N")
     if args.synthetic_mode != "random":
         raise SystemExit("--synthetic_mode structured: structured_dataset "
                          "is not ported yet (ROADMAP.md Queue 1 item 12)")
-    if args.superbatch:
+    if getattr(args, "superbatch", 0):
         raise SystemExit("--superbatch: the wire superbatch step is not "
                          "ported yet (ROADMAP.md Queue 1 item 14)")
     if args.encoder in ("GCN", "GraphSAGE"):
         raise SystemExit(f"--encoder {args.encoder}: not ported yet "
                          "(ROADMAP.md Queue 1 item 6); use GIN or "
                          "Transformer")
+    if (args.pretrained or "").endswith(".pt"):
+        raise SystemExit(f"--pretrained {args.pretrained}: importing the "
+                         "reference's torch pickle is not ported yet "
+                         "(ROADMAP.md Queue 1 item 11); pass a .msgpack "
+                         "checkpoint")
 
 
 def _args_config(args):
@@ -255,19 +289,195 @@ def _run_curriculum(args, dev):
     return stages
 
 
+
+
+# --- the supervised verbs ----------------------------------------------------
+
+def _dataset(args, num_tasks=None, feat_dim: int = 9) -> GraphDataset:
+    """``--synthetic`` molecules from ``--seed``, with ``num_tasks`` labels
+    (the JAX verb's ``_build_dataset``)."""
+    if not args.synthetic:
+        raise SystemExit("no data: pass --synthetic N (the dataset readers "
+                         "are ROADMAP.md Queue 1 item 12)")
+    return GraphDataset(random_dataset(args.synthetic, seed=args.seed,
+                                       feat_dim=feat_dim,
+                                       num_tasks=num_tasks), k=args.k)
+
+
+def _spec(args):
+    spec = DATASETS.get(args.dataset)
+    if spec is None:
+        raise SystemExit(f"unknown dataset {args.dataset!r}; "
+                         f"known: {sorted(DATASETS)}")
+    return spec
+
+
+def _model_kwargs(cfg) -> dict:
+    """The architecture options of a run's config (its args or a
+    checkpoint's saved config)."""
+    return dict(hidden=int(cfg["hidden"]), d_transfer=int(cfg["d_transfer"]),
+                encoder=cfg["encoder"], num_layers=int(cfg["num_layers"]),
+                num_heads=int(cfg["num_heads"]), readout=cfg["readout"],
+                use_att=bool(int(cfg["use_att"])))
+
+
+def _splits(ds: GraphDataset, spec, seed: int):
+    """(train, val, test): ``ds`` shuffled with ``seed``, then the
+    reference's prefix slices (exp_moleculenetBACE_BBBP.py:276,
+    molecules.py:211-343)."""
+    order = np.random.default_rng(seed).permutation(len(ds))
+    return tuple(ds.subset(order[list(r)])
+                 for r in reference_split(len(ds), spec))
+
+
+def _pretrained(args):
+    """The variables of ``--pretrained`` where the file exists, else
+    None."""
+    if args.pretrained and os.path.exists(args.pretrained):
+        return ckpt.load_checkpoint(args.pretrained)[0]
+    return None
+
+
+def _init(model, seed: int, pre_vars, dev):
+    """flax-style init from ``seed``, the pretrained core grafted in, on
+    ``dev``."""
+    init_flax_style_(model, torch.Generator().manual_seed(seed))
+    if pre_vars is not None:
+        model.load_state_dict(from_jax_variables(ckpt.load_core_into(
+            to_jax_variables(model), pre_vars)))
+    return model.to(dev)
+
+
+def cmd_finetune(args):
+    """Returns ``mean``, ``std``, ``runs`` (each repeat's test at best val)
+    and ``last`` (the last repeat's ``run_finetune`` result)."""
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    spec = _spec(args)
+    ds = _dataset(args, spec.num_tasks, spec.feat_dim)
+    caps = plan_capacities(ds, args.batch_size)
+    train_ds, val_ds, test_ds = _splits(ds, spec, args.seed)
+    pre_vars = _pretrained(args)
+    feat_dim = ds.graphs[0].node_feat.shape[1]
+    repeats = args.repeats if args.repeats else spec.repeats
+    values, result = [], None
+    for rep in range(repeats):
+        # TUDataset-style repeats: fresh heads, mean +- std reported
+        # (exp_tudataset.py:150-160)
+        model = _init(FinetuneModel(feat_dim, num_out=spec.num_tasks,
+                                    regression=spec.regression_head,
+                                    **_model_kwargs(vars(args))),
+                      args.seed + (100 + rep if rep else 0), pre_vars, dev)
+        if rep == 0 and pre_vars is not None:
+            print(f"loaded pretrained core from {args.pretrained}")
+        optimizer = masked_adam(
+            model, finetune_trainable_mask(model, args.freeze_mode),
+            args.lr, args.weight_decay)
+        step = make_finetune_step(model, optimizer, loss_type=spec.loss,
+                                  grad_accum=spec.grad_accum)
+        result = run_finetune(
+            step, make_eval_fn(model), TrainState(model, optimizer),
+            train_ds, val_ds, test_ds, caps, args.batch_size, spec,
+            epochs=args.epochs, patience=args.patience, seed=args.seed + rep,
+            autosave_path=(f"{args.autosave}.rep{rep}" if args.autosave
+                           else None),
+            autosave_every=args.autosave_every)
+        values.append(result["test_at_best_val"])
+    mean, std = float(np.mean(values)), float(np.std(values))
+    print(f"RESULT {args.dataset}: {spec.metric} test@best-val = "
+          f"{mean:.5f} +- {std:.5f} over {repeats} run(s)")
+    if args.out:
+        ckpt.save_checkpoint(args.out, result["state"].variables,
+                             config=dict(_args_config(args),
+                                         best_epoch=result["best_epoch"],
+                                         best_val=result["best_val"]),
+                             step=result["best_epoch"])
+        print(f"saved fine-tuned model to {args.out}")
+    if args.xlsx:
+        # Mean / Variant / Best_epoch cells, the reference's Excel layout
+        # (script_classification.py:57-68)
+        from .utils.results import update_evaluation_value
+
+        path = update_evaluation_value(args.xlsx, args.dataset, "Mean", mean)
+        update_evaluation_value(args.xlsx, args.dataset, "Variant", std)
+        update_evaluation_value(args.xlsx, args.dataset, "Best_epoch",
+                                result["best_epoch"])
+        print(f"recorded results in {path}")
+    if args.journal:
+        from .utils.results import append_result
+
+        append_result(args.journal,
+                      {"dataset": args.dataset, "metric": spec.metric,
+                       "mean": mean, "std": std, "runs": values,
+                       "best_epoch": result["best_epoch"],
+                       "config": _args_config(args)})
+    return {"mean": mean, "std": std, "runs": values, "last": result}
+
+
+def cmd_eval(args):
+    """A ``finetune --out`` checkpoint's metric on ``--split`` (train,
+    val, test, all of them, or the full dataset), its architecture and
+    split seed taken from the checkpoint's config.  Returns {split:
+    metric}."""
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    spec = _spec(args)
+    variables, meta = ckpt.load_checkpoint(args.checkpoint)
+    cfg = {**vars(args), **{k: v for k, v in meta.get("config", {}).items()
+                            if v is not None}}
+    ds = _dataset(args, spec.num_tasks, spec.feat_dim)
+    caps = plan_capacities(ds, args.batch_size)
+    model = FinetuneModel(ds.graphs[0].node_feat.shape[1],
+                          num_out=spec.num_tasks,
+                          regression=spec.regression_head,
+                          **_model_kwargs(cfg))
+    model.load_state_dict(from_jax_variables(variables))
+    eval_fn = make_eval_fn(model.to(dev))
+    if args.split == "full":
+        splits = {"full": ds}
+    else:
+        table = dict(zip(("train", "val", "test"),
+                         _splits(ds, spec, int(cfg["seed"]))))
+        splits = table if args.split == "all" else \
+            {args.split: table[args.split]}
+    out = {}
+    for name, d in splits.items():
+        out[name] = evaluate(eval_fn, d, caps, args.batch_size, spec, dev)
+        print(f"EVAL {args.dataset} {name}: {spec.metric} = "
+              f"{out[name]:.5f} ({len(d)} graphs)")
+    return out
+
+
+def cmd_adapt(args):
+    """Returns ``run_domain_adaptation``'s info."""
+    _refuse_unported(args)
+    dev = resolve_device(args.device)
+    ds = _dataset(args)
+    caps = plan_capacities(ds, args.batch_size)
+    model = _init(DomainAdaptModel(ds.graphs[0].node_feat.shape[1],
+                                   **_model_kwargs(vars(args))),
+                  args.seed, _pretrained(args), dev)
+    optimizer = adam_l2(model, args.lr, args.weight_decay)
+    _, info = run_domain_adaptation(
+        make_domainadapt_step(model, optimizer), TrainState(model, optimizer),
+        ds, caps, args.batch_size, epochs=args.epochs, patience=20,
+        seed=args.seed, autosave_path=args.autosave or None,
+        autosave_every=args.autosave_every)
+    out = args.out or "outputs/adapted.msgpack"
+    ckpt.save_checkpoint(out, info["best_variables"],
+                         config=_args_config(args))
+    print(f"saved adapted model (loss {info['best_loss']:.5f}) to {out}")
+    return info
+
+
 # --steps keeps the defaults it had before the epoch loop was ported
 _STEPS_DEFAULTS = {"synthetic": 1024, "seed": 7}
 
 
-def build_parser(steps: bool = False) -> argparse.ArgumentParser:
-    """The verb's parser; ``steps=True`` gives ``--steps``' own defaults
-    (``_STEPS_DEFAULTS``) to the flags it was not given."""
-    p = argparse.ArgumentParser(prog="scgib_tpu_torch", description=__doc__,
-                                formatter_class=argparse.RawDescriptionHelpFormatter)
-    sub = p.add_subparsers(dest="cmd", required=True)
-    sp = sub.add_parser("pretrain", help="self-supervised pretraining")
-    # the JAX verb's flags and defaults (scgib_tpu/cli.py:585-677)
-    for name in _UNPORTED_SOURCES[:-1]:
+def _common(sp, lr: float, wd: float, epochs: int):
+    """The flags every verb shares, with the JAX verbs' defaults
+    (``scgib_tpu/cli.py:585-626``), and the port's ``--device``."""
+    for name in _SOURCES:
         sp.add_argument(f"--{name}", default=None,
                         help="not ported yet (ROADMAP.md Queue 1 item 12)")
     sp.add_argument("--synthetic", type=int, default=0,
@@ -292,15 +502,34 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
                     help="attention heads of the transformer")
     sp.add_argument("--readout", default="sum", choices=["sum", "s2s"])
     sp.add_argument("--use_att", type=int, default=1)
-    sp.add_argument("--lr", type=float, default=1e-4)
-    sp.add_argument("--weight_decay", type=float, default=5e-5)
-    sp.add_argument("--epochs", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=lr)
+    sp.add_argument("--weight_decay", type=float, default=wd)
+    sp.add_argument("--epochs", type=int, default=epochs)
     sp.add_argument("--patience", type=int, default=50)
     sp.add_argument("--seed", type=int, default=42)
     sp.add_argument("--pretrained", default=None)
     sp.add_argument("--repeats", type=int, default=0,
-                    help="fine-tuning only; ignored here")
+                    help="override the dataset's repeat count (finetune)")
     sp.add_argument("--out", default=None)
+    sp.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu for the plain path")
+
+
+def _autosave(sp, help):
+    sp.add_argument("--autosave", default=None, help=help)
+    sp.add_argument("--autosave_every", type=int, default=1,
+                    help="autosave cadence in epochs")
+
+
+def build_parser(steps: bool = False) -> argparse.ArgumentParser:
+    """The verbs' parser; ``steps=True`` gives ``pretrain --steps``' own
+    defaults (``_STEPS_DEFAULTS``) to the flags it was not given."""
+    p = argparse.ArgumentParser(prog="scgib_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("pretrain", help="self-supervised pretraining")
+    _common(sp, lr=1e-4, wd=5e-5, epochs=100)
     sp.add_argument("--recons_type", default="adj", choices=["adj", "logM"])
     sp.add_argument("--kl_mode", default="corrected",
                     choices=["corrected", "reference"])
@@ -308,25 +537,56 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
                     help="3-stage curriculum (exp_pretraining flow)")
     sp.add_argument("--superbatch", type=int, default=0,
                     help="not ported yet; 0 only")
-    sp.add_argument("--autosave", default=None,
-                    help="full-train-state autosave path: resumes "
-                         "automatically after preemption/crash")
-    sp.add_argument("--autosave_every", type=int, default=1,
-                    help="autosave cadence in epochs")
+    _autosave(sp, "full-train-state autosave path: resumes automatically "
+                  "after preemption/crash")
     sp.add_argument("--stage_caches", default=None,
                     help="not ported yet (ROADMAP.md Queue 1 item 12)")
-    # the port's own
     sp.add_argument("--steps", type=int, default=None,
                     help="take N optimizer steps instead of the epoch loop")
-    sp.add_argument("--device", default="cuda",
-                    help="cuda (default) or cpu for the plain path")
     sp.set_defaults(fn=cmd_pretrain, **(_STEPS_DEFAULTS if steps else {}))
+
+    sp = sub.add_parser("finetune", help="supervised fine-tuning")
+    _common(sp, lr=1e-3, wd=1e-5, epochs=50)
+    _autosave(sp, "full-train-state autosave path prefix (per-repeat "
+                  "suffix .repN)")
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--tudataset_root", default=None,
+                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+    sp.add_argument("--freeze_mode", default="reference",
+                    choices=["reference", "paper", "all", "frozen"])
+    sp.add_argument("--xlsx", default=None,
+                    help="record Mean/Variant/Best_epoch in this Excel "
+                         "sheet (needs pandas)")
+    sp.add_argument("--journal", default=None,
+                    help="append a JSON result record to this JSONL file")
+    sp.set_defaults(fn=cmd_finetune)
+
+    sp = sub.add_parser("eval", help="evaluate a saved fine-tuned "
+                                     "checkpoint on a dataset split")
+    _common(sp, lr=1e-3, wd=1e-5, epochs=0)
+    sp.add_argument("--dataset", required=True)
+    sp.add_argument("--tudataset_root", default=None,
+                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+    sp.add_argument("--checkpoint", required=True,
+                    help="fine-tuned .msgpack from `finetune --out`")
+    sp.add_argument("--split", default="test",
+                    choices=["train", "val", "test", "all", "full"])
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("adapt", help="unsupervised domain adaptation")
+    _common(sp, lr=1e-3, wd=1e-5, epochs=50)
+    sp.add_argument("--dataset", default=None,
+                    help="dataset name (for the real-data readers)")
+    sp.add_argument("--tudataset_root", default=None,
+                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+    _autosave(sp, "full-train-state autosave path")
+    sp.set_defaults(fn=cmd_adapt)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.steps is not None:
+    if getattr(args, "steps", None) is not None:
         args = build_parser(steps=True).parse_args(argv)
     return args.fn(args)
 

@@ -48,7 +48,12 @@
 // hd / 32 past it, so a head's features lie on at most 32 adjacent lanes
 // (or 4 / hd heads a lane below hd = 4; hd is a power of two up to 512, so
 // a head never leaves its warp, and the wrapper pads any other width with
-// zeros up to the next one).  The group reads
+// zeros up to the next one).  A head wider than 512 features (any multiple
+// of 512; the wrapper pads to the next) is swept 512 features at a time in
+// that layout, each lane adding its share of the head's other sweeps to
+// every dot product before the butterfly (WIDE below): the scores are
+// recomputed in every sweep, which re-reads q and k (g and v) hd / 512
+// times, and no lane holds more registers than at hd 512.  The group reads
 // the row's gate once, as 16-byte vectors, together with q_i (and g_i and
 // z_i in the backward); finds the nonzeros by warp ballot (gate_walk.cuh,
 // shared with banded.cu's band_row); and gathers the rows they name,
@@ -119,19 +124,39 @@ __device__ __forceinline__ float gated_exp(float s, float a, float clamp) {
   return expf(fminf(fmaxf(s, -clamp), clamp)) * a;
 }
 
-// How a lane's F features c .. c + F - 1 fall into heads of width HD: F is
-// 4, or HD / 32 past HD = 128 so that a head never spans more than a warp;
-// NH heads a lane (4 / HD below HD = 4, else 1) of PER features each; one
-// head spans LPH adjacent lanes.  NG nonzeros are gathered at once: half
-// as many at 8 features a lane, which keeps the registers of hd <= 128.
+// Heads wider than SWEEP features: one instantiation, HD = WIDE, serves
+// every head width that is a multiple of SWEEP, taken at run time.  Its
+// lanes are laid out as at SWEEP: a warp holds SWEEP features of one head,
+// and the row's passes c0 sweep the head SWEEP features at a time.  Every
+// dot product of two rows over the head is then this lane's own F features
+// plus its F features of each of the head's other sweeps, read from memory
+// (other_sweeps), before the butterfly over the warp: the full-width
+// scores are recomputed in every sweep, and no lane holds more than it
+// does at SWEEP.
+constexpr int SWEEP = 512;
+constexpr int WIDE = 0;
+
+// How a lane's F features c .. c + F - 1 fall into heads of width HD (the
+// sweep's SWEEP features of a WIDE head): F is 4, or HD / 32 past HD = 128
+// so that a head never spans more than a warp; NH heads a lane (4 / HD
+// below HD = 4, else 1) of PER features each; one head spans LPH adjacent
+// lanes.  NG nonzeros are gathered at once: half as many at 8 features a
+// lane, which keeps the registers of hd <= 128.
 template <int HD>
 struct Heads {
-  static constexpr int F = HD > 128 ? HD / 32 : 4;
-  static constexpr int NH = HD >= 4 ? 1 : 4 / HD;
-  static constexpr int PER = HD >= 4 ? F : HD;
-  static constexpr int LPH = HD >= 4 ? HD / F : 1;
+  static constexpr int W = HD == WIDE ? SWEEP : HD;
+  static constexpr int F = W > 128 ? W / 32 : 4;
+  static constexpr int NH = W >= 4 ? 1 : 4 / W;
+  static constexpr int PER = W >= 4 ? F : W;
+  static constexpr int LPH = W >= 4 ? W / F : 1;
   static constexpr int NG = F > 4 ? GATHER / 2 : GATHER;
 };
+
+// The head width of row features: HD, or hd (a multiple of SWEEP) for WIDE.
+template <int HD>
+__device__ __forceinline__ int head_width(int hd) {
+  return HD == WIDE ? hd : HD;
+}
 
 // F features from p in 16-byte vectors (zeros where !ok).
 template <int F>
@@ -154,16 +179,44 @@ __device__ __forceinline__ void storef(float* p, const float* x) {
         make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
 }
 
+// This lane's share of a . b over the other sweeps of its WIDE head, for
+// rows a and b (their first feature) and this lane's features c .. c + F -
+// 1 in a head of hw features: 0 unless HD is WIDE.
+template <int HD>
+__device__ __forceinline__ float other_sweeps(const float* __restrict__ a,
+                                              const float* __restrict__ b,
+                                              int c, int hw, bool ok) {
+  float s = 0.f;
+  if constexpr (HD != WIDE) return s;
+  if (!ok) return s;
+  const int own = (c % hw) / SWEEP;
+  const int base = c - own * SWEEP;
+#pragma unroll 1
+  for (int w = 0; w < hw / SWEEP; ++w) {
+    if (w == own) continue;
+    const float4* x = reinterpret_cast<const float4*>(a + base + w * SWEEP);
+    const float4* y = reinterpret_cast<const float4*>(b + base + w * SWEEP);
+#pragma unroll
+    for (int i = 0; i < Heads<HD>::F / 4; ++i) {
+      const float4 p = __ldg(x + i), r = __ldg(y + i);
+      s = fmaf(p.x, r.x, s); s = fmaf(p.y, r.y, s);
+      s = fmaf(p.z, r.z, s); s = fmaf(p.w, r.w, s);
+    }
+  }
+  return s;
+}
+
 // out[u] = a . b over head u of this lane, in every lane of the head: each
-// lane sums its own features, then a butterfly over the head's lanes.
-// Every lane of the warp calls this together.
+// lane sums its own features (and, for a WIDE head, `rest`, its share of
+// the other sweeps), then a butterfly over the head's lanes.  Every lane of
+// the warp calls this together.
 template <int HD>
 __device__ __forceinline__ void head_dots(const float* a, const float* b,
-                                          float* out) {
+                                          float* out, float rest = 0.f) {
   using M = Heads<HD>;
 #pragma unroll
   for (int u = 0; u < M::NH; ++u) {
-    float s = 0.f;
+    float s = u == 0 ? rest : 0.f;
 #pragma unroll
     for (int j = 0; j < M::PER; ++j)
       s = fmaf(a[u * M::PER + j], b[u * M::PER + j], s);
@@ -194,7 +247,7 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
               const long long* __restrict__ col_off, int TL, int BW,
               long long n_rows, const float* __restrict__ q,
               const float* __restrict__ k, const float* __restrict__ v,
-              int H, float scale, float clamp, float eps, int lpr,
+              int H, int hd, float scale, float clamp, float eps, int lpr,
               float* __restrict__ out, float* __restrict__ z) {
   using M = Heads<HD>;
   constexpr int NH = M::NH, F = M::F, NG = M::NG;
@@ -203,7 +256,8 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
       ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) / lpr;
   const bool active = row < n_rows;
   const long long i = active ? row : 0;
-  const int D = H * HD;
+  const int hw = head_width<HD>(hd);
+  const int D = H * hw;
   const long long off = col_off[i / TL];
   const __nv_bfloat16* gate = blocks + i * BW;
   for (int c0 = 0; c0 < D; c0 += F * lpr) {
@@ -217,7 +271,7 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
     for (int h = 0; h < NH; ++h) zs[h] = 0.f;
     unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
     while (__any_sync(FULL, m != 0ull)) {
-      float a[NG], kj[NG][F], vj[NG][F];
+      float a[NG], kj[NG][F], vj[NG][F], rest[NG];
 #pragma unroll
       for (int u = 0; u < NG; ++u) {
         const int col = gate_walk::take_nonzero(m, 0, grp);
@@ -226,11 +280,12 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
         a[u] = has ? __bfloat162float(gate[col]) : 0.f;
         loadf<F>(k + j * D + c, has && ok, kj[u]);
         loadf<F>(v + j * D + c, has && ok, vj[u]);
+        rest[u] = other_sweeps<HD>(q + i * D, k + j * D, c, hw, has && ok);
       }
 #pragma unroll
       for (int u = 0; u < NG; ++u) {
         float s[NH];
-        head_dots<HD>(qi, kj[u], s);
+        head_dots<HD>(qi, kj[u], s, rest[u]);
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           const float e = gated_exp(s[h] * scale, a[u], clamp);
@@ -250,9 +305,9 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
         for (int j = 0; j < M::PER; ++j) acc[h * M::PER + j] *= inv;
       }
       storef<F>(out + i * D + c, acc);
-      if (HD < 4 || c % HD == 0) {      // the head's leading lane
+      if (NH > 1 || c % hw == 0) {      // the head's leading lane
 #pragma unroll
-        for (int h = 0; h < NH; ++h) z[i * H + c / HD + h] = zs[h];
+        for (int h = 0; h < NH; ++h) z[i * H + c / hw + h] = zs[h];
       }
     }
   }
@@ -265,14 +320,15 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
 template <int HD>
 __device__ __forceinline__ void row_terms(
     const int* col, const __nv_bfloat16* __restrict__ gate, long long off,
-    int D, int c, bool ok, const float* __restrict__ k,
+    int D, int c, int hw, bool ok, const float* __restrict__ k,
     const float* __restrict__ v, const float* qi, const float* gi,
+    const float* __restrict__ qrow, const float* __restrict__ grow,
     float scale, float clamp, float (*kj)[Heads<HD>::F],
     float (*e)[Heads<HD>::NH], float (*G)[Heads<HD>::NH],
     bool (*inside)[Heads<HD>::NH]) {
   using M = Heads<HD>;
   constexpr int NH = M::NH, F = M::F, NG = M::NG;
-  float a[NG], vj[NG][F];
+  float a[NG], vj[NG][F], rest_s[NG], rest_g[NG];
 #pragma unroll
   for (int u = 0; u < NG; ++u) {
     const bool has = col[u] >= 0;
@@ -280,12 +336,14 @@ __device__ __forceinline__ void row_terms(
     a[u] = has ? __bfloat162float(gate[col[u]]) : 0.f;
     loadf<F>(k + j * D + c, has && ok, kj[u]);
     loadf<F>(v + j * D + c, has && ok, vj[u]);
+    rest_s[u] = other_sweeps<HD>(qrow, k + j * D, c, hw, has && ok);
+    rest_g[u] = other_sweeps<HD>(grow, v + j * D, c, hw, has && ok);
   }
 #pragma unroll
   for (int u = 0; u < NG; ++u) {
     float s[NH];
-    head_dots<HD>(qi, kj[u], s);
-    head_dots<HD>(gi, vj[u], G[u]);
+    head_dots<HD>(qi, kj[u], s, rest_s[u]);
+    head_dots<HD>(gi, vj[u], G[u], rest_g[u]);
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
       const float sc = s[h] * scale;
@@ -338,7 +396,7 @@ __device__ __forceinline__ void add_terms(
 
 // Row pass: lane group of `lpr` lanes per row i < n_rows; in each pass c0
 // over the features, lane lig holds features c = c0 + F lig of heads
-// c / HD onwards.  Two trips over the row's nonzeros: rho first, then dq.
+// c / hw onwards.  Two trips over the row's nonzeros: rho first, then dq.
 // MERGED: the merged backward, which in its second trip also adds each
 // nonzero's dk and dv terms (and writes no rho); else the two-pass
 // backward's row pass, which writes dq and rho.
@@ -349,8 +407,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
                    long long n_rows, const float* __restrict__ q,
                    const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ g, const float* __restrict__ z,
-                   int H, float scale, float clamp, float eps, int lpr,
-                   float* __restrict__ dq, float* __restrict__ rho,
+                   int H, int hd, float scale, float clamp, float eps,
+                   int lpr, float* __restrict__ dq, float* __restrict__ rho,
                    float* __restrict__ dk, float* __restrict__ dv) {
   using M = Heads<HD>;
   constexpr int NH = M::NH, F = M::F, NG = M::NG;
@@ -359,13 +417,14 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
       ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) / lpr;
   const bool active = row < n_rows;
   const long long i = active ? row : 0;
-  const int D = H * HD;
+  const int hw = head_width<HD>(hd);
+  const int D = H * hw;
   const long long off = col_off[i / TL];
   const __nv_bfloat16* gate = blocks + i * BW;
   for (int c0 = 0; c0 < D; c0 += F * lpr) {
     const int c = c0 + F * grp.lig;
     const bool ok = active && c < D;
-    const int h0 = c / HD;              // this lane's first head
+    const int h0 = c / hw;              // this lane's first head
     float qi[F], gi[F], inv[NH], rh[NH];
     loadf<F>(q + i * D + c, ok, qi);
     loadf<F>(g + i * D + c, ok, gi);
@@ -383,8 +442,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
     for (int u = 0; u < NG; ++u)
       col0[u] = gate_walk::take_nonzero(m, 0, grp);
-    row_terms<HD>(col0, gate, off, D, c, ok, k, v, qi, gi, scale, clamp, k0,
-                  e0, G0, in0);
+    row_terms<HD>(col0, gate, off, D, c, hw, ok, k, v, qi, gi, q + i * D,
+                  g + i * D, scale, clamp, k0, e0, G0, in0);
 #pragma unroll
     for (int u = 0; u < NG; ++u)
 #pragma unroll
@@ -398,8 +457,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
       for (int u = 0; u < NG; ++u)
         col[u] = gate_walk::take_nonzero(m, 0, grp);
-      row_terms<HD>(col, gate, off, D, c, ok, k, v, qi, gi, scale, clamp, kj,
-                    e, G, in);
+      row_terms<HD>(col, gate, off, D, c, hw, ok, k, v, qi, gi, q + i * D,
+                    g + i * D, scale, clamp, kj, e, G, in);
 #pragma unroll
       for (int u = 0; u < NG; ++u)
 #pragma unroll
@@ -422,8 +481,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
       for (int u = 0; u < NG; ++u)
         col[u] = gate_walk::take_nonzero(m, 0, grp);
-      row_terms<HD>(col, gate, off, D, c, ok, k, v, qi, gi, scale, clamp, kj,
-                    e, G, in);
+      row_terms<HD>(col, gate, off, D, c, hw, ok, k, v, qi, gi, q + i * D,
+                    g + i * D, scale, clamp, kj, e, G, in);
       add_terms<HD, MERGED>(col, off, D, c, ok, kj, e, G, in, rh, inv, qi,
                             gi, scale, acc, dk, dv);
     }
@@ -431,7 +490,7 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
       for (int f = 0; f < F; ++f) acc[f] *= scale;
       storef<F>(dq + i * D + c, acc);
-      if (!MERGED && (HD < 4 || c % HD == 0)) {   // the head's leading lane
+      if (!MERGED && (NH > 1 || c % hw == 0)) {   // the head's leading lane
 #pragma unroll
         for (int h = 0; h < NH; ++h) rho[i * H + h0 + h] = rh[h];
       }
@@ -449,9 +508,9 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
                    long long n_rows, const float* __restrict__ q,
                    const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ g, const float* __restrict__ z,
-                   const float* __restrict__ rho, int H, float scale,
-                   float clamp, float eps, int lpr, float* __restrict__ dk,
-                   float* __restrict__ dv) {
+                   const float* __restrict__ rho, int H, int hd,
+                   float scale, float clamp, float eps, int lpr,
+                   float* __restrict__ dk, float* __restrict__ dv) {
   using M = Heads<HD>;
   constexpr int NH = M::NH, F = M::F, NG = M::NG;
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
@@ -459,14 +518,15 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
       ((long long)blockIdx.x * PASS_THREADS + threadIdx.x) / lpr;
   const bool active = col < n_rows;
   const long long cr = active ? col : 0;
-  const int D = H * HD;
+  const int hw = head_width<HD>(hd);
+  const int D = H * hw;
   const long long off = col_off[cr / TL];
   // A[off + r, c] = A[c, off + r]: row c of this tile's slab
   const __nv_bfloat16* gate = blocks + cr * BW;
   for (int c0 = 0; c0 < D; c0 += F * lpr) {
     const int c = c0 + F * grp.lig;
     const bool ok = active && c < D;
-    const int h0 = c / HD;
+    const int h0 = c / hw;
     float kc[F], vc[F], ak[F], av[F];
     loadf<F>(k + cr * D + c, ok, kc);
     loadf<F>(v + cr * D + c, ok, vc);
@@ -480,10 +540,13 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
         rr[u] = gate_walk::take_nonzero(m, 0, grp);
       // rows i = off + rr: q_i, g_i, z_i and rho_i, all loads in flight
       float a[NG], qi[NG][F], gi[NG][F], zi[NG][NH], ri[NG][NH];
+      float rest_s[NG], rest_g[NG];
 #pragma unroll
       for (int u = 0; u < NG; ++u) {
         const bool has = rr[u] >= 0;
         const long long i = off + (has ? rr[u] : 0);
+        rest_s[u] = other_sweeps<HD>(k + cr * D, q + i * D, c, hw, has && ok);
+        rest_g[u] = other_sweeps<HD>(v + cr * D, g + i * D, c, hw, has && ok);
         a[u] = has ? __bfloat162float(gate[rr[u]]) : 0.f;
         loadf<F>(q + i * D + c, has && ok, qi[u]);
         loadf<F>(g + i * D + c, has && ok, gi[u]);
@@ -496,8 +559,8 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
       for (int u = 0; u < NG; ++u) {
         float s[NH], G[NH];
-        head_dots<HD>(kc, qi[u], s);
-        head_dots<HD>(vc, gi[u], G);
+        head_dots<HD>(kc, qi[u], s, rest_s[u]);
+        head_dots<HD>(vc, gi[u], G, rest_g[u]);
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           const float sc = s[h] * scale;
@@ -542,9 +605,11 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
 // The head widths the attention kernels take, as switch cases that
 // instantiate their body with HD: a lane holds 4 features up to hd = 128
 // (a head on hd / 4 lanes) and hd / 32 past it, so the per-head butterfly
-// stays inside a warp.  Other widths are zero-padded up to one of these
-// by the wrapper; the wrapper's HEAD_WIDTHS states the same set, and
-// build() checks it against this one.
+// stays inside a warp; every multiple of SWEEP past SWEEP runs the WIDE
+// instantiation in sweeps of SWEEP features.  Other widths are
+// zero-padded up to one of these by the wrapper; the wrapper's
+// HEAD_WIDTHS and SWEEP state the same set, and build() checks it against
+// this one.
 #define SCGIB_DISPATCH_HD(hd, ...)                            \
   switch (hd) {                                               \
     case 1: { constexpr int HD = 1; __VA_ARGS__; } break;     \
@@ -557,7 +622,10 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
     case 128: { constexpr int HD = 128; __VA_ARGS__; } break; \
     case 256: { constexpr int HD = 256; __VA_ARGS__; } break; \
     case 512: { constexpr int HD = 512; __VA_ARGS__; } break; \
-    default: return (int)cudaErrorInvalidValue;               \
+    default:                                                  \
+      if (hd <= SWEEP || hd % SWEEP != 0)                     \
+        return (int)cudaErrorInvalidValue;                    \
+      { constexpr int HD = WIDE; __VA_ARGS__; }               \
   }
 
 extern "C" {
@@ -573,11 +641,11 @@ int scgib_gt_fwd(const void* blocks, const void* col_off, int n_tiles, int TL,
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
-      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
       gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
-          rows, (const float*)q, (const float*)k, (const float*)v, H, scale,
-          clamp, eps, lpr, (float*)out, (float*)z));
+          rows, (const float*)q, (const float*)k, (const float*)v, H, hd,
+          scale, clamp, eps, lpr, (float*)out, (float*)z));
   return (int)cudaGetLastError();
 }
 
@@ -590,12 +658,12 @@ int scgib_gt_bwd_rows(const void* blocks, const void* col_off, int n_tiles,
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
-      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
       gt_row_pass_kernel<HD, false><<<pass_grid(n_tiles, TL, lpr),
                                       PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
-          (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
+          (const float*)g, (const float*)z, H, hd, scale, clamp, eps, lpr,
           (float*)dq, (float*)rho, nullptr, nullptr));
   return (int)cudaGetLastError();
 }
@@ -610,13 +678,13 @@ int scgib_gt_bwd_cols(const void* blocks, const void* col_off, int n_tiles,
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
-      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
       gt_bwd_cols_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0,
                                s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
-          (const float*)g, (const float*)z, (const float*)rho, H, scale,
-          clamp, eps, lpr, (float*)dk, (float*)dv));
+          (const float*)g, (const float*)z, (const float*)rho, H, hd,
+          scale, clamp, eps, lpr, (float*)dk, (float*)dv));
   return (int)cudaGetLastError();
 }
 
@@ -630,12 +698,12 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
-      hd, const int lpr = lanes_per_row(H * HD, Heads<HD>::F);
+      hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
       gt_row_pass_kernel<HD, true><<<pass_grid(n_tiles, TL, lpr),
                                      PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
-          (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
+          (const float*)g, (const float*)z, H, hd, scale, clamp, eps, lpr,
           (float*)dq, nullptr, (float*)dk, (float*)dv));
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 
 Counterpart of ``scgib_tpu/data/loader.py`` without the native packer, the
 wire format and device prefetch: ego-nets come from the NumPy BFS
-(``graph/egonet.py``) and batches from the per-graph packers.  With
+(``graph/egonet.py``) and batches, labels included, from the per-graph
+packers; ``GraphDataset.subset`` and ``split`` cut a dataset.  With
 ``logm_k`` a batch carries the block-diagonal k-step transition targets of
 the logM reconstruction loss (``graph/transition.py``).
 """
@@ -37,6 +38,32 @@ class GraphDataset:
 
     def __len__(self) -> int:
         return len(self.graphs)
+
+    def subset(self, indices: Sequence[int]) -> "GraphDataset":
+        return GraphDataset(graphs=[self.graphs[i] for i in indices],
+                            k=self.k,
+                            egonets=[self.egonets[i] for i in indices])
+
+    def split(self, n_train: int, n_val: int,
+              shuffle_seed: Optional[int] = None):
+        """(train, val, test): the reference's prefix slices
+        (molecules.py:211-343) after an optional shuffle with
+        ``shuffle_seed`` (exp_*BACE_BBBP.py:276)."""
+        idx = np.arange(len(self))
+        if shuffle_seed is not None:
+            np.random.default_rng(shuffle_seed).shuffle(idx)
+        return (self.subset(idx[:n_train]),
+                self.subset(idx[n_train:n_train + n_val]),
+                self.subset(idx[n_train + n_val:]))
+
+    def num_tasks(self) -> Optional[int]:
+        """The longest label of the dataset's graphs (None without
+        labels), kept: every batch's ``labels`` get that many columns."""
+        if not hasattr(self, "_num_tasks"):
+            sizes = [np.atleast_1d(g.label).shape[0] for g in self.graphs
+                     if g.label is not None]
+            self._num_tasks = max(sizes) if sizes else None
+        return self._num_tasks
 
     def logms(self, k: int) -> List[List[np.ndarray]]:
         """Each graph's [logM_1 .. logM_k], computed once for ``k`` and
@@ -126,8 +153,9 @@ def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
     """Pack the graphs ``sel`` of ``ds``.  ``gt_fits`` comes from the
     dataset's largest graph and ego-net (computed once, kept on ``ds``),
     so it is the same for every batch of the dataset; ``pool_fits`` is the
-    batch's own.  ``logm_k``: attach the k-step logM targets and weights to
-    the GraphBatch."""
+    batch's own.  Labels take the dataset's task count (the JAX package's
+    flat packer does the same).  ``logm_k``: attach the k-step logM
+    targets and weights to the GraphBatch."""
     graphs = [ds.graphs[j] for j in sel]
     egos = [ds.egonets[j] for j in sel]
     maxima = getattr(ds, "_gt_maxima", None)
@@ -137,6 +165,7 @@ def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
                        for nl in ego.node_lists), default=0))
         ds._gt_maxima = maxima
     g = pack_graphs(graphs, caps.nodes, caps.edges, caps.graphs,
+                    num_tasks=ds.num_tasks(),
                     gt_fits=gt_band_fits(maxima[0], caps.nodes))
     sub = pack_subgraphs(graphs, egos, caps.sub_nodes, caps.sub_edges,
                          gt_fits=gt_band_fits(maxima[1], caps.sub_nodes),

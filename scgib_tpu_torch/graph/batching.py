@@ -1,10 +1,10 @@
 """Host-side graph packing into fixed-capacity padded batches (NumPy).
 
-Counterpart of ``scgib_tpu/graph/batching.py`` for what pretraining needs:
-``pack_graphs`` and ``pack_subgraphs`` with the COO layout and the banded
-``"device"`` mode (only the window offsets are shipped; the model builds the
-blocks on the device).  The output batches hold NumPy arrays; ``.to(device)``
-moves them (``graph/container.py``).
+Counterpart of ``scgib_tpu/graph/batching.py`` for what training needs:
+``pack_graphs`` (with the graphs' labels, NaN-masked) and ``pack_subgraphs``
+with the COO layout and the banded ``"device"`` mode (only the window offsets
+are shipped; the model builds the blocks on the device).  The output batches
+hold NumPy arrays; ``.to(device)`` moves them (``graph/container.py``).
 """
 
 from __future__ import annotations
@@ -21,11 +21,13 @@ from .container import GraphBatch, SubgraphBatch
 
 @dataclasses.dataclass(frozen=True)
 class GraphData:
-    """One host graph: symmetrized, deduped COO edges and node features."""
+    """One host graph: symmetrized, deduped COO edges, node features and
+    an optional label vector."""
 
     senders: np.ndarray        # [E] int32
     receivers: np.ndarray      # [E] int32
     node_feat: np.ndarray      # [n, F] float32
+    label: Optional[np.ndarray] = None   # [T] float (may contain NaN)
 
     @property
     def num_nodes(self) -> int:
@@ -80,10 +82,14 @@ def _band_col_off(senders, receivers, edge_mask, num_nodes,
 
 
 def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
-                num_graphs: int, banded: bool = True,
+                num_graphs: int, num_tasks: Optional[int] = None,
+                banded: bool = True,
                 gt_fits: Optional[bool] = None) -> GraphBatch:
     """Pack graphs into one padded GraphBatch; edges sorted by receiver.
 
+    With labels (``num_tasks``, by default the longest label of the
+    batch's graphs), ``labels`` [G, T] holds them with NaN as 0 and
+    ``label_mask`` [G, T] is True where a label is present.
     ``banded=True`` attaches the window offsets when the batch fits the
     band (the JAX package's ``banded="device"``).  ``gt_fits`` defaults to
     this batch's own fact; callers with the dataset at hand pass the
@@ -106,6 +112,13 @@ def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
     receivers = np.zeros(num_edges, dtype=np.int32)
     edge_mask = np.zeros(num_edges, dtype=bool)
     graph_mask = np.zeros(num_graphs, dtype=bool)
+    if num_tasks is None and any(g.label is not None for g in graphs):
+        num_tasks = max(np.atleast_1d(g.label).shape[0]
+                        for g in graphs if g.label is not None)
+    labels = label_mask = None
+    if num_tasks:
+        labels = np.zeros((num_graphs, num_tasks), dtype=np.float32)
+        label_mask = np.zeros((num_graphs, num_tasks), dtype=bool)
 
     n_off = 0
     e_off = 0
@@ -118,6 +131,10 @@ def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
         receivers[e_off:e_off + e] = g.receivers + n_off
         edge_mask[e_off:e_off + e] = True
         graph_mask[gi] = True
+        if labels is not None and g.label is not None:
+            lab = np.atleast_1d(np.asarray(g.label, dtype=np.float32))
+            labels[gi, :lab.shape[0]] = np.nan_to_num(lab, nan=0.0)
+            label_mask[gi, :lab.shape[0]] = ~np.isnan(lab)
         n_off += n
         e_off += e
 
@@ -138,7 +155,8 @@ def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
     return GraphBatch(node_feat=node_feat, node_graph=node_graph,
                       node_mask=node_mask, senders=senders,
                       receivers=receivers, edge_mask=edge_mask,
-                      graph_mask=graph_mask, band_col_off=col_off,
+                      graph_mask=graph_mask, labels=labels,
+                      label_mask=label_mask, band_col_off=col_off,
                       gt_fits=gt_fits)
 
 

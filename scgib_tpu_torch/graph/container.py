@@ -29,7 +29,7 @@ import torch
 
 _INDEX_FIELDS = ("node_graph", "senders", "receivers", "band_col_off",
                  "node_center", "node_orig")
-_MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask")
+_MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask", "label_mask")
 
 
 def _to_tensor(name: str, value, device: torch.device):
@@ -82,6 +82,8 @@ class GraphBatch(_Batch):
       receivers  [E]    index   COO destination, sorted ascending
       edge_mask  [E]    bool
       graph_mask [G]    bool
+      labels     [G, T] float  per-graph labels (NaN as 0), or None
+      label_mask [G, T] bool   True where a label is present
       band_blocks  [T, 128, 256] bf16 0/1 banded adjacency, or None
       band_col_off [T]  index   64-aligned window starts, or None
       gt_fits      bool         the narrow (64, 128) geometry fits
@@ -97,6 +99,8 @@ class GraphBatch(_Batch):
     receivers: object
     edge_mask: object
     graph_mask: object
+    labels: Optional[object] = None
+    label_mask: Optional[object] = None
     band_blocks: Optional[object] = None
     band_col_off: Optional[object] = None
     gt_fits: bool = False

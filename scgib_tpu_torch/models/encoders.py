@@ -18,8 +18,8 @@ residual + LayerNorm; padding rows are masked once, after the last layer
 (every op of a layer is row-local or gated by the adjacency, so padding
 cannot leak into real rows).  With a banded adjacency the attention is
 ``ops/kernels/gt_flash.py::gt_flash_attention``: its CUDA kernels on the
-card, its plain versions on the CPU, at any head width up to 512 with
-either backward (a layer wider than that raises when it is built).
+card, its plain versions on the CPU, at any head width with either
+backward.
 
 A batch that does not fit the band takes the COO gather + segment-sum path;
 ``branch_counts`` records which path each conv or attention took (for the
@@ -37,7 +37,7 @@ from torch import nn
 
 from ..ops.kernels.banded import (MAX_FUSED_DIM, gin_banded_layer,
                                    spmm_banded_fast)
-from ..ops.kernels.gt_flash import gt_flash_attention, served_head_width
+from ..ops.kernels.gt_flash import gt_flash_attention
 from ..ops.segment import segment_normalize_exp, segment_sum
 from ..ops.spmm import gather_sum, sddmm_dot
 from .layers import MLP2, MaskedBatchNorm
@@ -99,7 +99,8 @@ class GraphTransformerLayer(nn.Module):
     Linear [d, 3d], sliced [q | k | v]; LayerNorm eps 1e-6 as in flax.
     ``dropout`` is the FFN's rate (0.5); set it to 0 to turn it off.
     ``bwd`` picks the attention kernels' backward ("twopass" or
-    "merged").  A head width the kernels cannot serve raises here."""
+    "merged").  Any head width runs (``gt_flash_attention`` pads one the
+    kernels do not take)."""
 
     def __init__(self, hidden: int, num_heads: int, dropout: float = 0.5,
                  bwd: str = "twopass"):
@@ -107,7 +108,6 @@ class GraphTransformerLayer(nn.Module):
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} is not a multiple of "
                              f"num_heads {num_heads}")
-        served_head_width(num_heads, hidden // num_heads)
         self.hidden = hidden
         self.num_heads = num_heads
         self.dropout = dropout

@@ -1,6 +1,9 @@
-"""Shared layers: masked BatchNorm, per-segment BatchNorm, the 2-layer MLP.
+"""Shared layers: masked BatchNorm, per-segment BatchNorm, the 2-layer MLP
+and the auxiliary heads (``MLPReadout``, ``ReconstructX``, ``MLPA``).
 
-Counterpart of ``scgib_tpu/models/layers.py``.  Parameter and buffer names
+Counterpart of ``scgib_tpu/models/layers.py``.  A flax Dense learns its
+input width at first call; an ``nn.Linear`` is given it, so each head here
+takes ``in_dim`` first.  Parameter and buffer names
 follow the flax tree (``scale``, ``bias``; running ``mean``, ``var``;
 ``Dense_0``, ``Dense_1``) so ``utils/params.py`` maps one onto the other.
 Train or eval mode is the module's ``training`` flag.
@@ -116,3 +119,49 @@ class MLP2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Dense_1(torch.relu(self.Dense_0(x)))
+
+
+class MLPReadout(nn.Module):
+    """Halving-width readout: L layers ``Linear(d / 2^l -> d / 2^(l+1))``
+    with ReLU, then a Linear to ``out`` (reference models.py:961-978)."""
+
+    def __init__(self, in_dim: int, out: int, L: int = 2):
+        super().__init__()
+        self.L = L
+        for l in range(L):
+            setattr(self, f"fc{l}", nn.Linear(in_dim // 2 ** l,
+                                              in_dim // 2 ** (l + 1)))
+        self.out = nn.Linear(in_dim // 2 ** L, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for l in range(self.L):
+            x = torch.relu(getattr(self, f"fc{l}")(x))
+        return self.out(x)
+
+
+class ReconstructX(nn.Module):
+    """Feature decoder ``d -> hidden -> in_dim`` with ReLU (reference
+    ``Reconstruct_X``, models.py:785-796, 924-937); ``out`` is the decoded
+    feature width."""
+
+    def __init__(self, in_dim: int, hidden: int, out: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, hidden)
+        self.fc2 = nn.Linear(hidden, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(torch.relu(self.fc1(x)))
+
+
+class MLPA(nn.Module):
+    """Inner-product adjacency decoder, sigmoid(Z Z^T) of Z = MLP(x)
+    (reference ``MLP_A``, models.py:940-956)."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, hidden)
+        self.fc2 = nn.Linear(hidden, hidden)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        z = self.fc2(torch.relu(self.fc1(x)))
+        return torch.sigmoid(z @ z.T)

@@ -1,13 +1,18 @@
-"""S-CGIB pretraining losses.
+"""S-CGIB losses.
 
-Counterpart of ``scgib_tpu/models/losses.py`` for pretraining: the KL
+Counterpart of ``scgib_tpu/models/losses.py``: for pretraining the KL
 compression term (``corrected``, or the reference's last-graph
 ``reference``), the InfoNCE contrastive term, the adjacency reconstruction
 (gram form with its banded cross term, or the literal dense form) and the
-k-step logM reconstruction.  Single device: no ``axis_name``.
+k-step logM reconstruction; for fine-tuning the five supervised losses of
+the per-dataset table (BCE on probabilities, BCE with logits, cross
+entropy, RMSE, MAE), each averaged over the entries a mask keeps.  Single
+device: no ``axis_name``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -95,3 +100,64 @@ def recon_logm_loss(interaction_map: torch.Tensor, targets: torch.Tensor,
     gram = interaction_map @ interaction_map.T
     diff = gram[None] - targets
     return (diff * diff * weights[None]).sum() / float(k_transition)
+
+
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]
+                 ) -> torch.Tensor:
+    if mask is None:
+        return x.mean()
+    m = mask.to(x.dtype)
+    return (x * m).sum() / m.sum().clamp_min(1.0)
+
+
+def _safe_log(x: torch.Tensor) -> torch.Tensor:
+    """log(x), -100 where x <= 0, with a gradient of exactly 0 there (torch
+    BCELoss's clamp): the log is taken of a safe input only, so no 0 * inf
+    turns into NaN."""
+    zero = x <= 0.0
+    return torch.where(zero, torch.full_like(x, -100.0),
+                       torch.log(torch.where(zero, torch.ones_like(x), x)))
+
+
+def bce_loss(probs: torch.Tensor, targets: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``nn.BCELoss`` over probabilities (models.py:522-525), NaN targets
+    taken as 0 (they are masked): the logs, not the probabilities, are
+    clamped at -100, so a saturated sigmoid's exact 0 or 1 keeps the value
+    and the gradient finite."""
+    targets = torch.nan_to_num(targets, nan=0.0)
+    ll = -(targets * _safe_log(probs)
+           + (1.0 - targets) * _safe_log(1.0 - probs))
+    return _masked_mean(ll, mask)
+
+
+def bce_with_logits_loss(logits: torch.Tensor, targets: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """``nn.BCEWithLogitsLoss`` (models.py:536-539), the stable form."""
+    ll = (logits.clamp_min(0) - logits * targets
+          + torch.log1p(torch.exp(-logits.abs())))
+    return _masked_mean(ll, mask)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``nn.CrossEntropyLoss`` with integer class labels (models.py:527-530)
+    over whatever the head produced (the reference applies it to sigmoided
+    scores, train_tudataset.py)."""
+    shifted = logits - logits.max(-1, keepdim=True).values
+    log_probs = shifted - torch.log(torch.exp(shifted).sum(-1, keepdim=True))
+    picked = log_probs.gather(-1, labels.to(torch.int64)[:, None])[:, 0]
+    return -_masked_mean(picked, mask)
+
+
+def rmse_loss(scores: torch.Tensor, targets: torch.Tensor,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """sqrt(MSE) (models.py:532-535)."""
+    return torch.sqrt(_masked_mean((scores - targets) ** 2, mask))
+
+
+def mae_loss(scores: torch.Tensor, targets: torch.Tensor,
+             mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """L1 loss (models.py:541-543)."""
+    return _masked_mean((scores - targets).abs(), mask)

@@ -1,12 +1,16 @@
-"""The S-CGIB pretraining model.
+"""The S-CGIB models.
 
-Counterpart of ``scgib_tpu/models/scgib.py`` for pretraining:
-``SCGIBCore`` (twin GIN or graph-transformer encoders, concrete-relaxation
-compression gate with per-graph noise, core<->candidate attention) in
-``coo`` sub-graph mode, with the ``sum`` or ``s2s`` (Set2Set) readout and
-the attention on or off, and ``PretrainModel`` with the ``corrected`` or
-``reference`` KL and the adjacency (gram or dense) or k-step logM
-reconstruction.  Submodules exist only where the JAX model has parameters
+Counterpart of ``scgib_tpu/models/scgib.py``: ``SCGIBCore`` (twin GIN or
+graph-transformer encoders, concrete-relaxation compression gate with
+per-graph noise, core<->candidate attention) in ``coo`` sub-graph mode,
+with the ``sum`` or ``s2s`` (Set2Set) readout and the attention on or off;
+``PretrainModel`` with the ``corrected`` or ``reference`` KL and the
+adjacency (gram or dense) or k-step logM reconstruction; and the two
+downstream models around a pretrained core, ``FinetuneModel`` (the
+supervised head) and ``DomainAdaptModel`` (whose forward is its loss).
+Train or eval mode (BatchNorm statistics, the transformer's dropout) is
+the module's ``training`` flag; the gate's noise is drawn in both, as in
+the JAX package.  Submodules exist only where the JAX model has parameters
 for them (no ``attn_layer`` without the attention, ``reduce_d`` only with
 the ``s2s`` readout and the attention), so the two trees match.
 
@@ -304,3 +308,84 @@ class PretrainModel(nn.Module):
             recon = im.new_zeros(())
         return PretrainLosses(kl=kl, contrastive=contrastive,
                               reconstruction=recon)
+
+
+class FinetuneModel(nn.Module):
+    """``Mainmodel_finetuning`` (models.py:501-520): fresh heads around the
+    pretrained core.  Projection -> core -> ``head_mlp`` (2d -> d) ->
+    ``Set2Set`` (-> 2d) -> ``predict`` (2d -> d -> num_out), then a sigmoid
+    unless ``regression``."""
+
+    def __init__(self, in_dim: int, num_out: int = 1, hidden: int = 64,
+                 d_transfer: int = 32, encoder: str = "GIN",
+                 num_layers: int = 4, num_heads: int = 8,
+                 readout: str = "sum", use_att: bool = True,
+                 regression: bool = False, gt_bwd: str = "twopass",
+                 deterministic: bool = False, normalize_input: bool = True):
+        super().__init__()
+        self.regression = regression
+        self.normalize_input = normalize_input
+        self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
+        self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
+                              num_layers=num_layers, num_heads=num_heads,
+                              readout=readout, use_att=use_att,
+                              gt_bwd=gt_bwd, deterministic=deterministic)
+        self.head_mlp = MLP2(2 * hidden, hidden, hidden)
+        self.s2s = Set2Set(hidden)
+        self.predict = MLP2(2 * hidden, hidden, num_out)
+
+    def forward(self, g: GraphBatch, sub: SubgraphBatch,
+                rand: Optional[Rand] = None) -> torch.Tensor:
+        """Scores [G, num_out]: probabilities, or the raw outputs with
+        ``regression``."""
+        if rand is None:
+            rand = uniform_draws(None, g.node_feat.device)
+        x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub,
+                                             self.normalize_input)
+        feats = self.core.extract_features(g, sub, x_proj, x_sub_proj, rand)
+        im = self.head_mlp(feats.interaction_map)
+        pooled = self.s2s(im, g.node_graph, g.num_graphs, mask=g.node_mask)
+        out = self.predict(pooled)
+        return out if self.regression else torch.sigmoid(out)
+
+
+class DomainAdaptModel(nn.Module):
+    """``Mainmodel_domainadapt`` (models.py:107-281): the Set2Set readout of
+    the interaction map, decoded by ``r_transfer_d`` (2d -> d -> 2F), is
+    held against the Set2Set readout (``s2s_rev``) of the same normalized
+    features the projection takes; the forward is the loss, the
+    unnormalized squared error over real graphs (models.py:276-281)."""
+
+    def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
+                 encoder: str = "GIN", num_layers: int = 4,
+                 num_heads: int = 8, readout: str = "sum",
+                 use_att: bool = True, gt_bwd: str = "twopass",
+                 deterministic: bool = False, normalize_input: bool = True):
+        super().__init__()
+        self.normalize_input = normalize_input
+        self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
+        self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
+                              num_layers=num_layers, num_heads=num_heads,
+                              readout=readout, use_att=use_att,
+                              gt_bwd=gt_bwd, deterministic=deterministic)
+        self.head_mlp = MLP2(2 * hidden, hidden, hidden)
+        self.s2s = Set2Set(hidden)
+        self.s2s_rev = Set2Set(in_dim)
+        self.r_transfer_d = MLP2(2 * hidden, hidden, 2 * in_dim)
+
+    def forward(self, g: GraphBatch, sub: SubgraphBatch,
+                rand: Optional[Rand] = None) -> torch.Tensor:
+        if rand is None:
+            rand = uniform_draws(None, g.node_feat.device)
+        x = l2_normalize(g.node_feat) if self.normalize_input else \
+            g.node_feat
+        x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub,
+                                             self.normalize_input)
+        feats = self.core.extract_features(g, sub, x_proj, x_sub_proj, rand)
+        im = self.head_mlp(feats.interaction_map)
+        pooled = self.s2s(im, g.node_graph, g.num_graphs, mask=g.node_mask)
+        pred = self.r_transfer_d(pooled)
+        target = self.s2s_rev(x, g.node_graph, g.num_graphs,
+                              mask=g.node_mask)
+        m = g.graph_mask.to(pred.dtype)[:, None]
+        return (((pred - target) ** 2) * m).sum()

@@ -10,14 +10,15 @@ for its four Pallas kernels, each served by its own CUDA kernel in
   gt_bwd_cols    _bwd_cols_kernel          dk, dv         (two-pass, columns)
   gt_bwd_merged  _bwd_merged_kernel        dq, dk, dv     (one pass, atomics)
 
-Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
-and launches its kernel for a CUDA tensor, counting each launch that
-succeeded on its ``launches`` attribute; anything else raises.  The kernels
-compute in float32 and take any banded geometry [T, tile, band] with
-band a multiple of 32 up to 256 (the narrow (64, 128) and the wide
-(128, 256) ones) and a head width hd in ``HEAD_WIDTHS`` (powers of two up
-to 512).  The plain versions compute in their inputs' dtype.  Each takes
-the score scale, 1 / sqrt(hd) by default.
+Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor and
+launches its kernel for a CUDA tensor, counting each launch that succeeded on
+its ``launches`` attribute; anything else raises.  The kernels compute in
+float32 and take any banded geometry [T, tile, band] with band a multiple of 32
+up to 256 (the narrow (64, 128) and the wide (128, 256) ones) and a head width
+hd in ``HEAD_WIDTHS`` (powers of two up to 512) or a multiple of ``SWEEP``
+(512) past it, swept 512 features at a time (``takes_head_width``).  The plain
+versions compute in their inputs' dtype.  Each takes the score scale, 1 /
+sqrt(hd) by default.
 
 Every kernel reads a row's features as 16-byte vectors, a group of lanes
 per row with all its heads, and finds the gate's nonzeros by warp ballot.
@@ -29,7 +30,8 @@ not start on a 16-byte boundary: both raise.  A feature operand off a
 two-pass backward (rows, then columns; no atomics, so bitwise the same in
 every run) or, with ``bwd="merged"``, the single pass (the JAX package's
 default, selected there by ``SCGIB_GT_BWD_TWOPASS``).  It takes any head
-width up to 512 with either backward: a width the kernels do not take is
+width with either backward, as the JAX package does: a width the kernels
+do not take is
 zero-padded up to ``served_head_width``, with the scale kept at 1 /
 sqrt(hd), which changes no score and no gradient.  See
 ``csrc/gt_flash.cu`` for what bounds the kernels on an H100 and how the
@@ -48,14 +50,11 @@ from .build import load
 
 KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged")
 HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+# Past the widest of HEAD_WIDTHS the kernels take every multiple of SWEEP,
+# a head swept SWEEP features at a time (csrc/gt_flash.cu's WIDE).
+SWEEP = 512
 MAX_BAND = 256
 BWD = ("twopass", "merged")
-# The narrowest width refused, and why: past hd 128 a lane holds hd / 32
-# features of each operand, and the column pass keeps four of them (k_c,
-# v_c and its two sums) across its walk while it loads four more (q_i and
-# g_i of two nonzeros); ``chip_smoke.py`` builds this width apart and
-# reports what ptxas makes of it.
-REFUSED_HD = 1024
 
 _lib = None
 
@@ -86,17 +85,25 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+def takes_head_width(hd: int) -> bool:
+    """Whether the kernels take head width ``hd`` as it is: one of
+    ``HEAD_WIDTHS``, or a multiple of ``SWEEP`` past it."""
+    return hd in HEAD_WIDTHS or (hd > SWEEP and hd % SWEEP == 0)
+
+
 def _check_head_widths(lib):
-    """``HEAD_WIDTHS`` must be the widths the source's dispatch instantiates
-    (``SCGIB_DISPATCH_HD``): ``scgib_gt_kernel_info`` fails for any
-    other."""
+    """``takes_head_width`` must say what the source's dispatch
+    (``SCGIB_DISPATCH_HD``) takes, up to 4 sweeps: ``scgib_gt_kernel_info``
+    fails for any other width."""
     info = (ctypes.c_int * 3)()
+    widths = range(1, 4 * SWEEP + 1)
+    want = tuple(hd for hd in widths if takes_head_width(hd))
     for which in range(4):
-        taken = tuple(hd for hd in range(1, 2 * HEAD_WIDTHS[-1] + 1)
+        taken = tuple(hd for hd in widths
                       if lib.scgib_gt_kernel_info(which, hd, info) == 0)
-        if taken != HEAD_WIDTHS:
+        if taken != want:
             raise RuntimeError(f"csrc/gt_flash.cu takes head widths {taken}, "
-                               f"the wrapper states {HEAD_WIDTHS}")
+                               f"the wrapper states {want}")
 
 
 def _scale(hd: int) -> float:
@@ -106,17 +113,11 @@ def _scale(hd: int) -> float:
 def served_head_width(num_heads: int, hd: int) -> int:
     """The head width the kernels run a head of width ``hd`` at: the
     smallest they take that is at least ``hd`` and gives a multiple of 4
-    features a row.  Raises ``ValueError`` past the widest, saying why."""
+    features a row (past ``SWEEP``, the next multiple of ``SWEEP``)."""
     for width in HEAD_WIDTHS:
         if width >= hd and (num_heads * width) % 4 == 0:
             return width
-    f = REFUSED_HD // 32
-    raise ValueError(
-        f"head width {hd} is wider than the attention kernels take (at most "
-        f"{HEAD_WIDTHS[-1]}): at hd {REFUSED_HD} a lane would hold {f} "
-        f"features of each operand, and the column pass would keep {4 * f} "
-        f"floats across its walk and load {4 * f} more, {8 * f} registers "
-        "against the 255 a thread may have")
+    return -(-hd // SWEEP) * SWEEP
 
 
 # --- plain versions ----------------------------------------------------------
@@ -208,7 +209,7 @@ def gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
 def _gt_args(name, blocks, col_off, q, *others):
     """Validate the operands; returns (blocks, col_off int64, (T, tile,
     band), H, hd, [q, *others]), all contiguous.  ``others`` are [N, H, hd]
-    or [N, H] float32; hd one of ``HEAD_WIDTHS``.  The kernels read blocks
+    or [N, H] float32; hd one ``takes_head_width``.  The kernels read blocks
     and the feature rows in 16-byte vectors, so H * hd must be a multiple
     of 4 and blocks 16-byte aligned; a feature operand that is not is
     copied."""
@@ -222,8 +223,9 @@ def _gt_args(name, blocks, col_off, q, *others):
         raise ValueError(f"{name}: q must be [T*tile >= band, H, hd], got "
                          f"{tuple(q.shape)} for blocks {tuple(blocks.shape)}")
     n, num_heads, hd = q.shape
-    if hd not in HEAD_WIDTHS:
-        raise ValueError(f"{name}: head width {hd} not in {HEAD_WIDTHS}")
+    if not takes_head_width(hd):
+        raise ValueError(f"{name}: head width {hd} is neither in "
+                         f"{HEAD_WIDTHS} nor a multiple of {SWEEP}")
     if col_off.shape != (n_tiles,):
         raise ValueError(f"{name}: col_off must be [T]")
     for t in (q,) + others:

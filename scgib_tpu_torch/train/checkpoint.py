@@ -12,7 +12,8 @@ are written tmp-then-rename, so a kill mid-write leaves the previous file
 whole.  The files are byte-compatible both ways: the JAX package's
 ``load_checkpoint`` / ``load_train_state`` read what the port writes, and
 the port reads every checkpoint and autosave the JAX package has written
-(``utils/params.py`` names the three optimizer layouts).  Encoding is the
+(``utils/params.py`` names the optimizer layouts, the fine-tuning
+optimizer's masked one among them).  Encoding is the
 port's own (``utils/msgpack_codec.py``).
 """
 

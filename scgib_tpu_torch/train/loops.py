@@ -1,11 +1,20 @@
-"""The pretraining loop: epochs, patience, the best weights, the NaN guard,
-autosave and resume.
+"""The epoch loops: pretraining, supervised fine-tuning with
+test-at-best-val selection, and domain adaptation, each with its patience,
+NaN guard, autosave and resume; and evaluation.
 
-Counterpart of ``scgib_tpu/train/loops.py::run_pretraining`` (the
-reference's patience-50 loop on the best train loss, exp_pretraining.py:
-59-78).  Each epoch shuffles the dataset with ``seed + epoch`` through
-``batch_iterator``, whose batches are the JAX package's bit for bit, and
-logs the JAX package's line with the edges a second.  ``track_best`` keeps
+Counterpart of ``scgib_tpu/train/loops.py``.  ``run_pretraining`` is the
+reference's patience-50 loop on the best train loss (exp_pretraining.py:
+59-78); ``run_finetune`` its fine-tuning script (exp_moleculenetBACE_BBBP.py:
+151-195: the test metric at the best validation epoch, patience on the
+train loss, a wall-clock cap, gradient accumulation in groups with the
+ragged tail dropped); ``run_domain_adaptation`` its adaptation loop
+(exp_moleculenetBACE_BBBP.py:66-84, patience 20); ``evaluate`` and
+``PackedEval`` its epoch-accumulated evaluator (train_moleculenetBACE.py:
+174-176), the metric taken on the host.  Batches move to the device with
+``.to`` (``PackedEval`` keeps its split there).  Each epoch shuffles the
+dataset with ``seed + epoch`` through ``batch_iterator``, whose batches
+are the JAX package's bit for bit, and logs the JAX package's line with
+the edges a second.  ``track_best`` keeps
 a real snapshot of the best epoch's weights (the reference aliases the live
 module, so it keeps the last; ``track_best=False``).  The compression noise
 and the graph transformer's dropout come from one ``torch.Generator``, whose
@@ -17,12 +26,15 @@ from __future__ import annotations
 
 import math
 import os
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..config import DatasetSpec
 from ..data.loader import Capacities, GraphDataset, batch_iterator
+from ..utils import metrics as M
 from ..utils.profiling import StepTimer
 from .checkpoint import load_train_state, save_train_state
 from .trainer import TrainState
@@ -165,3 +177,277 @@ def run_pretraining(step_fn: Callable, state: TrainState, ds: GraphDataset,
     return state, {"best_variables": best_vars, "best_loss": best_loss,
                    "best_epoch": best_epoch, "history": history,
                    "throughput": timer.summary()}
+
+
+# --- evaluation --------------------------------------------------------------
+
+def _metric_fn(spec: DatasetSpec) -> Callable:
+    if spec.metric == "rocauc":
+        return lambda y, p: M.eval_rocauc(y, p)["rocauc"]
+    if spec.metric == "ap":
+        return lambda y, p: M.eval_ap(y, p)
+    if spec.metric == "rmse":
+        return lambda y, p: M.rmse(p, y)
+    if spec.metric == "mae":
+        return lambda y, p: M.mae(p, y)
+    if spec.metric == "acc":
+        def acc(y, p):
+            return M.accuracy_tu(p, y) / max(len(np.atleast_1d(y)), 1)
+        return acc
+    raise ValueError(f"unknown metric {spec.metric}")
+
+
+def _metric(spec: DatasetSpec, y: np.ndarray, p: np.ndarray) -> float:
+    if spec.metric == "acc":
+        return _metric_fn(spec)(y[:, 0], p)
+    return _metric_fn(spec)(y, p)
+
+
+def _targets(g) -> np.ndarray:
+    """The real graphs' labels, NaN where missing."""
+    gm = np.asarray(g.graph_mask)
+    return np.where(np.asarray(g.label_mask)[gm], np.asarray(g.labels)[gm],
+                    np.nan)
+
+
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _scores(eval_fn, batches, seed: int) -> np.ndarray:
+    """Every batch's scores of its real graphs, the noise drawn from a
+    generator seeded ``seed`` (on the batches' device)."""
+    gen = None
+    out = []
+    for (g, sub), gm in batches:
+        if gen is None:
+            gen = torch.Generator(device=g.node_feat.device).manual_seed(seed)
+        out.append(eval_fn(g, sub, gen).cpu().numpy()[gm])
+    return np.concatenate(out)
+
+
+class PackedEval:
+    """A split packed once (in order) and kept on the model's device, for
+    an evaluation every epoch; the labels the metric needs are kept on the
+    host."""
+
+    def __init__(self, ds: GraphDataset, caps: Capacities, batch_size: int,
+                 spec: DatasetSpec, device="cpu"):
+        self.spec = spec
+        self.batches = []
+        labels = []
+        for g, sub in batch_iterator(ds, batch_size, caps, shuffle=False):
+            labels.append(_targets(g))
+            self.batches.append(((g.to(device), sub.to(device)),
+                                 np.asarray(g.graph_mask)))
+        self.y = np.concatenate(labels)
+
+    def evaluate(self, eval_fn: Callable, seed: int = 0) -> float:
+        """The metric of ``eval_fn``'s scores (``make_eval_fn`` of the
+        model), the gate's noise drawn from a generator seeded ``seed``:
+        the same model gives the same value every time."""
+        return _metric(self.spec, self.y, _scores(eval_fn, self.batches,
+                                                  seed))
+
+
+def evaluate(eval_fn: Callable, ds: GraphDataset, caps: Capacities,
+             batch_size: int, spec: DatasetSpec, device="cpu",
+             seed: int = 0) -> float:
+    """One evaluation of ``eval_fn`` over ``ds`` (batches packed in order,
+    moved to ``device`` one at a time): the metric of the real graphs'
+    scores against their labels."""
+    ys, batches = [], []
+
+    def moved():
+        for g, sub in batch_iterator(ds, batch_size, caps, shuffle=False):
+            ys.append(_targets(g))
+            yield (g.to(device), sub.to(device)), np.asarray(g.graph_mask)
+    p = _scores(eval_fn, moved(), seed)
+    return _metric(spec, np.concatenate(ys), p)
+
+
+# --- fine-tuning and domain adaptation ---------------------------------------
+
+def run_finetune(step_fn: Callable, eval_fn: Callable, state: TrainState,
+                 train_ds: GraphDataset, val_ds: GraphDataset,
+                 test_ds: GraphDataset, caps: Capacities, batch_size: int,
+                 spec: DatasetSpec, epochs: int = 50, patience: int = 50,
+                 wallclock_hours: float = 48.0, seed: int = 41,
+                 generator: Optional[torch.Generator] = None,
+                 log: Optional[Callable[[str], None]] = print,
+                 autosave_path: Optional[str] = None,
+                 autosave_every: int = 1) -> Dict:
+    """Supervised fine-tuning with test-at-best-val selection.
+    ``step_fn(g, sub, generator) -> loss`` (``make_finetune_step`` of
+    ``state``'s model and optimizer, with ``spec.grad_accum``: groups of
+    that many batches, the ragged tail group dropped); ``eval_fn``
+    (``make_eval_fn``) scores val and test after every epoch (packed once,
+    ``PackedEval``).  The run stops after ``patience`` epochs without a
+    lower train loss, or past ``wallclock_hours``; it halts at the first
+    non-finite epoch loss (``NonFiniteLossError``).  ``autosave_path``: the
+    state and the selection bookkeeping are written every
+    ``autosave_every`` epochs (and at a stop), and a run that finds an
+    autosave resumes from the epoch after it.
+
+    Returns ``best_val``, ``test_at_best_val``, ``best_epoch``, ``history``
+    (loss, val, test per epoch), ``state`` and ``throughput``."""
+    device = _device(state.model)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    rng = jax_key(seed)
+    sign = 1.0 if spec.select == "max" else -1.0
+    best_val = -float("inf")
+    best_test = float("nan")
+    best_epoch = -1
+    best_loss = float("inf")
+    bad_epochs = 0
+    start_epoch = 0
+    t_start = time.time()
+    history: List[tuple] = []
+    timer = StepTimer()
+    accum = max(int(getattr(spec, "grad_accum", 1)), 1)
+
+    val_eval = PackedEval(val_ds, caps, batch_size, spec, device)
+    test_eval = PackedEval(test_ds, caps, batch_size, spec, device)
+
+    if autosave_path and os.path.exists(autosave_path):
+        saved_epoch, rng, extra = load_train_state(autosave_path, state)
+        _restore_generator(generator, rng, extra)
+        start_epoch = saved_epoch + 1
+        best_val = float(extra.get("best_val", best_val))
+        best_test = float(extra.get("best_test", best_test))
+        best_epoch = int(extra.get("best_epoch", best_epoch))
+        best_loss = float(extra.get("best_loss", best_loss))
+        bad_epochs = int(extra.get("bad_epochs", bad_epochs))
+        history = [tuple(row) for row in np.asarray(
+            extra.get("history", np.zeros((0, 3)))).tolist()]
+        if log:
+            log(f"resumed autosave at epoch {saved_epoch} "
+                f"(best val {best_val:.5f})")
+
+    for epoch in range(start_epoch, epochs):
+        total, nb = 0.0, 0
+        pending, n_edges = [], 0
+        for g, sub in batch_iterator(train_ds, batch_size, caps,
+                                     shuffle=True, seed=seed + epoch):
+            n_edges += int(g.edge_mask.sum() + sub.edge_mask.sum())
+            pending.append((g.to(device), sub.to(device)))
+            if len(pending) < accum:
+                continue
+            with timer.step(edges=n_edges):
+                if accum > 1:
+                    gs, subs = zip(*pending)
+                    loss = step_fn(list(gs), list(subs), generator)
+                else:
+                    loss = step_fn(*pending[0], generator)
+                total += float(loss)             # waits for the device
+            pending, n_edges = [], 0
+            state.step += 1
+            nb += 1
+        epoch_loss = total / max(nb, 1)
+        _guard_finite(epoch_loss, epoch, "finetune",
+                      {"best_val": best_val, "best_test": best_test,
+                       "best_epoch": best_epoch, "history": history,
+                       "nonfinite_epoch": epoch}, log)
+        val = val_eval.evaluate(eval_fn)
+        test = test_eval.evaluate(eval_fn)
+        history.append((epoch_loss, val, test))
+        if log:
+            log(f"finetune epoch {epoch}: loss {epoch_loss:.5f} "
+                f"val {val:.5f} test {test:.5f}")
+        if sign * val > sign * best_val or best_epoch < 0:
+            best_val, best_test, best_epoch = val, test, epoch
+        stop = False
+        if epoch_loss < best_loss:
+            best_loss = epoch_loss
+            bad_epochs = 0
+        else:
+            bad_epochs += 1
+            if bad_epochs >= patience:
+                stop = True
+        if (time.time() - t_start) > wallclock_hours * 3600:
+            stop = True
+        if autosave_path and (stop or
+                              (epoch + 1) % max(autosave_every, 1) == 0):
+            save_train_state(autosave_path, state, epoch, rng, extra={
+                "best_val": best_val, "best_test": best_test,
+                "best_epoch": best_epoch, "best_loss": best_loss,
+                "bad_epochs": bad_epochs,
+                "history": np.asarray(history, np.float64),
+                "torch_rng": generator.get_state().numpy()})
+        if stop:
+            break
+
+    return {"best_val": best_val, "test_at_best_val": best_test,
+            "best_epoch": best_epoch, "history": history, "state": state,
+            "throughput": timer.summary()}
+
+
+def run_domain_adaptation(step_fn: Callable, state: TrainState,
+                          ds: GraphDataset, caps: Capacities,
+                          batch_size: int, epochs: int = 50,
+                          patience: int = 20, seed: int = 40,
+                          generator: Optional[torch.Generator] = None,
+                          log: Optional[Callable[[str], None]] = print,
+                          autosave_path: Optional[str] = None,
+                          autosave_every: int = 1
+                          ) -> Tuple[TrainState, Dict]:
+    """Unsupervised adaptation epochs on the downstream dataset's graphs
+    (train_moleculenetBACE.py:17-52).  ``step_fn(g, sub, generator) ->
+    loss`` (``make_domainadapt_step``).  Returns (state, info):
+    ``best_variables`` (the best epoch's weights; after a resume, as in the
+    JAX package, the final weights unless a later epoch improves on the
+    restored best loss), ``best_loss``, ``history`` and ``throughput``."""
+    device = _device(state.model)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    rng = jax_key(seed)
+    best = float("inf")
+    best_vars = None
+    bad = 0
+    start_epoch = 0
+    history: List[float] = []
+    timer = StepTimer()
+
+    if autosave_path and os.path.exists(autosave_path):
+        saved_epoch, rng, extra = load_train_state(autosave_path, state)
+        _restore_generator(generator, rng, extra)
+        start_epoch = saved_epoch + 1
+        best = float(extra.get("best_loss", best))
+        bad = int(extra.get("bad_epochs", bad))
+        if log:
+            log(f"resumed autosave at epoch {saved_epoch}")
+
+    for epoch in range(start_epoch, epochs):
+        total, nb = 0.0, 0
+        for g, sub in batch_iterator(ds, batch_size, caps, shuffle=True,
+                                     seed=seed + epoch):
+            n_edges = int(g.edge_mask.sum() + sub.edge_mask.sum())
+            g, sub = g.to(device), sub.to(device)
+            with timer.step(edges=n_edges):
+                total += float(step_fn(g, sub, generator))
+            state.step += 1
+            nb += 1
+        epoch_loss = total / max(nb, 1)
+        history.append(epoch_loss)
+        if log:
+            log(f"adapt epoch {epoch}: loss {epoch_loss:.5f}")
+        _guard_finite(epoch_loss, epoch, "adapt",
+                      {"best_variables": best_vars, "best_loss": best,
+                       "nonfinite_epoch": epoch}, log)
+        if epoch_loss < best:
+            best = epoch_loss
+            best_vars = state.variables
+            bad = 0
+        else:
+            bad += 1
+            if bad >= patience:
+                break
+        if autosave_path and (epoch + 1) % max(autosave_every, 1) == 0:
+            save_train_state(autosave_path, state, epoch, rng, extra={
+                "best_loss": best, "bad_epochs": bad,
+                "torch_rng": generator.get_state().numpy()})
+    if best_vars is None:
+        best_vars = state.variables
+    return state, {"best_variables": best_vars, "best_loss": best,
+                   "history": history, "throughput": timer.summary()}

@@ -21,7 +21,11 @@ bias); the port's ``LSTMCell`` stacks them as rows [i, f, g, o] of
 writes by default (``layer{i}``, a fused ``qkv``).  ``adam_to_optax`` and
 ``load_adam_state`` carry ``torch.optim.Adam``'s state (``step``,
 ``exp_avg``, ``exp_avg_sq``) to and from optax's ``ScaleByAdamState``
-(``count``, ``mu``, ``nu``), kernels transposed like the weights.
+(``count``, ``mu``, ``nu``), kernels transposed like the weights, over the
+parameters the optimizer holds: all of them, or with a ``MaskedAdam`` (the
+fine-tuning optimizer) the trainable ones, in the layout of the JAX
+package's ``masked_tx`` (``optax.multi_transform`` of a "train" and a
+"freeze" group, the "train" group's flat vectors over its leaves only).
 
 ``init_flax_style_`` gives the port's own init the flax defaults: lecun-normal
 (truncated normal, fan-in scaling) Dense kernels and zero biases, LayerNorm
@@ -197,14 +201,25 @@ def _unflat(vec: np.ndarray, template: Mapping) -> dict:
     return _nest(pairs)
 
 
+def _optimized(model: nn.Module, optimizer: torch.optim.Optimizer):
+    """(name, parameter) of the parameters ``optimizer`` holds, in
+    ``model``'s order."""
+    held = {id(p) for group in optimizer.param_groups
+            for p in group["params"]}
+    return [(n, p) for n, p in model.named_parameters() if id(p) in held]
+
+
 def adam_to_optax(model: nn.Module, optimizer: torch.optim.Optimizer
                   ) -> dict:
     """``optimizer``'s Adam state as the opt_state of the JAX package's
     ``adam_l2`` (``trainer.py:77-144``): ``{"0": chain, "1": p_flat}``, the
     chain ``(add_decayed_weights, scale_by_adam, scale)`` with weight
     decay, ``(scale_by_adam, scale)`` without, and the moments and
-    parameters as flat vectors in ``jax.tree_util.tree_leaves`` order."""
-    named = list(model.named_parameters())
+    parameters as flat vectors in ``jax.tree_util.tree_leaves`` order.  A
+    ``MaskedAdam``'s (``masked_tx``, ``trainer.py:510-517``) is that state
+    over the trainable parameters, under ``inner_states`` / ``train`` /
+    ``inner_state``, beside the empty state of the ``freeze`` group."""
+    named = _optimized(model, optimizer)
     count, mu, nu = 0, [], []
     for name, p in named:
         state = optimizer.state.get(p, {})
@@ -218,7 +233,11 @@ def adam_to_optax(model: nn.Module, optimizer: torch.optim.Optimizer
         chain = {"0": {}, "1": adam, "2": {}}
     else:
         chain = {"0": adam, "1": {}}
-    return {"0": chain, "1": _flat(flax_params(named))}
+    state = {"0": chain, "1": _flat(flax_params(named))}
+    if getattr(optimizer, "masked", False):
+        return {"inner_states": {"freeze": {"inner_state": {}},
+                                 "train": {"inner_state": state}}}
+    return state
 
 
 def _find_adam(tree: Mapping) -> Mapping:
@@ -237,17 +256,20 @@ def load_adam_state(model: nn.Module, optimizer: torch.optim.Optimizer,
     """Set ``optimizer``'s Adam state from a JAX opt_state in any of the
     layouts the JAX package has written: per-leaf ``mu`` / ``nu`` trees
     (``optax.chain`` alone), flat vectors (``optax.flatten``), or flat
-    vectors with the resident parameter vector (today's ``adam_l2``)."""
+    vectors with the resident parameter vector (today's ``adam_l2``), each
+    over the parameters the optimizer holds (under ``masked_tx``'s groups
+    for a ``MaskedAdam``)."""
     adam = _find_adam(opt_state)
     if adam is None:
         raise ValueError("no Adam state (count, mu, nu) in the opt_state")
-    template = flax_params(model.named_parameters())
+    held = _optimized(model, optimizer)
+    template = flax_params(held)
     moments = []
     for tree in (adam["mu"], adam["nu"]):
         if not isinstance(tree, Mapping):
             tree = _unflat(np.asarray(tree), template)
         moments.append(_params_state(tree))
-    named = dict(model.named_parameters())
+    named = dict(held)
     if set(moments[0]) != set(named):
         raise ValueError("the Adam state does not match the model's "
                          f"parameters: {sorted(set(moments[0]) ^ set(named))}")

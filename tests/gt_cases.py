@@ -67,9 +67,10 @@ def case_inputs(case, n=256):
 
 
 # (heads, head width) the kernels serve since the widths were opened up: hd
-# 64, 128, 256 and 512 as they are, 12 (hidden 96, 8 heads), 10 (hidden
-# 30, 3 heads), 1 with 3 heads (3 features a row) and 200 zero-padded to
-# 16, 16, 4 and 256
+# 64, 128, 256 and 512 as they are, 1024 in two sweeps of 512, 12 (hidden
+# 96, 8 heads), 10 (hidden 30, 3 heads), 1 with 3 heads (3 features a row),
+# 200 and 1100 zero-padded to 16, 16, 4, 256 and 1536 (three sweeps)
 WIDTHS = {"8x12": (8, 12), "1x64": (1, 64), "1x128": (1, 128),
           "3x10": (3, 10), "3x1": (3, 1), "1x256": (1, 256),
-          "1x200": (1, 200), "1x512": (1, 512)}
+          "1x200": (1, 200), "1x512": (1, 512), "1x1024": (1, 1024),
+          "1x1100": (1, 1100)}

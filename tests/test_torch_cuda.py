@@ -743,3 +743,93 @@ def test_pretrain_verb_one_epoch_on_card(dev, tmp_path):
                                   "pool": pool.branch_counts["banded"]}
     variables, meta = checkpoint.load_checkpoint(str(tmp_path / "p.msgpack"))
     assert meta["step"] == 0 and "core" in variables["params"]
+
+
+def test_wide_head_kernels_share_one_instantiation(dev):
+    """Every multiple of 512 past it runs the one WIDE instantiation: the
+    same registers at hd 1024, 1536 and 4096, at least one block an SM;
+    other widths past 512 are refused by the kernels."""
+    for kernel in ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged"):
+        infos = [kg.kernel_info(kernel, hd) for hd in (1024, 1536, 4096)]
+        assert infos[0] == infos[1] == infos[2]
+        assert infos[0]["blocks_per_sm"] >= 1
+        with pytest.raises(RuntimeError):
+            kg.kernel_info(kernel, 1100)
+
+
+def _ft_steps(dev, batches, kwargs, accum, captured):
+    """Steps of FinetuneModel from one start (reference freeze, BCE) over
+    groups of ``accum`` batches; (losses, state_dict, Adam state,
+    generator state, step) on the host."""
+    from scgib_tpu_torch.models.scgib import FinetuneModel
+    model = FinetuneModel(9, hidden=32, d_transfer=16, num_layers=3,
+                          num_heads=4, **kwargs)
+    init_flax_style_(model, torch.Generator().manual_seed(1))
+    model.to(dev)
+    opt = trainer.masked_adam(model, trainer.finetune_trainable_mask(model),
+                              1e-3, 1e-5)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    groups = [batches[i:i + accum] for i in range(0, len(batches), accum)]
+    if captured:
+        step = trainer.make_finetune_step(model, opt, "bce", accum)
+        losses = [step(*(grp[0] if accum == 1 else
+                         ([b[0] for b in grp], [b[1] for b in grp])), gen)
+                  for grp in groups]
+    else:
+        step = None
+        losses = [trainer.finetune_step_eager(model, opt, grp, "bce", gen)
+                  for grp in groups]
+    adam = [t.cpu() for group in opt.param_groups for p in group["params"]
+            for t in opt.state[p].values()]
+    return ([x.cpu() for x in losses],
+            {k: v.cpu() for k, v in model.state_dict().items()}, adam,
+            gen.get_state(), step)
+
+
+@pytest.mark.parametrize("encoder,accum", [("GIN", 1), ("GIN", 2),
+                                           ("Transformer", 1)])
+def test_captured_finetune_step_is_the_eager_step(dev, encoder, accum):
+    """Under torch's deterministic algorithms the captured fine-tuning step
+    (with gradient accumulation over two batches too) writes the bits of
+    the eager one: losses, weights, BatchNorm statistics of frozen and
+    trained layers, the masked Adam state, the generator; one graph."""
+    from scgib_tpu_torch.data.loader import (GraphDataset, batch_iterator,
+                                             plan_capacities)
+    ds = GraphDataset(random_dataset(80, seed=3, min_nodes=8, max_nodes=24,
+                                     num_tasks=2, label_nan_frac=0.2), k=1)
+    caps = plan_capacities(ds, 16)
+    batches = [(g.to(dev), s.to(dev)) for g, s in
+               list(batch_iterator(ds, 16, caps, shuffle=False))[:4]]
+    kw = {"encoder": encoder}
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = _ft_steps(dev, batches, kw, accum, False)
+        kb.reset_launch_counts()
+        kg.reset_launch_counts()
+        captured = _ft_steps(dev, batches, kw, accum, True)
+        counts = {**kb.launch_counts(), **kg.launch_counts()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(captured[4].graphs) == 1
+    for a, b in zip(eager[0], captured[0]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(eager[1][k], captured[1][k]) for k in eager[1])
+    assert all(torch.equal(a, b) for a, b in zip(eager[2], captured[2]))
+    assert torch.equal(eager[3], captured[3])
+    if encoder == "GIN":
+        assert counts["gin_bwd"] == 4 * 6 and counts["spmm"] == 0
+    else:
+        assert counts["gt_bwd_cols"] == 4 * 8 and counts["pool"] == 4
+
+
+def test_finetune_then_eval_on_the_card(dev, tmp_path):
+    out = str(tmp_path / "ft.msgpack")
+    small = ["--dataset", "BACE", "--synthetic", "120", "--hidden", "32",
+             "--d_transfer", "16", "--batch_size", "32"]
+    run = cli.main(["finetune", "--epochs", "2", "--out", out] + small)
+    got = cli.main(["eval", "--checkpoint", out, "--split", "test"] + small)
+    assert abs(got["test"] - run["last"]["history"][-1][2]) <= 1e-6
+    info = cli.main(["adapt", "--synthetic", "120", "--hidden", "32",
+                     "--d_transfer", "16", "--batch_size", "32", "--epochs",
+                     "1", "--out", str(tmp_path / "a.msgpack")])
+    assert np.isfinite(info["best_loss"])

@@ -271,7 +271,8 @@ def test_attention_at_padded_head_widths_matches_jax(case, bwd):
     heads, hd = WIDTHS[case]
     width = kg.served_head_width(heads, hd)
     assert width >= hd and (heads * width) % 4 == 0
-    assert (width == hd) == (hd in kg.HEAD_WIDTHS and (heads * hd) % 4 == 0)
+    assert (width == hd) == (kg.takes_head_width(hd)
+                            and (heads * hd) % 4 == 0)
     blocks, off = banded_graph("narrow")
     q, k, v, ct = qkvg(256, heads=heads, hd=hd, seed=6)
     jb = jnp.asarray(blocks.float().numpy()).astype(jnp.bfloat16)
@@ -293,13 +294,19 @@ def test_attention_at_padded_head_widths_matches_jax(case, bwd):
 
 
 def test_head_widths_served_and_refused():
-    """Every width up to 512 is served with either backward (the merged
-    one included); a wider head raises when the layer is built, saying
-    which registers forbid it."""
+    """Every width is served with either backward (the merged one
+    included): up to 512 at the next width the kernels instantiate, past
+    it at the next multiple of 512, which the kernels sweep 512 features
+    at a time.  Only a hidden width that is not a multiple of the heads is
+    refused when the layer is built."""
     assert [kg.served_head_width(h, d) for h, d in
             ((8, 8), (8, 12), (3, 10), (3, 1), (2, 1), (1, 64), (2, 100),
-             (1, 256), (1, 200), (2, 129), (1, 512), (2, 300))] \
-        == [8, 16, 16, 4, 2, 64, 128, 256, 256, 256, 512, 512]
+             (1, 256), (1, 200), (2, 129), (1, 512), (2, 300), (1, 513),
+             (1, 1024), (1, 1100), (3, 1536), (1, 4096), (1, 4097))] \
+        == [8, 16, 16, 4, 2, 64, 128, 256, 256, 256, 512, 512, 1024,
+            1024, 1536, 1536, 4096, 4608]
+    assert [w for w in range(1, 4097) if kg.takes_head_width(w)] == \
+        list(kg.HEAD_WIDTHS) + list(range(1024, 4097, 512))
     GraphTransformerLayer(96, 8)
     GraphTransformerLayer(30, 3)
     GraphTransformerLayer(128, 1)
@@ -308,8 +315,10 @@ def test_head_widths_served_and_refused():
     GraphTransformerLayer(64, 1, bwd="merged")
     GraphTransformerLayer(512, 1, bwd="merged")
     for bwd in ("twopass", "merged"):
-        with pytest.raises(ValueError, match="wider than.*registers"):
-            GraphTransformerLayer(1024, 1, bwd=bwd)
+        GraphTransformerLayer(1024, 1, bwd=bwd)
+        GraphTransformerLayer(4096, 1, bwd=bwd)
+    with pytest.raises(ValueError, match="not a multiple"):
+        GraphTransformerLayer(1024, 3)
 
 
 def test_transformer_at_hidden_30_matches_jax():
