@@ -6,9 +6,11 @@
 Phases; any failure raises and exits non-zero before the last line:
   1. environment: the card's name and power limit; TF32 off.
   2. build the CUDA kernels from scgib_tpu_torch/csrc/ (one nvcc per
-     source, sm_90a, all started together); ptxas's registers and spills
-     of the attention's WIDE instantiation (head widths past 512, swept
-     512 features at a time) must show no spill.
+     source, sm_90a, all started together, or none where the libraries
+     were built before: each keeps its ptxas report beside it); ptxas's
+     registers and spills of every attention instantiation: the WIDE one
+     (head widths past 512, swept 512 features at a time) must show no
+     spill, and the others none past ``GT_SPILLS``.
   3. each kernel against its plain PyTorch version on the card, at the
      shapes of the benchmark batch (128 molecules of 10-30 atoms, k=1:
      N=3072 graph rows, S=9728 ego-net rows; the attention kernels in the
@@ -100,7 +102,6 @@ import itertools
 import json
 import math
 import os
-import re
 import shutil
 import statistics
 import subprocess
@@ -297,39 +298,35 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
     return rec
 
 
-def wide_ptxas():
-    """Registers and spill bytes of each kernel of csrc/gt_flash.cu's WIDE
-    instantiation (head widths past 512, swept 512 at a time), from the
-    ``-Xptxas -v`` report of this run's build; none may spill."""
-    log = kbuild.logs.get("gt_flash")
-    if log is None:
-        raise AssertionError("gt_flash.cu was not built in this run, so "
-                             "ptxas's report is missing")
-    found, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\S+)'", line)
-        if m:
-            name = m.group(1)
-            continue
-        if not name or "ILi0E" not in name:          # HD = WIDE = 0
-            continue
-        kernel = re.search(r"(gt_row_pass_kernel|gt_bwd_cols_kernel|"
-                           r"gt_fwd_kernel)", name).group(1)
-        if "ELb1E" in name:
-            kernel = "gt_row_pass_kernel merged"
-        rec = found.setdefault(kernel, {})
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            rec["spill_bytes"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            rec["registers"] = int(m.group(1))
-    print(f"head widths past {kg.SWEEP} (WIDE), ptxas: {found}", flush=True)
-    if len(found) != 4 or any(r.get("spill_bytes", 1) or "registers" not in r
-                              for r in found.values()):
-        raise AssertionError(f"the WIDE kernels spill or are missing: "
-                             f"{found}")
-    return found
+# The spills (bytes stored, loaded) ptxas gives the attention's
+# instantiations up to hd 512 in the sources as they stand; the WIDE one
+# (head widths past 512) has none.  Phase 2 fails on any other spill, or a
+# larger one, in any instantiation.
+GT_SPILLS = {("gt_fwd", 2): (4, 4), ("gt_fwd", 4): (4, 4),
+             ("gt_bwd_rows", 4): (8, 16), ("gt_bwd_rows", 8): (4, 4),
+             ("gt_bwd_rows", 64): (4, 4), ("gt_bwd_cols", 256): (16, 16)}
+
+
+def attention_ptxas():
+    """Registers and spill bytes of every instantiation of
+    csrc/gt_flash.cu, from the ptxas report kept beside its library (built
+    in this run or before it): every wrapper at every width of
+    ``HEAD_WIDTHS`` and WIDE (0), none spilling past ``GT_SPILLS``."""
+    report = kg.ptxas_report()
+    want = {(k, hd) for k in kg.KERNELS for hd in kg.HEAD_WIDTHS + (0,)}
+    faults = sorted(want - set(report))
+    for key, rec in sorted(report.items()):
+        spill = (rec.get("spill_stores"), rec.get("spill_loads"))
+        allowed = GT_SPILLS.get(key, (0, 0))
+        if None in spill or spill[0] > allowed[0] or spill[1] > allowed[1]:
+            faults.append((key, spill))
+    out = {f"{k} hd {hd or 'WIDE'}": rec for (k, hd), rec in
+           sorted(report.items())}
+    print(f"attention ptxas: {json.dumps(out)}", flush=True)
+    if faults:
+        raise AssertionError(f"attention instantiations missing or "
+                             f"spilling past {GT_SPILLS}: {faults}")
+    return out
 
 
 def served_phase(sub, dev, gen):
@@ -953,11 +950,11 @@ def main():
         clock[0] = now
         print(f"phase {phase}: {phase_s[phase]:.1f} s", flush=True)
 
-    # 2. build; the wide heads' registers and spills
+    # 2. build; the attention's registers and spills
     kbuild.load(*sorted({src for src, _, _ in PATH.values()}))
     kb.build()
     kg.build()
-    wide = wide_ptxas()
+    ptxas = attention_ptxas()
     lap("2 build")
     for name, log in kbuild.logs.items():
         print(f"nvcc {name}.cu:\n{log}", flush=True)
@@ -1032,7 +1029,8 @@ def main():
                       "steps": {k: r["steps"] for k, r in runs.items()},
                       "verb": verb, "compiled": compiled,
                       "supervised": supervised,
-                      "wide_heads": {"ptxas": wide, "served": served},
+                      "attention_ptxas": ptxas,
+                      "wide_heads": served,
                       "profile": profiles,
                       "phase_s": phase_s}), flush=True)
     print(smi_line(), flush=True)

@@ -69,7 +69,9 @@ from typing import Callable, List
 import numpy as np
 import torch
 
-from .config import DATASETS, PRETRAIN_STAGES, reference_split
+from .config import (DATASETS, PRETRAIN_STAGES, DomainAdaptConfig,
+                     FinetuneConfig, ModelConfig, OptimConfig,
+                     PretrainConfig, reference_split)
 from .data.loader import GraphDataset, batch_iterator, plan_capacities
 from .data.synthetic import random_dataset
 from .models.scgib import DomainAdaptModel, FinetuneModel, PretrainModel
@@ -460,7 +462,8 @@ def cmd_adapt(args):
     optimizer = adam_l2(model, args.lr, args.weight_decay)
     _, info = run_domain_adaptation(
         make_domainadapt_step(model, optimizer), TrainState(model, optimizer),
-        ds, caps, args.batch_size, epochs=args.epochs, patience=20,
+        ds, caps, args.batch_size, epochs=args.epochs,
+        patience=DomainAdaptConfig.patience,
         seed=args.seed, autosave_path=args.autosave or None,
         autosave_every=args.autosave_every)
     out = args.out or "outputs/adapted.msgpack"
@@ -474,9 +477,13 @@ def cmd_adapt(args):
 _STEPS_DEFAULTS = {"synthetic": 1024, "seed": 7}
 
 
-def _common(sp, lr: float, wd: float, epochs: int):
+def _common(sp, optim: OptimConfig, epochs: int,
+            patience: int = FinetuneConfig.patience):
     """The flags every verb shares, with the JAX verbs' defaults
-    (``scgib_tpu/cli.py:585-626``), and the port's ``--device``."""
+    (``scgib_tpu/cli.py:585-626``): the model's from ``ModelConfig``, the
+    optimizer's, the epochs and the patience as the verb's config gives
+    them; and the port's ``--device``."""
+    m = ModelConfig
     for name in _SOURCES:
         sp.add_argument(f"--{name}", default=None,
                         help="not ported yet (ROADMAP.md Queue 1 item 12)")
@@ -491,21 +498,23 @@ def _common(sp, lr: float, wd: float, epochs: int):
                     help="cap graphs loaded (real datasets only)")
     sp.add_argument("--k", type=int, default=1,
                     help="k-hop ego-net radius (--k_transition)")
-    sp.add_argument("--batch_size", type=int, default=128)
-    sp.add_argument("--hidden", type=int, default=64)
-    sp.add_argument("--d_transfer", type=int, default=32)
-    sp.add_argument("--encoder", default="GIN",
+    sp.add_argument("--batch_size", type=int,
+                    default=FinetuneConfig.batch_size)
+    sp.add_argument("--hidden", type=int, default=m.hidden)
+    sp.add_argument("--d_transfer", type=int, default=m.d_transfer)
+    sp.add_argument("--encoder", default=m.encoder,
                     choices=["GIN", "GCN", "GraphSAGE", "Transformer"])
-    sp.add_argument("--num_layers", type=int, default=4,
+    sp.add_argument("--num_layers", type=int, default=m.num_layers,
                     help="GIN convs, or transformer layers - 1")
-    sp.add_argument("--num_heads", type=int, default=8,
+    sp.add_argument("--num_heads", type=int, default=m.num_heads,
                     help="attention heads of the transformer")
-    sp.add_argument("--readout", default="sum", choices=["sum", "s2s"])
-    sp.add_argument("--use_att", type=int, default=1)
-    sp.add_argument("--lr", type=float, default=lr)
-    sp.add_argument("--weight_decay", type=float, default=wd)
+    sp.add_argument("--readout", default=m.readout, choices=["sum", "s2s"])
+    sp.add_argument("--use_att", type=int, default=int(m.use_att))
+    sp.add_argument("--lr", type=float, default=optim.lr)
+    sp.add_argument("--weight_decay", type=float,
+                    default=optim.weight_decay)
     sp.add_argument("--epochs", type=int, default=epochs)
-    sp.add_argument("--patience", type=int, default=50)
+    sp.add_argument("--patience", type=int, default=patience)
     sp.add_argument("--seed", type=int, default=42)
     sp.add_argument("--pretrained", default=None)
     sp.add_argument("--repeats", type=int, default=0,
@@ -529,9 +538,11 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     sp = sub.add_parser("pretrain", help="self-supervised pretraining")
-    _common(sp, lr=1e-4, wd=5e-5, epochs=100)
-    sp.add_argument("--recons_type", default="adj", choices=["adj", "logM"])
-    sp.add_argument("--kl_mode", default="corrected",
+    _common(sp, PretrainConfig.optim, PretrainConfig.epochs,
+            PretrainConfig.patience)
+    sp.add_argument("--recons_type", default=ModelConfig.recons_type,
+                    choices=["adj", "logM"])
+    sp.add_argument("--kl_mode", default=ModelConfig.kl_mode,
                     choices=["corrected", "reference"])
     sp.add_argument("--curriculum", action="store_true",
                     help="3-stage curriculum (exp_pretraining flow)")
@@ -546,13 +557,13 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_pretrain, **(_STEPS_DEFAULTS if steps else {}))
 
     sp = sub.add_parser("finetune", help="supervised fine-tuning")
-    _common(sp, lr=1e-3, wd=1e-5, epochs=50)
+    _common(sp, FinetuneConfig.optim, FinetuneConfig.epochs)
     _autosave(sp, "full-train-state autosave path prefix (per-repeat "
                   "suffix .repN)")
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--tudataset_root", default=None,
                     help="not ported yet (ROADMAP.md Queue 1 item 12)")
-    sp.add_argument("--freeze_mode", default="reference",
+    sp.add_argument("--freeze_mode", default=FinetuneConfig.freeze_mode,
                     choices=["reference", "paper", "all", "frozen"])
     sp.add_argument("--xlsx", default=None,
                     help="record Mean/Variant/Best_epoch in this Excel "
@@ -563,7 +574,7 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
 
     sp = sub.add_parser("eval", help="evaluate a saved fine-tuned "
                                      "checkpoint on a dataset split")
-    _common(sp, lr=1e-3, wd=1e-5, epochs=0)
+    _common(sp, FinetuneConfig.optim, 0)
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--tudataset_root", default=None,
                     help="not ported yet (ROADMAP.md Queue 1 item 12)")
@@ -574,7 +585,7 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_eval)
 
     sp = sub.add_parser("adapt", help="unsupervised domain adaptation")
-    _common(sp, lr=1e-3, wd=1e-5, epochs=50)
+    _common(sp, DomainAdaptConfig.optim, DomainAdaptConfig.epochs)
     sp.add_argument("--dataset", default=None,
                     help="dataset name (for the real-data readers)")
     sp.add_argument("--tudataset_root", default=None,

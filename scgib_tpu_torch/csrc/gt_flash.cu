@@ -153,6 +153,7 @@ struct Heads {
 };
 
 // The head width of row features: HD, or hd (a multiple of SWEEP) for WIDE.
+// hd is every kernel's last argument, which the other instantiations ignore.
 template <int HD>
 __device__ __forceinline__ int head_width(int hd) {
   return HD == WIDE ? hd : HD;
@@ -247,8 +248,8 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
               const long long* __restrict__ col_off, int TL, int BW,
               long long n_rows, const float* __restrict__ q,
               const float* __restrict__ k, const float* __restrict__ v,
-              int H, int hd, float scale, float clamp, float eps, int lpr,
-              float* __restrict__ out, float* __restrict__ z) {
+              int H, float scale, float clamp, float eps, int lpr,
+              float* __restrict__ out, float* __restrict__ z, int hd) {
   using M = Heads<HD>;
   constexpr int NH = M::NH, F = M::F, NG = M::NG;
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
@@ -407,9 +408,9 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
                    long long n_rows, const float* __restrict__ q,
                    const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ g, const float* __restrict__ z,
-                   int H, int hd, float scale, float clamp, float eps,
-                   int lpr, float* __restrict__ dq, float* __restrict__ rho,
-                   float* __restrict__ dk, float* __restrict__ dv) {
+                   int H, float scale, float clamp, float eps, int lpr,
+                   float* __restrict__ dq, float* __restrict__ rho,
+                   float* __restrict__ dk, float* __restrict__ dv, int hd) {
   using M = Heads<HD>;
   constexpr int NH = M::NH, F = M::F, NG = M::NG;
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
@@ -508,9 +509,9 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
                    long long n_rows, const float* __restrict__ q,
                    const float* __restrict__ k, const float* __restrict__ v,
                    const float* __restrict__ g, const float* __restrict__ z,
-                   const float* __restrict__ rho, int H, int hd,
-                   float scale, float clamp, float eps, int lpr,
-                   float* __restrict__ dk, float* __restrict__ dv) {
+                   const float* __restrict__ rho, int H, float scale,
+                   float clamp, float eps, int lpr, float* __restrict__ dk,
+                   float* __restrict__ dv, int hd) {
   using M = Heads<HD>;
   constexpr int NH = M::NH, F = M::F, NG = M::NG;
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
@@ -644,8 +645,8 @@ int scgib_gt_fwd(const void* blocks, const void* col_off, int n_tiles, int TL,
       hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
       gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
-          rows, (const float*)q, (const float*)k, (const float*)v, H, hd,
-          scale, clamp, eps, lpr, (float*)out, (float*)z));
+          rows, (const float*)q, (const float*)k, (const float*)v, H, scale,
+          clamp, eps, lpr, (float*)out, (float*)z, hd));
   return (int)cudaGetLastError();
 }
 
@@ -663,8 +664,8 @@ int scgib_gt_bwd_rows(const void* blocks, const void* col_off, int n_tiles,
                                       PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
-          (const float*)g, (const float*)z, H, hd, scale, clamp, eps, lpr,
-          (float*)dq, (float*)rho, nullptr, nullptr));
+          (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
+          (float*)dq, (float*)rho, nullptr, nullptr, hd));
   return (int)cudaGetLastError();
 }
 
@@ -683,8 +684,8 @@ int scgib_gt_bwd_cols(const void* blocks, const void* col_off, int n_tiles,
                                s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
-          (const float*)g, (const float*)z, (const float*)rho, H, hd,
-          scale, clamp, eps, lpr, (float*)dk, (float*)dv));
+          (const float*)g, (const float*)z, (const float*)rho, H, scale,
+          clamp, eps, lpr, (float*)dk, (float*)dv, hd));
   return (int)cudaGetLastError();
 }
 
@@ -703,8 +704,8 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
                                      PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
-          (const float*)g, (const float*)z, H, hd, scale, clamp, eps, lpr,
-          (float*)dq, nullptr, (float*)dk, (float*)dv));
+          (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
+          (float*)dq, nullptr, (float*)dk, (float*)dv, hd));
   return (int)cudaGetLastError();
 }
 

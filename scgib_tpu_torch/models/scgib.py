@@ -314,22 +314,21 @@ class FinetuneModel(nn.Module):
     """``Mainmodel_finetuning`` (models.py:501-520): fresh heads around the
     pretrained core.  Projection -> core -> ``head_mlp`` (2d -> d) ->
     ``Set2Set`` (-> 2d) -> ``predict`` (2d -> d -> num_out), then a sigmoid
-    unless ``regression``."""
+    unless ``regression``.  The features are L2-normalized by row and the
+    attention takes its two-pass backward, as the JAX verbs run them."""
 
     def __init__(self, in_dim: int, num_out: int = 1, hidden: int = 64,
                  d_transfer: int = 32, encoder: str = "GIN",
                  num_layers: int = 4, num_heads: int = 8,
                  readout: str = "sum", use_att: bool = True,
-                 regression: bool = False, gt_bwd: str = "twopass",
-                 deterministic: bool = False, normalize_input: bool = True):
+                 regression: bool = False, deterministic: bool = False):
         super().__init__()
         self.regression = regression
-        self.normalize_input = normalize_input
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
-                              gt_bwd=gt_bwd, deterministic=deterministic)
+                              deterministic=deterministic)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.predict = MLP2(2 * hidden, hidden, num_out)
@@ -340,8 +339,7 @@ class FinetuneModel(nn.Module):
         ``regression``."""
         if rand is None:
             rand = uniform_draws(None, g.node_feat.device)
-        x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub,
-                                             self.normalize_input)
+        x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub, True)
         feats = self.core.extract_features(g, sub, x_proj, x_sub_proj, rand)
         im = self.head_mlp(feats.interaction_map)
         pooled = self.s2s(im, g.node_graph, g.num_graphs, mask=g.node_mask)
@@ -359,15 +357,13 @@ class DomainAdaptModel(nn.Module):
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
                  num_heads: int = 8, readout: str = "sum",
-                 use_att: bool = True, gt_bwd: str = "twopass",
-                 deterministic: bool = False, normalize_input: bool = True):
+                 use_att: bool = True, deterministic: bool = False):
         super().__init__()
-        self.normalize_input = normalize_input
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
-                              gt_bwd=gt_bwd, deterministic=deterministic)
+                              deterministic=deterministic)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.s2s_rev = Set2Set(in_dim)
@@ -377,10 +373,8 @@ class DomainAdaptModel(nn.Module):
                 rand: Optional[Rand] = None) -> torch.Tensor:
         if rand is None:
             rand = uniform_draws(None, g.node_feat.device)
-        x = l2_normalize(g.node_feat) if self.normalize_input else \
-            g.node_feat
-        x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub,
-                                             self.normalize_input)
+        x = l2_normalize(g.node_feat)
+        x_proj, x_sub_proj = _project_inputs(self.transfer_d, g, sub, True)
         feats = self.core.extract_features(g, sub, x_proj, x_sub_proj, rand)
         im = self.head_mlp(feats.interaction_map)
         pooled = self.s2s(im, g.node_graph, g.num_graphs, mask=g.node_mask)

@@ -6,8 +6,10 @@ per hash of the source and the ``csrc/*.cuh`` headers, so an edited source
 or header rebuilds and an unchanged one is reused), and loaded with
 ``ctypes``.  ``load`` starts one ``nvcc`` for every
 source it is asked for that is not built yet, all at once, and waits for
-them together.  ``logs`` keeps each build's ``-Xptxas -v`` report
-(registers, shared memory and spills per kernel).
+them together.  Each build's ``-Xptxas -v`` report (registers, shared
+memory and spills per kernel) is kept beside its library, so a library
+built earlier still has it: ``logs`` holds the report of every library
+loaded, and ``ptxas_report`` reads it kernel by kernel.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -37,6 +40,11 @@ def _so_path(name: str) -> Path:
     return BUILD_DIR / f"libscgib_{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _log_path(so: Path) -> Path:
+    """Where the build of library ``so`` keeps its ptxas report."""
+    return so.with_name(f"{so.name}.ptxas")
+
+
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
@@ -53,7 +61,7 @@ def load(*names: str) -> List[ctypes.CDLL]:
         if name in _libs:
             continue
         so = _so_path(name)
-        if so.exists():
+        if so.exists() and _log_path(so).exists():
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -65,15 +73,48 @@ def load(*names: str) -> List[ctypes.CDLL]:
     failures = []
     for name, so, tmp, proc in pending:
         out, err = proc.communicate()
-        logs[name] = err
         if proc.returncode != 0:
             failures.append(f"nvcc failed on {name}.cu ({proc.returncode}):"
                             f"\n{out}\n{err}")
         else:
+            # the report first: a library on disk always has one beside it
+            log_tmp = tmp.with_name(f"{tmp.name}.ptxas")
+            log_tmp.write_text(err)
+            os.replace(log_tmp, _log_path(so))
             os.replace(tmp, so)
     if failures:
         raise RuntimeError("\n".join(failures))
     for name in names:
         if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(_so_path(name)))
+            so = _so_path(name)
+            _libs[name] = ctypes.CDLL(str(so))
+            logs[name] = _log_path(so).read_text()
     return [_libs[name] for name in names]
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """Each kernel of ``csrc/<name>.cu`` (by its mangled name):
+    ``registers`` a thread and the bytes of ``spill_stores`` and
+    ``spill_loads``, from the ptxas report of its build.  ``load`` the
+    library first."""
+    report: Dict[str, Dict[str, int]] = {}
+    entry = props = None
+    for line in logs[name].splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and props is not None:
+            rec = report.setdefault(props, {})
+            rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            report.setdefault(entry, {})["registers"] = int(m.group(1))
+    return {k: r for k, r in report.items() if "registers" in r}

@@ -41,12 +41,13 @@ design answers it.
 from __future__ import annotations
 
 import ctypes
+import re
 
 import torch
 
 from ..spmm_banded import gt_scores, gt_windows
 from .banded import ALIGN, _dispatch, _ptr, _raise_on, _stream
-from .build import load
+from .build import load, ptxas_report as _ptxas_report
 
 KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged")
 HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
@@ -331,6 +332,23 @@ def kernel_info(kernel: str, hd: int) -> dict:
          "gt_bwd_merged": 3}[kernel], hd, info), kernel)
     return {"registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
+
+
+def ptxas_report() -> dict:
+    """ptxas's ``registers``, ``spill_stores`` and ``spill_loads`` (bytes)
+    of every instantiation, by (wrapper, head width); head width 0 is the
+    WIDE instantiation, which every multiple of ``SWEEP`` past it runs."""
+    build()
+    out = {}
+    for entry, rec in _ptxas_report("gt_flash").items():
+        m = re.search(r"(gt_fwd|gt_row_pass|gt_bwd_cols)_kernelILi(\d+)E"
+                      r"(Lb1E)?", entry)
+        if m:
+            name = {"gt_fwd": "gt_fwd", "gt_bwd_cols": "gt_bwd_cols",
+                    "gt_row_pass": "gt_bwd_merged" if m.group(3)
+                    else "gt_bwd_rows"}[m.group(1)]
+            out[name, int(m.group(2))] = rec
+    return out
 
 
 def launch_counts() -> dict:

@@ -214,18 +214,6 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def _scores(eval_fn, batches, seed: int) -> np.ndarray:
-    """Every batch's scores of its real graphs, the noise drawn from a
-    generator seeded ``seed`` (on the batches' device)."""
-    gen = None
-    out = []
-    for (g, sub), gm in batches:
-        if gen is None:
-            gen = torch.Generator(device=g.node_feat.device).manual_seed(seed)
-        out.append(eval_fn(g, sub, gen).cpu().numpy()[gm])
-    return np.concatenate(out)
-
-
 class PackedEval:
     """A split packed once (in order) and kept on the model's device, for
     an evaluation every epoch; the labels the metric needs are kept on the
@@ -246,24 +234,23 @@ class PackedEval:
         """The metric of ``eval_fn``'s scores (``make_eval_fn`` of the
         model), the gate's noise drawn from a generator seeded ``seed``:
         the same model gives the same value every time."""
-        return _metric(self.spec, self.y, _scores(eval_fn, self.batches,
-                                                  seed))
+        gen = None
+        scores = []
+        for (g, sub), gm in self.batches:
+            if gen is None:
+                gen = torch.Generator(device=g.node_feat.device).manual_seed(
+                    seed)
+            scores.append(eval_fn(g, sub, gen).cpu().numpy()[gm])
+        return _metric(self.spec, self.y, np.concatenate(scores))
 
 
 def evaluate(eval_fn: Callable, ds: GraphDataset, caps: Capacities,
              batch_size: int, spec: DatasetSpec, device="cpu",
              seed: int = 0) -> float:
-    """One evaluation of ``eval_fn`` over ``ds`` (batches packed in order,
-    moved to ``device`` one at a time): the metric of the real graphs'
-    scores against their labels."""
-    ys, batches = [], []
-
-    def moved():
-        for g, sub in batch_iterator(ds, batch_size, caps, shuffle=False):
-            ys.append(_targets(g))
-            yield (g.to(device), sub.to(device)), np.asarray(g.graph_mask)
-    p = _scores(eval_fn, moved(), seed)
-    return _metric(spec, np.concatenate(ys), p)
+    """One evaluation of ``eval_fn`` over ``ds``: ``PackedEval``'s, packed
+    for this call."""
+    return PackedEval(ds, caps, batch_size, spec, device).evaluate(eval_fn,
+                                                                  seed)
 
 
 # --- fine-tuning and domain adaptation ---------------------------------------

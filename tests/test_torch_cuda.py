@@ -757,6 +757,27 @@ def test_wide_head_kernels_share_one_instantiation(dev):
             kg.kernel_info(kernel, 1100)
 
 
+def test_attention_ptxas_report_survives_a_built_library(dev):
+    """Once the library is built, loading it again builds nothing and
+    still gives ptxas's report of every instantiation (which phase 2 of
+    chip_smoke.py reads), the WIDE one without a spill."""
+    from scgib_tpu_torch.ops.kernels import build
+    kg.build()
+    so = build._so_path("gt_flash")
+    built = so.stat().st_mtime_ns
+    build._libs.pop("gt_flash")
+    build.logs.pop("gt_flash")
+    build.load("gt_flash")
+    assert so.stat().st_mtime_ns == built
+    report = kg.ptxas_report()
+    assert set(report) == {(k, hd) for k in kg.KERNELS
+                           for hd in kg.HEAD_WIDTHS + (0,)}
+    for k in kg.KERNELS:
+        wide = report[k, 0]
+        assert wide["spill_stores"] == wide["spill_loads"] == 0
+        assert wide["registers"] == kg.kernel_info(k, 1024)["registers"]
+
+
 def _ft_steps(dev, batches, kwargs, accum, captured):
     """Steps of FinetuneModel from one start (reference freeze, BCE) over
     groups of ``accum`` batches; (losses, state_dict, Adam state,

@@ -20,6 +20,8 @@ a CPU attends over the wide (128, 256) band, the port over the narrow
 two agree up to reduction order.
 """
 
+import sys
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -345,6 +347,58 @@ def test_kernel_build_key_covers_the_headers(tmp_path, monkeypatch):
     assert second != first and second.name.startswith("libscgib_a_")
     (tmp_path / "a.cu").write_text('#include "w.cuh"\n// edited\n')
     assert build._so_path("a") not in (first, second)
+
+
+_FAKE_PTXAS = """\
+ptxas info    : Compiling entry function '_Z13gt_fwd_kernelILi0EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z13gt_fwd_kernelILi0EEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z18gt_row_pass_kernelILi4ELb0EEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z18gt_row_pass_kernelILi4ELb0EEvPKf
+    8 bytes stack frame, 8 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 96 registers, used 0 barriers, 8 bytes cumulative stack size
+"""
+
+
+def test_kernel_build_keeps_its_ptxas_report(tmp_path, monkeypatch):
+    """A library built before is loaded without a build, and its ptxas
+    report with it, read back from beside the library; a library whose
+    report is missing is built again."""
+    from scgib_tpu_torch.ops.kernels import build
+
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"""#!{sys.executable}
+import subprocess, sys
+open({str(calls)!r}, "a").write("x")
+out = sys.argv[sys.argv.index("-o") + 1]
+subprocess.run(["gcc", "-shared", "-fPIC", "-x", "c", "-", "-o", out],
+               input=b"int f(void) {{ return 1; }}", check=True)
+sys.stderr.write({_FAKE_PTXAS!r})
+""")
+    nvcc.chmod(0o755)
+    (tmp_path / "a.cu").write_text("// a\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "logs", {})
+    want = {"_Z13gt_fwd_kernelILi0EEvPKf": {
+                "registers": 166, "spill_stores": 0, "spill_loads": 0},
+            "_Z18gt_row_pass_kernelILi4ELb0EEvPKf": {
+                "registers": 96, "spill_stores": 8, "spill_loads": 16}}
+    build.load("a")
+    assert calls.read_text() == "x"
+    assert build.ptxas_report("a") == want
+    for reload in ("cached", "report lost"):
+        build._libs.clear()
+        build.logs.clear()
+        if reload == "report lost":
+            build._log_path(build._so_path("a")).unlink()
+        build.load("a")
+        assert build.ptxas_report("a") == want
+    assert calls.read_text() == "xx"
 
 
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
