@@ -89,9 +89,34 @@ Phases; any failure raises and exits non-zero before the last line:
      Mutagenicity (ce, acc, 14 features, 2 repeats), and one transformer
      fine-tuning epoch; each run's launch counts those of its steps and
      evaluation batches.
-  9. one JSON line of the kernels (with the launches of a fine-tuning step
-     and an evaluation batch), the nvidia-smi line, and
-     {"ok": true, "device": {...}} as the last line.
+  9. the GCN and GraphSAGE encoders, dense ego-nets, the captured
+     evaluation and the reference import: (a) ``cli.run_pretrain`` at
+     full width for 6 captured steps with each encoder, every count set to
+     0 before each run: 14 ``spmm`` launches a step (3 aggregations an
+     encoder, forward and backward, and the reconstruction's 2) and 1
+     ``pool``, every aggregation on its band branch; their step medians,
+     eager and captured; the launches of one fine-tuning step (12
+     ``spmm``, 1 ``pool``) and one evaluation batch (6, 1); (b) the banded SpMM kernel against its plain
+     version at the encoders' widths: 128 at N and at S, 64 at S; (c) both
+     encoders' PretrainModel, card against float64 on the CPU; (d) the
+     captured GCN step byte-equal to the eager one under deterministic
+     algorithms, the stale-input fault breaking it; (e) dense ego-nets
+     (``subgraph_mode="dense"``, slots of the largest ego-net rounded up to
+     8): the dense model's losses against the COO model's on the same
+     batch, then 4 captured steps, the launches encoder1's GIN kernels and
+     the reconstruction's ``spmm`` with no ``pool``; (f) the captured
+     evaluation: scores byte-equal to the eager form's on every BACE
+     evaluation batch (GIN and the transformer, ``live_noise`` off and on)
+     under deterministic algorithms, the stale-input fault breaking it,
+     and the evaluation batch median, eager and captured (``eval --split
+     all`` against the run's final test metric is phase 8's, now on the
+     captured evaluation); (g) ``finetune --pretrained`` a stand-in of the
+     reference's whole-module pickle (tests/reference_cases.py, 5 convs,
+     width 64) for one epoch at BACE's size: 5 convs adopted, its launches
+     those of 5 convs, its loss finite.
+ 10. one JSON line of the kernels (with the launches of a fine-tuning step
+     and an evaluation batch, and of each main-path run), the nvidia-smi
+     line, and {"ok": true, "device": {...}} as the last line.
 """
 
 import collections
@@ -120,9 +145,8 @@ sys.path.insert(0, ROOT)
 
 from scgib_tpu_torch import cli  # noqa: E402
 from scgib_tpu_torch.cli import run_pretrain  # noqa: E402
-from scgib_tpu_torch.data.loader import (GraphDataset,  # noqa: E402
-                                         batch_iterator, plan_batches,
-                                         plan_capacities)
+from scgib_tpu_torch.data.loader import (  # noqa: E402
+    GraphDataset, batch_iterator, pack_batch, plan_batches, plan_capacities)
 from scgib_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from scgib_tpu_torch.models import encoders  # noqa: E402
 from scgib_tpu_torch.models.scgib import (  # noqa: E402
@@ -132,8 +156,9 @@ from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
 from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
 from scgib_tpu_torch.ops.kernels import gt_flash as kg  # noqa: E402
 from scgib_tpu_torch.train import checkpoint, loops  # noqa: E402
-from scgib_tpu_torch.graph.batching import (GraphData,  # noqa: E402
-                                            pack_graphs, pack_subgraphs)
+from scgib_tpu_torch.graph.batching import (  # noqa: E402
+    GraphData, max_egonet_size, pack_graphs, pack_subgraphs,
+    pack_subgraphs_dense)
 from scgib_tpu_torch.graph.egonet import extract_egonets  # noqa: E402
 from scgib_tpu_torch.ops.spmm_banded import (  # noqa: E402
     gt_banded_attention)
@@ -145,6 +170,9 @@ from scgib_tpu_torch.train.trainer import (  # noqa: E402
 from scgib_tpu_torch.utils.msgpack_codec import unpackb  # noqa: E402
 from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
                                           init_flax_style_, sorted_leaves)
+
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from reference_cases import write_stand_in  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
@@ -165,6 +193,14 @@ GIN_PER_STEP = {"gin_fwd": 8, "gin_bwd": 8, "spmm_self": 8, "spmm": 2,
 GT_PER_STEP = {"gt_fwd": 10, "gt_bwd_rows": 10, "gt_bwd_cols": 10,
                "spmm": 2, "pool": 1}
 MERGED_PER_STEP = {"gt_fwd": 10, "gt_bwd_merged": 10, "spmm": 2, "pool": 1}
+# GCN and GraphSAGE: 3 banded aggregations an encoder, forward and backward
+# (every aggregation's input needs a gradient), and the reconstruction's 2
+SPMM_ENCODER_PER_STEP = {"spmm": 3 * 2 * 2 + 2, "pool": 1}
+# a fine-tuning step: no reconstruction, and under the ``reference`` freeze
+# every aggregation still runs backward (the trained projection's gradient
+# passes through them); an evaluation batch: the forward's 6
+SPMM_ENCODER_FT_PER_STEP = {"spmm": 3 * 2 * 2, "pool": 1}
+SPMM_ENCODER_EVAL_PER_BATCH = {"spmm": 3 * 2, "pool": 1}
 MERGED_STEPS = 2              # steps with the merged attention backward
 SCAN_INNER = 3                # inner steps of the scan step
 HEADS, HEAD_DIM = 8, 8        # the graph transformer's attention
@@ -186,7 +222,13 @@ RUNS = {"GIN": ({}, STEPS, GIN_PER_STEP),
         "Transformer": ({"encoder": "Transformer"}, STEPS, GT_PER_STEP),
         "Transformer-merged": ({"encoder": "Transformer",
                                 "gt_bwd": "merged"}, MERGED_STEPS,
-                               MERGED_PER_STEP)}
+                               MERGED_PER_STEP),
+        "GCN": ({"encoder": "GCN"}, STEPS, SPMM_ENCODER_PER_STEP),
+        "GraphSAGE": ({"encoder": "GraphSAGE"}, STEPS, SPMM_ENCODER_PER_STEP)}
+SPMM_ENCODERS = ("GCN", "GraphSAGE")     # their runs are phase 9's
+# encoder -> (its branch count's name, convs or attention layers a step)
+ENCODER_BRANCHES = {"GIN": ("band", 8), "Transformer": ("gt_band_64x128", 10),
+                    "GCN": ("gcn_band", 6), "GraphSAGE": ("sage_band", 6)}
 # which run's count each kernel reports
 REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
               "gt_bwd_cols": "Transformer",
@@ -767,53 +809,69 @@ COMPARED = {"GIN": ({}, GIN_PER_STEP),
                                     "gt_bwd": "merged"}, MERGED_PER_STEP)}
 
 
+@contextlib.contextmanager
+def stale_replays():
+    """The planted fault of ``stale_inputs`` in place for the block."""
+    real = trainer._CapturedSteps._replay
+    trainer._CapturedSteps._replay = stale_inputs(real)
+    try:
+        yield
+    finally:
+        trainer._CapturedSteps._replay = real
+
+
+def captured_vs_eager(dev, batches, label, kwargs, per_step):
+    """One step a batch, eager, captured and captured with the stale-input
+    fault, from one start: the captured run's losses and state byte-equal
+    to the eager run's (the merged attention backward's within
+    tolerances), the fault's not, each run's launches ``per_step`` a
+    step."""
+    eager = compared_run(dev, batches, kwargs, "eager")
+    captured = compared_run(dev, batches, kwargs, "captured")
+    with stale_replays():
+        fault = compared_run(dev, batches, kwargs, "captured")
+    rec = {"losses_apart": bytes_apart(eager[0], captured[0]),
+           "state_apart": bytes_apart(eager[1], captured[1]),
+           "fault_losses_apart": len(bytes_apart(eager[0], fault[0])),
+           "fault_state_apart": len(bytes_apart(eager[1], fault[1]))}
+    for name, run in (("eager", eager), ("captured", captured)):
+        want = {k: n * len(batches) for k, n in per_step.items()}
+        got = {k: n for k, n in run[2].items() if n}
+        if got != want:
+            raise AssertionError(f"{label} {name}: launches {got}, "
+                                 f"expected {want}")
+    if "merged" in label:
+        # dk and dv summed with atomics: held to tolerances, beside the
+        # spread of a second eager run
+        again = compared_run(dev, batches, kwargs, "eager")
+        rec["eager_twice_state_apart"] = len(bytes_apart(eager[1], again[1]))
+        rec.update(merged_apart(eager, captured))
+        ok = rec["loss_rel"] <= 1e-5 and rec["weights_lr"] <= 2 * STEPS
+    else:
+        ok = not rec["losses_apart"] and not rec["state_apart"]
+    print(f"captured vs eager ({label}), {len(batches)} steps: "
+          f"{json.dumps(rec)}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the captured step is not the eager "
+                             f"one: {rec}")
+    if not (rec["fault_losses_apart"] and rec["fault_state_apart"]):
+        raise AssertionError(f"{label}: the planted fault went unseen")
+    return rec
+
+
+def bench_batches(dev, ds, caps, n=STEPS):
+    return [(g.to(dev), s.to(dev)) for g, s in itertools.islice(
+        batch_iterator(ds, 128, caps, seed=7), n)]
+
+
 def captured_phase(dev, ds, caps):
     """Phase 5 (a): the captured step against the eager one."""
-    batches = [(g.to(dev), s.to(dev)) for g, s in itertools.islice(
-        batch_iterator(ds, 128, caps, seed=7), STEPS)]
+    batches = bench_batches(dev, ds, caps)
     report = {}
     with deterministic():
         for label, (kwargs, per_step) in COMPARED.items():
-            eager = compared_run(dev, batches, kwargs, "eager")
-            captured = compared_run(dev, batches, kwargs, "captured")
-            real = trainer._CapturedSteps._replay
-            trainer._CapturedSteps._replay = stale_inputs(real)
-            try:
-                fault = compared_run(dev, batches, kwargs, "captured")
-            finally:
-                trainer._CapturedSteps._replay = real
-            rec = {"losses_apart": bytes_apart(eager[0], captured[0]),
-                   "state_apart": bytes_apart(eager[1], captured[1]),
-                   "fault_losses_apart": len(bytes_apart(eager[0],
-                                                         fault[0])),
-                   "fault_state_apart": len(bytes_apart(eager[1],
-                                                        fault[1]))}
-            for name, run in (("eager", eager), ("captured", captured)):
-                want = {k: n * STEPS for k, n in per_step.items()}
-                got = {k: n for k, n in run[2].items() if n}
-                if got != want:
-                    raise AssertionError(f"{label} {name}: launches {got}, "
-                                         f"expected {want}")
-            if "merged" in label:
-                # dk and dv summed with atomics: held to tolerances, beside
-                # the spread of a second eager run
-                again = compared_run(dev, batches, kwargs, "eager")
-                rec["eager_twice_state_apart"] = len(bytes_apart(eager[1],
-                                                                 again[1]))
-                rec.update(merged_apart(eager, captured))
-                ok = (rec["loss_rel"] <= 1e-5
-                      and rec["weights_lr"] <= 2 * STEPS)
-            else:
-                ok = not rec["losses_apart"] and not rec["state_apart"]
-            print(f"captured vs eager ({label}), {STEPS} steps: "
-                  f"{json.dumps(rec)}", flush=True)
-            if not ok:
-                raise AssertionError(f"{label}: the captured step is not "
-                                     f"the eager one: {rec}")
-            if not (rec["fault_losses_apart"] and rec["fault_state_apart"]):
-                raise AssertionError(f"{label}: the planted fault went "
-                                     "unseen")
-            report[label] = rec
+            report[label] = captured_vs_eager(dev, batches, label, kwargs,
+                                              per_step)
         # the scan step: two calls of SCAN_INNER steps on one batch, the
         # second one graph launch for all of them
         first = [batches[0]] * STEPS
@@ -909,12 +967,12 @@ def skewed_phase(dev):
     return rec
 
 
-def medians_phase():
+def medians_phase(encoder_names=("GIN", "Transformer")):
     """Phase 5 (c): step medians (steps 1-5 of 6) of the eager and the
-    captured step, eager / captured / captured / eager, for both
-    encoders."""
+    captured step, eager / captured / captured / eager, for each
+    encoder."""
     out = {}
-    for encoder in ("GIN", "Transformer"):
+    for encoder in encoder_names:
         runs = []
         for eager in (True, False, False, True):
             with (eager_steps() if eager else contextlib.nullcontext()):
@@ -981,7 +1039,8 @@ def main():
     lap("4 model")
 
     # 5. main paths, captured; the captured step against the eager one
-    runs = {name: main_path(name, *spec) for name, spec in RUNS.items()}
+    runs = {name: main_path(name, *spec) for name, spec in RUNS.items()
+            if name not in SPMM_ENCODERS}
     compiled = {"captured_vs_eager": captured_phase(dev, ds, caps),
                 "skewed": skewed_phase(dev), "medians": medians_phase()}
     lap("5 main paths")
@@ -1001,7 +1060,12 @@ def main():
     supervised = supervised_phase(dev)
     lap("8 supervised")
 
-    # 9. report
+    # 9. GCN and GraphSAGE, dense ego-nets, the captured evaluation, the
+    # reference import
+    slice9 = slice_phase(g, sub, dev, ds, caps, runs, records, supervised)
+    lap("9 encoders, dense, evaluation, import")
+
+    # 10. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -1016,6 +1080,7 @@ def main():
             "status": "ported",
             "port_kernel": f"scgib_tpu_torch/csrc/{src}.cu::{port_kernel}",
             "launches": runs[run]["counts"][name], "launches_run": run,
+            "launches_by_run": {r: runs[r]["counts"][name] for r in runs},
             "finetune_step_launches": sup["finetune_step_launches"].get(
                 name, 0),
             "eval_batch_launches": sup["eval_batch_launches"].get(name, 0),
@@ -1028,7 +1093,7 @@ def main():
                       "step_ms": {k: r["step_ms"] for k, r in runs.items()},
                       "steps": {k: r["steps"] for k, r in runs.items()},
                       "verb": verb, "compiled": compiled,
-                      "supervised": supervised,
+                      "supervised": supervised, "slice9": slice9,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,
@@ -1068,8 +1133,8 @@ def main_path(name, kwargs, steps, per_step, band=None):
         if counts[kernel] != want:
             raise AssertionError(f"{name}: {kernel} launched "
                                  f"{counts[kernel]} times, expected {want}")
-    layers = 10 if "encoder" in kwargs else 8      # 2 encoders x layers
-    band = band or ("gt_band_64x128" if "encoder" in kwargs else "band")
+    default_band, layers = ENCODER_BRANCHES[kwargs.get("encoder", "GIN")]
+    band = band or default_band
     if branches != ({"banded": steps}, {band: layers * steps}):
         raise AssertionError(f"{name} left the kernel branches: {branches}")
     return {"counts": counts, "step_ms": step_ms, "steps": records}
@@ -1441,13 +1506,9 @@ def ft_captured_phase(dev, batches):
             eager = ft_compared_run(dev, batches, kwargs, accum, "eager")
             captured = ft_compared_run(dev, batches, kwargs, accum,
                                        "captured")
-            real = trainer._CapturedSteps._replay
-            trainer._CapturedSteps._replay = stale_inputs(real)
-            try:
+            with stale_replays():
                 fault = ft_compared_run(dev, batches, kwargs, accum,
                                         "captured")
-            finally:
-                trainer._CapturedSteps._replay = real
             rec = {"losses_apart": bytes_apart(eager[0], captured[0]),
                    "state_apart": bytes_apart(eager[1], captured[1]),
                    "fault_losses_apart": len(bytes_apart(eager[0],
@@ -1698,6 +1759,271 @@ def supervised_phase(dev):
     report["steps"] = ft_launches_and_medians(dev, batches)
     report["profile"] = ft_profile(dev, batches)
     report["verbs"] = supervised_verbs(dev)
+    return report
+
+
+# --- 9. GCN and GraphSAGE, dense ego-nets, the captured evaluation, the
+#        reference import -----------------------------------------------------
+
+SPMM_SHAPES = (("N", 128), ("S", 128), ("S", 64))   # GCN's 2h, SAGE's h
+DENSE_STEPS = 4
+# dense mode: encoder1's 4 fused GIN convs, the reconstruction's 2 spmm
+DENSE_PER_STEP = {"gin_fwd": 4, "gin_bwd": 4, "spmm_self": 4, "spmm": 2}
+EVAL_ENCODERS = {"GIN": {}, "Transformer": {"encoder": "Transformer"}}
+REF_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_reference")
+REF_CONVS = 5                 # the shipped artifact's, and the stand-in's
+
+
+def spmm_shapes(g, sub, dev):
+    """Phase 9 (b): the banded SpMM kernel at the widths GCN (2h = 128)
+    and GraphSAGE (h = 64) aggregate at.  The records stay out of the
+    kernel row's headline (the reconstruction's shape) and go into its
+    configs."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = []
+    for label, d in SPMM_SHAPES:
+        blocks, col_off = _resolve_band(g if label == "N" else sub)
+        n = blocks.shape[0] * blocks.shape[1]
+        x = torch.randn(n, d, device=dev, generator=gen)
+        bf = blocks.float()
+        win = windows(blocks, col_off, x)
+        rec = check("spmm", f"{label}={n} d={d}",
+                    lambda: kb.spmm(blocks, col_off, x),
+                    lambda: kb.spmm_plain(blocks, col_off, x),
+                    nbytes(blocks, col_off, x) + n * d * 4,
+                    2 * int((blocks != 0).sum()) * d,
+                    lambda: torch.bmm(bf, win))
+        rec["main"] = False
+        out.append(rec)
+    return out
+
+
+def dense_phase(dev, ds, caps):
+    """Phase 9 (e): the benchmark's first batches with dense ego-nets
+    (``bench.py``'s slot width: the dataset's largest ego-net rounded up
+    to 8).  The dense model's losses against the COO model's on the same
+    batch and weights (deterministic gate), then DENSE_STEPS captured
+    steps from every count at 0."""
+    s_max = (max_egonet_size(ds.egonets) + 7) // 8 * 8
+    batches = []
+    for sel in plan_batches(ds, 128, caps, seed=7)[:DENSE_STEPS]:
+        g, coo = pack_batch(ds, sel, caps)
+        dense = pack_subgraphs_dense([ds.graphs[j] for j in sel],
+                                     [ds.egonets[j] for j in sel],
+                                     caps.nodes, s_max)
+        batches.append((g.to(dev), coo.to(dev), dense.to(dev)))
+    g, coo, dense = batches[0]
+    losses = {}
+    for mode, sb in (("coo", coo), ("dense", dense)):
+        model = PretrainModel(9, hidden=64, d_transfer=32,
+                              deterministic=True, subgraph_mode=mode)
+        init_flax_style_(model, torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            losses[mode] = [float(v) for v in model.to(dev).train()(g, sb)]
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["dense"], losses["coo"]))
+    model = PretrainModel(9, hidden=64, d_transfer=32, subgraph_mode="dense")
+    init_flax_style_(model, torch.Generator().manual_seed(7))
+    model.to(dev)
+    step = make_pretrain_step(model, adam_l2(model, LR, 5e-5))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    reset_launch_counts()
+    pool_mod.branch_counts.clear()
+    encoders.branch_counts.clear()
+    times, steps = [], []
+    for g, _, dense in batches:
+        t0 = time.perf_counter()
+        out = step(g, dense, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        steps.append([float(v) for v in out])
+    counts = expect_counts("dense mode", DENSE_PER_STEP, DENSE_STEPS)
+    branches = (dict(pool_mod.branch_counts), dict(encoders.branch_counts))
+    rec = {"s_max": s_max, "losses": losses, "loss_rel": loss_rel,
+           "steps": steps, "step_ms_median": statistics.median(times[1:]),
+           "launches": counts, "branches": branches,
+           "graphs": len(step.graphs)}
+    print(f"dense ego-nets: {json.dumps(rec)} (tol {MODEL_RTOL})",
+          flush=True)
+    if not (loss_rel <= MODEL_RTOL
+            and all(math.isfinite(v) for row in steps for v in row)
+            and branches == ({}, {"band": 4 * DENSE_STEPS})
+            and len(step.graphs) == 1):
+        raise AssertionError(f"dense mode: {rec}")
+    return rec
+
+
+def eval_splits(dev):
+    """Every BACE evaluation batch, val and test, packed as ``PackedEval``
+    packs them."""
+    ds, caps, _ = bace(dev, 0)
+    _, val, test = cli._splits(ds, cli.DATASETS["BACE"], 42)
+    return [[(g.to(dev), s.to(dev)) for g, s in
+             batch_iterator(d, 128, caps, shuffle=False)] for d in (val, test)]
+
+
+def eval_scores(run, splits, dev, eager):
+    """Each batch's scores as bytes, a generator seeded 0 for each split
+    (``PackedEval``'s draws); ``eager``: the evaluation's eager form."""
+    out = []
+    for batches in splits:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for g, s in batches:
+            scores = run.run([(g, s)], gen) if eager else run(g, s, gen)
+            out.append(scores.cpu().numpy().tobytes())
+    return out
+
+
+def captured_eval_phase(dev):
+    """Phase 9 (f): the captured evaluation against its eager form, under
+    torch's deterministic algorithms, for each encoder and ``live_noise``
+    setting: every batch's scores byte-equal, the model's statistics and
+    mode kept, one graph, the launches those of its batches; the
+    stale-input fault must break it.  Then the evaluation batch medians,
+    eager / captured / captured / eager (the first call, the capture, left
+    out)."""
+    splits = eval_splits(dev)
+    n = sum(map(len, splits))
+    report = {}
+    with deterministic():
+        for enc, kwargs in EVAL_ENCODERS.items():
+            for live in (False, True):
+                model, _ = ft_model(dev, kwargs)
+                before = {k: v.clone() for k, v in
+                          model.state_dict().items()}
+                eager = eval_scores(make_eval_fn(model, live), splits, dev,
+                                    True)
+                run = make_eval_fn(model, live)
+                reset_launch_counts()
+                captured = eval_scores(run, splits, dev, False)
+                torch.cuda.synchronize()
+                expect_exact(f"captured evaluation ({enc})",
+                             add_counts((EVAL_PER_BATCH[enc], n)))
+                with stale_replays():
+                    fault = eval_scores(make_eval_fn(model, live), splits,
+                                        dev, False)
+                rec = {"batches": n,
+                       "apart": [i for i, (a, b) in
+                                 enumerate(zip(eager, captured)) if a != b],
+                       "fault_apart": sum(a != b for a, b in
+                                          zip(eager, fault)),
+                       "graphs": len(run.graphs),
+                       "state_kept": all(torch.equal(v, before[k]) for k, v
+                                         in model.state_dict().items()),
+                       "mode_kept": model.training}
+                label = f"{enc}, live_noise {live}"
+                print(f"captured vs eager evaluation ({label}): "
+                      f"{json.dumps(rec)}", flush=True)
+                if rec["apart"] or rec["graphs"] != 1 or not (
+                        rec["state_kept"] and rec["mode_kept"]):
+                    raise AssertionError(f"captured evaluation ({label}): "
+                                         f"{rec}")
+                if not rec["fault_apart"]:
+                    raise AssertionError(f"captured evaluation ({label}): "
+                                         "the planted fault went unseen")
+                report[label] = rec
+    batches = [b for split in splits for b in split]
+    for enc, kwargs in EVAL_ENCODERS.items():
+        model, _ = ft_model(dev, kwargs)
+        run = make_eval_fn(model)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        run(*batches[0], gen)                     # eager warm-up, capture
+        medians = []
+        for how in ("eager", "captured", "captured", "eager"):
+            times = []
+            for g, s in batches:
+                t0 = time.perf_counter()
+                if how == "eager":
+                    run.run([(g, s)], gen)
+                else:
+                    run(g, s, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            medians.append((how, statistics.median(times)))
+        report[f"{enc} eval batch ms"] = medians
+        print(f"evaluation batch medians ({enc}, {len(batches)} batches), "
+              f"ms: {medians} | {smi_line()}", flush=True)
+    return report
+
+
+def reference_import_phase(dev):
+    """Phase 9 (g): ``finetune --pretrained`` the stand-in pickle at full
+    width for one epoch of BACE: 5 convs adopted, its steps and
+    evaluation batches those of 5-conv encoders, its loss finite."""
+    shutil.rmtree(REF_DIR, ignore_errors=True)
+    os.makedirs(REF_DIR)
+    pt = write_stand_in(os.path.join(REF_DIR, "stand_in.pt"), convs=REF_CONVS)
+    label = "finetune --pretrained stand_in.pt"
+    run, secs = verb_run(label, ["finetune", "--dataset", "BACE",
+                                 "--synthetic", str(BACE_N), "--pretrained",
+                                 pt, "--epochs", "1"])
+    want = split_batches(cli.DATASETS["BACE"], BACE_N, 9)
+    steps = run["last"]["throughput"]["steps"]
+    per_conv = 2 * REF_CONVS                      # two encoders
+    expect_exact(label, add_counts(
+        ({"gin_fwd": per_conv, "gin_bwd": per_conv, "spmm_self": per_conv,
+          "pool": 1}, steps), ({"gin_fwd": per_conv, "pool": 1},
+                               want["evals"])))
+    convs = run["last"]["state"].model.core.encoder1.num_convs
+    loss = run["last"]["history"][0][0]
+    rec = {"s": secs, "convs": convs, "steps": steps, "loss": loss,
+           "test": run["mean"]}
+    print(f"reference import: {json.dumps(rec)}", flush=True)
+    shutil.rmtree(REF_DIR)
+    if not (convs == REF_CONVS and steps == want["steps"]
+            and math.isfinite(loss)):
+        raise AssertionError(f"{label}: {rec}")
+    return rec
+
+
+def spmm_encoders_supervised(dev):
+    """Phase 9 (a): the launches of one captured fine-tuning step
+    (``reference`` freeze) and of one evaluation batch of each encoder,
+    every count set to 0 before each."""
+    _, _, batches = bace(dev, 3)
+    out = {}
+    for enc in SPMM_ENCODERS:
+        model, opt = ft_model(dev, {"encoder": enc})
+        step = make_finetune_step(model, opt, "bce")
+        gen = torch.Generator(device=dev).manual_seed(1)
+        step(*batches[0], gen)                    # eager warm-up, capture
+        reset_launch_counts()
+        step(*batches[1], gen)
+        torch.cuda.synchronize()
+        ft = expect_exact(f"one finetune step ({enc})",
+                          SPMM_ENCODER_FT_PER_STEP)
+        run = make_eval_fn(model)
+        reset_launch_counts()
+        run(*fresh(batches[2], dev), gen)
+        torch.cuda.synchronize()
+        ev = expect_exact(f"one eval batch ({enc})",
+                          SPMM_ENCODER_EVAL_PER_BATCH)
+        out[enc] = {"finetune_step_launches": ft, "eval_batch_launches": ev}
+    print(f"GCN / GraphSAGE supervised launches: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def slice_phase(g, sub, dev, ds, caps, runs, records, supervised):
+    """Phase 9; adds the GCN and GraphSAGE main paths to ``runs`` and the
+    SpMM shapes to ``records``, and returns its readings."""
+    report = {}
+    for name in SPMM_ENCODERS:
+        runs[name] = main_path(name, *RUNS[name])
+    report["medians"] = medians_phase(SPMM_ENCODERS)
+    report["supervised_launches"] = spmm_encoders_supervised(dev)
+    records += spmm_shapes(g, sub, dev)
+    for encoder in SPMM_ENCODERS:
+        model_phase(g, sub, dev, encoder)
+    with deterministic():
+        report["captured_vs_eager"] = captured_vs_eager(
+            dev, bench_batches(dev, ds, caps), "GCN", {"encoder": "GCN"},
+            SPMM_ENCODER_PER_STEP)
+    report["dense"] = dense_phase(dev, ds, caps)
+    report["evaluation"] = captured_eval_phase(dev)
+    report["eval_verb"] = supervised["verbs"]["eval"]
+    report["reference_import"] = reference_import_phase(dev)
+    print(f"phase 9: {json.dumps(report)}", flush=True)
     return report
 
 

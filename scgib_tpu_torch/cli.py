@@ -43,12 +43,17 @@ checkpoint.  ``adapt``: ``DomainAdaptModel`` around ``--pretrained``'s
 core, patience 20, the best weights to ``--out`` (default
 ``outputs/adapted.msgpack``).
 
+Every verb takes ``--encoder GIN``, ``GCN``, ``GraphSAGE`` or
+``Transformer``.  ``finetune`` and ``adapt`` take the reference's
+whole-module torch pickle as ``--pretrained *.pt``
+(``utils/reference_import.py``): its trained core is grafted in, and its
+conv count overrides ``--num_layers``.
+
 Data come from ``--synthetic N`` molecules only.  The flags of the JAX
 verbs whose modules are not ported yet raise ``SystemExit`` naming the
 ``ROADMAP.md`` item that ports them: the other data sources and
-``--synthetic_mode structured`` (Queue 1 item 12), ``--superbatch`` (item
-14), ``--encoder GCN`` / ``GraphSAGE`` (item 6) and a reference ``.pt``
-checkpoint as ``--pretrained`` (item 11).
+``--synthetic_mode structured`` (Queue 1 item 12) and ``--superbatch``
+(item 14).
 
 Two flags are the port's own: ``--device`` (``cuda``, the default, or
 ``cpu`` for the plain path), on every verb, and ``pretrain --steps N``,
@@ -85,6 +90,8 @@ from .train.trainer import (TrainState, adam_l2, finetune_trainable_mask,
 from .utils.device import resolve_device
 from .utils.params import (from_jax_variables, init_flax_style_,
                            to_jax_variables)
+from .utils.reference_import import (convert_to_pretrain_variables,
+                                     load_reference_state)
 
 
 def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
@@ -169,15 +176,6 @@ def _refuse_unported(args):
     if getattr(args, "superbatch", 0):
         raise SystemExit("--superbatch: the wire superbatch step is not "
                          "ported yet (ROADMAP.md Queue 1 item 14)")
-    if args.encoder in ("GCN", "GraphSAGE"):
-        raise SystemExit(f"--encoder {args.encoder}: not ported yet "
-                         "(ROADMAP.md Queue 1 item 6); use GIN or "
-                         "Transformer")
-    if (args.pretrained or "").endswith(".pt"):
-        raise SystemExit(f"--pretrained {args.pretrained}: importing the "
-                         "reference's torch pickle is not ported yet "
-                         "(ROADMAP.md Queue 1 item 11); pass a .msgpack "
-                         "checkpoint")
 
 
 def _args_config(args):
@@ -333,11 +331,23 @@ def _splits(ds: GraphDataset, spec, seed: int):
 
 
 def _pretrained(args):
-    """The variables of ``--pretrained`` where the file exists, else
-    None."""
-    if args.pretrained and os.path.exists(args.pretrained):
+    """The variables of ``--pretrained`` where the file exists, else None.
+    A reference ``.pt`` pickle is imported (``utils/reference_import.py``),
+    and its conv count overrides ``args.num_layers``, as in the JAX
+    verbs."""
+    if not (args.pretrained and os.path.exists(args.pretrained)):
+        return None
+    if not args.pretrained.endswith(".pt"):
         return ckpt.load_checkpoint(args.pretrained)[0]
-    return None
+    variables, meta = convert_to_pretrain_variables(
+        load_reference_state(args.pretrained))
+    if meta["num_convs"] != args.num_layers:
+        print(f"imported checkpoint has {meta['num_convs']} conv layers; "
+              f"overriding --num_layers {args.num_layers}")
+        args.num_layers = meta["num_convs"]
+    print(f"imported reference checkpoint (core depth "
+          f"{meta['core_depth']}, {meta['num_convs']} convs)")
+    return variables
 
 
 def _init(model, seed: int, pre_vars, dev):
@@ -456,9 +466,10 @@ def cmd_adapt(args):
     dev = resolve_device(args.device)
     ds = _dataset(args)
     caps = plan_capacities(ds, args.batch_size)
+    pre_vars = _pretrained(args)          # may set args.num_layers
     model = _init(DomainAdaptModel(ds.graphs[0].node_feat.shape[1],
                                    **_model_kwargs(vars(args))),
-                  args.seed, _pretrained(args), dev)
+                  args.seed, pre_vars, dev)
     optimizer = adam_l2(model, args.lr, args.weight_decay)
     _, info = run_domain_adaptation(
         make_domainadapt_step(model, optimizer), TrainState(model, optimizer),

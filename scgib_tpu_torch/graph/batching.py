@@ -1,9 +1,10 @@
 """Host-side graph packing into fixed-capacity padded batches (NumPy).
 
 Counterpart of ``scgib_tpu/graph/batching.py`` for what training needs:
-``pack_graphs`` (with the graphs' labels, NaN-masked) and ``pack_subgraphs``
+``pack_graphs`` (with the graphs' labels, NaN-masked), ``pack_subgraphs``
 with the COO layout and the banded ``"device"`` mode (only the window offsets
-are shipped; the model builds the blocks on the device).  The output batches
+are shipped; the model builds the blocks on the device), and
+``pack_subgraphs_dense`` with the dense ego-net layout.  The output batches
 hold NumPy arrays; ``.to(device)`` moves them (``graph/container.py``).
 """
 
@@ -16,7 +17,7 @@ import numpy as np
 
 from ..ops.pool import window_fits
 from .banded import banded_col_off, fits_band_masked, gt_band_fits
-from .container import GraphBatch, SubgraphBatch
+from .container import DenseSubgraphBatch, GraphBatch, SubgraphBatch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,3 +274,41 @@ def pack_subgraphs(graphs: Sequence[GraphData], egonets: Sequence[EgoNets],
                          senders=senders, receivers=receivers,
                          edge_mask=edge_mask, band_col_off=col_off,
                          gt_fits=gt_fits, pool_fits=pool_fits)
+
+
+def max_egonet_size(egonets: Sequence[EgoNets]) -> int:
+    return max((len(nl) for e in egonets for nl in e.node_lists),
+               default=1)
+
+
+def pack_subgraphs_dense(graphs: Sequence[GraphData],
+                         egonets: Sequence[EgoNets], num_centers: int,
+                         max_sub: int) -> DenseSubgraphBatch:
+    """Pack per-node ego-nets into a DenseSubgraphBatch: one [max_sub] slot
+    per center, aligned with the owning GraphBatch's global node ids, and a
+    dense within-ego adjacency block.  Raises if an ego-net exceeds
+    ``max_sub`` (choose it from ``max_egonet_size``) or the graphs' nodes
+    exceed ``num_centers``."""
+    feat_dim = graphs[0].node_feat.shape[1]
+    node_feat = np.zeros((num_centers, max_sub, feat_dim), np.float32)
+    node_orig = np.zeros((num_centers, max_sub), np.int32)
+    adj = np.zeros((num_centers, max_sub, max_sub), np.float32)
+    mask = np.zeros((num_centers, max_sub), bool)
+    n_off = 0
+    for g, ego in zip(graphs, egonets):
+        for v, (nl, (es, er)) in enumerate(zip(ego.node_lists,
+                                               ego.edge_lists)):
+            m = len(nl)
+            if m > max_sub:
+                raise ValueError(f"ego-net size {m} exceeds max_sub "
+                                 f"{max_sub}")
+            c = n_off + v
+            node_feat[c, :m] = g.node_feat[nl]
+            node_orig[c, :m] = n_off + np.asarray(nl)
+            mask[c, :m] = True
+            adj[c, es, er] = 1.0
+        n_off += g.num_nodes
+    if n_off > num_centers:
+        raise ValueError(f"center capacity {num_centers} < {n_off}")
+    return DenseSubgraphBatch(node_feat=node_feat, node_orig=node_orig,
+                              adj=adj, mask=mask)

@@ -17,6 +17,10 @@ dataset fits the graph-transformer's narrow banded geometry
 sub-rows (``ops/pool.py::window_fits``), or None where the packer was not
 given the centers' capacity.  ``.to`` and ``from_numpy`` pass both through
 unchanged.
+
+``DenseSubgraphBatch`` is the dense ego-net layout (``subgraph_mode=
+"dense"``): one slot of ``max_sub`` members per center node, with a dense
+within-ego adjacency block.
 """
 
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 
 _INDEX_FIELDS = ("node_graph", "senders", "receivers", "band_col_off",
                  "node_center", "node_orig")
-_MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask", "label_mask")
+_MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask", "label_mask",
+                "mask")
 
 
 def _to_tensor(name: str, value, device: torch.device):
@@ -153,3 +158,29 @@ class SubgraphBatch(_Batch):
     @property
     def num_edges(self) -> int:
         return self.senders.shape[0]
+
+
+@dataclasses.dataclass
+class DenseSubgraphBatch(_Batch):
+    """Dense-block ego-nets: row ``c`` holds the ego-net of the owning
+    GraphBatch's node ``c``, padded to ``max_sub`` members.
+
+      node_feat [C, S, F] float  member features (zero on padding)
+      node_orig [C, S]    index  member's global node id
+      adj       [C, S, S] float  0/1 within-ego adjacency
+      mask      [C, S]    bool   real members (all False for a padded
+                                 center)
+    """
+
+    node_feat: object
+    node_orig: object
+    adj: object
+    mask: object
+
+    @property
+    def num_centers(self) -> int:
+        return self.node_feat.shape[0]
+
+    @property
+    def max_sub(self) -> int:
+        return self.node_feat.shape[1]

@@ -1,4 +1,5 @@
-"""GNN encoders: ``GIN`` (the default) and ``GraphTransformer``.
+"""GNN encoders: ``GIN`` (the default), ``GCN``, ``GraphSAGE``,
+``GraphTransformer``, and ``DenseGIN`` for dense ego-net batches.
 
 Counterpart of ``scgib_tpu/models/encoders.py``.
 
@@ -21,6 +22,20 @@ cannot leak into real rows).  With a banded adjacency the attention is
 card, its plain versions on the CPU, at any head width with either
 backward.
 
+``GCN``: three ``nn.Linear`` convs d -> 2h -> 2h -> h over the symmetric
+normalized aggregation D^-1/2 A D^-1/2 x, ReLU after the first two, no
+BatchNorm.  ``GraphSAGE``: per conv ``self{i}(x) + neigh{i}(mean_agg(x))``;
+with ``faithful_bug`` (the default, as the reference runs it) the third
+round reapplies layer 1's weights, so ``self2`` and ``neigh2`` do not exist
+(flax never creates them either).  With a banded adjacency both aggregate
+through ``spmm_banded_fast`` (its CUDA kernel on the card, its plain
+version on the CPU) with row scalings around it.  Each re-zeroes padding
+rows after every conv.
+
+``DenseGIN``: ``GIN``'s parameters over [C, S, d] ego-net slots with a
+dense [C, S, S] adjacency; the aggregation is one batched product, as the
+JAX package's ``jnp.einsum`` (no Pallas kernel there).
+
 A batch that does not fit the band takes the COO gather + segment-sum path;
 ``branch_counts`` records which path each conv or attention took (for the
 transformer, with the band's geometry).
@@ -38,8 +53,10 @@ from torch import nn
 from ..ops.kernels.banded import (MAX_FUSED_DIM, gin_banded_layer,
                                    spmm_banded_fast)
 from ..ops.kernels.gt_flash import gt_flash_attention
-from ..ops.segment import segment_normalize_exp, segment_sum
-from ..ops.spmm import gather_sum, sddmm_dot
+from ..ops.segment import (segment_count, segment_normalize_exp,
+                           segment_sum)
+from ..ops.spmm import (gather_mean, gather_sum, gcn_degree_norms,
+                        gcn_norm_sum, sddmm_dot)
 from .layers import MLP2, MaskedBatchNorm
 
 branch_counts: collections.Counter = collections.Counter()
@@ -81,6 +98,104 @@ class GIN(nn.Module):
                 h = mlp(h + gather_sum(h, senders, receivers, n, edge_mask))
             h = getattr(self, f"bn{i}")(h, node_mask)
             h = _mask_rows(torch.relu(h), node_mask)
+        return h
+
+
+class GCN(nn.Module):
+    """Three GraphConv layers d -> 2h -> 2h -> h (reference
+    models.py:75-88)."""
+
+    def __init__(self, in_dim: int, hidden: int = 64):
+        super().__init__()
+        dims = (in_dim, 2 * hidden, 2 * hidden, hidden)
+        for i in range(3):
+            self.add_module(f"conv{i}", nn.Linear(dims[i], dims[i + 1]))
+
+    def forward(self, h, senders, receivers, node_mask=None, edge_mask=None,
+                band: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        n = h.shape[0]
+        h = _mask_rows(h, node_mask)
+        if band is not None:
+            src_norm, dst_norm = gcn_degree_norms(senders, receivers, n,
+                                                  edge_mask)
+
+            def agg(x):
+                branch_counts["gcn_band"] += 1
+                return spmm_banded_fast(band[0], band[1],
+                                        x * src_norm[:, None]
+                                        ) * dst_norm[:, None]
+        else:
+            def agg(x):
+                branch_counts["gcn_coo"] += 1
+                return gcn_norm_sum(x, senders, receivers, n, edge_mask)
+        for i in range(3):
+            h = getattr(self, f"conv{i}")(agg(h))
+            if i < 2:
+                h = torch.relu(h)
+            h = _mask_rows(h, node_mask)
+        return h
+
+
+class GraphSAGE(nn.Module):
+    """Three mean-aggregation SAGE convs (reference models.py:91-104).
+    ``faithful_bug``: the third round reapplies conv 1 (the reference's
+    repeated ``self.conv2``), and conv 2's layers are never built."""
+
+    def __init__(self, in_dim: int, hidden: int = 64,
+                 faithful_bug: bool = True):
+        super().__init__()
+        self.faithful_bug = faithful_bug
+        for i in range(2 if faithful_bug else 3):
+            width = in_dim if i == 0 else hidden
+            self.add_module(f"self{i}", nn.Linear(width, hidden))
+            self.add_module(f"neigh{i}", nn.Linear(width, hidden,
+                                                   bias=False))
+
+    def forward(self, h, senders, receivers, node_mask=None, edge_mask=None,
+                band: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        n = h.shape[0]
+        h = _mask_rows(h, node_mask)
+        if band is not None:
+            inv_deg = 1.0 / segment_count(receivers, n,
+                                          mask=edge_mask).clamp_min(1.0)
+
+            def mean(x):
+                branch_counts["sage_band"] += 1
+                return spmm_banded_fast(band[0], band[1], x) * inv_deg[:, None]
+        else:
+            def mean(x):
+                branch_counts["sage_coo"] += 1
+                return gather_mean(x, senders, receivers, n, edge_mask)
+
+        def conv(i, x):
+            return (getattr(self, f"self{i}")(x)
+                    + getattr(self, f"neigh{i}")(mean(x)))
+
+        h = _mask_rows(torch.relu(conv(0, h)), node_mask)
+        h = _mask_rows(torch.relu(conv(1, h)), node_mask)
+        h = conv(1 if self.faithful_bug else 2, h)
+        return _mask_rows(h, node_mask)
+
+
+class DenseGIN(GIN):
+    """GIN over dense ego-net slots: [C, S, d] features, [C, S, S] 0/1
+    adjacency, [C, S] mask.  The same parameters as ``GIN``; the BatchNorm
+    takes the C*S rows with the flattened mask, so its statistics are the
+    COO encoder's over the same real rows."""
+
+    def forward(self, h, adj, mask=None):
+        c, s, _ = h.shape
+        flat_mask = mask.reshape(c * s) if mask is not None else None
+        keep = mask.to(h.dtype)[:, :, None] if mask is not None else None
+        if keep is not None:
+            h = h * keep
+        for i in range(self.num_convs):
+            z = (h + torch.bmm(adj.to(h.dtype), h)).reshape(c * s, -1)
+            z = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(z),
+                                        flat_mask)
+            h = torch.relu(z).reshape(c, s, -1)
+            if keep is not None:
+                h = h * keep
         return h
 
 
@@ -171,10 +286,16 @@ class GraphTransformer(nn.Module):
 
 def make_encoder(name: str, in_dim: int, hidden: int, num_layers: int = 4,
                  num_heads: int = 8, gt_bwd: str = "twopass"):
+    """``num_layers`` is GIN's conv count and the transformer's layers less
+    one; GCN and GraphSAGE have three convs whatever it is."""
     if name == "GIN":
         return GIN(in_dim, hidden=hidden, num_convs=num_layers)
+    if name == "GCN":
+        return GCN(in_dim, hidden=hidden)
+    if name == "GraphSAGE":
+        return GraphSAGE(in_dim, hidden=hidden)
     if name == "Transformer":
         return GraphTransformer(in_dim, hidden=hidden, num_layers=num_layers,
                                 num_heads=num_heads, bwd=gt_bwd)
-    raise ValueError(f"encoder {name!r} is not ported yet (GIN or "
-                     "Transformer)")
+    raise ValueError(f"unknown encoder {name!r} (expected GIN | GCN | "
+                     "GraphSAGE | Transformer)")

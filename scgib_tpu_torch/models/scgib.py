@@ -1,9 +1,12 @@
 """The S-CGIB models.
 
-Counterpart of ``scgib_tpu/models/scgib.py``: ``SCGIBCore`` (twin GIN or
-graph-transformer encoders, concrete-relaxation compression gate with
-per-graph noise, core<->candidate attention) in ``coo`` sub-graph mode,
-with the ``sum`` or ``s2s`` (Set2Set) readout and the attention on or off;
+Counterpart of ``scgib_tpu/models/scgib.py``: ``SCGIBCore`` (twin GIN, GCN,
+GraphSAGE or graph-transformer encoders, concrete-relaxation compression
+gate with per-graph noise, core<->candidate attention) in ``coo`` sub-graph
+mode, or in ``dense`` mode (GIN only: the ego-nets as a
+``DenseSubgraphBatch``, encoder2 a ``DenseGIN``, the candidates a masked sum
+over each center's slot, the parameters those of ``coo`` mode), with the
+``sum`` or ``s2s`` (Set2Set) readout and the attention on or off;
 ``PretrainModel`` with the ``corrected`` or ``reference`` KL and the
 adjacency (gram or dense) or k-step logM reconstruction; and the two
 downstream models around a pretrained core, ``FinetuneModel`` (the
@@ -34,7 +37,7 @@ from ..graph.container import GraphBatch, SubgraphBatch
 from ..ops.pool import sorted_segment_sum_banded
 from ..ops.segment import (segment_broadcast, segment_softmax,
                            segment_std_mean, segment_sum)
-from .encoders import GraphTransformer, make_encoder
+from .encoders import DenseGIN, GraphTransformer, make_encoder
 from .layers import MLP2, SegmentBatchNorm
 from .losses import (contrastive_infonce, kl_loss, l2_normalize,
                      recon_adj_loss, recon_logm_loss)
@@ -91,13 +94,15 @@ def _sub_features(g: GraphBatch, sub: SubgraphBatch) -> torch.Tensor:
     return g.node_feat[sub.node_orig]
 
 
-def _project_inputs(transfer_d: nn.Module, g: GraphBatch, sub: SubgraphBatch,
+def _project_inputs(transfer_d: nn.Module, g: GraphBatch, sub,
                     normalize: bool):
     """(x_proj, x_sub_proj): one projection of the concatenated [N+S, F]
-    features."""
+    features; two with a dense batch's [C, S, F] features."""
     x = l2_normalize(g.node_feat) if normalize else g.node_feat
     x_sub = _sub_features(g, sub)
     x_sub = l2_normalize(x_sub) if normalize else x_sub
+    if x_sub.dim() != x.dim():
+        return transfer_d(x), transfer_d(x_sub)
     proj = transfer_d(torch.cat([x, x_sub], 0))
     return proj[:x.shape[0]], proj[x.shape[0]:]
 
@@ -130,10 +135,16 @@ class SCGIBCore(nn.Module):
                  num_layers: int = 4, num_heads: int = 8,
                  readout: str = "sum", use_att: bool = True,
                  gt_bwd: str = "twopass", gate_bias: float = 1e-4,
-                 std_eps: float = 1e-7, deterministic: bool = False):
+                 std_eps: float = 1e-7, deterministic: bool = False,
+                 subgraph_mode: str = "coo"):
         super().__init__()
         if readout not in ("sum", "s2s"):
             raise ValueError(f"unknown readout {readout!r}")
+        if subgraph_mode not in ("coo", "dense"):
+            raise ValueError(f"unknown subgraph_mode {subgraph_mode!r}")
+        if subgraph_mode == "dense" and encoder != "GIN":
+            raise ValueError("subgraph_mode='dense' supports GIN only")
+        self.subgraph_mode = subgraph_mode
         self.readout = readout
         self.use_att = use_att
         self.gate_bias = gate_bias
@@ -141,8 +152,11 @@ class SCGIBCore(nn.Module):
         self.deterministic = deterministic
         self.encoder1 = make_encoder(encoder, in_dim, hidden, num_layers,
                                      num_heads, gt_bwd)
-        self.encoder2 = make_encoder(encoder, in_dim, hidden, num_layers,
-                                     num_heads, gt_bwd)
+        self.encoder2 = (DenseGIN(in_dim, hidden=hidden,
+                                  num_convs=num_layers)
+                         if subgraph_mode == "dense" else
+                         make_encoder(encoder, in_dim, hidden, num_layers,
+                                      num_heads, gt_bwd))
         self.compressor = Compressor(hidden)
         if use_att:
             self.attn_layer = nn.Linear(2 * hidden, 1)
@@ -193,7 +207,7 @@ class SCGIBCore(nn.Module):
                                             g.num_graphs)
         return noisy, kl_node * node_m
 
-    def extract_features(self, g: GraphBatch, sub: SubgraphBatch,
+    def extract_features(self, g: GraphBatch, sub,
                          x_proj, x_sub_proj,
                          rand: Optional[Rand] = None) -> CoreFeatures:
         gt = isinstance(self.encoder1, GraphTransformer)
@@ -201,15 +215,21 @@ class SCGIBCore(nn.Module):
         h = self.encoder1(x_proj, g.senders, g.receivers,
                           node_mask=g.node_mask, edge_mask=g.edge_mask,
                           band=_resolve_band(g, gt), **kw)
-        h_sub = self.encoder2(x_sub_proj, sub.senders, sub.receivers,
-                              node_mask=sub.node_mask,
-                              edge_mask=sub.edge_mask,
-                              band=_resolve_band(sub, gt), **kw)
+        if self.subgraph_mode == "dense":
+            h_sub = self.encoder2(x_sub_proj, sub.adj, mask=sub.mask)
+        else:
+            h_sub = self.encoder2(x_sub_proj, sub.senders, sub.receivers,
+                                  node_mask=sub.node_mask,
+                                  edge_mask=sub.edge_mask,
+                                  band=_resolve_band(sub, gt), **kw)
         clean_readout = self.graph_readout(h, g)
         noisy, kl_node = self.compression(h, g, rand)
-        cand = sorted_segment_sum_banded(h_sub, sub.node_center, g.num_nodes,
-                                         mask=sub.node_mask,
-                                         fits=sub.pool_fits)
+        if self.subgraph_mode == "dense":
+            cand = (h_sub * sub.mask.to(h_sub.dtype)[:, :, None]).sum(1)
+        else:
+            cand = sorted_segment_sum_banded(h_sub, sub.node_center,
+                                             g.num_nodes, mask=sub.node_mask,
+                                             fits=sub.pool_fits)
         if not self.use_att:
             return CoreFeatures(torch.cat([noisy, cand], -1), kl_node, noisy,
                                 clean_readout)
@@ -253,7 +273,8 @@ class PretrainModel(nn.Module):
                  use_att: bool = True, recons_type: str = "adj",
                  recons_impl: str = "gram", kl_mode: str = "corrected",
                  k_transition: int = 1, gt_bwd: str = "twopass",
-                 deterministic: bool = False, normalize_input: bool = True):
+                 deterministic: bool = False, normalize_input: bool = True,
+                 subgraph_mode: str = "coo"):
         super().__init__()
         self.readout = readout
         self.recons_type = recons_type
@@ -265,7 +286,8 @@ class PretrainModel(nn.Module):
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
-                              gt_bwd=gt_bwd, deterministic=deterministic)
+                              gt_bwd=gt_bwd, deterministic=deterministic,
+                              subgraph_mode=subgraph_mode)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         if readout == "s2s":
             self.s2s = Set2Set(hidden)
@@ -321,14 +343,16 @@ class FinetuneModel(nn.Module):
                  d_transfer: int = 32, encoder: str = "GIN",
                  num_layers: int = 4, num_heads: int = 8,
                  readout: str = "sum", use_att: bool = True,
-                 regression: bool = False, deterministic: bool = False):
+                 regression: bool = False, deterministic: bool = False,
+                 subgraph_mode: str = "coo"):
         super().__init__()
         self.regression = regression
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
-                              deterministic=deterministic)
+                              deterministic=deterministic,
+                              subgraph_mode=subgraph_mode)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.predict = MLP2(2 * hidden, hidden, num_out)
@@ -357,13 +381,15 @@ class DomainAdaptModel(nn.Module):
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
                  num_heads: int = 8, readout: str = "sum",
-                 use_att: bool = True, deterministic: bool = False):
+                 use_att: bool = True, deterministic: bool = False,
+                 subgraph_mode: str = "coo"):
         super().__init__()
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
-                              deterministic=deterministic)
+                              deterministic=deterministic,
+                              subgraph_mode=subgraph_mode)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.s2s_rev = Set2Set(in_dim)

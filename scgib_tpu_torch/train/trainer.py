@@ -34,10 +34,23 @@ never falls back to the eager step.  The launch and branch counts tick once at
 capture; each replay adds what its capture added, so they stay counts per
 optimizer step.  A step's graphs live as long as the step.  On the CPU the step
 is the eager one.  ``donate`` has no counterpart, and ``remat`` is not ported.
+
+The evaluation (``make_eval_fn``, the jitted ``make_eval_fn`` of the JAX
+package) is captured the same way: one graph of the forward for each batch
+key, the evaluation's mode (``live_noise``, and the model's train or eval
+mode) and, with ``live_noise``, the BatchNorm updates and their undoing
+inside it.  A graph reads the parameters at their addresses, so weights are
+loaded into a model in place (``load_state_dict`` copies into its tensors),
+never by replacing its tensors.  A call that passes another generator than
+the one its graph was captured with (the evaluation seeds a fresh one each
+time) lends the graph's generator that generator's state for the replay and
+takes back the state the replay leaves, so the replay draws what the eager
+form draws.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -310,19 +323,40 @@ def _pairs(batches):
     return list(zip(batches[::2], batches[1::2]))
 
 
-class _CapturedSteps:
-    """A training step ``run(pairs, generator)`` over a list of
-    (GraphBatch, SubgraphBatch) pairs, called as ``step(g, sub,
-    generator=None)`` with one pair, or with sequences of batches for a
-    step that takes several (gradient accumulation): eager on the CPU; on
-    the card one CUDA graph for each batch key of all the batches (see the
-    module's note).  ``run`` returns a tensor or a tuple of tensors, which
-    each call returns a copy of."""
+@contextlib.contextmanager
+def _lent(registered: torch.Generator, generator: torch.Generator):
+    """Within: ``registered`` (a graph's generator) holds ``generator``'s
+    state; after: ``generator`` holds the state ``registered`` was left
+    in."""
+    if registered is generator:
+        yield
+        return
+    registered.set_state(generator.get_state())
+    yield
+    generator.set_state(registered.get_state())
 
-    def __init__(self, run: Callable, optimizer: torch.optim.Optimizer):
+
+class _CapturedSteps:
+    """A step ``run(pairs, generator)`` over a list of (GraphBatch,
+    SubgraphBatch) pairs, called as ``step(g, sub, generator=None)`` with
+    one pair, or with sequences of batches for a step that takes several
+    (gradient accumulation): eager on the CPU; on the card one CUDA graph
+    for each batch key of all the batches and each value of ``mode()``
+    (see the module's note).  ``run`` returns a tensor or a tuple of
+    tensors, which each call returns a copy of.  ``optimizer``, where the
+    step has one, has its gradients dropped before a capture; ``what``
+    names the step in a capture's failure."""
+
+    def __init__(self, run: Callable,
+                 optimizer: Optional[torch.optim.Optimizer] = None,
+                 mode: Callable[[], tuple] = tuple,
+                 what: str = "the training step"):
         self.run = run
         self.optimizer = optimizer
+        self.mode = mode
+        self.what = what
         self.graphs: Dict[tuple, tuple] = {}
+        self.generators: Dict[tuple, torch.Generator] = {}
 
     def __call__(self, g, sub, generator: Optional[torch.Generator] = None):
         pairs = (list(zip(g, sub)) if isinstance(g, (list, tuple))
@@ -335,10 +369,11 @@ class _CapturedSteps:
             generator = torch.cuda.default_generators[
                 dev.index if dev.index is not None
                 else torch.cuda.current_device()]
-        key = batch_key(*batches)
+        key = batch_key(*batches) + self.mode()
         entry = self.graphs.get(key)
         if entry is not None:
-            return self._replay(entry, batches)
+            with _lent(self.generators[key], generator):
+                return self._replay(entry, batches)
         # the first batch of this key trains eagerly (the capture's
         # warm-up), then the graph is captured on input buffers of its shape
         buffers = tuple(_input_buffers(b) for b in batches)
@@ -348,19 +383,21 @@ class _CapturedSteps:
             out = self.run(pairs, generator)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graphs[key] = self._capture(buffers, generator)
+        self.generators[key] = generator
         return out
 
     def _capture(self, buffers, generator):
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        self.optimizer.zero_grad(set_to_none=True)
+        if self.optimizer is not None:
+            self.optimizer.zero_grad(set_to_none=True)
         before = _tally()
         guard = CaptureGuard()
         try:
             with torch.cuda.graph(graph), guard:
                 out = self.run(_pairs(buffers), generator)
         except RuntimeError as e:
-            raise RuntimeError("capturing the training step failed at "
+            raise RuntimeError(f"capturing {self.what} failed at "
                                f"{guard.last}: {e}") from e
         after = _tally()
         added = {k: after.get(k, 0) - before.get(k, 0)
@@ -437,6 +474,8 @@ def make_eval_fn(model: nn.Module, live_noise: bool = False
                  ) -> Callable[..., torch.Tensor]:
     """``run(g, sub, generator=None) -> scores``, under
     ``torch.inference_mode()``; the model is left in the mode it was in.
+    On the card a CUDA-graph replay (see the module's note); on the CPU
+    the eager forward.
 
     ``live_noise=False``: eval mode (running BatchNorm statistics, no
     dropout) with the gate's noise still drawn from ``generator``, so a
@@ -446,7 +485,8 @@ def make_eval_fn(model: nn.Module, live_noise: bool = False
     ``model.eval()`` (train_moleculenetBACE.py:112-176): train-mode
     statistics and dropout with fresh noise, the BatchNorm updates thrown
     away."""
-    def run(g, sub, generator=None):
+    def forward(pairs, generator):
+        (g, sub), = pairs
         was = model.training
         saved = ([b.clone() for b in model.buffers()] if live_noise
                  else None)
@@ -461,4 +501,5 @@ def make_eval_fn(model: nn.Module, live_noise: bool = False
                     for b, old in zip(model.buffers(), saved):
                         b.copy_(old)
             model.train(was)
-    return run
+    return _CapturedSteps(forward, mode=lambda: (live_noise, model.training),
+                          what="the evaluation")

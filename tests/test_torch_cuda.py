@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, at a small size: each wrapper against
 its plain version, the fused GIN layer's and the graph-transformer
 attention's kernel backward against autograd on the CPU, operand checks,
-and short pretraining runs.  Marked ``cuda``; without a CUDA device every
+short pretraining runs, the captured steps (GCN and GraphSAGE, dense
+ego-nets among them) and the captured evaluation against their eager
+forms.  Marked ``cuda``; without a CUDA device every
 test skips.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -854,3 +856,132 @@ def test_finetune_then_eval_on_the_card(dev, tmp_path):
                      "--d_transfer", "16", "--batch_size", "32", "--epochs",
                      "1", "--out", str(tmp_path / "a.msgpack")])
     assert np.isfinite(info["best_loss"])
+
+
+# --- GCN and GraphSAGE, dense ego-nets, the captured evaluation -------------
+
+def _pretrain_batches(dev, n=3):
+    from scgib_tpu_torch.data.loader import (GraphDataset, batch_iterator,
+                                             plan_capacities)
+    ds = GraphDataset(random_dataset(48, seed=3, min_nodes=8, max_nodes=24),
+                      k=1)
+    caps = plan_capacities(ds, 16)
+    return [(g.to(dev), s.to(dev)) for g, s in
+            list(batch_iterator(ds, 16, caps, shuffle=False))[:n]]
+
+
+@pytest.mark.parametrize("encoder", ["GCN", "GraphSAGE"])
+def test_gcn_sage_model_on_card_matches_cpu(batch, dev, encoder):
+    """Losses and gradients of PretrainModel with the encoder, card
+    (banded SpMM kernel) against the CPU plain path: losses rtol 1e-4,
+    gradients 1e-3 of the largest; 3 aggregations an encoder, each
+    launching the kernel forward and backward, plus the reconstruction's
+    2: 14 spmm launches, 1 pool."""
+    g, sub = batch
+    model = PretrainModel(9, hidden=32, d_transfer=16, encoder=encoder,
+                          deterministic=True)
+    init_flax_style_(model, torch.Generator().manual_seed(1))
+    ref = copy.deepcopy(model)
+    kb.reset_launch_counts()
+    encoders.branch_counts.clear()
+    out = []
+    for m, gb, sb in ((model.to(dev), g, sub),
+                      (ref, g.to("cpu"), sub.to("cpu"))):
+        losses = m.train()(gb, sb)
+        losses.total.backward()
+        out.append(([float(v.detach()) for v in losses],
+                    {k: p.grad.cpu() for k, p in m.named_parameters()}))
+        if m is model:
+            torch.cuda.synchronize()
+            counts = dict(kb.launch_counts())
+            branches = dict(encoders.branch_counts)
+    assert counts == {"gin_fwd": 0, "gin_bwd": 0, "spmm_self": 0,
+                      "spmm": 14, "pool": 1}
+    prefix = "gcn" if encoder == "GCN" else "sage"
+    assert branches == {f"{prefix}_band": 6}
+    np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-4)
+    floor = 1e-3 * max(float(v.abs().max()) for v in out[1][1].values())
+    for k, want in out[1][1].items():
+        err = float((out[0][1][k] - want).abs().max())
+        assert err <= 1e-3 * max(float(want.abs().max()), floor), k
+
+
+@pytest.mark.parametrize("encoder", ["GCN", "GraphSAGE"])
+def test_captured_gcn_sage_step_is_the_eager_step(dev, encoder):
+    batches = _pretrain_batches(dev)
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = _steps(dev, batches, {"encoder": encoder}, False)
+        kb.reset_launch_counts()
+        captured = _steps(dev, batches, {"encoder": encoder}, True)
+        counts = kb.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(captured[4].graphs) == 1
+    for a, b in zip(eager[0], captured[0]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(eager[1][k], captured[1][k]) for k in eager[1])
+    assert all(torch.equal(a, b) for a, b in zip(eager[2], captured[2]))
+    assert torch.equal(eager[3], captured[3])
+    assert counts["spmm"] == 3 * 14 and counts["gin_fwd"] == 0
+
+
+def test_dense_mode_captured_step_is_the_eager_step(dev):
+    """Dense ego-nets: encoder1 on the fused GIN kernels (2 convs), the
+    reconstruction's 2 spmm, no pool; captured bits equal eager bits."""
+    from scgib_tpu_torch.graph.batching import (max_egonet_size,
+                                                pack_subgraphs_dense)
+    out = []
+    for s in (3, 4, 5):
+        graphs = random_dataset(12, seed=s, min_nodes=8, max_nodes=20)
+        egos = [extract_egonets(x, 1) for x in graphs]
+        out.append((pack_graphs(graphs, 256, 1024, 16).to(dev),
+                    pack_subgraphs_dense(graphs, egos, 256, 16).to(dev)))
+        assert max_egonet_size(egos) <= 16
+    kw = {"subgraph_mode": "dense"}
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = _steps(dev, out, kw, False)
+        kb.reset_launch_counts()
+        captured = _steps(dev, out, kw, True)
+        counts = kb.launch_counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(eager[0], captured[0]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(eager[1][k], captured[1][k]) for k in eager[1])
+    assert counts == {"gin_fwd": 3 * 2, "gin_bwd": 3 * 2,
+                      "spmm_self": 3 * 2, "spmm": 3 * 2, "pool": 0}
+
+
+@pytest.mark.parametrize("live_noise", [False, True])
+@pytest.mark.parametrize("encoder", ["GIN", "GraphSAGE"])
+def test_captured_eval_is_the_eager_eval(dev, encoder, live_noise):
+    """Two evaluations of three batches, each from a fresh generator
+    seeded 0 (as ``PackedEval`` draws them): the captured evaluation's
+    scores are the eager form's bits (the first call eager, then replays,
+    the second evaluation through a lent generator), the BatchNorm
+    statistics and the model's mode are kept, and one graph serves."""
+    from scgib_tpu_torch.models.scgib import FinetuneModel
+    batches = _pretrain_batches(dev)
+    model = FinetuneModel(9, hidden=32, d_transfer=16, num_layers=3,
+                          encoder=encoder)
+    init_flax_style_(model, torch.Generator().manual_seed(1))
+    model.to(dev).train()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    run = trainer.make_eval_fn(model, live_noise)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            gen_e = torch.Generator(device=dev).manual_seed(0)
+            gen_c = torch.Generator(device=dev).manual_seed(0)
+            for g, s in batches:
+                want = run.run([(g, s)], gen_e)
+                got = run(g, s, gen_c)
+                assert torch.equal(got, want)
+            assert torch.equal(gen_e.get_state(), gen_c.get_state())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(run.graphs) == 1 and model.training
+    assert all(torch.equal(v, before[k])
+               for k, v in model.state_dict().items())

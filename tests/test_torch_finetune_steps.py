@@ -32,9 +32,10 @@ from scgib_tpu.train import trainer as jtrainer
 from scgib_tpu_torch.config import DATASETS
 from scgib_tpu_torch.data.loader import GraphDataset, plan_capacities
 from scgib_tpu_torch.data.synthetic import random_dataset
-from scgib_tpu_torch.models.scgib import DomainAdaptModel, FinetuneModel
+from scgib_tpu_torch.models.scgib import (DomainAdaptModel, FinetuneModel,
+                                          uniform_draws)
 from scgib_tpu_torch.train import checkpoint as ckpt
-from scgib_tpu_torch.train import loops
+from scgib_tpu_torch.train import loops, trainer
 from scgib_tpu_torch.train.trainer import (
     TrainState, adam_l2, finetune_trainable_mask, make_domainadapt_step,
     make_eval_fn, make_finetune_step, masked_adam)
@@ -199,6 +200,54 @@ def test_eval_fn_is_reproducible_and_matches_jax(batches, encoder):
     got = make_eval_fn(model)(g, sub)
     want = jtrainer.make_eval_fn(jmodel)(v, jg, jsub, jax.random.PRNGKey(0))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("live_noise", [False, True])
+@pytest.mark.parametrize("training", [True, False], ids=["train", "eval"])
+def test_eval_fn_on_the_cpu_captures_nothing_and_keeps_the_model(
+        batches, training, live_noise):
+    """On the CPU the evaluation is the eager forward under inference mode:
+    no graph, no generator kept, the model's mode and every buffer as they
+    were, and the scores those of the model run in the evaluation's mode
+    from the same draws."""
+    jg, jsub = batches[0]
+    g, sub = port(jg, jsub)
+    _, jmodel = models("finetune", "GIN")
+    model = FinetuneModel(IN, num_out=TASKS, hidden=HID, d_transfer=DT,
+                          **ENCODERS["GIN"])
+    model.load_state_dict(from_jax_variables(jax_variables(jmodel, jg,
+                                                           jsub)))
+    model.train(training)
+    before = {k: t.clone() for k, t in model.state_dict().items()}
+    run = make_eval_fn(model, live_noise)
+    got = run(g, sub, torch.Generator().manual_seed(0))
+    assert not run.graphs and not run.generators
+    assert model.training == training and not got.requires_grad
+    for k, t in model.state_dict().items():
+        assert torch.equal(t, before[k]), k
+    with torch.inference_mode():
+        model.train(live_noise)
+        want = model(g, sub, rand=uniform_draws(
+            torch.Generator().manual_seed(0), "cpu"))
+    assert torch.equal(got, want)
+
+
+def test_a_lent_generator_draws_what_the_callers_would():
+    """A replay through a graph's own generator, lent the caller's state,
+    draws the caller's numbers and leaves the caller where drawing them
+    would have."""
+    caller = torch.Generator().manual_seed(5)
+    alone = torch.Generator().manual_seed(5)
+    registered = torch.Generator().manual_seed(9)
+    want = torch.rand(4, generator=alone)
+    with trainer._lent(registered, caller):
+        got = torch.rand(4, generator=registered)
+    assert torch.equal(got, want)
+    assert torch.equal(caller.get_state(), alone.get_state())
+    with trainer._lent(caller, caller):
+        torch.rand(4, generator=caller)
+    torch.rand(4, generator=alone)
+    assert torch.equal(caller.get_state(), alone.get_state())
 
 
 # --- the masked optimizer's autosave, both ways ------------------------------

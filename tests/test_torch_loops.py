@@ -246,8 +246,7 @@ SMALL = ["pretrain", "--synthetic", "24", "--batch_size", "8", "--hidden",
     (["--cache", "x.npz"], "item 12"), (["--molnet_root", "d"], "item 12"),
     (["--stage_caches", "a.npz"], "item 12"),
     (["--synthetic_mode", "structured"], "item 12"),
-    (["--superbatch", "4"], "item 14"), (["--encoder", "GCN"], "item 6"),
-    (["--encoder", "GraphSAGE"], "item 6")])
+    (["--superbatch", "4"], "item 14")])
 def test_cli_refuses_flags_not_ported_yet(flags, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(SMALL + ["--epochs", "1"] + flags)

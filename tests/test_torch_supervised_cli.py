@@ -172,9 +172,7 @@ def test_adapt_writes_a_checkpoint_jax_runs(tmp_path):
 REFUSED = [
     (["--cache", "x.npz"], "item 12"), (["--molnet_root", "d"], "item 12"),
     (["--tudataset_root", "d"], "item 12"),
-    (["--synthetic_mode", "structured"], "item 12"),
-    (["--encoder", "GCN"], "item 6"), (["--encoder", "GraphSAGE"], "item 6"),
-    (["--pretrained", "ref.pt"], "item 11")]
+    (["--synthetic_mode", "structured"], "item 12")]
 
 
 @pytest.mark.parametrize("verb", ["finetune", "eval", "adapt"])
