@@ -114,14 +114,38 @@ Phases; any failure raises and exits non-zero before the last line:
      reference's whole-module pickle (tests/reference_cases.py, 5 convs,
      width 64) for one epoch at BACE's size: 5 convs adopted, its launches
      those of 5 convs, its loss finite.
- 10. one JSON line of the kernels (with the launches of a fine-tuning step
-     and an evaluation batch, and of each main-path run), the nvidia-smi
-     line, and {"ok": true, "device": {...}} as the last line.
+ 10. the data path, at full width on the benchmark pool: (a) the native
+     flat packer bit-equal to the per-graph packers on the benchmark
+     batches, host ms a batch of each; (b) wire bytes a batch in both
+     modes, ``wire_compact_ok``'s verdict, ``from_wire_*`` on the card
+     equal to the packer's batch on every real entry; (c) the captured
+     superbatch step (3 superbatches of 32, the first eager, then replays
+     of one graph) against the captured single step on the same decoded
+     batches under deterministic algorithms: losses, parameters,
+     BatchNorm statistics, Adam state and generator state byte-equal, the
+     stale-input fault breaking it, every call's launches 32 x
+     ``GIN_PER_STEP``; the same for the transformer at K = 4; (d)
+     bench.py's sustained loop, 192 fresh batches as 6 superbatches of 32
+     through ``wire_superbatches`` -> ``prefetch_to_device(size=3,
+     host_stage=2)`` -> the superbatch step, against the captured single
+     step fed by ``prefetch_to_device`` and by packing on the consumer
+     thread: ms a batch, edges/s, the device's busy share, the capture's
+     time and memory, the buffer's copy into the graph; (e) the verbs:
+     ``preprocess --synthetic 4096``, ``pretrain --cache --superbatch 32``
+     (2 epochs, the second superbatch a replay), ``finetune --dataset BACE
+     --smiles_csv`` (1513 rows cycled from a dozen SMILES), each run's
+     launch counts those of its steps; (f) ``profile_trace`` around 3
+     captured steps writes a trace.
+ 11. one JSON line of the kernels (with the launches of a fine-tuning step
+     and an evaluation batch, and of each main-path run, the superbatch
+     runs among them), the nvidia-smi line, and {"ok": true, "device":
+     {...}} as the last line.
 """
 
 import collections
 import contextlib
 import copy
+import dataclasses
 import functools
 import itertools
 import json
@@ -145,8 +169,11 @@ sys.path.insert(0, ROOT)
 
 from scgib_tpu_torch import cli  # noqa: E402
 from scgib_tpu_torch.cli import run_pretrain  # noqa: E402
+from scgib_tpu_torch.data import loader  # noqa: E402
 from scgib_tpu_torch.data.loader import (  # noqa: E402
-    GraphDataset, batch_iterator, pack_batch, plan_batches, plan_capacities)
+    GraphDataset, batch_iterator, pack_batch, plan_batches, plan_capacities,
+    superbatch_spec)
+from scgib_tpu_torch.graph import wire  # noqa: E402
 from scgib_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from scgib_tpu_torch.models import encoders  # noqa: E402
 from scgib_tpu_torch.models.scgib import (  # noqa: E402
@@ -166,10 +193,11 @@ from scgib_tpu_torch.train import trainer  # noqa: E402
 from scgib_tpu_torch.train.trainer import (  # noqa: E402
     adam_l2, finetune_trainable_mask, make_domainadapt_step, make_eval_fn,
     make_finetune_step, make_pretrain_scan_step, make_pretrain_step,
-    masked_adam, pretrain_step_eager)
+    make_pretrain_superbatch_step, masked_adam, pretrain_step_eager)
 from scgib_tpu_torch.utils.msgpack_codec import unpackb  # noqa: E402
 from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
                                           init_flax_style_, sorted_leaves)
+from scgib_tpu_torch.utils.profiling import profile_trace  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
 from reference_cases import write_stand_in  # noqa: E402
@@ -1065,7 +1093,11 @@ def main():
     slice9 = slice_phase(g, sub, dev, ds, caps, runs, records, supervised)
     lap("9 encoders, dense, evaluation, import")
 
-    # 10. report
+    # 10. the data path
+    data, data_runs = data_phase(dev, ds, caps)
+    lap("10 data path")
+
+    # 11. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -1080,7 +1112,9 @@ def main():
             "status": "ported",
             "port_kernel": f"scgib_tpu_torch/csrc/{src}.cu::{port_kernel}",
             "launches": runs[run]["counts"][name], "launches_run": run,
-            "launches_by_run": {r: runs[r]["counts"][name] for r in runs},
+            "launches_by_run": {
+                **{r: runs[r]["counts"][name] for r in runs},
+                **{r: c[name] for r, c in data_runs.items()}},
             "finetune_step_launches": sup["finetune_step_launches"].get(
                 name, 0),
             "eval_batch_launches": sup["eval_batch_launches"].get(name, 0),
@@ -1094,6 +1128,7 @@ def main():
                       "steps": {k: r["steps"] for k, r in runs.items()},
                       "verb": verb, "compiled": compiled,
                       "supervised": supervised, "slice9": slice9,
+                      "data": data,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,
@@ -2025,6 +2060,550 @@ def slice_phase(g, sub, dev, ds, caps, runs, records, supervised):
     report["reference_import"] = reference_import_phase(dev)
     print(f"phase 9: {json.dumps(report)}", flush=True)
     return report
+
+
+# --- 10. the data path -------------------------------------------------------
+
+DATA_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_data")
+SUPER_K = 32                  # bench.py's SUPER_K
+GT_SUPER_K = 4
+SUPERS_COMPARED = 3           # the first call eager, then two replays (the
+                              # stale-input fault shows on the second)
+SUSTAINED_BATCHES = 192       # bench.py's: 6 superbatches of 32
+PREPROCESS_N = 4096
+# a dozen molecules the verb's CSV cycles through to BACE's size
+SMILES_TABLE = ("CCO", "c1ccccc1O", "CC(=O)Nc1ccc(O)cc1", "CCN(CC)CC",
+                "c1ccncc1", "C1CCCCC1N", "CC(C)Cc1ccc(cc1)C(C)C(=O)O",
+                "O=C(O)c1ccccc1", "CC#N", "c1ccoc1", "CCOC(=O)C",
+                "NC(=O)N")
+
+
+def batches_equal(a, b):
+    """Field by field, dtypes and values, flags and absent fields."""
+    for f in dataclasses.fields(b):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None or isinstance(y, bool):
+            if x != y:
+                return False
+        elif x.dtype != y.dtype or not np.array_equal(x, y):
+            return False
+    return True
+
+
+def packers_phase(ds, caps):
+    """(a) the native flat packer against the per-graph packers on the
+    benchmark batches, bit for bit; host ms a batch of each."""
+    t0 = time.perf_counter()
+    ds.flat()
+    flat_s = time.perf_counter() - t0
+    per_graph, flat = [], []
+    for sel in plan_batches(ds, 128, caps, seed=7):
+        t0 = time.perf_counter()
+        a = pack_batch(ds, sel, caps)
+        t1 = time.perf_counter()
+        b = pack_batch(ds, sel, caps, use_flat=True)
+        t2 = time.perf_counter()
+        per_graph.append((t1 - t0) * 1e3)
+        flat.append((t2 - t1) * 1e3)
+        if not all(batches_equal(x, y) for x, y in zip(b, a)):
+            raise AssertionError("the native flat packer is not the "
+                                 "per-graph packers")
+    rec = {"batches": len(flat), "per_graph_ms": statistics.median(per_graph),
+           "native_flat_ms": statistics.median(flat),
+           "flat_view_build_s": flat_s}
+    print(f"packers: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def wire_phase(ds, caps, dev):
+    """(b) bytes a batch in both wire modes against the padded batch's,
+    ``wire_compact_ok``'s verdict, and ``from_wire_*`` on the card equal
+    to the packer's batch on every real entry (masks and flags whole,
+    padded indices in range)."""
+    g, sub = pack_batch(ds, plan_batches(ds, 128, caps, seed=7)[0], caps,
+                        use_flat=True)
+    ref_g, ref_s = g.to(dev), sub.to(dev)
+    rec = {"compact_ok": loader.wire_compact_ok(ds),
+           "padded_bytes": sum(nbytes(v) for b in (ref_g, ref_s)
+                               for _, v in trainer._fields(b)
+                               if isinstance(v, torch.Tensor))}
+    for compact in (False, True):
+        pair = (wire.to_wire_graph(g, compact), wire.to_wire_sub(sub, compact))
+        spec = wire.byte_spec_of(pair)
+        buf = torch.from_numpy(wire.pack_bytes(pair, spec)).to(dev)
+        wg, ws = wire.unpack_bytes(buf, spec)
+        ws.pool_fits = sub.pool_fits        # beside the buffer, not in it
+        for got, want, n_cap in ((wire.from_wire_graph(wg), ref_g,
+                                  ref_g.num_nodes),
+                                 (wire.from_wire_sub(ws), ref_s,
+                                  ref_g.num_nodes)):
+            for name, v in trainer._fields(want):
+                u = getattr(got, name)
+                if not isinstance(v, torch.Tensor):
+                    ok = u == v
+                elif name in ("senders", "receivers", "node_center",
+                              "node_orig"):
+                    m = (want.edge_mask if name in ("senders", "receivers")
+                         else want.node_mask)
+                    cap = (want.node_mask.shape[0]
+                           if name in ("senders", "receivers") else n_cap)
+                    ok = (u.dtype == v.dtype and torch.equal(u[m], v[m])
+                          and int(u.min()) >= 0 and int(u.max()) < cap)
+                else:
+                    ok = u.dtype == v.dtype and torch.equal(u, v)
+                if not ok:
+                    raise AssertionError(f"wire (compact={compact}) "
+                                         f"{name} differs from the packer's")
+        rec["compact_bytes" if compact else "absolute_bytes"] = spec.total
+    print(f"wire a batch: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def reserved_mb():
+    """Device memory the caching allocator holds, its free blocks of the
+    default pool returned first: what live tensors and graph pools hold."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2**20
+
+
+@contextlib.contextmanager
+def capture_probe():
+    """Records each capture's seconds and the device memory its graph's
+    private pool keeps, and counts the replays."""
+    rec = {"captures": [], "replays": 0}
+    cap, rep = trainer._CapturedSteps._capture, trainer._CapturedSteps._replay
+
+    def capture(self, *args):
+        before, t0 = reserved_mb(), time.perf_counter()
+        out = cap(self, *args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec["captures"].append({"s": secs,
+                                "graph_pool_mb": reserved_mb() - before})
+        return out
+
+    def replay(self, *args):
+        rec["replays"] += 1
+        return rep(self, *args)
+    trainer._CapturedSteps._capture = capture
+    trainer._CapturedSteps._replay = replay
+    try:
+        yield rec
+    finally:
+        trainer._CapturedSteps._capture = cap
+        trainer._CapturedSteps._replay = rep
+
+
+def decoded(buf, spec, fits):
+    """The batches of a device superbatch, decoded from views of it, each
+    with the superbatch's pooling flag."""
+    gs, subs = wire.unpack_bytes(buf, spec)
+    out = []
+    for k in range(gs.n_nodes.shape[0]):
+        sub = wire.from_wire_sub(wire.index_wire(subs, k))
+        sub.pool_fits = fits
+        out.append((wire.from_wire_graph(wire.index_wire(gs, k)), sub))
+    return out
+
+
+def superbatch_run(dev, supers, spec, kwargs, how):
+    """One start (PretrainModel(9, 64, 32), seeded weights, Adam,
+    generator), then ``supers`` through the superbatch step ("superbatch")
+    or each of their decoded batches through the captured single step
+    ("single").  Returns (losses as bytes, step_bytes, the launch counts
+    of each call, the step)."""
+    model = PretrainModel(9, hidden=64, d_transfer=32, num_heads=HEADS,
+                          **kwargs)
+    init_flax_style_(model, torch.Generator().manual_seed(11))
+    model.to(dev)
+    opt = adam_l2(model, 1e-4, 5e-5)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    losses, calls = [], []
+    if how == "superbatch":
+        step = make_pretrain_superbatch_step(model, opt, spec)
+        for buf, _, fits in supers:
+            reset_launch_counts()
+            out = step(buf, fits, gen)
+            losses += [[t[i] for t in out] for i in range(len(out.total))]
+            calls.append(launch_counts())
+    else:
+        step = make_pretrain_step(model, opt)
+        reset_launch_counts()
+        for buf, _, fits in supers:
+            losses += [step(g, s, gen) for g, s in decoded(buf, spec, fits)]
+        calls.append(launch_counts())
+    torch.cuda.synchronize()
+    as_bytes = {f"step {i} {name}": t.detach().cpu().numpy().tobytes()
+                for i, ls in enumerate(losses)
+                for name, t in zip(("kl", "contrastive", "recon"), ls)}
+    return as_bytes, step_bytes(model, opt, gen), calls, step
+
+
+def superbatch_vs_single(dev, ds, caps, label, kwargs, per_step, k):
+    """(c) SUPERS_COMPARED superbatches of ``k`` through the captured
+    superbatch step against the captured single step on the same decoded
+    batches, under deterministic algorithms: losses and state byte-equal,
+    the stale-input fault not; every call's launches ``k`` x ``per_step``
+    (the replays' as the eager first call's)."""
+    epochs = -(-SUPERS_COMPARED * k // len(plan_batches(ds, 128, caps)))
+    spec = superbatch_spec(ds, 128, caps, k, epochs=epochs)
+    supers = list(itertools.islice(loader.prefetch_to_device(
+        loader.wire_superbatches(ds, 128, caps, k, seed=7, byte_spec=spec,
+                                 epochs=epochs),
+        size=3, device=dev, host_stage=2), SUPERS_COMPARED))
+    with deterministic():
+        single = superbatch_run(dev, supers, spec, kwargs, "single")
+        with capture_probe() as probe:
+            sup = superbatch_run(dev, supers, spec, kwargs, "superbatch")
+        with stale_replays():
+            fault = superbatch_run(dev, supers, spec, kwargs, "superbatch")
+    want = {name: n * k for name, n in per_step.items()}
+    rec = {"k": k, "buffer_bytes": spec.total,
+           "losses_apart": bytes_apart(single[0], sup[0]),
+           "state_apart": bytes_apart(single[1], sup[1]),
+           "fault_losses_apart": len(bytes_apart(single[0], fault[0])),
+           "fault_state_apart": len(bytes_apart(single[1], fault[1])),
+           "graphs": len(sup[3].graphs), "replays": probe["replays"],
+           "capture": probe["captures"],
+           "replay_launches": {n: c for n, c in sup[2][-1].items() if c}}
+    print(f"superbatch vs single steps ({label}, K={k}): "
+          f"{json.dumps(rec)}", flush=True)
+    for calls in sup[2]:
+        if {n: c for n, c in calls.items() if c} != want:
+            raise AssertionError(f"{label}: a superbatch call launched "
+                                 f"{calls}, expected {want}")
+    if {n: c for n, c in single[2][0].items() if c} != {
+            n: c * SUPERS_COMPARED for n, c in want.items()}:
+        raise AssertionError(f"{label}: the single steps launched "
+                             f"{single[2][0]}")
+    if rec["losses_apart"] or rec["state_apart"] or rec["graphs"] != 1 \
+            or rec["replays"] != SUPERS_COMPARED - 1:
+        raise AssertionError(f"{label}: the superbatch step is not the "
+                             f"single steps: {rec}")
+    if not (rec["fault_losses_apart"] and rec["fault_state_apart"]):
+        raise AssertionError(f"{label}: the planted fault went unseen")
+    return rec, sup[2][-1]
+
+
+class DeviceClock:
+    """The device time of each call a loop brackets with ``span()``: a
+    CUDA event on the current stream before and after it, read once the
+    loop is over.  The loop's busy share is their sum over its wall
+    time.  A replay's span is device work from end to end; an eager
+    call's also holds the device's waits for the host, so a loop with
+    one is not read this way."""
+
+    def __init__(self):
+        self.marks = []
+
+    @contextlib.contextmanager
+    def span(self):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        yield
+        b.record()
+        self.marks.append((a, b))
+
+    def read(self, wall_s):
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.marks]
+        return {"call_device_ms": statistics.median(ms),
+                "device_busy_share": sum(ms) / (wall_s * 1e3)}
+
+
+def superbatch_loop(step, ds, caps, spec, epochs, gen, dev, workers=4):
+    """SUSTAINED_BATCHES fresh batches through wire_superbatches ->
+    prefetch_to_device(size=3, host_stage=2) -> ``step``, one loss read a
+    superbatch: ms a batch, edges/s and the device clock's readings."""
+    clock = DeviceClock()
+    t0 = time.perf_counter()
+    edges = 0
+    for buf, n_edges, fits in loader.prefetch_to_device(
+            loader.wire_superbatches(ds, 128, caps, SUPER_K, seed=7,
+                                     byte_spec=spec, epochs=epochs,
+                                     workers=workers),
+            size=3, device=dev, host_stage=2):
+        with clock.span():
+            losses = step(buf, fits, gen)
+        float(np.sum(losses.total.cpu().numpy()))
+        edges += n_edges
+    wall = time.perf_counter() - t0
+    return {"ms_per_batch": wall * 1e3 / SUSTAINED_BATCHES,
+            "edges_per_s": edges / wall, **clock.read(wall)}
+
+
+def skewed_pool():
+    """The benchmark pool with about 2% of its molecules replaced by dense
+    graphs of 20 nodes (each pair joined with probability 0.9, features
+    drawn from a seed): some batches' first center tiles own more ego-net
+    rows than the pooling window holds (``pool_fits`` False), and most
+    superbatches of 32 hold such a batch."""
+    rng = np.random.default_rng(0)
+    graphs = []
+    for g in random_dataset(1024, seed=7, min_nodes=10, max_nodes=30):
+        if rng.random() < 0.02:
+            upper = np.triu(rng.random((20, 20)) < 0.9, 1)
+            s, r = np.nonzero(upper | upper.T)
+            g = GraphData(senders=s.astype(np.int32),
+                          receivers=r.astype(np.int32),
+                          node_feat=rng.integers(0, 4, size=(20, 9)).astype(
+                              np.int8))
+        graphs.append(g)
+    ds = GraphDataset(graphs, k=1)
+    return ds, plan_capacities(ds, 128)
+
+
+def sustained_phase(dev, ds, caps):
+    """(d) bench.py's sustained loop: SUSTAINED_BATCHES fresh batches as
+    superbatches of SUPER_K, wire_superbatches -> prefetch_to_device(size=3,
+    host_stage=2) -> the captured superbatch step (one loss read a
+    superbatch), after one warm-up superbatch (its eager steps and the
+    capture); then the same batches through the captured single step, fed
+    as run_pretraining feeds it (the native packer in prefetch_to_device's
+    thread) and by packing on the consumer thread (the per-graph packers
+    and a blocking copy), a loss read a step.  Wall ms a batch, edges/s,
+    and the device's busy share in the loop (``DeviceClock``: each step
+    call's device time, summed, over the wall time); the superbatch loop
+    again with 0 and 2 packing threads (4 by default); and once on
+    ``skewed_pool()`` from a fresh model: the graphs its superbatch step
+    captures (one for each value of the superbatch's one pooling flag),
+    against the distinct tuples of per-batch flags its superbatches hold
+    (what a key on every batch's flag would capture)."""
+    n_super = SUSTAINED_BATCHES // SUPER_K
+    per_epoch = len(plan_batches(ds, 128, caps))
+    epochs = -(-SUSTAINED_BATCHES // per_epoch)
+    spec = superbatch_spec(ds, 128, caps, SUPER_K, epochs=epochs)
+    report = {}
+
+    def fresh_model():
+        model = PretrainModel(9, hidden=64, d_transfer=32)
+        init_flax_style_(model, torch.Generator().manual_seed(11))
+        model.to(dev)
+        return model, adam_l2(model, 1e-4, 5e-5), torch.Generator(
+            device=dev).manual_seed(12)
+
+    # the superbatch loop
+    model, opt, gen = fresh_model()
+    step = make_pretrain_superbatch_step(model, opt, spec)
+    warm = next(loader.wire_superbatches(ds, 128, caps, SUPER_K, seed=99,
+                                         byte_spec=spec, epochs=epochs))
+    with capture_probe() as probe:
+        t0 = time.perf_counter()
+        float(step(torch.from_numpy(warm[0]).to(dev), warm[2],
+                   gen).total[-1])
+        warm_s = time.perf_counter() - t0
+        reset_launch_counts()
+        rec = superbatch_loop(step, ds, caps, spec, epochs, gen, dev)
+        counts = launch_counts()
+    src = torch.empty(spec.total, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    report["superbatch"] = {
+        **rec, "superbatches": n_super, "graph_keys": len(step.graphs),
+        "warmup_s": warm_s, "capture": probe["captures"],
+        "buffer_bytes": spec.total,
+        "buffer_copy_ms": time_ms(lambda: dst.copy_(src))}
+    runs = {"superbatch loop": counts}
+    if counts != {n: GIN_PER_STEP.get(n, 0) * SUSTAINED_BATCHES
+                  for n in PATH}:
+        raise AssertionError(f"sustained superbatch loop: launches {counts}")
+    if probe["replays"] != n_super or len(step.graphs) != 1:
+        raise AssertionError(f"sustained loop: {len(step.graphs)} graphs, "
+                             f"{probe['replays']} replays")
+    # the same loop with other numbers of packing threads (4 above)
+    for workers in (0, 2):
+        rec = superbatch_loop(step, ds, caps, spec, epochs, gen, dev,
+                              workers=workers)
+        report[f"superbatch, {workers} packing threads"] = rec
+    del step, src, dst
+
+    # the superbatch loop on the skewed pool, from its first superbatch
+    sds, scaps = skewed_pool()
+    s_epochs = -(-SUSTAINED_BATCHES // len(plan_batches(sds, 128, scaps)))
+    s_spec = superbatch_spec(sds, 128, scaps, SUPER_K, epochs=s_epochs)
+    flags = [s.pool_fits for e in range(s_epochs) for _, s in batch_iterator(
+        sds, 128, scaps, seed=7 + e, use_flat=True)][:SUSTAINED_BATCHES]
+    tuples = [tuple(flags[i:i + SUPER_K])
+              for i in range(0, SUSTAINED_BATCHES, SUPER_K)]
+    model, opt, gen = fresh_model()
+    step = make_pretrain_superbatch_step(model, opt, s_spec)
+    with capture_probe() as probe:
+        reset_launch_counts()
+        rec = superbatch_loop(step, sds, scaps, s_spec, s_epochs, gen, dev)
+        counts = launch_counts()
+    report["superbatch, skewed pool"] = {      # its first call is eager
+        "ms_per_batch": rec["ms_per_batch"],
+        "edges_per_s": rec["edges_per_s"],
+        "batches_not_fitting": flags.count(False),
+        "superbatches_fitting": sum(all(t) for t in tuples),
+        "graph_keys": len(step.graphs),
+        "flag_tuples": len(set(tuples)), "capture": probe["captures"]}
+    runs["superbatch loop, skewed pool"] = counts
+    want = {n: GIN_PER_STEP.get(n, 0) * SUSTAINED_BATCHES for n in PATH}
+    want["pool"] = GIN_PER_STEP["pool"] * SUPER_K * sum(all(t)
+                                                        for t in tuples)
+    if counts != want or len(step.graphs) != len({all(t) for t in tuples}):
+        raise AssertionError(f"skewed superbatch loop: launches {counts}, "
+                             f"{len(step.graphs)} graphs, "
+                             f"{report['superbatch, skewed pool']}")
+    del step
+
+    # the captured single step, prefetched and packed on the consumer thread
+    for how in ("prefetched", "packed on the consumer thread"):
+        model, opt, gen = fresh_model()
+        step = make_pretrain_step(model, opt)
+        g, s = next(batch_iterator(ds, 128, caps, seed=99))
+        float(step(g.to(dev), s.to(dev), gen).total)     # eager + capture
+        batches = (b for e in range(epochs) for b in batch_iterator(
+            ds, 128, caps, seed=7 + e, use_flat=how == "prefetched"))
+        batches = itertools.islice(batches, SUSTAINED_BATCHES)
+        reset_launch_counts()
+        clock = DeviceClock()
+        t0 = time.perf_counter()
+        edges = 0
+        if how == "prefetched":         # as run_pretraining feeds its steps
+            feed = loader.prefetch_to_device(loops._counted(batches),
+                                             device=dev)
+        else:
+            feed = ((g.to(dev), s.to(dev), n, m) for g, s, n, m in
+                    loops._counted(batches))
+        for g, s, n, _ in feed:
+            with clock.span():
+                losses = step(g, s, gen)
+            float(losses.total)
+            edges += n
+        wall = time.perf_counter() - t0
+        runs[f"single step, {how}"] = launch_counts()
+        report[f"single step, {how}"] = {
+            "ms_per_batch": wall * 1e3 / SUSTAINED_BATCHES,
+            "edges_per_s": edges / wall, **clock.read(wall)}
+        del step
+    print(f"sustained loop, {SUSTAINED_BATCHES} batches: "
+          f"{json.dumps(report)}", flush=True)
+    return report, runs
+
+
+def data_verbs_phase():
+    """(e) ``preprocess --synthetic 4096 --k 1``, then ``pretrain --cache
+    --superbatch 32`` for 2 epochs (the second superbatch a replay), then
+    ``finetune --dataset BACE --smiles_csv`` for one epoch on a CSV of
+    BACE's size cycled from SMILES_TABLE with labels from a seed; each
+    run's launch counts those of its steps (and evaluation batches)."""
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    os.makedirs(DATA_DIR)
+    cache = os.path.join(DATA_DIR, "synth.npz")
+    report, runs = {}, {}
+    ds, secs = verb_run("preprocess", [
+        "preprocess", "--synthetic", str(PREPROCESS_N), "--k", "1",
+        "--out", cache])
+    report["preprocess"] = {"s": secs, "graphs": len(ds),
+                            "bytes": os.path.getsize(cache)}
+    with capture_probe() as probe:
+        info, secs = verb_run("pretrain --cache --superbatch", [
+            "pretrain", "--cache", cache, "--superbatch", str(SUPER_K),
+            "--epochs", "2", "--out", os.path.join(DATA_DIR, "p.msgpack")])
+    steps = info["throughput"]["steps"] * SUPER_K
+    check_verb_counts("pretrain --cache --superbatch", steps)
+    runs["pretrain --cache --superbatch"] = launch_counts()
+    if probe["replays"] < 1 or not all(math.isfinite(x)
+                                       for x in info["history"]):
+        raise AssertionError(f"pretrain --superbatch: {probe}, "
+                             f"{info['history']}")
+    report["pretrain_superbatch"] = {
+        "s": secs, "steps": steps, "replays": probe["replays"],
+        "capture": probe["captures"], "history": info["history"],
+        "edges_per_s": info["throughput"]["edges_per_s"]}
+    csv_path = os.path.join(DATA_DIR, "bace.csv")
+    labels = np.random.default_rng(0).integers(0, 2, BACE_N)
+    with open(csv_path, "w") as f:
+        f.write("smiles,Class\n")
+        for i in range(BACE_N):
+            f.write(f"{SMILES_TABLE[i % len(SMILES_TABLE)]},{labels[i]}\n")
+    run, secs = verb_run("finetune --smiles_csv", [
+        "finetune", "--dataset", "BACE", "--smiles_csv", csv_path,
+        "--epochs", "1"])
+    spec = cli.DATASETS["BACE"]
+    args = cli.build_parser().parse_args(
+        ["finetune", "--dataset", "BACE", "--smiles_csv", csv_path])
+    data = cli._build_dataset(args, spec.num_tasks, spec.feat_dim)
+    caps = plan_capacities(data, 128)
+    _, val, test = cli._splits(data, spec, 42)
+    evals = sum(len(plan_batches(d, 128, caps, shuffle=False))
+                for d in (val, test))
+    got_steps = run["last"]["throughput"]["steps"]
+    expect_exact("finetune --smiles_csv", add_counts(
+        (FT_PER_STEP["GIN"], got_steps), (EVAL_PER_BATCH["GIN"], evals)))
+    runs["finetune --smiles_csv"] = launch_counts()
+    if len(data) != BACE_N or not all(
+            math.isfinite(x) for row in run["last"]["history"] for x in row):
+        raise AssertionError(f"finetune --smiles_csv: {len(data)} graphs, "
+                             f"{run['last']['history']}")
+    report["finetune_smiles_csv"] = {"s": secs, "steps": got_steps,
+                                     "history": run["last"]["history"]}
+    shutil.rmtree(DATA_DIR)
+    print(f"data verbs: {json.dumps(report)}", flush=True)
+    return report, runs
+
+
+def profile_trace_phase(dev, ds, caps):
+    """(f) ``profile_trace`` around 3 captured GIN steps writes a trace."""
+    model = PretrainModel(9, hidden=64, d_transfer=32)
+    init_flax_style_(model, torch.Generator().manual_seed(11))
+    model.to(dev)
+    step = make_pretrain_step(model, adam_l2(model, 1e-4, 5e-5))
+    batches = bench_batches(dev, ds, caps, 5)
+    for g, s in batches[:2]:
+        step(g, s)
+    log_dir = os.path.join(ROOT, ".scratch", "chip_smoke_trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    with profile_trace(log_dir) as prof:
+        for g, s in batches[2:]:
+            step(g, s)
+        torch.cuda.synchronize()
+    files = os.listdir(log_dir)
+    with open(os.path.join(log_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    rec = {"files": len(files), "events": len(events),
+           "kernel_events": sum(e.get("cat") == "kernel" for e in events),
+           "device_ms": sum(e.self_device_time_total
+                            for e in prof.key_averages()) / 1e3}
+    shutil.rmtree(log_dir)
+    print(f"profile_trace: {json.dumps(rec)}", flush=True)
+    if rec["files"] != 1 or not rec["events"]:
+        raise AssertionError(f"profile_trace wrote no trace: {rec}")
+    return rec
+
+
+def data_phase(dev, ds, caps):
+    """Phase 10; returns its readings and the launch counts of its
+    runs."""
+    report, runs, secs = {}, {}, {}
+    clock = [time.perf_counter()]
+
+    def part(name, value):
+        now = time.perf_counter()
+        secs[name], clock[0] = now - clock[0], now
+        report[name] = value
+
+    part("packers", packers_phase(ds, caps))
+    part("wire", wire_phase(ds, caps, dev))
+    for label, kwargs, per_step, k in (
+            ("GIN", {}, GIN_PER_STEP, SUPER_K),
+            ("Transformer", {"encoder": "Transformer"}, GT_PER_STEP,
+             GT_SUPER_K)):
+        rec, runs[f"{label} superbatch replay, K={k}"] = \
+            superbatch_vs_single(dev, ds, caps, label, kwargs, per_step, k)
+        part(label, rec)
+    rec, sustained_runs = sustained_phase(dev, ds, caps)
+    runs.update(sustained_runs)
+    part("sustained", rec)
+    rec, verb_runs = data_verbs_phase()
+    runs.update(verb_runs)
+    part("verbs", rec)
+    part("profile_trace", profile_trace_phase(dev, ds, caps))
+    report["seconds"] = secs
+    print(f"phase 10: {json.dumps(report)}", flush=True)
+    return report, runs
 
 
 if __name__ == "__main__":

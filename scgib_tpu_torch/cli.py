@@ -1,7 +1,11 @@
-"""Command-line entry point: the ``pretrain``, ``finetune``, ``eval`` and
-``adapt`` verbs.
+"""Command-line entry point: the ``pretrain``, ``finetune``, ``eval``,
+``adapt``, ``preprocess`` and ``download`` verbs.
 
   python -m scgib_tpu_torch.cli pretrain --synthetic 2000 --epochs 3
+  python -m scgib_tpu_torch.cli preprocess --synthetic 4096 --k 1 \\
+      --out pts/synth.npz
+  python -m scgib_tpu_torch.cli pretrain --cache pts/synth.npz \\
+      --superbatch 32 --epochs 1
   python -m scgib_tpu_torch.cli pretrain --curriculum --synthetic 2000 \\
       --epochs 3 --autosave outputs/auto.msgpack --out outputs/x
   python -m scgib_tpu_torch.cli pretrain --synthetic 1024 --steps 5 \\
@@ -14,7 +18,7 @@
       --pretrained outputs/pretrain.msgpack --out outputs/adapted.msgpack
 
 Counterpart of the JAX package's ``cli.py`` verbs of the same names
-(``scgib_tpu/cli.py:141-563, 585-727``), with their flags and defaults.
+(``scgib_tpu/cli.py``), with their flags and defaults.
 
 ``pretrain``: ``PretrainModel`` of ``--hidden`` / ``--d_transfer`` /
 ``--encoder`` / ``--num_layers`` / ``--num_heads`` / ``--readout`` /
@@ -49,11 +53,17 @@ whole-module torch pickle as ``--pretrained *.pt``
 (``utils/reference_import.py``): its trained core is grafted in, and its
 conv count overrides ``--num_layers``.
 
-Data come from ``--synthetic N`` molecules only.  The flags of the JAX
-verbs whose modules are not ported yet raise ``SystemExit`` naming the
-``ROADMAP.md`` item that ports them: the other data sources and
-``--synthetic_mode structured`` (Queue 1 item 12) and ``--superbatch``
-(item 14).
+Data come from a ``.npz`` cache (``--cache``, ``data/cache.py``; written
+by ``preprocess``), a reader (``--molnet_root``, ``--ogb_raw``,
+``--smiles_csv``, ``--qm9_root``, ``--pcqm4mv2_root``, ``--peptides_root``,
+``--zinc_root``, ``--tudataset_root``; ``--limit`` caps the graphs read) or
+``--synthetic N`` molecules (``--synthetic_mode random`` or
+``structured``), in the JAX verbs' order of precedence.  ``pretrain
+--curriculum --stage_caches a.npz,b.npz,...`` trains one stage a cache.
+``pretrain --superbatch K`` runs the wire superbatch loop: K batches a
+uint8 buffer, prefetched to the device, K steps a call (one CUDA-graph
+replay on the card).  ``preprocess`` writes a dataset's cache; ``download``
+fetches a dataset's raw files (``data/download.py``).
 
 Two flags are the port's own: ``--device`` (``cuda``, the default, or
 ``cpu`` for the plain path), on every verb, and ``pretrain --steps N``,
@@ -77,8 +87,10 @@ import torch
 from .config import (DATASETS, PRETRAIN_STAGES, DomainAdaptConfig,
                      FinetuneConfig, ModelConfig, OptimConfig,
                      PretrainConfig, reference_split)
-from .data.loader import GraphDataset, batch_iterator, plan_capacities
-from .data.synthetic import random_dataset
+from .data.cache import load_dataset, save_dataset
+from .data.loader import (GraphDataset, batch_iterator, plan_batches,
+                          plan_capacities, superbatch_spec, wire_superbatches)
+from .data.synthetic import random_dataset, structured_dataset
 from .models.scgib import DomainAdaptModel, FinetuneModel, PretrainModel
 from .train import checkpoint as ckpt
 from .train.loops import (evaluate, run_domain_adaptation, run_finetune,
@@ -86,7 +98,7 @@ from .train.loops import (evaluate, run_domain_adaptation, run_finetune,
 from .train.trainer import (TrainState, adam_l2, finetune_trainable_mask,
                             make_domainadapt_step, make_eval_fn,
                             make_finetune_step, make_pretrain_step,
-                            masked_adam)
+                            make_pretrain_superbatch_step, masked_adam)
 from .utils.device import resolve_device
 from .utils.params import (from_jax_variables, init_flax_style_,
                            to_jax_variables)
@@ -101,7 +113,7 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
                  num_heads: int = 8, gt_bwd: str = "twopass",
                  log: Callable[[str], None] = print,
                  profiler=None, hidden: int = 64, d_transfer: int = 32,
-                 k: int = 1, **options) -> List[dict]:
+                 k: int = 1, superbatch: int = 0, **options) -> List[dict]:
     """Pack ``steps`` batches of ``batch_size`` graphs and train on them
     with ``make_pretrain_step`` (on the card the first step eager, then
     CUDA-graph replays).
@@ -113,7 +125,11 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
     ``options`` go to ``PretrainModel`` (``readout``, ``use_att``,
     ``kl_mode``, ``recons_type``, ``recons_impl``); ``k`` is the ego-net
     radius and the logM reconstruction's number of steps.  ``profiler``, a
-    running ``torch.profiler.profile``, is stepped after every step."""
+    running ``torch.profiler.profile``, is stepped after every step.
+    ``superbatch`` = K: the batches go as wire superbatches of K (one
+    buffer each, copied to the device beforehand) through
+    ``make_pretrain_superbatch_step``, one record a call of K steps (its
+    last step's losses); ``steps`` must be a multiple of K."""
     dev = resolve_device(device)
     ds = GraphDataset(random_dataset(synthetic, seed=seed, min_nodes=10,
                                      max_nodes=30), k=k)
@@ -124,8 +140,21 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
     epochs = (batch_iterator(ds, batch_size, caps, seed=seed + e,
                              logm_k=logm_k)
               for e in itertools.count())
-    batches = [(g.to(dev), sub.to(dev)) for g, sub in
-               itertools.islice(itertools.chain.from_iterable(epochs), steps)]
+    if superbatch:
+        if steps % superbatch:
+            raise ValueError(f"{steps} steps are not superbatches of "
+                             f"{superbatch}")
+        n_epochs = -(-steps // len(plan_batches(ds, batch_size, caps)))
+        spec = superbatch_spec(ds, batch_size, caps, superbatch,
+                               logm_k=logm_k, epochs=n_epochs)
+        batches = [(torch.from_numpy(buf).to(dev), fits)
+                   for buf, _, fits in itertools.islice(wire_superbatches(
+                       ds, batch_size, caps, superbatch, seed=seed,
+                       logm_k=logm_k, byte_spec=spec, epochs=n_epochs),
+                       steps // superbatch)]
+    else:
+        batches = [(g.to(dev), sub.to(dev)) for g, sub in itertools.islice(
+            itertools.chain.from_iterable(epochs), steps)]
 
     feat_dim = ds.graphs[0].node_feat.shape[1]
     model = PretrainModel(feat_dim, hidden=hidden, d_transfer=d_transfer,
@@ -134,13 +163,17 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
                           k_transition=k, **options)
     init_flax_style_(model, torch.Generator().manual_seed(seed))
     model.to(dev)
-    step = make_pretrain_step(model, adam_l2(model, lr, weight_decay))
+    optimizer = adam_l2(model, lr, weight_decay)
+    step = (make_pretrain_superbatch_step(model, optimizer, spec)
+            if superbatch else make_pretrain_step(model, optimizer))
     generator = torch.Generator(device=dev).manual_seed(seed + 1)
 
     records = []
     for i, (g, sub) in enumerate(batches):
         t0 = time.perf_counter()
         losses = step(g, sub, generator)
+        if superbatch:
+            losses = type(losses)(*(t[-1] for t in losses))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         ms = (time.perf_counter() - t0) * 1e3
@@ -156,27 +189,120 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
     return records
 
 
+# --- the data --------------------------------------------------------------
+
+# every verb's data flags (the supervised verbs add --tudataset_root)
+_SOURCES = {
+    "cache": ".npz dataset cache (data/cache.py format)",
+    "molnet_root": "MoleculeNet root dir with raw CSVs (data/molnet.py)",
+    "ogb_raw": "OGB graph-prop raw/ dir (flat CSV layout)",
+    "smiles_csv": "generic SMILES+labels CSV",
+    "qm9_root": "dir holding gdb9.sdf (+ gdb9.sdf.csv)",
+    "pcqm4mv2_root": "dir holding PCQM4Mv2 raw/data.csv.gz",
+    "peptides_root": "dir holding the LRGB peptides tables",
+    "zinc_root": "dir holding ZINC <split>.pickle (benchmarking-gnns format)"}
+
+
+def _build_dataset(args, num_tasks=None, feat_dim: int = 9) -> GraphDataset:
+    """The verb's dataset: the JAX verbs' ``_build_dataset``, in their
+    order of precedence (a cache that exists, then each reader, then
+    ``--synthetic`` molecules from ``--seed``, with ``num_tasks`` labels
+    and ``feat_dim`` features)."""
+    from .data import molnet
+
+    limit = getattr(args, "limit", 0) or None
+    k = args.k
+    if getattr(args, "cache", None) and os.path.exists(args.cache):
+        return load_dataset(args.cache)
+    if getattr(args, "tudataset_root", None):
+        from .data.tudataset import load_tudataset
+
+        return GraphDataset(load_tudataset(args.tudataset_root,
+                                           args.dataset), k=k)
+    if getattr(args, "molnet_root", None):
+        graphs, skipped = molnet.load_moleculenet(args.molnet_root,
+                                                  args.dataset, limit=limit)
+        if skipped:
+            print(f"skipped {len(skipped)} unparseable SMILES "
+                  f"(reference behavior: exp_*BACE_BBBP.py:308-323)")
+        return GraphDataset(graphs, k=k)
+    if getattr(args, "ogb_raw", None):
+        return GraphDataset(molnet.load_ogb_graphs(args.ogb_raw,
+                                                   limit=limit), k=k)
+    if getattr(args, "qm9_root", None):
+        from .data.sdf import load_qm9
+
+        graphs, skipped = load_qm9(args.qm9_root, limit=limit)
+        if skipped:
+            print(f"skipped {skipped} malformed SDF records")
+        return GraphDataset(graphs, k=k)
+    if getattr(args, "pcqm4mv2_root", None):
+        graphs, skipped = molnet.load_pcqm4mv2(args.pcqm4mv2_root,
+                                               limit=limit)
+        if skipped:
+            print(f"skipped {len(skipped)} unparseable SMILES")
+        return GraphDataset(graphs, k=k)
+    if getattr(args, "zinc_root", None):
+        from .data.zinc import load_zinc
+
+        return GraphDataset(load_zinc(args.zinc_root,
+                                      split=getattr(args, "zinc_split",
+                                                    "train"),
+                                      limit=limit), k=k)
+    if getattr(args, "peptides_root", None):
+        which = ("struct" if "struct" in (args.dataset or "").lower()
+                 else "func")
+        graphs, skipped = molnet.load_peptides(args.peptides_root,
+                                               which=which, limit=limit)
+        if skipped:
+            print(f"skipped {len(skipped)} unparseable SMILES")
+        return GraphDataset(graphs, k=k)
+    if getattr(args, "smiles_csv", None):
+        graphs, skipped = molnet.load_smiles_csv(
+            args.smiles_csv, label_cols=slice(1, None), limit=limit)
+        if skipped:
+            print(f"skipped {len(skipped)} unparseable SMILES")
+        return GraphDataset(graphs, k=k)
+    if args.synthetic:
+        if getattr(args, "synthetic_mode", "random") == "structured":
+            graphs = structured_dataset(args.synthetic, seed=args.seed,
+                                        feat_dim=feat_dim)
+        else:
+            graphs = random_dataset(args.synthetic, seed=args.seed,
+                                    feat_dim=feat_dim, num_tasks=num_tasks)
+        return GraphDataset(graphs, k=k)
+    raise SystemExit("no data: pass --cache <npz>, --molnet_root DIR, "
+                     "--ogb_raw DIR, --smiles_csv FILE, "
+                     "--tudataset_root DIR or --synthetic N")
+
+
+def cmd_preprocess(args):
+    """Writes the dataset's ``.npz`` cache to ``--out``; returns the
+    dataset."""
+    t0 = time.time()
+    ds = _build_dataset(args)
+    save_dataset(args.out, ds)
+    print(f"wrote {len(ds)} graphs (k={ds.k}) to {args.out} "
+          f"in {time.time() - t0:.1f}s")
+    return ds
+
+
+def cmd_download(args):
+    """Fetches each ``--dataset``'s raw files under ``--root``; returns
+    {dataset: files written}."""
+    from .data.download import download_dataset
+
+    out = {}
+    for name in args.dataset:
+        out[name] = download_dataset(name, args.root, base_url=args.base_url,
+                                     force=args.force)
+        print(f"{name}: {len(out[name])} file(s) under {args.root}")
+        for w in out[name]:
+            print(f"  {w}")
+    return out
+
+
 # --- the verb ----------------------------------------------------------------
-
-# flags of the JAX verbs whose modules are not ported yet -> ROADMAP.md item
-_SOURCES = ("cache", "molnet_root", "ogb_raw", "smiles_csv", "qm9_root",
-            "pcqm4mv2_root", "peptides_root", "zinc_root")
-_UNPORTED_SOURCES = _SOURCES + ("stage_caches", "tudataset_root")
-
-
-def _refuse_unported(args):
-    for name in _UNPORTED_SOURCES:
-        if getattr(args, name, None):
-            raise SystemExit(f"--{name}: the dataset readers are not ported "
-                             "yet (ROADMAP.md Queue 1 item 12); use "
-                             "--synthetic N")
-    if args.synthetic_mode != "random":
-        raise SystemExit("--synthetic_mode structured: structured_dataset "
-                         "is not ported yet (ROADMAP.md Queue 1 item 12)")
-    if getattr(args, "superbatch", 0):
-        raise SystemExit("--superbatch: the wire superbatch step is not "
-                         "ported yet (ROADMAP.md Queue 1 item 14)")
-
 
 def _args_config(args):
     return {k: v for k, v in vars(args).items() if k != "fn"}
@@ -193,27 +319,35 @@ def _model(args, feat_dim: int) -> PretrainModel:
 
 def _train(model, ds, args, seed: int, autosave):
     """One stage of ``run_pretraining`` with a fresh Adam and a fresh
-    (captured, on the card) step, whose graphs go with it."""
+    (captured, on the card) step, whose graphs go with it; with
+    ``--superbatch K`` the superbatch step on the dataset's ``ByteSpec``."""
     caps = plan_capacities(ds, args.batch_size)
     optimizer = adam_l2(model, args.lr, args.weight_decay)
     state = TrainState(model, optimizer)
+    logm_k = args.k if args.recons_type == "logM" else None
+    spec = None
+    if args.superbatch:
+        spec = superbatch_spec(ds, args.batch_size, caps, args.superbatch,
+                               logm_k=logm_k)
+        step = make_pretrain_superbatch_step(model, optimizer, spec)
+    else:
+        step = make_pretrain_step(model, optimizer)
     return run_pretraining(
-        make_pretrain_step(model, optimizer), state, ds, caps,
-        args.batch_size, epochs=args.epochs, patience=args.patience,
-        seed=seed, autosave_path=autosave or None,
-        autosave_every=args.autosave_every,
-        logm_k=args.k if args.recons_type == "logM" else None)[1]
+        step, state, ds, caps, args.batch_size, epochs=args.epochs,
+        patience=args.patience, seed=seed, autosave_path=autosave or None,
+        autosave_every=args.autosave_every, logm_k=logm_k,
+        superbatch_k=args.superbatch, superbatch_spec=spec)[1]
 
 
 def cmd_pretrain(args):
     """Returns the step records with ``--steps``, else the run's info (a
     list of per-stage records with ``--curriculum``)."""
-    _refuse_unported(args)
     dev = resolve_device(args.device)
-    if not args.synthetic:
-        raise SystemExit("no data: pass --synthetic N (the dataset readers "
-                         "are ROADMAP.md Queue 1 item 12)")
     if args.steps is not None:
+        if not args.synthetic or any(getattr(args, n, None)
+                                     for n in _SOURCES):
+            raise SystemExit("--steps trains on --synthetic N molecules "
+                             "only")
         return run_pretrain(
             synthetic=args.synthetic, batch_size=args.batch_size,
             steps=args.steps, lr=args.lr, weight_decay=args.weight_decay,
@@ -221,12 +355,12 @@ def cmd_pretrain(args):
             num_layers=args.num_layers, num_heads=args.num_heads,
             hidden=args.hidden, d_transfer=args.d_transfer, k=args.k,
             readout=args.readout, use_att=bool(args.use_att),
-            kl_mode=args.kl_mode, recons_type=args.recons_type)
+            kl_mode=args.kl_mode, recons_type=args.recons_type,
+            superbatch=args.superbatch)
     if args.curriculum:
         return _run_curriculum(args, dev)
 
-    ds = GraphDataset(random_dataset(args.synthetic, seed=args.seed),
-                      k=args.k)
+    ds = _build_dataset(args)
     model = _model(args, ds.graphs[0].node_feat.shape[1])
     if args.pretrained and os.path.exists(args.pretrained):
         variables, _ = ckpt.load_checkpoint(args.pretrained)
@@ -243,6 +377,23 @@ def cmd_pretrain(args):
     return info
 
 
+def _stage_data(args):
+    """(name, dataset thunk) a curriculum stage: one a ``--stage_caches``
+    path, else the synthetic stand-ins of ``PRETRAIN_STAGES`` (seeded
+    ``--seed + stage``, with the stage's feature width), built only for a
+    stage that trains."""
+    if args.stage_caches:
+        return [(os.path.basename(path), lambda path=path: load_dataset(path))
+                for path in args.stage_caches.split(",")]
+    if not args.synthetic:
+        raise SystemExit("curriculum needs --stage_caches or --synthetic N")
+    gen = (structured_dataset if args.synthetic_mode == "structured"
+           else random_dataset)
+    return [(name, lambda i=i, fd=fd: GraphDataset(
+        gen(args.synthetic, seed=args.seed + i, feat_dim=fd), k=args.k))
+        for i, (name, fd) in enumerate(PRETRAIN_STAGES)]
+
+
 def _run_curriculum(args, dev):
     """The three-stage curriculum (exp_pretraining.py:101-141): each stage
     trains a fresh projection and head around the previous stage's best
@@ -252,7 +403,7 @@ def _run_curriculum(args, dev):
     out_dir = os.path.dirname(args.out or "outputs/x") or "outputs"
     prev_core = None
     names, stages = [], []
-    for stage_i, (name, feat_dim) in enumerate(PRETRAIN_STAGES):
+    for stage_i, (name, data) in enumerate(_stage_data(args)):
         names.append(name)
         cp_path = os.path.join(
             out_dir, ckpt.checkpoint_name("pre_training", names,
@@ -266,8 +417,8 @@ def _run_curriculum(args, dev):
                            "skipped": True})
             continue
         seed = args.seed + stage_i
-        ds = GraphDataset(random_dataset(args.synthetic, seed=seed,
-                                         feat_dim=feat_dim), k=args.k)
+        ds = data()
+        feat_dim = ds.graphs[0].node_feat.shape[1]
         model = _model(args, feat_dim)
         init_flax_style_(model, torch.Generator().manual_seed(seed))
         if prev_core is not None:
@@ -292,17 +443,6 @@ def _run_curriculum(args, dev):
 
 
 # --- the supervised verbs ----------------------------------------------------
-
-def _dataset(args, num_tasks=None, feat_dim: int = 9) -> GraphDataset:
-    """``--synthetic`` molecules from ``--seed``, with ``num_tasks`` labels
-    (the JAX verb's ``_build_dataset``)."""
-    if not args.synthetic:
-        raise SystemExit("no data: pass --synthetic N (the dataset readers "
-                         "are ROADMAP.md Queue 1 item 12)")
-    return GraphDataset(random_dataset(args.synthetic, seed=args.seed,
-                                       feat_dim=feat_dim,
-                                       num_tasks=num_tasks), k=args.k)
-
 
 def _spec(args):
     spec = DATASETS.get(args.dataset)
@@ -363,10 +503,9 @@ def _init(model, seed: int, pre_vars, dev):
 def cmd_finetune(args):
     """Returns ``mean``, ``std``, ``runs`` (each repeat's test at best val)
     and ``last`` (the last repeat's ``run_finetune`` result)."""
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     spec = _spec(args)
-    ds = _dataset(args, spec.num_tasks, spec.feat_dim)
+    ds = _build_dataset(args, spec.num_tasks, spec.feat_dim)
     caps = plan_capacities(ds, args.batch_size)
     train_ds, val_ds, test_ds = _splits(ds, spec, args.seed)
     pre_vars = _pretrained(args)
@@ -431,13 +570,12 @@ def cmd_eval(args):
     val, test, all of them, or the full dataset), its architecture and
     split seed taken from the checkpoint's config.  Returns {split:
     metric}."""
-    _refuse_unported(args)
     dev = resolve_device(args.device)
     spec = _spec(args)
     variables, meta = ckpt.load_checkpoint(args.checkpoint)
     cfg = {**vars(args), **{k: v for k, v in meta.get("config", {}).items()
                             if v is not None}}
-    ds = _dataset(args, spec.num_tasks, spec.feat_dim)
+    ds = _build_dataset(args, spec.num_tasks, spec.feat_dim)
     caps = plan_capacities(ds, args.batch_size)
     model = FinetuneModel(ds.graphs[0].node_feat.shape[1],
                           num_out=spec.num_tasks,
@@ -462,9 +600,8 @@ def cmd_eval(args):
 
 def cmd_adapt(args):
     """Returns ``run_domain_adaptation``'s info."""
-    _refuse_unported(args)
     dev = resolve_device(args.device)
-    ds = _dataset(args)
+    ds = _build_dataset(args)
     caps = plan_capacities(ds, args.batch_size)
     pre_vars = _pretrained(args)          # may set args.num_layers
     model = _init(DomainAdaptModel(ds.graphs[0].node_feat.shape[1],
@@ -495,20 +632,11 @@ def _common(sp, optim: OptimConfig, epochs: int,
     optimizer's, the epochs and the patience as the verb's config gives
     them; and the port's ``--device``."""
     m = ModelConfig
-    for name in _SOURCES:
-        sp.add_argument(f"--{name}", default=None,
-                        help="not ported yet (ROADMAP.md Queue 1 item 12)")
-    sp.add_argument("--synthetic", type=int, default=0,
-                    help="generate N synthetic molecules")
+    _data_flags(sp)
     sp.add_argument("--synthetic_mode", default="random",
                     choices=["random", "structured"],
-                    help="'structured' is not ported yet")
-    sp.add_argument("--zinc_split", default="train",
-                    choices=["train", "val", "test"])
-    sp.add_argument("--limit", type=int, default=0,
-                    help="cap graphs loaded (real datasets only)")
-    sp.add_argument("--k", type=int, default=1,
-                    help="k-hop ego-net radius (--k_transition)")
+                    help="'structured': node features correlated with "
+                         "local structure (data/synthetic.py)")
     sp.add_argument("--batch_size", type=int,
                     default=FinetuneConfig.batch_size)
     sp.add_argument("--hidden", type=int, default=m.hidden)
@@ -535,6 +663,20 @@ def _common(sp, optim: OptimConfig, epochs: int,
                     help="cuda (default) or cpu for the plain path")
 
 
+def _data_flags(sp):
+    """The data flags ``preprocess`` shares with every verb."""
+    for name, help in _SOURCES.items():
+        sp.add_argument(f"--{name}", default=None, help=help)
+    sp.add_argument("--synthetic", type=int, default=0,
+                    help="generate N synthetic molecules")
+    sp.add_argument("--zinc_split", default="train",
+                    choices=["train", "val", "test"])
+    sp.add_argument("--limit", type=int, default=0,
+                    help="cap graphs loaded (real datasets only)")
+    sp.add_argument("--k", type=int, default=1,
+                    help="k-hop ego-net radius (--k_transition)")
+
+
 def _autosave(sp, help):
     sp.add_argument("--autosave", default=None, help=help)
     sp.add_argument("--autosave_every", type=int, default=1,
@@ -558,11 +700,12 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
     sp.add_argument("--curriculum", action="store_true",
                     help="3-stage curriculum (exp_pretraining flow)")
     sp.add_argument("--superbatch", type=int, default=0,
-                    help="not ported yet; 0 only")
+                    help="K wire batches a device buffer, K steps a call "
+                         "(0: one batch a step)")
     _autosave(sp, "full-train-state autosave path: resumes automatically "
                   "after preemption/crash")
     sp.add_argument("--stage_caches", default=None,
-                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+                    help="comma-separated stage .npz caches")
     sp.add_argument("--steps", type=int, default=None,
                     help="take N optimizer steps instead of the epoch loop")
     sp.set_defaults(fn=cmd_pretrain, **(_STEPS_DEFAULTS if steps else {}))
@@ -573,7 +716,7 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
                   "suffix .repN)")
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--tudataset_root", default=None,
-                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+                    help="directory holding raw TUDataset text files")
     sp.add_argument("--freeze_mode", default=FinetuneConfig.freeze_mode,
                     choices=["reference", "paper", "all", "frozen"])
     sp.add_argument("--xlsx", default=None,
@@ -588,7 +731,7 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
     _common(sp, FinetuneConfig.optim, 0)
     sp.add_argument("--dataset", required=True)
     sp.add_argument("--tudataset_root", default=None,
-                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+                    help="directory holding raw TUDataset text files")
     sp.add_argument("--checkpoint", required=True,
                     help="fine-tuned .msgpack from `finetune --out`")
     sp.add_argument("--split", default="test",
@@ -600,9 +743,32 @@ def build_parser(steps: bool = False) -> argparse.ArgumentParser:
     sp.add_argument("--dataset", default=None,
                     help="dataset name (for the real-data readers)")
     sp.add_argument("--tudataset_root", default=None,
-                    help="not ported yet (ROADMAP.md Queue 1 item 12)")
+                    help="directory holding raw TUDataset text files")
     _autosave(sp, "full-train-state autosave path")
     sp.set_defaults(fn=cmd_adapt)
+
+    sp = sub.add_parser("preprocess", help="build a packed dataset cache")
+    _data_flags(sp)
+    sp.add_argument("--dataset", default=None,
+                    help="dataset name for --molnet_root/--tudataset_root")
+    sp.add_argument("--tudataset_root", default=None)
+    sp.add_argument("--seed", type=int, default=42)
+    sp.add_argument("--out", required=True)
+    sp.set_defaults(fn=cmd_preprocess)
+
+    sp = sub.add_parser(
+        "download", help="fetch a dataset's raw upstream files into the "
+                         "layout the readers expect")
+    sp.add_argument("--dataset", required=True, action="append",
+                    help="dataset name (repeatable); see "
+                         "scgib_tpu_torch.data.download.REGISTRY")
+    sp.add_argument("--root", required=True,
+                    help="destination root directory")
+    sp.add_argument("--base_url", default=None,
+                    help="mirror base URL (air-gapped setups, tests)")
+    sp.add_argument("--force", action="store_true",
+                    help="re-fetch even if files exist")
+    sp.set_defaults(fn=cmd_download)
     return p
 
 

@@ -14,7 +14,14 @@ ragged tail dropped); ``run_domain_adaptation`` its adaptation loop
 ``.to`` (``PackedEval`` keeps its split there).  Each epoch shuffles the
 dataset with ``seed + epoch`` through ``batch_iterator``, whose batches
 are the JAX package's bit for bit, and logs the JAX package's line with
-the edges a second.  ``track_best`` keeps
+the edges a second.  Pretraining batches come from the native flat
+packer, as the JAX package's loop packs them, and reach the device
+through ``prefetch_to_device``: packed in a background thread, copied
+from pinned buffers on a side stream.  With ``superbatch_k`` the
+pretraining epoch is the JAX package's wire superbatch loop: K batches a
+buffer (``wire_superbatches``, the native packer on a thread pool), the
+buffer copied ahead of use, K steps a call of the superbatch step, one
+host read of the losses a superbatch.  ``track_best`` keeps
 a real snapshot of the best epoch's weights (the reference aliases the live
 module, so it keeps the last; ``track_best=False``).  The compression noise
 and the graph transformer's dropout come from one ``torch.Generator``, whose
@@ -33,8 +40,10 @@ import numpy as np
 import torch
 
 from ..config import DatasetSpec
-from ..data.loader import Capacities, GraphDataset, batch_iterator
+from ..data.loader import (Capacities, GraphDataset, batch_iterator,
+                           prefetch_to_device, wire_superbatches)
 from ..utils import metrics as M
+from ..utils.device import resolve_device
 from ..utils.profiling import StepTimer
 from .checkpoint import load_train_state, save_train_state
 from .trainer import TrainState
@@ -82,6 +91,14 @@ def _restore_generator(generator: torch.Generator, rng: np.ndarray,
         generator.manual_seed((int(rng[0]) << 32) | int(rng[1]))
 
 
+def _counted(batches):
+    """Each host pair with its real edges (graphs' and ego-nets') and
+    graphs, counted before the pair leaves the host."""
+    for g, sub in batches:
+        yield (g, sub, int(g.edge_mask.sum() + sub.edge_mask.sum()),
+               int(g.graph_mask.sum()))
+
+
 def run_pretraining(step_fn: Callable, state: TrainState, ds: GraphDataset,
                     caps: Capacities, batch_size: int, epochs: int,
                     patience: int = 50, seed: int = 42,
@@ -90,10 +107,15 @@ def run_pretraining(step_fn: Callable, state: TrainState, ds: GraphDataset,
                     log: Optional[Callable[[str], None]] = print,
                     autosave_path: Optional[str] = None,
                     autosave_every: int = 1,
-                    logm_k: Optional[int] = None
+                    logm_k: Optional[int] = None,
+                    superbatch_k: int = 0,
+                    superbatch_spec=None
                     ) -> Tuple[TrainState, Dict]:
     """One pretraining stage.  ``step_fn(g, sub, generator) -> losses``
-    (``make_pretrain_step`` of ``state``'s model and optimizer).  Returns
+    (``make_pretrain_step`` of ``state``'s model and optimizer); with
+    ``superbatch_k`` = K, ``step_fn(buf, pool_fits, generator) -> losses``
+    of K steps (``make_pretrain_superbatch_step`` with ``superbatch_spec``),
+    each epoch's ragged tail group of fewer than K batches dropped.  Returns
     (state, info): ``info['best_variables']`` are the best-train-loss
     weights as a flax tree, with ``best_loss``, ``best_epoch``, ``history``
     (the epoch losses) and ``throughput`` (this call's steps, wall time and
@@ -132,15 +154,31 @@ def run_pretraining(step_fn: Callable, state: TrainState, ds: GraphDataset,
     for epoch in range(start_epoch, epochs):
         total = 0.0
         nb = 0
-        for g, sub in batch_iterator(ds, batch_size, caps, shuffle=True,
-                                     seed=seed + epoch, logm_k=logm_k):
-            n_edges = int(g.edge_mask.sum() + sub.edge_mask.sum())
-            g, sub = g.to(device), sub.to(device)
-            with timer.step(edges=n_edges, graphs=int(g.graph_mask.sum())):
-                losses = step_fn(g, sub, generator)
-                total += float(losses.total)     # waits for the device
-            state.step += 1
-            nb += 1
+        if superbatch_k:
+            for buf, n_edges, pool_fits in prefetch_to_device(
+                    wire_superbatches(ds, batch_size, caps, superbatch_k,
+                                      shuffle=True, seed=seed + epoch,
+                                      logm_k=logm_k,
+                                      byte_spec=superbatch_spec),
+                    size=3, device=device, host_stage=2):
+                with timer.step(edges=n_edges,
+                                graphs=batch_size * superbatch_k):
+                    losses = step_fn(buf, pool_fits, generator)
+                    # one host read a superbatch
+                    total += float(np.sum(losses.total.cpu().numpy()))
+                state.step += superbatch_k
+                nb += superbatch_k
+        else:
+            for g, sub, n_edges, n_graphs in prefetch_to_device(
+                    _counted(batch_iterator(ds, batch_size, caps,
+                                            shuffle=True, seed=seed + epoch,
+                                            logm_k=logm_k, use_flat=True)),
+                    device=device):
+                with timer.step(edges=n_edges, graphs=n_graphs):
+                    losses = step_fn(g, sub, generator)
+                    total += float(losses.total)     # waits for the device
+                state.step += 1
+                nb += 1
         epoch_loss = total / max(nb, 1)
         history.append(epoch_loss)
         if log:
@@ -220,7 +258,8 @@ class PackedEval:
     host."""
 
     def __init__(self, ds: GraphDataset, caps: Capacities, batch_size: int,
-                 spec: DatasetSpec, device="cpu"):
+                 spec: DatasetSpec, device="cuda"):
+        device = resolve_device(device)
         self.spec = spec
         self.batches = []
         labels = []
@@ -245,7 +284,7 @@ class PackedEval:
 
 
 def evaluate(eval_fn: Callable, ds: GraphDataset, caps: Capacities,
-             batch_size: int, spec: DatasetSpec, device="cpu",
+             batch_size: int, spec: DatasetSpec, device="cuda",
              seed: int = 0) -> float:
     """One evaluation of ``eval_fn`` over ``ds``: ``PackedEval``'s, packed
     for this call."""

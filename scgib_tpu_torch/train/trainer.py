@@ -1,7 +1,9 @@
 """The training steps, the evaluation function and the train state.
 
-Counterpart of ``scgib_tpu/train/trainer.py``: the pretraining step and its
-scanned form (``make_pretrain_step``, ``make_pretrain_scan_step``), the
+Counterpart of ``scgib_tpu/train/trainer.py``: the pretraining step, its
+scanned form and its superbatch form (``make_pretrain_step``,
+``make_pretrain_scan_step``, ``make_pretrain_superbatch_step``: K steps on
+the K batches of one wire buffer), the
 supervised fine-tuning step with gradient accumulation
 (``make_finetune_step``), the domain-adaptation step
 (``make_domainadapt_step``), inference (``make_eval_fn``), the fine-tuning
@@ -59,6 +61,8 @@ from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..graph.container import GraphBatch, SubgraphBatch
+from ..graph.wire import (from_wire_graph, from_wire_sub, index_wire,
+                          unpack_bytes)
 from ..models import encoders
 from ..models.losses import (bce_loss, bce_with_logits_loss,
                              cross_entropy_loss, mae_loss, rmse_loss)
@@ -361,10 +365,18 @@ class _CapturedSteps:
     def __call__(self, g, sub, generator: Optional[torch.Generator] = None):
         pairs = (list(zip(g, sub)) if isinstance(g, (list, tuple))
                  else [(g, sub)])
-        batches = tuple(b for pair in pairs for b in pair)
-        dev = batches[0].node_feat.device
+        return self._step(tuple(b for pair in pairs for b in pair),
+                          generator)
+
+    def _arg(self, batches):
+        """``run``'s argument: the batches' (g, sub) pairs."""
+        return _pairs(batches)
+
+    def _step(self, batches: tuple, generator: Optional[torch.Generator]):
+        dev = next(v for _, v in _fields(batches[0])
+                   if isinstance(v, torch.Tensor)).device
         if dev.type != "cuda":
-            return self.run(pairs, generator)
+            return self.run(self._arg(batches), generator)
         if generator is None:
             generator = torch.cuda.default_generators[
                 dev.index if dev.index is not None
@@ -380,7 +392,7 @@ class _CapturedSteps:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            out = self.run(pairs, generator)
+            out = self.run(self._arg(batches), generator)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graphs[key] = self._capture(buffers, generator)
         self.generators[key] = generator
@@ -395,7 +407,7 @@ class _CapturedSteps:
         guard = CaptureGuard()
         try:
             with torch.cuda.graph(graph), guard:
-                out = self.run(_pairs(buffers), generator)
+                out = self.run(self._arg(buffers), generator)
         except RuntimeError as e:
             raise RuntimeError(f"capturing {self.what} failed at "
                                f"{guard.last}: {e}") from e
@@ -438,6 +450,59 @@ def make_pretrain_scan_step(model: PretrainModel,
                 for _ in range(n_inner)]
         return PretrainLosses(*(torch.stack(x) for x in zip(*runs)))
     return _CapturedSteps(run, optimizer)
+
+
+@dataclasses.dataclass
+class _Wire:
+    """One superbatch on the device: its uint8 buffer
+    (``data/loader.py::wire_superbatches``) and the pooling flag of all
+    its K batches, which the buffer does not carry (``graph/wire.py``)."""
+
+    buf: torch.Tensor
+    pool_fits: bool
+
+
+class _SuperbatchSteps(_CapturedSteps):
+    """``step(buf, pool_fits, generator=None)``: ``run`` takes the
+    superbatch's ``_Wire``; on the card one graph for each buffer size and
+    flag, so at most two for a run's buffers."""
+
+    def __call__(self, buf: torch.Tensor, pool_fits: bool,
+                 generator: Optional[torch.Generator] = None):
+        return self._step((_Wire(buf, bool(pool_fits)),), generator)
+
+    def _arg(self, batches):
+        return batches[0]
+
+
+def make_pretrain_superbatch_step(model: PretrainModel,
+                                  optimizer: torch.optim.Optimizer,
+                                  byte_spec
+                                  ) -> Callable[..., PretrainLosses]:
+    """``step(buf, pool_fits, generator=None) -> losses``: K optimizer
+    steps on the K batches of one wire superbatch, a uint8 device buffer
+    laid out by ``byte_spec`` (``data/loader.py::superbatch_spec``).
+    ``pool_fits``: whether every one of the K batches fits the banded
+    pooling's window (``wire_superbatches`` yields it); where one does
+    not, all K pool through the scatter branch, which is exact for any
+    batch.  The buffer is unpacked into views, each wire pair decoded on
+    the device and trained on in order (``pretrain_step_eager``, the noise
+    drawn from the one generator), the losses stacked to [K].
+    Counterpart of the JAX package's
+    ``make_pretrain_superbatch_step(byte_spec=...)``: on the card one CUDA
+    graph of the K steps for each value of the flag, one replay a
+    superbatch, whose buffer is copied into the graph's input buffer
+    first."""
+    def run(wire: _Wire, gen):
+        gs, subs = unpack_bytes(wire.buf, byte_spec)
+        runs = []
+        for k in range(gs.n_nodes.shape[0]):
+            g = from_wire_graph(index_wire(gs, k))
+            sub = from_wire_sub(dataclasses.replace(
+                index_wire(subs, k), pool_fits=wire.pool_fits))
+            runs.append(pretrain_step_eager(model, optimizer, g, sub, gen))
+        return PretrainLosses(*(torch.stack(x) for x in zip(*runs)))
+    return _SuperbatchSteps(run, optimizer)
 
 
 def make_finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer,

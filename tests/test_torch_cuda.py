@@ -985,3 +985,107 @@ def test_captured_eval_is_the_eager_eval(dev, encoder, live_noise):
     assert len(run.graphs) == 1 and model.training
     assert all(torch.equal(v, before[k])
                for k, v in model.state_dict().items())
+
+
+def _superbatches(dev, n_super=2, k=3):
+    """``n_super`` wire superbatches of ``k`` batches of 16, prefetched
+    onto the card, with their spec."""
+    from scgib_tpu_torch.data import loader
+    ds = loader.GraphDataset(random_dataset(16 * k * n_super + 5, seed=3,
+                                            min_nodes=8, max_nodes=24), k=1)
+    caps = loader.plan_capacities(ds, 16)
+    spec = loader.superbatch_spec(ds, 16, caps, k)
+    return spec, list(loader.prefetch_to_device(
+        loader.wire_superbatches(ds, 16, caps, k, seed=4, byte_spec=spec),
+        size=2, device=dev, host_stage=1))
+
+
+def test_prefetch_onto_the_card_keeps_the_bytes(dev):
+    """Prefetched superbatch buffers land on the card equal to the host's,
+    in order, ahead of the consumer (the ring of pinned buffers reused)."""
+    from scgib_tpu_torch.data import loader
+    ds = loader.GraphDataset(random_dataset(200, seed=3, min_nodes=8,
+                                            max_nodes=24), k=1)
+    caps = loader.plan_capacities(ds, 16)
+    host = list(loader.wire_superbatches(ds, 16, caps, 2, seed=4))
+    got = list(loader.prefetch_to_device(iter(host), size=2, device=dev,
+                                         host_stage=2))
+    assert len(got) == len(host) > 4
+    for (buf, edges, fits), (hbuf, hedges, hfits) in zip(got, host):
+        assert buf.is_cuda and (edges, fits) == (hedges, hfits)
+        assert np.array_equal(buf.cpu().numpy(), hbuf)
+    batches = list(loader.prefetch_to_device(
+        loader.batch_iterator(ds, 16, caps, seed=1), device=dev))
+    for (g, s), (hg, hs) in zip(batches, loader.batch_iterator(
+            ds, 16, caps, seed=1)):
+        assert torch.equal(g.senders.cpu(), hg.to("cpu").senders)
+        assert s.pool_fits is hs.pool_fits and g.node_feat.is_cuda
+
+
+def test_captured_superbatch_step_is_the_single_steps(dev):
+    """Under torch's deterministic algorithms, two superbatches of 3
+    through the captured superbatch step (the first eager, the second a
+    replay of one graph) write the very bits of 6 captured single steps
+    on the same decoded batches; launches are per optimizer step."""
+    from scgib_tpu_torch.graph import wire
+    spec, supers = _superbatches(dev)
+
+    def run(superbatch):
+        model = PretrainModel(9, hidden=32, d_transfer=16, num_layers=2)
+        init_flax_style_(model, torch.Generator().manual_seed(1))
+        model.to(dev)
+        opt = trainer.adam_l2(model, 1e-3, 5e-5)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        kb.reset_launch_counts()
+        if superbatch:
+            step = trainer.make_pretrain_superbatch_step(model, opt, spec)
+            losses = [step(buf, fits, gen).total.cpu()
+                      for buf, _, fits in supers]
+        else:
+            step = trainer.make_pretrain_step(model, opt)
+            losses = []
+            for buf, _, fits in supers:
+                gs, subs = wire.unpack_bytes(buf, spec)
+                for i in range(3):
+                    sub = wire.from_wire_sub(wire.index_wire(subs, i))
+                    sub.pool_fits = fits
+                    losses.append(step(wire.from_wire_graph(
+                        wire.index_wire(gs, i)), sub, gen).total.cpu())
+            losses = [torch.stack(losses[:3]), torch.stack(losses[3:])]
+        torch.cuda.synchronize()
+        state = [v.cpu() for v in model.state_dict().values()] + [
+            t.cpu() for p in model.parameters()
+            for t in opt.state[p].values()]
+        return losses, state, gen.get_state(), dict(kb.launch_counts()), step
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        single = run(False)
+        sup = run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(sup[4].graphs) == 1
+    assert all(torch.equal(a, b) for a, b in zip(single[0], sup[0]))
+    assert all(torch.equal(a, b) for a, b in zip(single[1], sup[1]))
+    assert torch.equal(single[2], sup[2])
+    assert sup[3] == single[3] and sup[3]["gin_fwd"] == 6 * 4
+
+
+def test_superbatch_step_captures_one_graph_a_flag(dev):
+    """The superbatch step's graphs are keyed by the buffer and the one
+    pooling flag of its K batches: four superbatches passed with the flag
+    True, False, True, False (the scatter branch is exact for batches that
+    fit) capture two graphs, and every replay's losses are finite."""
+    spec, supers = _superbatches(dev, n_super=4)
+    model = PretrainModel(9, hidden=32, d_transfer=16, num_layers=2)
+    init_flax_style_(model, torch.Generator().manual_seed(1))
+    model.to(dev)
+    step = trainer.make_pretrain_superbatch_step(
+        model, trainer.adam_l2(model, 1e-3, 5e-5), spec)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for i, (buf, _, fits) in enumerate(supers):
+        assert fits is True
+        losses = step(buf, i % 2 == 0, gen)
+        assert losses.total.shape == (3,)
+        assert torch.isfinite(losses.total).all()
+    assert len(step.graphs) == 2

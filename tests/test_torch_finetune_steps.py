@@ -411,7 +411,19 @@ def test_evaluate_equals_packed_eval():
     model = FinetuneModel(IN, hidden=HID, d_transfer=DT, num_layers=3)
     init_flax_style_(model, torch.Generator().manual_seed(1))
     run = make_eval_fn(model)
-    packed = loops.PackedEval(val, caps, 8, spec)
-    once = loops.evaluate(run, val, caps, 8, spec)
+    packed = loops.PackedEval(val, caps, 8, spec, "cpu")
+    once = loops.evaluate(run, val, caps, 8, spec, "cpu")
     assert packed.evaluate(run) == packed.evaluate(run) == once
     assert packed.y.shape == (8, 1)
+
+
+def test_evaluate_defaults_to_the_card(monkeypatch):
+    """``evaluate`` and ``PackedEval`` run on the card unless asked for
+    the CPU: without one they raise."""
+    spec = DATASETS["BACE"]
+    _, caps, (_, val, _) = _data(spec)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loops.evaluate(lambda *a: None, val, caps, 8, spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        loops.PackedEval(val, caps, 8, spec)

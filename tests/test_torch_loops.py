@@ -8,8 +8,7 @@ patience stops a stage early, and two epochs' losses match the JAX
 package's ``run_pretraining`` from the same weights (both models
 deterministic, both trainers given ``test_torch_trainer.py``'s gradient
 mask; the same tolerance, rtol 1e-4).  The verb: every flag of the JAX
-verb with its default, the flags whose modules are not ported yet refused
-with the ROADMAP item that ports them, ``--pretrained``, and the
+verb with its default, ``--pretrained``, and the
 three-stage curriculum end to end, its core carried from stage to stage and
 every stage skipped on a rerun."""
 
@@ -240,16 +239,6 @@ def test_cli_steps_keeps_its_own_defaults(monkeypatch, flags, want):
 
 SMALL = ["pretrain", "--synthetic", "24", "--batch_size", "8", "--hidden",
          str(HID), "--d_transfer", str(DT), "--device", "cpu"]
-
-
-@pytest.mark.parametrize("flags,item", [
-    (["--cache", "x.npz"], "item 12"), (["--molnet_root", "d"], "item 12"),
-    (["--stage_caches", "a.npz"], "item 12"),
-    (["--synthetic_mode", "structured"], "item 12"),
-    (["--superbatch", "4"], "item 14")])
-def test_cli_refuses_flags_not_ported_yet(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        cli.main(SMALL + ["--epochs", "1"] + flags)
 
 
 def test_cli_pretrained_and_out(tmp_path, capsys):

@@ -7,8 +7,7 @@ the same weights, batches and noise draws); the pretrained core grafted in
 (the JAX package's committed checkpoint and the port's own ``pretrain``
 output, bit for bit); repeats, the journal and the sheet; ``adapt``'s
 checkpoint read by the JAX package's ``load_checkpoint`` and run by its
-``DomainAdaptModel``; and the flags whose modules are not ported, and a run
-without a card, refused.
+``DomainAdaptModel``; and a run without a card refused.
 """
 
 import argparse
@@ -167,23 +166,6 @@ def test_adapt_writes_a_checkpoint_jax_runs(tmp_path):
         v, jg, jsub, train=False, rngs={"noise": jax.random.PRNGKey(0)}))(
             variables)
     assert np.isfinite(float(loss))
-
-
-REFUSED = [
-    (["--cache", "x.npz"], "item 12"), (["--molnet_root", "d"], "item 12"),
-    (["--tudataset_root", "d"], "item 12"),
-    (["--synthetic_mode", "structured"], "item 12")]
-
-
-@pytest.mark.parametrize("verb", ["finetune", "eval", "adapt"])
-@pytest.mark.parametrize("flags,item", REFUSED,
-                         ids=[f[0][0] + " " + f[0][1] for f in REFUSED])
-def test_unported_flags_exit_naming_their_item(verb, flags, item):
-    args = {"finetune": ["finetune", "--dataset", "BACE"],
-            "eval": ["eval", "--dataset", "BACE", "--checkpoint", "x"],
-            "adapt": ["adapt"]}[verb]
-    with pytest.raises(SystemExit, match=item):
-        cli.main(args + SMALL + flags)
 
 
 def test_unknown_dataset_and_no_data_exit():
