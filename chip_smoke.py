@@ -41,9 +41,11 @@ Phases; any failure raises and exits non-zero before the last line:
      under torch's deterministic algorithms: losses every step, the final
      parameters, BatchNorm statistics, Adam state and generator state
      byte-equal for GIN and the transformer (the merged backward sums with
-     atomics, so its run is held to tolerances, beside two eager runs'
-     spread), and a planted fault (replays that stop copying their
-     inputs) must break it; the scan step of 3 inner steps against 3 eager
+     atomics, so chained runs drift apart: each of its captured steps is
+     held to one eager step from the state it started in, losses
+     byte-equal, weights within two Adam updates' reach), and a planted
+     fault (replays that stop copying their inputs) must break it; the
+     scan step of 3 inner steps against 3 eager
      steps likewise; (b) a skewed batch (one center tile owning more
      sub-rows than the pooling window) through the captured step: the
      scatter branch inside the graph, losses within 1e-4 of float64;
@@ -136,10 +138,34 @@ Phases; any failure raises and exits non-zero before the last line:
      --smiles_csv`` (1513 rows cycled from a dozen SMILES), each run's
      launch counts those of its steps; (f) ``profile_trace`` around 3
      captured steps writes a trace.
- 11. one JSON line of the kernels (with the launches of a fine-tuning step
+ 11. data parallel and remat: (a) ``parallel/dp.py``'s captured DP
+     pretraining step at world size 1 over NCCL (PretrainModel(9, 64, 32),
+     GIN, the benchmark batches, 6 steps) byte-equal to the captured single
+     step under deterministic algorithms, the planted fault of halved
+     gradients (DistributedDataParallel's averaging at world size 2)
+     breaking it; the launches of a DP step the single step's, the
+     collectives of one DP step, the medians of both steps' calls; (b) two
+     ranks on the one card over gloo, spawned (``--gloo-rank``), eager,
+     each with half of a benchmark batch: the DP pretraining step, the DP
+     fine-tuning step (BACE's recipe, ``bce_sum_count``) and a DP
+     superbatch step of K = 2 against the single-device steps on the union
+     batches (losses within 1e-4, gradients within 1e-3 of float64 as
+     phases 4 and 8 hold them, weights under tests/test_torch_trainer.py's
+     mask), the ranks byte-equal; (c) the
+     captured remat step byte-equal to the captured plain step at
+     bench_peptides.py's k = 3 shapes (32 graphs of 120-160 nodes) and on
+     the benchmark batch, their peak memory and call ms, every forward
+     launch twice under remat; (d) the fine-tuning step fed as
+     ``run_finetune`` feeds it now (prefetched from the native packer)
+     and as before (packed per graph on the consumer thread): ms a batch
+     of BACE; the ``finetune`` verb's step ms.
+ 12. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch
-     runs among them), the nvidia-smi line, and {"ok": true, "device":
-     {...}} as the last line.
+     and phase 11 runs among them), the nvidia-smi line, and {"ok": true,
+     "device": {...}} as the last line.
+
+``python3 chip_smoke.py --gloo-rank R PORT`` is one rank of phase 11 (b),
+which the script starts itself.
 """
 
 import collections
@@ -152,6 +178,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -163,6 +190,7 @@ os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -177,7 +205,8 @@ from scgib_tpu_torch.graph import wire  # noqa: E402
 from scgib_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from scgib_tpu_torch.models import encoders  # noqa: E402
 from scgib_tpu_torch.models.scgib import (  # noqa: E402
-    DomainAdaptModel, FinetuneModel, PretrainModel, _resolve_band)
+    DomainAdaptModel, FinetuneModel, PretrainModel, _resolve_band,
+    uniform_draws)
 from scgib_tpu_torch.ops import pool as pool_mod  # noqa: E402
 from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
 from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
@@ -187,6 +216,7 @@ from scgib_tpu_torch.graph.batching import (  # noqa: E402
     GraphData, max_egonet_size, pack_graphs, pack_subgraphs,
     pack_subgraphs_dense)
 from scgib_tpu_torch.graph.egonet import extract_egonets  # noqa: E402
+from scgib_tpu_torch.parallel import dp, multihost  # noqa: E402
 from scgib_tpu_torch.ops.spmm_banded import (  # noqa: E402
     gt_banded_attention)
 from scgib_tpu_torch.train import trainer  # noqa: E402
@@ -869,12 +899,17 @@ def captured_vs_eager(dev, batches, label, kwargs, per_step):
             raise AssertionError(f"{label} {name}: launches {got}, "
                                  f"expected {want}")
     if "merged" in label:
-        # dk and dv summed with atomics: held to tolerances, beside the
-        # spread of a second eager run
+        # dk and dv summed with atomics: two chained runs drift apart
+        # (recorded, not held), so each captured step is held to one eager
+        # step from the state it started in, and so is the fault
         again = compared_run(dev, batches, kwargs, "eager")
-        rec["eager_twice_state_apart"] = len(bytes_apart(eager[1], again[1]))
-        rec.update(merged_apart(eager, captured))
-        ok = rec["loss_rel"] <= 1e-5 and rec["weights_lr"] <= 2 * STEPS
+        rec["chained"] = merged_apart(eager, captured)
+        rec["chained_eager_twice"] = merged_apart(eager, again)
+        rec.update(stepwise_vs_eager(dev, batches, kwargs))
+        with stale_replays():
+            fault = stepwise_vs_eager(dev, batches, kwargs)
+        rec["fault_losses_apart"] = len(fault["losses_apart"])
+        ok = not rec["losses_apart"] and rec["weights_reach"] <= 1
     else:
         ok = not rec["losses_apart"] and not rec["state_apart"]
     print(f"captured vs eager ({label}), {len(batches)} steps: "
@@ -885,6 +920,58 @@ def captured_vs_eager(dev, batches, label, kwargs, per_step):
     if not (rec["fault_losses_apart"] and rec["fault_state_apart"]):
         raise AssertionError(f"{label}: the planted fault went unseen")
     return rec
+
+
+def adam_reach(t, betas=(0.9, 0.999)):
+    """The most Adam's update at step ``t`` can move a weight, in units of
+    the learning rate, whatever the gradients: |m_hat| / sqrt(v_hat) by
+    Cauchy-Schwarz over the ``t`` gradients (1 at t = 1, under 1.02 up to
+    t = 6)."""
+    b1, b2 = betas
+    return (math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+            * (1 - b1) / math.sqrt(1 - b2)
+            * math.sqrt(sum((b1 * b1 / b2) ** k for k in range(t))))
+
+
+def stepwise_vs_eager(dev, batches, kwargs):
+    """Each step of a captured run (``compared_run``'s start) against one
+    eager step from the state that step started in (weights, statistics,
+    Adam's state, the generator's).  Returns the losses that are not
+    byte-equal (the forward has no atomics, so none may be) and the
+    largest weight difference over what two Adam updates can differ by
+    plus two float32 roundings of the weight (``weights_reach``, at most 1
+    however the gradients' rounding differs: Adam makes a gradient of
+    rounding alone a whole update)."""
+    def fresh():
+        model = PretrainModel(9, hidden=64, d_transfer=32, num_heads=HEADS,
+                              **kwargs)
+        init_flax_style_(model, torch.Generator().manual_seed(11))
+        model.to(dev)
+        return model, adam_l2(model, LR, 5e-5)
+    (model, opt), (ref, ref_opt) = fresh(), fresh()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ref_gen = torch.Generator(device=dev)
+    step = make_pretrain_step(model, opt)
+    apart, reach = [], 0.0
+    ulp = torch.finfo(torch.float32).eps
+    for i, (g, s) in enumerate(batches):
+        ref.load_state_dict(model.state_dict())
+        # a copy: load_state_dict keeps the state tensors it is given
+        ref_opt.load_state_dict(copy.deepcopy(opt.state_dict()))
+        ref_gen.set_state(gen.get_state())
+        want = pretrain_step_eager(ref, ref_opt, g, s, ref_gen)
+        got = step(g, s, gen)
+        apart += [f"step {i} {name}" for name, a, b in zip(
+            ("kl", "contrastive", "recon"), want, got)
+            if a.cpu().numpy().tobytes() != b.cpu().numpy().tobytes()]
+        bound = 2 * adam_reach(i + 1) * LR
+        with torch.no_grad():
+            reach = max([reach] + [float(
+                ((a - b).abs() / (bound + 2 * ulp * torch.maximum(
+                    a.abs(), b.abs()))).max())
+                for a, b in zip(ref.parameters(), model.parameters())])
+    torch.cuda.synchronize()
+    return {"losses_apart": apart, "weights_reach": reach}
 
 
 def bench_batches(dev, ds, caps, n=STEPS):
@@ -927,7 +1014,7 @@ def merged_apart(eager, captured):
                    - float(np.frombuffer(l2[k], np.float32)[0]))
                / abs(float(np.frombuffer(l1[k], np.float32)[0]))
                for k in l1)
-    weights = max(float((a - b).abs().max()) for a, b in
+    weights = max(float((a - b).detach().abs().max()) for a, b in
                   zip(m1.parameters(), m2.parameters())) / LR
     return {"loss_rel": loss, "weights_lr": weights}
 
@@ -1097,7 +1184,11 @@ def main():
     data, data_runs = data_phase(dev, ds, caps)
     lap("10 data path")
 
-    # 11. report
+    # 11. data parallel and remat
+    dp_remat, dp_runs = dp_remat_phase(dev, ds, caps, g, sub)
+    lap("11 data parallel, remat")
+
+    # 12. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -1114,7 +1205,8 @@ def main():
             "launches": runs[run]["counts"][name], "launches_run": run,
             "launches_by_run": {
                 **{r: runs[r]["counts"][name] for r in runs},
-                **{r: c[name] for r, c in data_runs.items()}},
+                **{r: c[name] for r, c in data_runs.items()},
+                **{r: c.get(name, 0) for r, c in dp_runs.items()}},
             "finetune_step_launches": sup["finetune_step_launches"].get(
                 name, 0),
             "eval_batch_launches": sup["eval_batch_launches"].get(name, 0),
@@ -1128,7 +1220,7 @@ def main():
                       "steps": {k: r["steps"] for k, r in runs.items()},
                       "verb": verb, "compiled": compiled,
                       "supervised": supervised, "slice9": slice9,
-                      "data": data,
+                      "data": data, "dp_remat": dp_remat,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,
@@ -2606,5 +2698,577 @@ def data_phase(dev, ds, caps):
     return report, runs
 
 
+# --- 11. data parallel and remat --------------------------------------------
+
+DP_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_dp")
+# one DP GIN pretraining step's collectives on the card.  Forward: the 8
+# sync-BN all-reduces, the KL and contrastive counts, the reconstruction's
+# node count and gram (12), the contrastive's 3 gathers.  Backward: the 8
+# BatchNorms', the 2 gathered readouts' and the gram's (11).  The step: the
+# gradients, the losses, the statistics (3).
+DP_COLLECTIVES = {"all_reduce card": 12 + 11 + 3, "all_gather card": 3}
+GLOO_RANKS = 2
+HALF = 64                     # each gloo rank's half of a benchmark batch
+TIMED_CALLS = 10
+# bench_peptides.py: 32 graphs of 120-160 nodes, k = 3
+PEPTIDES = {"graphs": 32, "min_nodes": 120, "max_nodes": 160, "k": 3}
+REMAT_STEPS = 3
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Counts of ``dist.all_reduce`` and ``dist.all_gather`` calls in the
+    block, by the device of their tensor."""
+    counts = collections.Counter()
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            t = args[1] if name == "all_gather" else args[0]
+            counts[f"{name} {'card' if t.is_cuda else 'host'}"] += 1
+            return real[name](*args, **kwargs)
+        return call
+    for name in real:
+        setattr(dist, name, counting(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+@contextlib.contextmanager
+def halved_gradients():
+    """A planted fault: the summed gradients halved, as
+    DistributedDataParallel's averaging would leave them at world size 2."""
+    real = dp._sum_gradients
+
+    def halved(optimizer, group):
+        real(optimizer, group)
+        for pg in optimizer.param_groups:
+            for p in pg["params"]:
+                if p.grad is not None:
+                    p.grad.div_(2)
+    dp._sum_gradients = halved
+    try:
+        yield
+    finally:
+        dp._sum_gradients = real
+
+
+def call_median(step, batch, gen, n=TIMED_CALLS):
+    """Median host ms of ``n`` calls of a (captured) step, each ended by a
+    synchronize."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def dp_run(dev, batches, group):
+    """One step a batch from one start (PretrainModel(9, 64, 32), seeded
+    weights, Adam, generator): the captured single step (``group`` None)
+    or the captured DP step over ``group``.  Returns (losses as bytes,
+    step_bytes, launch counts, (step, generator))."""
+    model = PretrainModel(9, hidden=64, d_transfer=32, group=group)
+    init_flax_style_(model, torch.Generator().manual_seed(11))
+    model.to(dev)
+    opt = adam_l2(model, 1e-4, 5e-5)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    step = (make_pretrain_step(model, opt) if group is None
+            else dp.make_dp_pretrain_step(model, opt, group))
+    reset_launch_counts()
+    losses = [step(g, s, gen) for g, s in batches]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    as_bytes = {f"step {i} {name}": t.cpu().numpy().tobytes()
+                for i, ls in enumerate(losses)
+                for name, t in zip(("kl", "contrastive", "recon"), ls)}
+    return as_bytes, step_bytes(model, opt, gen), counts, (step, gen)
+
+
+def dp_world1_phase(dev, batches):
+    """(a) the captured DP step at world size 1 over NCCL against the
+    captured single step, 6 steps from one start under deterministic
+    algorithms: losses and state byte-equal, the halved-gradient fault
+    apart, the launches of a step the single step's; the collectives of
+    one DP step; the medians of both steps' calls."""
+    multihost.initialize_distributed(f"tcp://127.0.0.1:{free_port()}",
+                                     world_size=1, rank=0)
+    try:
+        group = dp.make_mesh()
+        with deterministic():
+            single = dp_run(dev, batches, None)
+            dp_step = dp_run(dev, batches, group)
+            with halved_gradients():
+                fault = dp_run(dev, batches, group)
+        rec = {"losses_apart": bytes_apart(single[0], dp_step[0]),
+               "state_apart": bytes_apart(single[1], dp_step[1]),
+               "fault_state_apart": len(bytes_apart(single[1], fault[1]))}
+        want = {k: n * len(batches) for k, n in GIN_PER_STEP.items()}
+        for name, run in (("single", single), ("DP", dp_step)):
+            got = {k: n for k, n in run[2].items() if n}
+            if got != want:
+                raise AssertionError(f"DP world 1, {name} step: launches "
+                                     f"{got}, expected {want}")
+        rec["launches_a_step"] = {k: n // len(batches)
+                                  for k, n in dp_step[2].items() if n}
+        model = PretrainModel(9, hidden=64, d_transfer=32, group=group)
+        model.to(dev)
+        with counted_collectives() as coll:
+            dp.dp_pretrain_step_eager(model, adam_l2(model, 1e-4, 5e-5),
+                                      group, *batches[0])
+        torch.cuda.synchronize()
+        rec["collectives_a_step"] = dict(coll)
+        # call times from fresh captures outside deterministic algorithms
+        timed = {"single": dp_run(dev, batches[:2], None)[3],
+                 "DP": dp_run(dev, batches[:2], group)[3]}
+        rec["call_ms"] = [(name, call_median(*timed[name][:1], batches[1],
+                                             timed[name][1]))
+                          for name in ("single", "DP", "DP", "single")]
+        print(f"phase 11 (a) DP world 1 over NCCL: {json.dumps(rec)}",
+              flush=True)
+        if rec["losses_apart"] or rec["state_apart"]:
+            raise AssertionError(f"the DP step at world size 1 is not the "
+                                 f"single step: {rec}")
+        if not rec["fault_state_apart"]:
+            raise AssertionError("the halved gradients went unseen")
+        if rec["collectives_a_step"] != DP_COLLECTIVES:
+            raise AssertionError(f"collectives {rec['collectives_a_step']}, "
+                                 f"expected {DP_COLLECTIVES}")
+        return rec, {"DP world 1 over NCCL, captured": dp_step[2]}
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_data():
+    """The host batches of phase 11 (b): for each case, each rank's halves
+    and the single device's union batches (the benchmark pool's first 256
+    molecules, two batches of 128; BACE's first 128)."""
+    def halves_and_unions(d, n_batches):
+        half = plan_capacities(d, HALF)
+        whole = loader.Capacities(*(GLOO_RANKS * getattr(half, f.name)
+                                    for f in dataclasses.fields(half)))
+        size = GLOO_RANKS * HALF
+        ranks = [[pack_batch(d, np.arange(size * k + HALF * r,
+                                          size * k + HALF * (r + 1)),
+                             half, use_flat=True) for k in range(n_batches)]
+                 for r in range(GLOO_RANKS)]
+        unions = [pack_batch(d, np.arange(size * k, size * (k + 1)), whole,
+                             use_flat=True) for k in range(n_batches)]
+        return ranks, unions
+    ds = GraphDataset(random_dataset(1024, seed=7, min_nodes=10,
+                                     max_nodes=30), k=1)
+    lds = GraphDataset(random_dataset(BACE_N, seed=42, num_tasks=1), k=1)
+    pre, pre_u = halves_and_unions(ds, 2)
+    ft, ft_u = halves_and_unions(lds, 1)
+    return {"pretrain": (pre, pre_u[:1]), "finetune": (ft, ft_u),
+            "superbatch": (pre, pre_u)}
+
+
+def gloo_model(case, group=None):
+    if case == "finetune":
+        return FinetuneModel(9, hidden=64, d_transfer=32, deterministic=True,
+                             group=group)
+    return PretrainModel(9, hidden=64, d_transfer=32, deterministic=True,
+                         group=group)
+
+
+def gloo_optimizer(case, model):
+    if case == "finetune":
+        return masked_adam(model, finetune_trainable_mask(model), FT_LR,
+                           FT_WD)
+    return adam_l2(model, 1e-4, 5e-5)
+
+
+def masked(model, keep):
+    """The gradients of ``tests/test_torch_trainer.py``'s mask: entries that
+    are zero but for rounding at the start are set to 0."""
+    for name, p in model.named_parameters():
+        if name in keep:
+            p.register_hook(lambda g, k=keep[name]: g * k)
+    return model
+
+
+def gloo_single(case, weights, unions, dev):
+    """The single-device eager steps on the union batches from ``weights``,
+    under the mask of their first gradient, on the card and, for the
+    gradients, in float64 on the CPU: (mask, record, float64 gradients)."""
+    model = gloo_model(case)
+    model.load_state_dict(weights)
+    probe = copy.deepcopy(model).to(dev)
+    g, s = (b.to(dev) for b in unions[0])
+    loss = (trainer.finetune_loss(probe, g, s, "bce", None)
+            if case == "finetune" else probe(g, s).total)
+    loss.backward()
+    grads = {n: p.grad.abs() for n, p in probe.named_parameters()
+             if p.grad is not None}
+    scale = max(float(v.max()) for v in grads.values())
+    keep = {n: (v > 1e-5 * scale).float() for n, v in grads.items()}
+    out = []
+    for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
+        m = copy.deepcopy(model).to(device, dtype)
+        masked(m, {n: k.to(device, dtype) for n, k in keep.items()})
+        opt = gloo_optimizer(case, m)
+        losses = []
+        for g, s in ((b.to(device) for b in pair) for pair in unions):
+            g.node_feat = g.node_feat.to(dtype)
+            if case == "finetune":
+                g.labels = g.labels.to(dtype)
+                loss = trainer.finetune_step_eager(m, opt, [(g, s)], "bce")
+                losses.append([float(loss)])
+            else:
+                losses.append([float(x) for x in pretrain_step_eager(
+                    m, opt, g, s)])
+        out.append(gloo_record(m, opt, losses))
+    return keep, out[0], out[1]["grads"]
+
+
+def grad_gap(got, want):
+    """(worst error, tensor): each tensor's largest error over its largest
+    entry, floored at GRAD_FLOOR of the largest gradient (phase 4's
+    measure)."""
+    floor = GRAD_FLOOR * max(float(w.abs().max()) for w in want.values())
+    return max((float((got[n].double() - w.double()).abs().max())
+                / max(float(w.abs().max()), floor), n)
+               for n, w in want.items())
+
+
+def gloo_record(model, opt, losses):
+    return {"losses": losses,
+            "grads": {n: p.grad.detach().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "state": {k: v.detach().cpu()
+                      for k, v in model.state_dict().items()},
+            "bytes": step_bytes(model, opt, torch.Generator())}
+
+
+def rank_command(rank, port):
+    return [sys.executable, os.path.abspath(__file__), "--gloo-rank",
+            str(rank), port]
+
+
+def gloo_rank(rank, port, device="cuda"):
+    """One rank of phase 11 (b), in a process of its own: the three DP
+    steps over gloo on the card (``device``: a rehearsal's "cpu"), from
+    the parent's weights and masks."""
+    rank = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    multihost.initialize_distributed(f"tcp://127.0.0.1:{port}",
+                                     world_size=GLOO_RANKS, rank=rank,
+                                     device="cpu")
+    group = dp.make_mesh()
+    inputs = torch.load(os.path.join(DP_DIR, "inputs.pt"))
+    data = gloo_data()
+    out = {}
+    for case, (ranks, _) in data.items():
+        model = gloo_model(case, group)
+        model.load_state_dict(inputs["weights"][case])
+        model.to(dev)
+        masked(model, {n: k.to(dev) for n, k in inputs["keep"][case].items()})
+        opt = gloo_optimizer(case, model)
+        mine = [tuple(b.to(dev) for b in pair) for pair in ranks[rank]]
+        if case == "pretrain":
+            step = dp.make_dp_pretrain_step(model, opt, group)
+            losses = [[float(x) for x in step(*mine[0])]]
+        elif case == "finetune":
+            step = dp.make_dp_finetune_step(model, opt, group,
+                                            dp.bce_sum_count)
+            losses = [[float(step(*mine[0]))]]
+        else:
+            to_wire = loader._wire_pair(False)
+            pairs = [to_wire(pair) for pair in ranks[rank]]
+            spec = wire.byte_spec_of(loader._stack_group(pairs))
+            buf = torch.from_numpy(wire.pack_bytes_grouped(pairs, spec))
+            step = dp.make_dp_superbatch_step(model, opt, group, spec)
+            fits = all(v.pool_fits for _, v in pairs)
+            ls = step(buf.to(dev), fits)
+            losses = [[float(x[k]) for x in ls] for k in range(len(pairs))]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[case] = gloo_record(model, opt, losses)
+    torch.save(out, os.path.join(DP_DIR, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def gloo_phase(dev):
+    """(b) two ranks on the one card over gloo, spawned, each with half of
+    a benchmark batch: the DP pretraining step, the DP fine-tuning step
+    (BACE's recipe, ``bce_sum_count``) and a DP superbatch step of K = 2,
+    eager, against the single-device eager steps on the union batches:
+    losses within MODEL_RTOL; the gradients of the ranks and of the single
+    step each within GRAD_RTOL of the single step's in float64 on the CPU
+    (phases 4 and 8's gate: two float32 results can each be that far from
+    float64, so they are not held to it against each other); weights under
+    ``tests/test_torch_trainer.py``'s mask; the two ranks' states
+    byte-equal."""
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    data = gloo_data()
+    weights, keep, single, grads64 = {}, {}, {}, {}
+    for case, (_, unions) in data.items():
+        model = gloo_model(case)
+        init_flax_style_(model, torch.Generator().manual_seed(21))
+        weights[case] = model.state_dict()
+        keep[case], single[case], grads64[case] = gloo_single(
+            case, weights[case], unions, dev)
+    torch.save({"weights": weights,
+                "keep": {c: {n: k.cpu() for n, k in m.items()}
+                         for c, m in keep.items()}},
+               os.path.join(DP_DIR, "inputs.pt"))
+    port = str(free_port())
+    procs = [subprocess.Popen(rank_command(r, port), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(GLOO_RANKS)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n"
+                                 f"{log[-6000:]}")
+    ranks = [torch.load(os.path.join(DP_DIR, f"rank{r}.pt"))
+             for r in range(GLOO_RANKS)]
+    report = {}
+    for case, want in single.items():
+        lr = FT_LR if case == "finetune" else 1e-4
+        got = ranks[0][case]
+        loss_rel = max(abs(a - b) / abs(b) for ga, wa in zip(
+            got["losses"], want["losses"]) for a, b in zip(ga, wa))
+        grad_rel, worst = grad_gap(got["grads"], grads64[case])
+        single_rel, single_worst = grad_gap(want["grads"], grads64[case])
+        params = set(want["grads"])
+        state_apart = [k for k, w in want["state"].items() if not np.allclose(
+            got["state"][k].numpy(), w.numpy(), rtol=1e-4,
+            atol=5e-2 * lr if k in params else 1e-6)]
+        ranks_apart = bytes_apart(ranks[0][case]["bytes"],
+                                  ranks[1][case]["bytes"])
+        report[case] = {"losses": got["losses"],
+                        "single_losses": want["losses"],
+                        "loss_rel": loss_rel,
+                        "grad_rel_float64": [grad_rel, worst],
+                        "single_grad_rel_float64": [single_rel,
+                                                    single_worst],
+                        "grad_rel_single": grad_gap(got["grads"],
+                                                    want["grads"]),
+                        "state_apart": state_apart,
+                        "ranks_apart": ranks_apart}
+        if (loss_rel > MODEL_RTOL or max(grad_rel, single_rel) > GRAD_RTOL
+                or state_apart or ranks_apart):
+            raise AssertionError(f"gloo DP {case} disagrees with the union "
+                                 f"batch's step: {report[case]}")
+    shutil.rmtree(DP_DIR)
+    print(f"phase 11 (b) two gloo ranks on the card: {json.dumps(report)}",
+          flush=True)
+    return report
+
+
+def peptide_batch():
+    """bench_peptides.py's batch at k = 3, packed to its capacities (sizes
+    rounded up to 256 nodes and 512 edges)."""
+    ds = GraphDataset(random_dataset(
+        PEPTIDES["graphs"], seed=0, min_nodes=PEPTIDES["min_nodes"],
+        max_nodes=PEPTIDES["max_nodes"]), k=PEPTIDES["k"])
+
+    def up(x, m):
+        return max(m, -(-x // m) * m)
+    n, e, sn, se = loader._sizes(ds)
+    caps = loader.Capacities(up(int(n.sum()), 256), up(int(e.sum()), 512),
+                             PEPTIDES["graphs"], up(int(sn.sum()), 256),
+                             up(int(se.sum()), 512))
+    return pack_batch(ds, np.arange(PEPTIDES["graphs"]), caps,
+                      use_flat=True), caps
+
+
+def remat_run(dev, batch, remat, measured):
+    """REMAT_STEPS captured steps from one start (PretrainModel(9, 64,
+    32), seeded).  ``measured``: the peak memory from a reset and the
+    median of further calls, outside deterministic algorithms (whose
+    sort-based ``index_add_`` a run does not use); else the steps under
+    them, for the byte comparison.  Returns (readings, losses as bytes,
+    step_bytes, launch counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model = PretrainModel(9, hidden=64, d_transfer=32)
+    init_flax_style_(model, torch.Generator().manual_seed(11))
+    model.to(dev)
+    opt = adam_l2(model, 1e-4, 5e-5)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    step = make_pretrain_step(model, opt, remat=remat)
+    reset_launch_counts()
+    encoders.branch_counts.clear()
+    with (contextlib.nullcontext() if measured else deterministic()):
+        losses = [step(*batch, gen) for _ in range(REMAT_STEPS)]
+    torch.cuda.synchronize()
+    counts = {k: n for k, n in launch_counts().items() if n}
+    rec = {"launches_a_step": {k: n / REMAT_STEPS for k, n in counts.items()},
+           "branches_a_step": {k: n / REMAT_STEPS
+                               for k, n in encoders.branch_counts.items()}}
+    if measured:
+        rec["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        rec["call_ms"] = call_median(step, batch, gen)
+    as_bytes = {f"step {i} {name}": t.cpu().numpy().tobytes()
+                for i, ls in enumerate(losses)
+                for name, t in zip(("kl", "contrastive", "recon"), ls)}
+    return rec, as_bytes, step_bytes(model, opt, gen), counts
+
+
+def forward_memory(dev, batch, remat):
+    """MB held once one eager forward has returned (what its backward
+    keeps), and the eager step's peak, from a fresh model."""
+    model = PretrainModel(9, hidden=64, d_transfer=32)
+    init_flax_style_(model, torch.Generator().manual_seed(11))
+    model.to(dev).train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rand = uniform_draws(torch.Generator(device=dev).manual_seed(12), dev)
+    losses = (trainer.remat_forward(model, *batch, rand) if remat
+              else model(*batch, rand=rand))
+    torch.cuda.synchronize()
+    held = (torch.cuda.memory_allocated() - base) / 2**20
+    losses.total.backward()
+    torch.cuda.synchronize()
+    return {"forward_held_mb": held,
+            "step_peak_mb": (torch.cuda.max_memory_allocated() - base) / 2**20}
+
+
+def remat_phase(dev, g, sub):
+    """(c) the captured remat step against the captured plain step, at
+    bench_peptides.py's k = 3 shapes and on the benchmark batch, 3 steps
+    from one start under deterministic algorithms: byte-equal; the launches
+    a step, every forward launch twice under remat (the recomputation):
+    gin_fwd, pool and the reconstruction's forward spmm once more; then,
+    from fresh starts outside deterministic algorithms, the peak memory
+    and call ms of each, and what an eager forward leaves held for its
+    backward."""
+    (pg, ps), pcaps = peptide_batch()
+    report, runs = {}, {}
+    for label, batch in (("peptides k=3", (pg.to(dev), ps.to(dev))),
+                         ("benchmark batch", (g, sub))):
+        plain, remat = (remat_run(dev, batch, r, False) for r in (False,
+                                                                   True))
+        rec = {"plain": {**remat_run(dev, batch, False, True)[0],
+                         "eager": forward_memory(dev, batch, False)},
+               "remat": {**remat_run(dev, batch, True, True)[0],
+                         "eager": forward_memory(dev, batch, True)},
+               "losses_apart": bytes_apart(plain[1], remat[1]),
+               "state_apart": bytes_apart(plain[2], remat[2])}
+        if label.startswith("peptides"):
+            rec["caps"] = dataclasses.asdict(pcaps)
+            rec["band"] = pg.band_col_off is not None
+            rec["pool_fits"] = ps.pool_fits
+        per = plain[0]["launches_a_step"]
+        want = dict(per)
+        for k, n in (("gin_fwd", per.get("gin_fwd", 0)),
+                     ("pool", per.get("pool", 0)),
+                     ("spmm", per.get("spmm", 0) / 2)):
+            if n:
+                want[k] = per[k] + n
+        report[label] = rec
+        runs[f"remat, {label}"] = remat[3]
+        print(f"phase 11 (c) remat, {label}: {json.dumps(rec)}", flush=True)
+        if rec["losses_apart"] or rec["state_apart"]:
+            raise AssertionError(f"remat, {label}: not the plain step: {rec}")
+        if remat[0]["launches_a_step"] != want:
+            raise AssertionError(f"remat, {label}: launches "
+                                 f"{remat[0]['launches_a_step']}, expected "
+                                 f"{want}")
+        if remat[0]["branches_a_step"] != {
+                k: 2 * n for k, n in plain[0]["branches_a_step"].items()}:
+            raise AssertionError(f"remat, {label}: the recomputation did "
+                                 f"not rerun every conv: {rec}")
+    if report["benchmark batch"]["plain"]["launches_a_step"] != \
+            GIN_PER_STEP:
+        raise AssertionError("the benchmark batch left the kernel path")
+    return report, runs
+
+
+def feed_phase(dev):
+    """(d) the repaired feed: the captured fine-tuning step over two
+    epochs of BACE's training batches, fed as ``run_finetune`` feeds it
+    now (``prefetch_to_device`` of the native packer) and as it fed it
+    before (the per-graph packers on the consumer thread, blocking
+    copies), alternating; host ms a batch, from the first pack to the last
+    loss read; then the ``finetune`` verb's seconds and mean step ms (its
+    first step's eager run and capture included)."""
+    ds = GraphDataset(random_dataset(BACE_N, seed=42, num_tasks=1), k=1)
+    caps = plan_capacities(ds, 128)
+    train = ds.split(900, 313)[0]
+    model, opt = ft_model(dev, {})
+    step = make_finetune_step(model, opt, "bce")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g, s = next(batch_iterator(train, 128, caps))
+    float(step(g.to(dev), s.to(dev), gen))          # eager + capture
+    out = collections.defaultdict(list)
+    for epoch, how in enumerate(("prefetched", "consumer thread",
+                                 "consumer thread", "prefetched")):
+        batches = batch_iterator(train, 128, caps, seed=epoch,
+                                 use_flat=how == "prefetched")
+        t0 = time.perf_counter()
+        if how == "prefetched":
+            feed = loader.prefetch_to_device(loops._counted(batches),
+                                             device=dev)
+        else:
+            feed = ((g.to(dev), s.to(dev), n, m) for g, s, n, m in
+                    loops._counted(batches))
+        n = 0
+        for g, s, _, _ in feed:
+            float(step(g, s, gen))
+            n += 1
+        out[how].append((time.perf_counter() - t0) * 1e3 / n)
+    run, secs = verb_run("finetune BACE (the repaired feed)", [
+        "finetune", "--dataset", "BACE", "--synthetic", str(BACE_N),
+        "--epochs", "2"])
+    tp = run["last"]["throughput"]
+    rec = {"ms_a_batch": dict(out), "batches_an_epoch": n,
+           "verb_s": secs, "verb_steps": tp["steps"],
+           "verb_mean_step_ms": tp["wall_s"] * 1e3 / tp["steps"]}
+    print(f"phase 11 (d) the supervised feed: {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def dp_remat_phase(dev, ds, caps, g, sub):
+    """Phase 11; returns its readings and the launch counts of its runs."""
+    report, runs, secs = {}, {}, {}
+    t0 = time.perf_counter()
+    report["dp_world1"], dp_runs = dp_world1_phase(
+        dev, bench_batches(dev, ds, caps))
+    runs.update(dp_runs)
+    secs["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["gloo"] = gloo_phase(dev)
+    secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["remat"], remat_runs = remat_phase(dev, g, sub)
+    runs.update(remat_runs)
+    secs["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["feed"] = feed_phase(dev)
+    secs["d"] = time.perf_counter() - t0
+    report["seconds"] = secs
+    print(f"phase 11: {json.dumps(report)}", flush=True)
+    return report, runs
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        gloo_rank(*sys.argv[2:])
+    else:
+        main()

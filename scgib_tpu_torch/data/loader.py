@@ -4,10 +4,11 @@ wire superbatches and prefetch to the device.
 Counterpart of ``scgib_tpu/data/loader.py``.  Ego-nets come from the native
 library's threaded extraction (``native.extract_egonets_batch``, the output of
 the NumPy BFS of ``graph/egonet.py``; it raises where the library cannot be
-built); batches, labels included, from the per-graph packers
-(``use_flat=False``, the default here) or the native flat packer
-(``use_flat=True``, ``data/flat.py``: bit-equal, and it raises where the
-library cannot be built); ``GraphDataset.subset`` and ``split`` cut a
+built); batches, labels included, from the native flat packer
+(``use_flat=True``, the default as in the JAX package, ``data/flat.py``: it
+raises where the library cannot be built) or, where the caller asks
+(``use_flat=False``), the per-graph NumPy packers, bit-equal to it;
+``GraphDataset.subset`` and ``split`` cut a
 dataset.  With ``logm_k`` a batch carries the block-diagonal k-step
 transition targets of the logM reconstruction loss
 (``graph/transition.py``).  ``batch_iterator(workers=n)`` packs on a
@@ -220,13 +221,15 @@ def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
 
 def batch_iterator(ds: GraphDataset, batch_size: int, caps: Capacities,
                    shuffle: bool = True, seed: int = 0,
-                   drop_last: bool = False, logm_k: Optional[int] = None,
-                   workers: int = 0, use_flat: bool = False,
+                   drop_last: bool = False, workers: int = 0,
+                   use_flat: bool = True, logm_k: Optional[int] = None,
                    transform: Optional[Callable] = None) -> Iterator:
-    """Yield packed (GraphBatch, SubgraphBatch) pairs of NumPy arrays.
+    """Yield packed (GraphBatch, SubgraphBatch) pairs of NumPy arrays;
+    the JAX package's parameters, in its order and with its defaults.
 
-    ``use_flat``: pack with the native flat packer (bit-equal to the
-    per-graph packers; raises where the library cannot be built).
+    ``use_flat`` (the default): pack with the native flat packer (it
+    raises where the library cannot be built); ``False``: the per-graph
+    NumPy packers, bit-equal to it.
     ``workers`` > 0: pack up to ``2 * workers`` batches ahead on a thread
     pool of that many threads, yielding in order.  ``transform`` (a
     function of the pair) runs inside those tasks, and its result is what

@@ -69,6 +69,17 @@ def gt_band_fits(max_component: int, cap: int) -> bool:
             and max_component <= GT_TILE // 2 + 1)
 
 
+def fits_band(senders: np.ndarray, receivers: np.ndarray,
+              tile: int = 128, band: int = 256, align: int = 64) -> bool:
+    """True iff every edge's sender lies in its receiver-tile's window
+    (unclamped: the window of ``banded_col_off`` before its clamp to the
+    node capacity)."""
+    t0 = (receivers // tile) * tile
+    lo = np.maximum(t0 + tile // 2 - band // 2, 0)
+    lo = (lo // align) * align
+    return bool(np.all((senders >= lo) & (senders < lo + band)))
+
+
 def fits_band_masked(senders: np.ndarray, receivers: np.ndarray,
                      edge_mask: Optional[np.ndarray], num_nodes: int,
                      tile: int = 128, band: int = 256,

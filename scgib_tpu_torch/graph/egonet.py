@@ -57,3 +57,17 @@ def extract_egonets(graph: GraphData, k: int) -> EgoNets:
         node_lists.append(members.astype(np.int32))
         edge_lists.append((es, er))
     return EgoNets(node_lists=node_lists, edge_lists=edge_lists)
+
+
+def egonet_sizes(graph: GraphData, k: int) -> Tuple[int, int]:
+    """(total sub-nodes, total sub-edges) of one graph's flattened
+    ego-nets, without extracting them: what a packer's capacity needs."""
+    reach = khop_reachability(graph.senders, graph.receivers,
+                              graph.num_nodes, k)
+    sub_nodes = int(reach.sum())
+    if len(graph.senders):
+        keep = reach[:, graph.senders] & reach[:, graph.receivers]
+        sub_edges = int(keep.sum())
+    else:
+        sub_edges = 0
+    return sub_nodes, sub_edges

@@ -69,13 +69,17 @@ def _mask_rows(x: torch.Tensor, mask: Optional[torch.Tensor]):
 
 
 class GIN(nn.Module):
-    def __init__(self, in_dim: int, hidden: int = 64, num_convs: int = 4):
+    """``group``: its BatchNorms' sync-BN process group (the JAX
+    encoder's ``axis_name``)."""
+
+    def __init__(self, in_dim: int, hidden: int = 64, num_convs: int = 4,
+                 group=None):
         super().__init__()
         self.num_convs = num_convs
         for i in range(num_convs):
             self.add_module(f"conv{i}", MLP2(in_dim if i == 0 else hidden,
                                              hidden, hidden))
-            self.add_module(f"bn{i}", MaskedBatchNorm(hidden))
+            self.add_module(f"bn{i}", MaskedBatchNorm(hidden, group=group))
 
     def forward(self, h, senders, receivers, node_mask=None, edge_mask=None,
                 band: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -285,11 +289,12 @@ class GraphTransformer(nn.Module):
 
 
 def make_encoder(name: str, in_dim: int, hidden: int, num_layers: int = 4,
-                 num_heads: int = 8, gt_bwd: str = "twopass"):
+                 num_heads: int = 8, gt_bwd: str = "twopass", group=None):
     """``num_layers`` is GIN's conv count and the transformer's layers less
-    one; GCN and GraphSAGE have three convs whatever it is."""
+    one; GCN and GraphSAGE have three convs whatever it is.  ``group``
+    (sync-BN) reaches GIN only: the others have no BatchNorm."""
     if name == "GIN":
-        return GIN(in_dim, hidden=hidden, num_convs=num_layers)
+        return GIN(in_dim, hidden=hidden, num_convs=num_layers, group=group)
     if name == "GCN":
         return GCN(in_dim, hidden=hidden)
     if name == "GraphSAGE":

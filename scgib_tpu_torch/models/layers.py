@@ -6,11 +6,15 @@ input width at first call; an ``nn.Linear`` is given it, so each head here
 takes ``in_dim`` first.  Parameter and buffer names
 follow the flax tree (``scale``, ``bias``; running ``mean``, ``var``;
 ``Dense_0``, ``Dense_1``) so ``utils/params.py`` maps one onto the other.
-Train or eval mode is the module's ``training`` flag.
+Train or eval mode is the module's ``training`` flag.  Both BatchNorms
+leave their running statistics alone inside ``statistics_frozen`` (the
+recomputed forward of activation checkpointing, which must not move them a
+second time).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -18,6 +22,7 @@ from torch import nn
 
 from ..ops.segment import (segment_broadcast, segment_count, segment_mean,
                            segment_sum)
+from ..parallel.collectives import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -27,13 +32,19 @@ class MaskedBatchNorm(nn.Module):
     in the running statistics, momentum 0.1, eps 1e-5, affine — but padding
     rows neither contribute to nor are kept out of the statistics by
     ``nn.BatchNorm1d``, hence this module.  Moments are one-pass
-    (E[x^2] - mean^2), as in the JAX package."""
+    (E[x^2] - mean^2), as in the JAX package.
+
+    ``group`` (a ``torch.distributed`` process group): sync-BN, the JAX
+    module's ``axis_name``: the statistics are the whole group's, from one
+    all-reduce of (sum, sum of squares, count) with its gradient."""
 
     def __init__(self, features: int, momentum: float = 0.1,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, group=None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.group = group
+        self.frozen = False
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -52,14 +63,22 @@ class MaskedBatchNorm(nn.Module):
                 count = m.sum()
                 total = xm.sum(0)
                 total_sq = (xm * x).sum(0)
+            if self.group is not None:
+                f = x.shape[1]
+                packed = all_reduce_sum(
+                    torch.cat([total, total_sq, count[None]]), self.group)
+                total, total_sq = packed[:f], packed[f:2 * f]
+                count = packed[-1].detach()
             count = count.clamp_min(1.0)
             mean = total / count
             var = (total_sq / count - mean * mean).clamp_min(0.0)
-            with torch.no_grad():
-                unbiased = var * count / (count - 1.0).clamp_min(1.0)
-                self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.var.mul_(1 - self.momentum).add_(
-                    self.momentum * unbiased)
+            if not self.frozen:
+                with torch.no_grad():
+                    unbiased = var * count / (count - 1.0).clamp_min(1.0)
+                    self.mean.mul_(1 - self.momentum).add_(
+                        self.momentum * mean)
+                    self.var.mul_(1 - self.momentum).add_(
+                        self.momentum * unbiased)
         else:
             mean, var = self.mean, self.var
         a = self.scale * torch.rsqrt(var + self.eps)
@@ -71,13 +90,16 @@ class SegmentBatchNorm(nn.Module):
     reference runs its compressor inside a per-graph loop.  The running
     statistics move once per call by the mean over non-empty segments of
     their statistics (the reference's per-graph sequential updates are
-    order-dependent; the JAX package documents the same deviation)."""
+    order-dependent; the JAX package documents the same deviation).  Its
+    statistics are per graph, so data parallelism needs no collective here;
+    the DP steps average the running statistics after the step."""
 
     def __init__(self, features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.frozen = False
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -95,18 +117,36 @@ class SegmentBatchNorm(nn.Module):
                                 num_segments, mask)
             var_g = var_g / count.clamp_min(1.0)[:, None]
             var = segment_broadcast(var_g, segment_ids, num_segments)
-            with torch.no_grad():
-                seg = (count > 0).to(torch.float32)
-                n_seg = seg.sum().clamp_min(1.0)
-                unb = var_g * (count / (count - 1.0).clamp_min(1.0))[:, None]
-                avg_mean = (mean_g * seg[:, None]).sum(0) / n_seg
-                avg_var = (unb * seg[:, None]).sum(0) / n_seg
-                self.mean.mul_(1 - self.momentum).add_(
-                    self.momentum * avg_mean)
-                self.var.mul_(1 - self.momentum).add_(self.momentum * avg_var)
+            if not self.frozen:
+                with torch.no_grad():
+                    seg = (count > 0).to(torch.float32)
+                    n_seg = seg.sum().clamp_min(1.0)
+                    unb = var_g * (count / (count - 1.0).clamp_min(1.0)
+                                   )[:, None]
+                    avg_mean = (mean_g * seg[:, None]).sum(0) / n_seg
+                    avg_var = (unb * seg[:, None]).sum(0) / n_seg
+                    self.mean.mul_(1 - self.momentum).add_(
+                        self.momentum * avg_mean)
+                    self.var.mul_(1 - self.momentum).add_(
+                        self.momentum * avg_var)
         else:
             mean, var = self.mean, self.var
         return (x - mean) / torch.sqrt(var + self.eps) * self.scale + self.bias
+
+
+@contextlib.contextmanager
+def statistics_frozen(model: nn.Module):
+    """Within: every BatchNorm of ``model`` normalizes as it would, but
+    leaves its running statistics as they are."""
+    bns = [m for m in model.modules()
+           if isinstance(m, (MaskedBatchNorm, SegmentBatchNorm))]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen = False
 
 
 class MLP2(nn.Module):

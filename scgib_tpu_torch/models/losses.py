@@ -6,8 +6,14 @@ compression term (``corrected``, or the reference's last-graph
 (gram form with its banded cross term, or the literal dense form) and the
 k-step logM reconstruction; for fine-tuning the five supervised losses of
 the per-dataset table (BCE on probabilities, BCE with logits, cross
-entropy, RMSE, MAE), each averaged over the entries a mask keeps.  Single
-device: no ``axis_name``.
+entropy, RMSE, MAE), each averaged over the entries a mask keeps.
+
+``group`` (a ``torch.distributed`` process group, the JAX functions'
+``axis_name``): each rank's value is its local numerator over the group's
+global count, so the sum of the ranks' values, and of their gradients, is
+the loss of the union batch (``parallel/dp.py`` sums both).  The
+contrastive denominator spans the union batch (its columns gathered), and
+so does the reconstruction's gram.
 """
 
 from __future__ import annotations
@@ -15,8 +21,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from ..ops.kernels.banded import spmm_banded_fast
+from ..parallel.collectives import all_gather, all_reduce_sum
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -28,28 +36,42 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
 
 
 def contrastive_infonce(z1: torch.Tensor, z2: torch.Tensor,
-                        graph_mask: torch.Tensor,
-                        tau: float = 1.0) -> torch.Tensor:
+                        graph_mask: torch.Tensor, tau: float = 1.0,
+                        group=None) -> torch.Tensor:
     """InfoNCE between noisy readouts z1 and clean readouts z2, [G, d]:
     loss_i = -log f(z1_i, z2_i) / (sum_j f(z1_i, z1_j) + sum_j f(z1_i, z2_j)
-    - f(z1_i, z1_i)), f = exp(cos / tau), averaged over real graphs."""
+    - f(z1_i, z1_i)), f = exp(cos / tau), averaged over real graphs.  With
+    ``group`` the j run over every rank's graphs, and this rank's own sit
+    at columns offset by rank * G."""
     m = graph_mask.to(z1.dtype)
     z1n = l2_normalize(z1)
     z2n = l2_normalize(z2)
-    refl = torch.exp(z1n @ z1n.T / tau)
-    betw = torch.exp(z1n @ z2n.T / tau)
-    denom = refl @ m + betw @ m - torch.diagonal(refl)
-    loss_i = -torch.log(torch.diagonal(betw) / denom.clamp_min(1e-30))
-    return (loss_i * m).sum() / m.sum().clamp_min(1.0)
+    if group is None:
+        z1_cols, z2_cols, m_cols, off = z1n, z2n, m, 0
+    else:
+        z1_cols = all_gather(z1n, group)
+        z2_cols = all_gather(z2n, group)
+        m_cols = all_gather(m, group)
+        off = dist.get_rank(group) * z1.shape[0]
+    refl = torch.exp(z1n @ z1_cols.T / tau)
+    betw = torch.exp(z1n @ z2_cols.T / tau)
+    denom = refl @ m_cols + betw @ m_cols - torch.diagonal(refl, off)
+    loss_i = -torch.log(torch.diagonal(betw, off) / denom.clamp_min(1e-30))
+    count = m.sum()
+    if group is not None:
+        count = all_reduce_sum(count, group)
+    return (loss_i * m).sum() / count.clamp_min(1.0)
 
 
 def kl_loss(kl_node: torch.Tensor, node_mask: torch.Tensor,
             node_graph: torch.Tensor = None, graph_mask: torch.Tensor = None,
-            mode: str = "corrected") -> torch.Tensor:
+            mode: str = "corrected", group=None) -> torch.Tensor:
     """The per-node KL matrix [N, d] reduced to a scalar.  ``corrected``:
     its mean over real nodes (the paper's Eq. 12).  ``reference``: its mean
     over the last real graph's nodes only, the reference's accumulation
-    bug (models.py:659); it needs ``node_graph`` and ``graph_mask``."""
+    bug (models.py:659); it needs ``node_graph`` and ``graph_mask``.
+    ``group``: the count is the group's (in ``reference`` mode each rank
+    picks its own last graph, as in the JAX package)."""
     if mode == "corrected":
         w = node_mask.to(kl_node.dtype)
     elif mode == "reference":
@@ -59,23 +81,34 @@ def kl_loss(kl_node: torch.Tensor, node_mask: torch.Tensor,
         raise ValueError(f"unknown kl mode {mode!r}")
     total = (kl_node * w[:, None]).sum()
     count = w.sum() * kl_node.shape[-1]
+    if group is not None:
+        count = all_reduce_sum(count, group)
     return total / count.clamp_min(1.0)
 
 
 def recon_adj_loss(interaction_map: torch.Tensor, senders: torch.Tensor,
                    receivers: torch.Tensor, edge_mask: torch.Tensor,
                    node_mask: torch.Tensor, band=None,
-                   impl: str = "gram") -> torch.Tensor:
+                   impl: str = "gram", group=None) -> torch.Tensor:
     """||IM IM^T - A||_F^2 / N_real.  ``gram``: with A binary,
     tr((IM^T IM)^2) - 2 sum_e IM_s . IM_r + |E|; with the banded layout
     the edge cross term is sum(IM * (A IM)), a banded product whose
     backward is the same product.  ``dense``: the literal N x N gram and
-    adjacency (the reference's form, for parity checks)."""
+    adjacency (the reference's form, for parity checks).  ``group``: the
+    union batch's loss, its cross-rank zero blocks included; a rank's
+    share is tr(G_local · psum G) (gram) or its rows of the gram against
+    every rank's columns (dense), over the group's real node count."""
     im = interaction_map * node_mask.to(interaction_map.dtype)[:, None]
     n_real = node_mask.to(torch.float32).sum()
+    if group is not None:
+        n_real = all_reduce_sum(n_real, group)
     em = edge_mask.to(im.dtype)
     if impl == "dense":
-        gram = im @ im.T
+        if group is None:
+            gram = im @ im.T
+        else:
+            gram = im @ all_gather(im, group).T
+            receivers = receivers + dist.get_rank(group) * im.shape[0]
         adj = torch.zeros_like(gram).index_put_((senders, receivers), em,
                                                 accumulate=True)
         return ((gram - adj) ** 2).sum() / n_real.clamp_min(1.0)
@@ -86,7 +119,8 @@ def recon_adj_loss(interaction_map: torch.Tensor, senders: torch.Tensor,
         cross = (im * spmm_banded_fast(band[0], band[1], im)).sum()
     else:
         cross = ((im[senders] * im[receivers]).sum(-1) * em).sum()
-    total = (gram * gram).sum() - 2.0 * cross + em.sum()
+    other = gram if group is None else all_reduce_sum(gram, group)
+    total = (gram * other).sum() - 2.0 * cross + em.sum()
     return total / n_real.clamp_min(1.0)
 
 

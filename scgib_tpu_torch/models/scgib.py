@@ -17,6 +17,12 @@ the JAX package.  Submodules exist only where the JAX model has parameters
 for them (no ``attn_layer`` without the attention, ``reduce_d`` only with
 the ``s2s`` readout and the attention), so the two trees match.
 
+``group`` (a ``torch.distributed`` process group, the JAX models'
+``axis_name``) makes a model one rank of a data-parallel step
+(``parallel/dp.py``): the GIN encoders' BatchNorms synchronize over it, and
+``PretrainModel``'s losses become this rank's share of the union batch's
+(``models/losses.py``).  Without it nothing changes.
+
 Noise: the compression gate takes two uniform draws per call (reference
 ``torch.rand`` at models.py:599, 650), and the graph transformer's dropout
 one per layer in training mode.  ``forward`` takes them all from ``rand``, a
@@ -136,7 +142,7 @@ class SCGIBCore(nn.Module):
                  readout: str = "sum", use_att: bool = True,
                  gt_bwd: str = "twopass", gate_bias: float = 1e-4,
                  std_eps: float = 1e-7, deterministic: bool = False,
-                 subgraph_mode: str = "coo"):
+                 subgraph_mode: str = "coo", group=None):
         super().__init__()
         if readout not in ("sum", "s2s"):
             raise ValueError(f"unknown readout {readout!r}")
@@ -151,12 +157,12 @@ class SCGIBCore(nn.Module):
         self.std_eps = std_eps
         self.deterministic = deterministic
         self.encoder1 = make_encoder(encoder, in_dim, hidden, num_layers,
-                                     num_heads, gt_bwd)
+                                     num_heads, gt_bwd, group)
         self.encoder2 = (DenseGIN(in_dim, hidden=hidden,
-                                  num_convs=num_layers)
+                                  num_convs=num_layers, group=group)
                          if subgraph_mode == "dense" else
                          make_encoder(encoder, in_dim, hidden, num_layers,
-                                      num_heads, gt_bwd))
+                                      num_heads, gt_bwd, group))
         self.compressor = Compressor(hidden)
         if use_att:
             self.attn_layer = nn.Linear(2 * hidden, 1)
@@ -265,7 +271,8 @@ class PretrainModel(nn.Module):
     ``recons_impl`` 'gram' or the literal 'dense') or 'logM' (k-step
     transition targets of ``k_transition`` steps, passed in or carried by
     the batch from ``batch_iterator(logm_k=...)``); any other value gives
-    a reconstruction term of 0, as in the JAX package."""
+    a reconstruction term of 0, as in the JAX package.  ``group``: see the
+    module's note; ``kl_mode='reference'`` is refused with it."""
 
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
@@ -274,8 +281,17 @@ class PretrainModel(nn.Module):
                  recons_impl: str = "gram", kl_mode: str = "corrected",
                  k_transition: int = 1, gt_bwd: str = "twopass",
                  deterministic: bool = False, normalize_input: bool = True,
-                 subgraph_mode: str = "coo"):
+                 subgraph_mode: str = "coo", group=None):
         super().__init__()
+        if kl_mode == "reference" and group is not None:
+            # each rank would pick its own "last graph" (losses.kl_loss)
+            raise ValueError(
+                "kl_mode='reference' is not data-parallel safe: the "
+                "last-graph bug (models.py:659) has no per-shard analog. "
+                "Use kl_mode='corrected' with axis_name, or the "
+                "node-sharded ShardedPretrainModel which reproduces "
+                "'reference' exactly.")
+        self.group = group
         self.readout = readout
         self.recons_type = recons_type
         self.recons_impl = recons_impl
@@ -287,7 +303,7 @@ class PretrainModel(nn.Module):
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
                               gt_bwd=gt_bwd, deterministic=deterministic,
-                              subgraph_mode=subgraph_mode)
+                              subgraph_mode=subgraph_mode, group=group)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         if readout == "s2s":
             self.s2s = Set2Set(hidden)
@@ -304,7 +320,7 @@ class PretrainModel(nn.Module):
         feats = self.core.extract_features(g, sub, x_proj, x_sub_proj, rand)
         im = self.head_mlp(feats.interaction_map)
         kl = kl_loss(feats.kl_node, g.node_mask, g.node_graph, g.graph_mask,
-                     mode=self.kl_mode)
+                     mode=self.kl_mode, group=self.group)
         if self.readout == "sum":
             noisy_readout = segment_sum(feats.noisy, g.node_graph,
                                         g.num_graphs, mask=g.node_mask)
@@ -312,12 +328,12 @@ class PretrainModel(nn.Module):
             noisy_readout = self.s2s(feats.noisy, g.node_graph, g.num_graphs,
                                      mask=g.node_mask)
         contrastive = contrastive_infonce(noisy_readout, feats.clean_readout,
-                                          g.graph_mask)
+                                          g.graph_mask, group=self.group)
         if self.recons_type == "adj":
             band = _resolve_band(g) if self.recons_impl == "gram" else None
             recon = recon_adj_loss(im, g.senders, g.receivers, g.edge_mask,
                                    g.node_mask, band=band,
-                                   impl=self.recons_impl)
+                                   impl=self.recons_impl, group=self.group)
         elif self.recons_type == "logM":
             if logm_targets is None:
                 logm_targets, logm_weights = g.logm_targets, g.logm_weights
@@ -344,7 +360,7 @@ class FinetuneModel(nn.Module):
                  num_layers: int = 4, num_heads: int = 8,
                  readout: str = "sum", use_att: bool = True,
                  regression: bool = False, deterministic: bool = False,
-                 subgraph_mode: str = "coo"):
+                 subgraph_mode: str = "coo", group=None):
         super().__init__()
         self.regression = regression
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
@@ -352,7 +368,7 @@ class FinetuneModel(nn.Module):
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
                               deterministic=deterministic,
-                              subgraph_mode=subgraph_mode)
+                              subgraph_mode=subgraph_mode, group=group)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.predict = MLP2(2 * hidden, hidden, num_out)
@@ -382,14 +398,14 @@ class DomainAdaptModel(nn.Module):
                  encoder: str = "GIN", num_layers: int = 4,
                  num_heads: int = 8, readout: str = "sum",
                  use_att: bool = True, deterministic: bool = False,
-                 subgraph_mode: str = "coo"):
+                 subgraph_mode: str = "coo", group=None):
         super().__init__()
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
                               deterministic=deterministic,
-                              subgraph_mode=subgraph_mode)
+                              subgraph_mode=subgraph_mode, group=group)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.s2s_rev = Set2Set(in_dim)

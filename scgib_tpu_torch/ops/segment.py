@@ -67,6 +67,12 @@ def segment_broadcast(values: torch.Tensor, segment_ids: torch.Tensor,
     return _SegmentBroadcast.apply(values, segment_ids, num_segments)
 
 
+def broadcast(values: torch.Tensor, segment_ids: torch.Tensor
+              ) -> torch.Tensor:
+    """``segment_broadcast`` with ``num_segments`` taken from ``values``."""
+    return segment_broadcast(values, segment_ids, values.shape[0])
+
+
 def segment_count(segment_ids: torch.Tensor, num_segments: int,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     ones = torch.ones(segment_ids.shape, dtype=torch.float32,

@@ -10,12 +10,12 @@ train loss, a wall-clock cap, gradient accumulation in groups with the
 ragged tail dropped); ``run_domain_adaptation`` its adaptation loop
 (exp_moleculenetBACE_BBBP.py:66-84, patience 20); ``evaluate`` and
 ``PackedEval`` its epoch-accumulated evaluator (train_moleculenetBACE.py:
-174-176), the metric taken on the host.  Batches move to the device with
-``.to`` (``PackedEval`` keeps its split there).  Each epoch shuffles the
-dataset with ``seed + epoch`` through ``batch_iterator``, whose batches
-are the JAX package's bit for bit, and logs the JAX package's line with
-the edges a second.  Pretraining batches come from the native flat
-packer, as the JAX package's loop packs them, and reach the device
+174-176), the metric taken on the host (``PackedEval`` packs its split
+once and keeps it on the device).  Each epoch shuffles the dataset with
+``seed + epoch`` through ``batch_iterator``, whose batches are the JAX
+package's bit for bit, and logs the JAX package's line with the edges a
+second.  The training batches of all three loops come from the native
+flat packer, as the JAX package's loops pack them, and reach the device
 through ``prefetch_to_device``: packed in a background thread, copied
 from pinned buffers on a side stream.  With ``superbatch_k`` the
 pretraining epoch is the JAX package's wire superbatch loop: K batches a
@@ -354,10 +354,12 @@ def run_finetune(step_fn: Callable, eval_fn: Callable, state: TrainState,
     for epoch in range(start_epoch, epochs):
         total, nb = 0.0, 0
         pending, n_edges = [], 0
-        for g, sub in batch_iterator(train_ds, batch_size, caps,
-                                     shuffle=True, seed=seed + epoch):
-            n_edges += int(g.edge_mask.sum() + sub.edge_mask.sum())
-            pending.append((g.to(device), sub.to(device)))
+        for g, sub, edges, _ in prefetch_to_device(
+                _counted(batch_iterator(train_ds, batch_size, caps,
+                                        shuffle=True, seed=seed + epoch,
+                                        use_flat=True)), device=device):
+            n_edges += edges
+            pending.append((g, sub))
             if len(pending) < accum:
                 continue
             with timer.step(edges=n_edges):
@@ -446,10 +448,10 @@ def run_domain_adaptation(step_fn: Callable, state: TrainState,
 
     for epoch in range(start_epoch, epochs):
         total, nb = 0.0, 0
-        for g, sub in batch_iterator(ds, batch_size, caps, shuffle=True,
-                                     seed=seed + epoch):
-            n_edges = int(g.edge_mask.sum() + sub.edge_mask.sum())
-            g, sub = g.to(device), sub.to(device)
+        for g, sub, n_edges, _ in prefetch_to_device(
+                _counted(batch_iterator(ds, batch_size, caps, shuffle=True,
+                                        seed=seed + epoch, use_flat=True)),
+                device=device):
             with timer.step(edges=n_edges):
                 total += float(step_fn(g, sub, generator))
             state.step += 1

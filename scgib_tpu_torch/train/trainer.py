@@ -35,7 +35,20 @@ that reads the device back to the host is refused as it is dispatched); it
 never falls back to the eager step.  The launch and branch counts tick once at
 capture; each replay adds what its capture added, so they stay counts per
 optimizer step.  A step's graphs live as long as the step.  On the CPU the step
-is the eager one.  ``donate`` has no counterpart, and ``remat`` is not ported.
+is the eager one.  ``donate`` has no counterpart.
+
+``remat`` (``make_pretrain_step`` and ``make_pretrain_scan_step``, as in
+the JAX package): the forward runs under ``torch.utils.checkpoint``
+(non-reentrant), so the backward recomputes the activations it needs
+instead of keeping them, inside the captured step too.  The recomputation
+must see the first forward's noise and leave the BatchNorm statistics
+alone: ``rand`` is ``_ReplayedDraws``, which hands the recomputation the
+tensors the first forward drew (the compression noise and the dropout
+masks; ``preserve_rng_state`` would restore only the global generators,
+and a graph cannot capture a generator's ``get_state``), and the
+recomputation runs inside ``layers.statistics_frozen`` (JAX returns
+``batch_stats`` once, from the forward).  The step is then bitwise the
+plain one.
 
 The evaluation (``make_eval_fn``, the jitted ``make_eval_fn`` of the JAX
 package) is captured the same way: one graph of the forward for each batch
@@ -59,11 +72,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.checkpoint import checkpoint
 
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..graph.wire import (from_wire_graph, from_wire_sub, index_wire,
                           unpack_bytes)
 from ..models import encoders
+from ..models.layers import statistics_frozen
 from ..models.losses import (bce_loss, bce_with_logits_loss,
                              cross_entropy_loss, mae_loss, rmse_loss)
 from ..models.scgib import PretrainLosses, PretrainModel, uniform_draws
@@ -155,20 +170,67 @@ def finetune_trainable_mask(model: nn.Module, mode: str = "reference"
             if decide(name.split("."))]
 
 
+class _ReplayedDraws:
+    """``rand`` of a checkpointed forward: the first forward draws from
+    ``rand`` and keeps each draw; inside ``replaying`` (the recomputation)
+    the same tensors come back in the same order."""
+
+    def __init__(self, rand):
+        self.rand = rand
+        self.draws: List[torch.Tensor] = []
+        self.at: Optional[int] = None
+
+    def __call__(self, shape):
+        if self.at is None:
+            self.draws.append(self.rand(shape))
+            return self.draws[-1]
+        self.at += 1
+        return self.draws[self.at - 1]
+
+    @contextlib.contextmanager
+    def replaying(self):
+        self.at = 0
+        try:
+            yield
+        finally:
+            self.at = None
+
+
+def remat_forward(model: nn.Module, g: GraphBatch, sub: SubgraphBatch,
+                  rand) -> PretrainLosses:
+    """``model(g, sub, rand=rand)`` under non-reentrant activation
+    checkpointing (JAX's ``jax.checkpoint`` of the forward): its
+    recomputation replays the first forward's draws and leaves the
+    BatchNorm statistics alone (see the module's note)."""
+    draws = _ReplayedDraws(rand)
+
+    @contextlib.contextmanager
+    def recomputation():
+        with draws.replaying(), statistics_frozen(model):
+            yield
+
+    return checkpoint(lambda: model(g, sub, rand=draws), use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          recomputation()))
+
+
 def pretrain_step_eager(model: PretrainModel,
                         optimizer: torch.optim.Optimizer, g: GraphBatch,
                         sub: SubgraphBatch,
-                        generator: Optional[torch.Generator] = None
-                        ) -> PretrainLosses:
+                        generator: Optional[torch.Generator] = None,
+                        remat: bool = False) -> PretrainLosses:
     """One eager step: total = KL + contrastive + reconstruction, one
     backward, one optimizer update.  The compression noise and the graph
     transformer's dropout masks come from ``generator`` (a
     ``torch.Generator`` on the batch's device), the counterpart of the JAX
     step's ``noise`` and ``dropout`` streams: other bits, the same
-    distribution."""
+    distribution.  ``remat``: the forward under ``remat_forward``."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    losses = model(g, sub, rand=uniform_draws(generator, g.node_feat.device))
+    rand = uniform_draws(generator, g.node_feat.device)
+    losses = (remat_forward(model, g, sub, rand) if remat
+              else model(g, sub, rand=rand))
     losses.total.backward()
     optimizer.step()
     return PretrainLosses(*(t.detach() for t in losses))
@@ -183,15 +245,20 @@ _FINETUNE_LOSSES = {
 }
 
 
+def label_mask(g: GraphBatch) -> torch.Tensor:
+    """The labels a supervised loss takes: those present (``label_mask``)
+    of the real graphs."""
+    keep = g.graph_mask[:, None]
+    return (g.label_mask & keep if g.label_mask is not None
+            else keep.expand(g.labels.shape))
+
+
 def finetune_loss(model: nn.Module, g: GraphBatch, sub: SubgraphBatch,
                   loss_type: str, rand) -> torch.Tensor:
     """The supervised loss of one batch: ``loss_type`` over the labels
-    that are present (``label_mask``) of the real graphs."""
+    ``label_mask`` keeps."""
     scores = model(g, sub, rand=rand)
-    keep = g.graph_mask[:, None]
-    mask = (g.label_mask & keep if g.label_mask is not None
-            else keep.expand(g.labels.shape))
-    return _FINETUNE_LOSSES[loss_type](scores, g.labels, mask)
+    return _FINETUNE_LOSSES[loss_type](scores, g.labels, label_mask(g))
 
 
 def finetune_step_eager(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -349,7 +416,10 @@ class _CapturedSteps:
     (see the module's note).  ``run`` returns a tensor or a tuple of
     tensors, which each call returns a copy of.  ``optimizer``, where the
     step has one, has its gradients dropped before a capture; ``what``
-    names the step in a capture's failure."""
+    names the step in a capture's failure; ``capture_mode`` is the
+    capture's ``capture_error_mode``."""
+
+    capture_mode = "global"
 
     def __init__(self, run: Callable,
                  optimizer: Optional[torch.optim.Optimizer] = None,
@@ -406,7 +476,9 @@ class _CapturedSteps:
         before = _tally()
         guard = CaptureGuard()
         try:
-            with torch.cuda.graph(graph), guard:
+            with torch.cuda.graph(graph,
+                                  capture_error_mode=self.capture_mode), \
+                    guard:
                 out = self.run(self._arg(buffers), generator)
         except RuntimeError as e:
             raise RuntimeError(f"capturing {self.what} failed at "
@@ -429,24 +501,29 @@ class _CapturedSteps:
         return _clone(out)
 
 
-def make_pretrain_step(model: PretrainModel, optimizer: torch.optim.Optimizer
-                       ) -> Callable[..., PretrainLosses]:
+def make_pretrain_step(model: PretrainModel, optimizer: torch.optim.Optimizer,
+                       remat: bool = False) -> Callable[..., PretrainLosses]:
     """``step(g, sub, generator=None) -> losses``: one optimizer step
-    (``pretrain_step_eager``), a CUDA-graph replay on the card."""
+    (``pretrain_step_eager``), a CUDA-graph replay on the card.
+    ``remat``: the forward is recomputed in the backward (see the module's
+    note)."""
     return _CapturedSteps(lambda pairs, gen: pretrain_step_eager(
-        model, optimizer, *pairs[0], gen), optimizer)
+        model, optimizer, *pairs[0], gen, remat=remat), optimizer)
 
 
 def make_pretrain_scan_step(model: PretrainModel,
-                            optimizer: torch.optim.Optimizer, n_inner: int
+                            optimizer: torch.optim.Optimizer, n_inner: int,
+                            remat: bool = False
                             ) -> Callable[..., PretrainLosses]:
     """``step(g, sub, generator=None) -> losses``: ``n_inner`` optimizer
     steps on the same batch, each with fresh noise from ``generator``, the
     losses stacked to [n_inner].  Counterpart of the JAX package's
     ``lax.scan`` of ``n_inner`` steps: on the card one graph of all
-    ``n_inner`` steps, one launch for all of them."""
+    ``n_inner`` steps, one launch for all of them.  ``remat`` as in
+    ``make_pretrain_step``."""
     def run(pairs, gen):
-        runs = [pretrain_step_eager(model, optimizer, *pairs[0], gen)
+        runs = [pretrain_step_eager(model, optimizer, *pairs[0], gen,
+                                    remat=remat)
                 for _ in range(n_inner)]
         return PretrainLosses(*(torch.stack(x) for x in zip(*runs)))
     return _CapturedSteps(run, optimizer)
@@ -493,6 +570,16 @@ def make_pretrain_superbatch_step(model: PretrainModel,
     graph of the K steps for each value of the flag, one replay a
     superbatch, whose buffer is copied into the graph's input buffer
     first."""
+    return _SuperbatchSteps(superbatch_run(
+        byte_spec, lambda g, sub, gen: pretrain_step_eager(
+            model, optimizer, g, sub, gen)), optimizer)
+
+
+def superbatch_run(byte_spec, step: Callable) -> Callable:
+    """``run(wire, gen)`` of a superbatch step: the buffer unpacked into
+    views, each wire pair decoded on the device with the superbatch's
+    pooling flag and trained on in order by ``step(g, sub, gen)``, the
+    losses stacked to [K]."""
     def run(wire: _Wire, gen):
         gs, subs = unpack_bytes(wire.buf, byte_spec)
         runs = []
@@ -500,9 +587,9 @@ def make_pretrain_superbatch_step(model: PretrainModel,
             g = from_wire_graph(index_wire(gs, k))
             sub = from_wire_sub(dataclasses.replace(
                 index_wire(subs, k), pool_fits=wire.pool_fits))
-            runs.append(pretrain_step_eager(model, optimizer, g, sub, gen))
+            runs.append(step(g, sub, gen))
         return PretrainLosses(*(torch.stack(x) for x in zip(*runs)))
-    return _SuperbatchSteps(run, optimizer)
+    return run
 
 
 def make_finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer,

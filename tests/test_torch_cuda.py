@@ -3,7 +3,9 @@ its plain version, the fused GIN layer's and the graph-transformer
 attention's kernel backward against autograd on the CPU, operand checks,
 short pretraining runs, the captured steps (GCN and GraphSAGE, dense
 ego-nets among them) and the captured evaluation against their eager
-forms.  Marked ``cuda``; without a CUDA device every
+forms, the captured remat step against the plain one and the captured
+data-parallel step at world size 1 over NCCL against the single step.
+Marked ``cuda``; without a CUDA device every
 test skips.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -516,17 +518,23 @@ def test_pool_without_the_flag_refuses_ids_on_the_card(batch, dev):
                                        mask=sub.node_mask)
 
 
-def _steps(dev, batches, kwargs, captured):
+def _steps(dev, batches, kwargs, captured, remat=False, group=None):
     """Three steps from one start; (losses, state_dict, Adam state,
-    generator state) on the host."""
+    generator state) on the host.  ``remat``: the captured remat step;
+    ``group``: the captured data-parallel step over it."""
     model = PretrainModel(9, hidden=32, d_transfer=16, num_layers=2,
-                          num_heads=4, **kwargs)
+                          num_heads=4, group=group, **kwargs)
     init_flax_style_(model, torch.Generator().manual_seed(1))
     model.to(dev)
     opt = trainer.adam_l2(model, 1e-3, 5e-5)
     gen = torch.Generator(device=dev).manual_seed(2)
-    step = (trainer.make_pretrain_step(model, opt) if captured else
-            functools.partial(trainer.pretrain_step_eager, model, opt))
+    if group is not None:
+        from scgib_tpu_torch.parallel import dp
+        step = dp.make_dp_pretrain_step(model, opt, group)
+    elif captured:
+        step = trainer.make_pretrain_step(model, opt, remat=remat)
+    else:
+        step = functools.partial(trainer.pretrain_step_eager, model, opt)
     losses = [torch.stack(list(step(g, s, gen))).cpu() for g, s in batches]
     adam = [t.cpu() for p in model.parameters()
             for t in opt.state[p].values()]
@@ -859,6 +867,67 @@ def test_finetune_then_eval_on_the_card(dev, tmp_path):
 
 
 # --- GCN and GraphSAGE, dense ego-nets, the captured evaluation -------------
+
+def _same_steps(a, b):
+    assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+    assert all(torch.equal(a[1][k], b[1][k]) for k in a[1])
+    assert all(torch.equal(x, y) for x, y in zip(a[2], b[2]))
+    assert torch.equal(a[3], b[3])
+
+
+@pytest.mark.parametrize("encoder", ["GIN", "Transformer"])
+def test_captured_remat_step_is_the_captured_plain_step(dev, encoder):
+    """Under torch's deterministic algorithms three captured remat steps
+    write the bits of three captured plain steps, the recomputation
+    launching every forward kernel again."""
+    batches = _pretrain_batches(dev)
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in (False, True):
+            kb.reset_launch_counts()
+            kg.reset_launch_counts()
+            runs.append((_steps(dev, batches, {"encoder": encoder}, True,
+                                remat=remat),
+                         {**kb.launch_counts(), **kg.launch_counts()}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (plain, n_plain), (remat, n_remat) = runs
+    _same_steps(plain, remat)
+    fwd = ("gin_fwd", "pool") if encoder == "GIN" else ("gt_fwd", "pool")
+    assert {k: n_remat[k] - n_plain[k] for k in n_plain
+            if n_remat[k] != n_plain[k]} == {
+        **{k: n_plain[k] for k in fwd}, "spmm": n_plain["spmm"] // 2}
+
+
+def test_dp_step_at_world_size_one_is_the_single_step(dev):
+    """The captured data-parallel step over NCCL at world size 1 (its
+    collectives inside the graph) writes the bits of the captured single
+    step, under torch's deterministic algorithms."""
+    import socket
+
+    import torch.distributed as dist
+    from scgib_tpu_torch.parallel import dp, multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    multihost.initialize_distributed(f"tcp://127.0.0.1:{port}",
+                                     world_size=1, rank=0)
+    try:
+        group = dp.make_mesh()
+        batches = _pretrain_batches(dev)
+        torch.use_deterministic_algorithms(True)
+        try:
+            single = _steps(dev, batches, {}, True)
+            parallel = _steps(dev, batches, {}, True, group=group)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert len(parallel[4].graphs) == 1
+        _same_steps(single, parallel)
+    finally:
+        dist.destroy_process_group()
+
 
 def _pretrain_batches(dev, n=3):
     from scgib_tpu_torch.data.loader import (GraphDataset, batch_iterator,

@@ -390,6 +390,59 @@ def test_run_domain_adaptation_resumes_bit_equal(tmp_path):
     assert got["best_loss"] == want["best_loss"] and len(want["history"]) == 2
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread: many tiny ops, which crawl on several threads
+    when the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("loop", ["finetune", "adapt"])
+def test_supervised_loops_feed_from_the_native_packer(monkeypatch, loop,
+                                                      one_thread):
+    """Both loops take their training batches from the native packer
+    through ``prefetch_to_device``, one prefetch an epoch, and train to
+    the same epoch losses and weights, bit for bit, as the per-graph
+    packers fed them before."""
+    from scgib_tpu_torch.data import flat
+
+    def run():
+        if loop == "finetune":
+            out = _finetune(DATASETS["BACE"], 2, None)
+            return out["history"], out["state"].model.state_dict()
+        state, info = _adapt(2, None)
+        return info["history"], state.model.state_dict()
+
+    calls = {"packed": 0, "prefetched": 0}
+    pack, prefetch = flat.pack_flat_batch, loops.prefetch_to_device
+
+    def counted_pack(*args, **kwargs):
+        calls["packed"] += 1
+        return pack(*args, **kwargs)
+
+    def counted_prefetch(*args, **kwargs):
+        calls["prefetched"] += 1
+        return prefetch(*args, **kwargs)
+    with monkeypatch.context() as m:
+        m.setattr(flat, "pack_flat_batch", counted_pack)
+        m.setattr(loops, "prefetch_to_device", counted_prefetch)
+        history, weights = run()
+    # fine-tuning: 4 training batches an epoch (32 graphs), val and test
+    # packed once; adaptation: 6 an epoch (all 48 graphs)
+    assert calls == {"packed": 2 * 4 + 2 if loop == "finetune" else 2 * 6,
+                     "prefetched": 2}
+    iterate = loops.batch_iterator
+    monkeypatch.setattr(loops, "batch_iterator", lambda *a, **kw: iterate(
+        *a, **{**kw, "use_flat": False}))
+    monkeypatch.setattr(flat, "pack_flat_batch", None)
+    old_history, old_weights = run()
+    assert history == old_history
+    assert all(torch.equal(weights[k], old_weights[k]) for k in weights)
+
+
 def test_run_finetune_halts_on_a_non_finite_loss():
     spec = DATASETS["BACE"]
     ds, caps, (train, val, test) = _data(spec)

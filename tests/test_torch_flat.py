@@ -116,7 +116,7 @@ def test_flat_packer_takes_the_scatter_branch_flag():
 
 def test_batch_iterator_workers_keep_order(setup):
     ds, _, caps, _ = setup
-    plain = list(batch_iterator(ds, 32, caps, seed=3))
+    plain = list(batch_iterator(ds, 32, caps, seed=3, use_flat=False))
     for workers, flat in ((2, True), (3, False)):
         got = list(batch_iterator(ds, 32, caps, seed=3, workers=workers,
                                   use_flat=flat,
@@ -204,7 +204,7 @@ def test_failed_build_raises_and_nothing_falls_back(tmp_path, monkeypatch,
         next(batch_iterator(fresh, 32, caps, use_flat=True))
     assert not list((tmp_path / "build").glob("*.so*"))
     # the NumPy path is the caller's to ask for, and needs no library
-    assert next(batch_iterator(fresh, 32, caps)) is not None
+    assert next(batch_iterator(fresh, 32, caps, use_flat=False)) is not None
 
 
 def test_build_flat_matches_jax(setup):

@@ -17,6 +17,7 @@ from scgib_tpu.graph import banded as jbanded
 from scgib_tpu.graph.batching import GraphData as JGraphData
 from scgib_tpu.graph.batching import pack_graphs as jpack_graphs
 from scgib_tpu.graph.batching import pack_subgraphs as jpack_subgraphs
+from scgib_tpu.graph.egonet import egonet_sizes as jegonet_sizes
 from scgib_tpu.graph.egonet import extract_egonets as jextract_egonets
 
 from scgib_tpu_torch.data import loader
@@ -25,7 +26,7 @@ from scgib_tpu_torch.graph import banded
 from scgib_tpu_torch.graph.batching import (GraphData, pack_graphs,
                                             pack_subgraphs)
 from scgib_tpu_torch.graph.container import GraphBatch, SubgraphBatch
-from scgib_tpu_torch.graph.egonet import extract_egonets
+from scgib_tpu_torch.graph.egonet import egonet_sizes, extract_egonets
 
 GRAPH_FIELDS = ("node_feat", "node_graph", "node_mask", "senders",
                 "receivers", "edge_mask", "graph_mask", "band_col_off")
@@ -83,6 +84,23 @@ def test_extract_egonets_matches(graphs, k):
         for (s, r), (js, jr) in zip(port.edge_lists, ref.edge_lists):
             np.testing.assert_array_equal(s, js)
             np.testing.assert_array_equal(r, jr)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_egonet_sizes_match(graphs, jgraphs, k):
+    """The sizes without extraction: the JAX function's, and the totals of
+    the extracted ego-nets; a graph without edges included."""
+    empty = GraphData(senders=np.zeros(0, np.int32),
+                      receivers=np.zeros(0, np.int32),
+                      node_feat=np.zeros((3, 9), np.float32))
+    jempty = JGraphData(senders=empty.senders, receivers=empty.receivers,
+                        node_feat=empty.node_feat)
+    for g, jg in [*zip(graphs[:6], jgraphs[:6]), (empty, jempty)]:
+        got = egonet_sizes(g, k)
+        assert got == jegonet_sizes(jg, k)
+        egos = extract_egonets(g, k)
+        assert got == (sum(len(nl) for nl in egos.node_lists),
+                       sum(len(s) for s, _ in egos.edge_lists))
 
 
 def test_pack_graphs_and_subgraphs_match(jgraphs, packed):
@@ -165,6 +183,19 @@ def test_banded_col_off_and_fit_match(packed):
                                        g.node_mask.shape[0]) == \
             jbanded.fits_band_masked(g.senders, g.receivers, mask,
                                      g.node_mask.shape[0])
+
+
+@pytest.mark.parametrize("shift", [0, 100])
+def test_fits_band_matches(packed, shift):
+    """Every packed batch fits its band; senders moved 100 rows away do
+    not; the port's verdict is the JAX package's in both."""
+    for b in packed:
+        s, r = np.asarray(b.senders) + shift, np.asarray(b.receivers)
+        for tile, band, align in ((128, 256, 64), (64, 128, 8)):
+            got = banded.fits_band(s, r, tile, band, align)
+            assert got == jbanded.fits_band(s, r, tile, band, align)
+            if (tile, band) == (128, 256):
+                assert got == (shift == 0)
 
 
 def test_containers_convert_to_tensors(packed, jgraphs):

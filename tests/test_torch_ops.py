@@ -75,7 +75,8 @@ def seg_inputs():
 
 
 @pytest.mark.parametrize("op", ["sum", "count", "mean", "std_mean",
-                                "softmax", "broadcast"])
+                                "softmax", "broadcast",
+                                "broadcast_helper"])
 def test_segment_ops_match(seg_inputs, op):
     ids, mask, data = seg_inputs
     S = 16     # more segments than ids: empty segments included
@@ -96,10 +97,12 @@ def test_segment_ops_match(seg_inputs, op):
     elif op == "softmax":
         close(segment.segment_softmax(td[:, 0] * 5, ti, S, tm),
               jseg.segment_softmax(jd[:, 0] * 5, ji, S, jm))
-    else:
+    elif op == "broadcast":
         vals = td[:S]
         close(segment.segment_broadcast(vals, ti, S),
               jseg.segment_broadcast(jd[:S], ji, S))
+    else:                      # num_segments taken from the values
+        close(segment.broadcast(td[:S], ti), jseg.broadcast(jd[:S], ji))
 
 
 def test_segment_sum_drops_out_of_range_ids():
