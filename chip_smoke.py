@@ -159,13 +159,33 @@ Phases; any failure raises and exits non-zero before the last line:
      ``run_finetune`` feeds it now (prefetched from the native packer)
      and as before (packed per graph on the consumer thread): ms a batch
      of BACE; the ``finetune`` verb's step ms.
- 12. one JSON line of the kernels (with the launches of a fine-tuning step
-     and an evaluation batch, and of each main-path run, the superbatch
-     and phase 11 runs among them), the nvidia-smi line, and {"ok": true,
-     "device": {...}} as the last line.
+ 12. node-sharded pretraining (``parallel/sharded_scgib.py``) at full
+     width, ShardedPretrainModel(9, 64, 32) on the benchmark batch packed
+     with ``banded=False`` and resharded: (a) world size 1 over NCCL: the
+     losses within 1e-4 and gradients within 1e-3 of the single-device
+     model in float64 on the CPU (phase 4's gates); the captured sharded
+     step byte-equal to the eager one over 6 steps under deterministic
+     algorithms, the stale-input fault breaking it; 0 launches of every
+     hand-written kernel (the JAX path reaches no Pallas kernel); the
+     median of a captured sharded call against the captured single
+     step's; (b) 2 and 4 gloo ranks at once on the one card, eager,
+     spawned (``--shard-rank``): the benchmark batch (its ring radius
+     printed) and a batch of 2 graphs spanning ranks (radius 2 at 4
+     ranks), summed losses and gradients under the same gates against
+     float64 on the union batch, the ring's backward sent the wrong way
+     breaking the 4-rank gradients, the ranks' states byte-equal after 3
+     timed steps (seconds a step printed; one card, so no scaling); beside
+     them two processes (``--p2p-probe``) show what gloo's ``send`` and
+     ``recv`` do with a CUDA tensor; (c) ``dryrun_multichip(2,
+     device="cuda", backend="gloo")``.
+ 13. one JSON line of the kernels (with the launches of a fine-tuning step
+     and an evaluation batch, and of each main-path run, the superbatch,
+     phase 11 and phase 12 runs among them), the nvidia-smi line, and
+     {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --gloo-rank R PORT`` is one rank of phase 11 (b),
-which the script starts itself.
+``--shard-rank R WORLD PORT`` one of phase 12 (b) and ``--p2p-probe R
+PORT`` one of its probe; the script starts them itself.
 """
 
 import collections
@@ -216,7 +236,13 @@ from scgib_tpu_torch.graph.batching import (  # noqa: E402
     GraphData, max_egonet_size, pack_graphs, pack_subgraphs,
     pack_subgraphs_dense)
 from scgib_tpu_torch.graph.egonet import extract_egonets  # noqa: E402
-from scgib_tpu_torch.parallel import dp, multihost  # noqa: E402
+from scgib_tpu_torch.parallel import (collectives, dp,  # noqa: E402
+                                      multihost)
+from scgib_tpu_torch.parallel.dryrun import dryrun_multichip  # noqa: E402
+from scgib_tpu_torch.parallel.sharded_batch import (  # noqa: E402
+    local_slice, shard_pretrain_batch)
+from scgib_tpu_torch.parallel.sharded_scgib import (  # noqa: E402
+    ShardedPretrainModel, make_sharded_pretrain_step)
 from scgib_tpu_torch.ops.spmm_banded import (  # noqa: E402
     gt_banded_attention)
 from scgib_tpu_torch.train import trainer  # noqa: E402
@@ -291,6 +317,10 @@ ENCODER_BRANCHES = {"GIN": ("band", 8), "Transformer": ("gt_band_64x128", 10),
 REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
               "gt_bwd_cols": "Transformer",
               "gt_bwd_merged": "Transformer-merged"}
+GIN_NO_LIBRARY = ("no single PyTorch call computes it: the conv is two "
+                  "products around the aggregation (relu((h + A h) W1 + b1) "
+                  "W2 + b2) and its backward stage gz0 with dW1, db1, dW2, "
+                  "db2; no library call fuses them")
 NO_LIBRARY = ("no single PyTorch call computes it: scaled_dot_product_"
               "attention takes a max-shifted softmax, with no clamp of the "
               "scores and no eps in the denominator")
@@ -539,6 +569,9 @@ def kernel_phase(g, sub, dev):
         nbytes(pblocks, off, data) + n_seg * hid * 4,
         2 * int((pblocks != 0).sum()) * hid,
         lambda: torch.bmm(pbf, pwin)))
+    for rec in records:
+        if rec["name"] in ("gin_fwd", "gin_bwd"):
+            rec["library_note"] = GIN_NO_LIBRARY
     for d in (32, 64):
         for kernel, widths in (("banded_spmm", (d,)),
                                ("gin_fused_fwd", (d, hid, hid)),
@@ -1188,7 +1221,11 @@ def main():
     dp_remat, dp_runs = dp_remat_phase(dev, ds, caps, g, sub)
     lap("11 data parallel, remat")
 
-    # 12. report
+    # 12. node-sharded pretraining
+    sharded, shard_runs = shard_phase(dev, ds, caps)
+    lap("12 node-sharded pretraining")
+
+    # 13. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -1206,14 +1243,17 @@ def main():
             "launches_by_run": {
                 **{r: runs[r]["counts"][name] for r in runs},
                 **{r: c[name] for r, c in data_runs.items()},
-                **{r: c.get(name, 0) for r, c in dp_runs.items()}},
+                **{r: c.get(name, 0) for r, c in dp_runs.items()},
+                **{r: c.get(name, 0) for r, c in shard_runs.items()}},
             "finetune_step_launches": sup["finetune_step_launches"].get(
                 name, 0),
             "eval_batch_launches": sup["eval_batch_launches"].get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": widest["ms"], "plain_ms": widest["plain_ms"],
             "bound_ms": widest["bound_ms"], "bound_by": widest["bound_by"],
-            "library_ms": widest["library_ms"], "shape": widest["shape"],
+            "library_ms": widest["library_ms"],
+            "library_note": widest.get("library_note"),
+            "shape": widest["shape"],
             "configs": recs})
     print(json.dumps({"kernels": kernels,
                       "step_ms": {k: r["step_ms"] for k, r in runs.items()},
@@ -1221,6 +1261,7 @@ def main():
                       "verb": verb, "compiled": compiled,
                       "supervised": supervised, "slice9": slice9,
                       "data": data, "dp_remat": dp_remat,
+                      "sharded": sharded,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,
@@ -3267,8 +3308,394 @@ def dp_remat_phase(dev, ds, caps, g, sub):
     return report, runs
 
 
+
+# --- 12. node-sharded pretraining -------------------------------------------
+
+SHARD_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_sharded")
+SHARD_WORLDS = (2, 4)         # gloo ranks on the one card
+SHARD_STEPS = 3               # timed eager steps a gloo rank takes
+SPANNING = {"graphs": 2, "seed": 7, "min_nodes": 12, "max_nodes": 15,
+            "caps": (32, 256, 4, 256, 1024)}
+
+
+def unbanded(ds, caps, sel):
+    """The graphs ``sel`` of ``ds`` packed as ``pack_batch`` packs them,
+    with no band (the node-sharded path takes the ring plan instead)."""
+    graphs = [ds.graphs[j] for j in sel]
+    return (pack_graphs(graphs, caps.nodes, caps.edges, caps.graphs,
+                        banded=False),
+            pack_subgraphs(graphs, [ds.egonets[j] for j in sel],
+                           caps.sub_nodes, caps.sub_edges, banded=False))
+
+
+def spanning_batch():
+    """2 graphs of 12-15 nodes in 32 node rows (``tests/sharded_cases.py``):
+    at 4 ranks of 8 nodes each graph spans ranks and an edge joins ranks 2
+    apart."""
+    graphs = random_dataset(SPANNING["graphs"], seed=SPANNING["seed"],
+                            min_nodes=SPANNING["min_nodes"],
+                            max_nodes=SPANNING["max_nodes"])
+    n, e, ng, sn, se = SPANNING["caps"]
+    return (pack_graphs(graphs, n, e, ng, banded=False),
+            pack_subgraphs(graphs, [extract_egonets(gr, 1) for gr in graphs],
+                           sn, se, banded=False))
+
+
+def shard_model(group, seed=31, **kw):
+    """ShardedPretrainModel(9, 64, 32) with seeded weights, on the CPU."""
+    model = ShardedPretrainModel(9, hidden=64, d_transfer=32, group=group,
+                                 **kw)
+    return init_flax_style_(model, torch.Generator().manual_seed(seed))
+
+
+def resharded(g, sub, world, rank, dev, caps=None):
+    """(rank ``rank``'s slice on ``dev``, the ring's radius).  ``caps``:
+    the packer's capacities as the per-rank caps, so that every batch has
+    one shape (the captured step's key)."""
+    fixed = {} if caps is None else {"sub_node_cap": caps.sub_nodes,
+                                     "sub_edge_cap": caps.sub_edges,
+                                     "ring_edge_cap": caps.edges}
+    b = shard_pretrain_batch(g, sub, world, **fixed)
+    return local_slice(b, rank).to(dev), b.radius
+
+
+def sharded_grads(model, b, group):
+    """Forward and backward of this rank's losses: (the losses and the
+    gradients, each summed over ``group``), on the host."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    losses = model(b)
+    losses.total.backward()
+    summed = dp._summed(torch.stack(tuple(losses)), group)
+    grads = {n: dp._summed(p.grad, group).cpu()
+             for n, p in model.named_parameters()}
+    return [float(x) for x in summed], grads
+
+
+def float64_union(weights, g, sub):
+    """The single-device model's deterministic losses and gradients on the
+    union batch, in float64 on the CPU plain path."""
+    model = PretrainModel(9, hidden=64, d_transfer=32, deterministic=True)
+    model.load_state_dict(weights)
+    model.to("cpu", torch.float64).train()
+    g64, sub64 = g.to("cpu"), sub.to("cpu")
+    g64.node_feat = g64.node_feat.double()
+    losses = model(g64, sub64)
+    losses.total.backward()
+    return ([float(x.detach()) for x in losses],
+            {n: p.grad.detach() for n, p in model.named_parameters()})
+
+
+def against_float64(got, want, label):
+    """Losses within MODEL_RTOL and gradients within GRAD_RTOL (phase 4's
+    measure) of float64; returns the reading."""
+    (losses, grads), (l64, g64) = got, want
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l64))
+    grad_rel, worst = grad_gap(grads, g64)
+    rec = {"losses": losses, "float64_losses": l64, "loss_rel": loss_rel,
+           "grad_rel_float64": [grad_rel, worst]}
+    if not (loss_rel <= MODEL_RTOL and grad_rel <= GRAD_RTOL):
+        raise AssertionError(f"{label}: the sharded model disagrees with "
+                             f"float64 on the union batch: {rec}")
+    return rec
+
+
+@contextlib.contextmanager
+def wrong_way_ring():
+    """A planted fault: the ring's backward shifts the cotangent the same
+    way as the forward shifted the block (at 2 ranks both ways reach the
+    same rank, so it shows from 3)."""
+    real = collectives._RingShift.backward
+
+    def same_way(ctx, grad):
+        return collectives._shift(grad, ctx.shift, ctx.group), None, None
+    collectives._RingShift.backward = staticmethod(same_way)
+    try:
+        yield
+    finally:
+        collectives._RingShift.backward = real
+
+
+def shard_run(dev, batches, group, how):
+    """One node-sharded step a batch from one start (noise on, seeded
+    weights, Adam, generator): the captured step, or the eager one.
+    Returns (losses as bytes, step_bytes, launch counts, (step, gen))."""
+    model = shard_model(group, seed=11).to(dev)
+    opt = adam_l2(model, 1e-4, 5e-5)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    step = (make_sharded_pretrain_step(model, opt, group)
+            if how == "captured" else
+            lambda b, gen: dp.dp_pretrain_step_eager(model, opt, group, b,
+                                                     generator=gen))
+    reset_launch_counts()
+    losses = [step(b, gen) for b in batches]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    as_bytes = {f"step {i} {name}": t.cpu().numpy().tobytes()
+                for i, ls in enumerate(losses)
+                for name, t in zip(("kl", "contrastive", "recon"), ls)}
+    return as_bytes, step_bytes(model, opt, gen), counts, (step, gen)
+
+
+def shard_world1_phase(dev, ds, caps):
+    """(a) world size 1 over NCCL: the sharded model on the benchmark
+    batch (banded=False, resharded) against the single-device model in
+    float64 on the CPU; the captured sharded step against the eager one,
+    6 steps from one start under deterministic algorithms, byte-equal, the
+    stale-input fault breaking it; 0 launches of every hand-written
+    kernel; the median of a captured sharded call against the captured
+    single step's (the main path's banded batch)."""
+    multihost.initialize_distributed(f"tcp://127.0.0.1:{free_port()}",
+                                     world_size=1, rank=0)
+    try:
+        group = dp.make_mesh()
+        g, sub = unbanded(ds, caps, np.arange(128))
+        b, radius = resharded(g, sub, 1, 0, dev)
+        model = shard_model(group, deterministic=True)
+        want = float64_union(model.state_dict(), g, sub)
+        rec = {"radius": radius, "float64": against_float64(
+            sharded_grads(model.to(dev), b, group), want, "world 1")}
+        batches = [resharded(*unbanded(ds, caps, np.arange(128 * k,
+                                                           128 * (k + 1))),
+                             1, 0, dev, caps)[0] for k in range(STEPS)]
+        with deterministic():
+            eager = shard_run(dev, batches, group, "eager")
+            captured = shard_run(dev, batches, group, "captured")
+            with stale_replays():
+                fault = shard_run(dev, batches, group, "captured")
+        rec.update({
+            "losses_apart": bytes_apart(eager[0], captured[0]),
+            "state_apart": bytes_apart(eager[1], captured[1]),
+            "fault_losses_apart": len(bytes_apart(eager[0], fault[0])),
+            "fault_state_apart": len(bytes_apart(eager[1], fault[1])),
+            "graphs": len(captured[3][0].graphs)})
+        launched = {k: n for run in (eager, captured)
+                    for k, n in run[2].items() if n}
+        rec["launches"] = launched
+        bench = bench_batches(dev, ds, caps, 2)
+        timed = {"single": (dp_run(dev, bench, None)[3], bench[1]),
+                 "sharded": (shard_run(dev, batches[:2], group,
+                                       "captured")[3], (batches[1],))}
+        rec["call_ms"] = [(name, call_median(timed[name][0][0],
+                                             timed[name][1],
+                                             timed[name][0][1]))
+                          for name in ("single", "sharded", "sharded",
+                                       "single")]
+        print(f"phase 12 (a) sharded, world 1 over NCCL: {json.dumps(rec)}",
+              flush=True)
+        if rec["losses_apart"] or rec["state_apart"]:
+            raise AssertionError(f"the captured sharded step is not the "
+                                 f"eager one: {rec}")
+        if not rec["fault_state_apart"]:
+            raise AssertionError("the stale inputs went unseen")
+        if launched or rec["graphs"] != 1:
+            raise AssertionError(f"the sharded step launched hand-written "
+                                 f"kernels or captured more than one "
+                                 f"graph: {rec}")
+        return rec, {"sharded world 1 over NCCL, eager": eager[2],
+                     "sharded world 1 over NCCL, captured": captured[2]}
+    finally:
+        dist.destroy_process_group()
+
+
+def shard_rank_command(rank, world, port):
+    return [sys.executable, os.path.abspath(__file__), "--shard-rank",
+            str(rank), str(world), port]
+
+
+def shard_rank(rank, world, port, device="cuda"):
+    """One gloo rank of phase 12 (b), in a process of its own, on the card
+    (``device``: a rehearsal's "cpu"): the sharded model's summed losses
+    and gradients on each batch (and, at 4 ranks, with the ring's backward
+    sent the wrong way), then SHARD_STEPS eager steps, timed."""
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)          # six ranks share the host's cores
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    multihost.initialize_distributed(f"tcp://127.0.0.1:{port}",
+                                     world_size=world, rank=rank,
+                                     device="cpu")
+    group = dp.make_mesh()
+    inputs = torch.load(os.path.join(SHARD_DIR, "inputs.pt"),
+                        weights_only=False)
+    model = shard_model(group, deterministic=True)
+    model.load_state_dict(inputs["weights"])
+    model.to(dev)
+    reset_launch_counts()
+    out = {}
+    for name, sharded in inputs["batches"][world].items():
+        b = local_slice(sharded, rank).to(dev)
+        out[name] = sharded_grads(model, b, group)
+        if world >= 3 and name == "benchmark":
+            with wrong_way_ring():
+                out["wrong way"] = sharded_grads(model, b, group)
+    b = local_slice(inputs["batches"][world]["benchmark"], rank).to(dev)
+    opt = adam_l2(model, 1e-4, 5e-5)
+    step = make_sharded_pretrain_step(model, opt, group)
+    times = []
+    for _ in range(SHARD_STEPS):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(step(b).total)
+        times.append(time.perf_counter() - t0)
+    out["step_s"] = times
+    out["launches"] = {k: n for k, n in launch_counts().items() if n}
+    out["bytes"] = step_bytes(model, opt, torch.Generator())
+    torch.save(out, os.path.join(SHARD_DIR, f"w{world}-rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def p2p_probe_command(rank, port):
+    return [sys.executable, os.path.abspath(__file__), "--p2p-probe",
+            str(rank), port]
+
+
+def p2p_probe(rank, port):
+    """How gloo's point-to-point treats a tensor on the card: rank 0
+    ``dist.send``s a CUDA tensor, rank 1 ``dist.recv``s into one; each
+    prints one JSON line of what happened."""
+    import datetime
+
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    sent = torch.arange(1, 9, dtype=torch.float32, device="cuda")
+    rec = {"rank": rank}
+    try:
+        if rank == 0:
+            dist.send(sent, 1)
+            rec["outcome"] = "sent"
+        else:
+            got = torch.zeros(8, device="cuda")
+            dist.recv(got, 0)
+            torch.cuda.synchronize()
+            rec["outcome"] = ("received the values sent"
+                              if torch.equal(got, sent) else
+                              f"received {got.tolist()}")
+    except RuntimeError as e:
+        rec["outcome"] = f"raised: {str(e)[:300]}"
+    print(json.dumps(rec), flush=True)
+    dist.destroy_process_group()
+
+
+def run_ranks(commands, timeout=300):
+    """Start every command at once; (exit codes, outputs) once all end or
+    the timeout kills them."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in commands]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=timeout)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\n[killed at the "
+                            "timeout]")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    return [p.returncode for p in procs], logs
+
+
+def shard_gloo_phase(dev, ds, caps):
+    """(b) 2 and 4 gloo ranks on the one card, eager, spawned
+    (``--shard-rank``), both worlds at once, beside the point-to-point
+    probe (``--p2p-probe``): on the benchmark batch and the spanning batch
+    each world's summed losses within MODEL_RTOL and gradients within
+    GRAD_RTOL of the single-device model in float64 on the union batch;
+    the ring's backward sent the wrong way breaking the 4-rank gradients;
+    0 launches of the hand-written kernels; after the timed steps every
+    rank's state byte-equal to rank 0's.  Seconds a step are printed; no
+    scaling is read from them (one card)."""
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    os.makedirs(SHARD_DIR)
+    unions = {"benchmark": unbanded(ds, caps, np.arange(128)),
+              "spanning": spanning_batch()}
+    weights = shard_model(None, deterministic=True).state_dict()
+    batches = {w: {name: shard_pretrain_batch(*u, w)
+                   for name, u in unions.items()} for w in SHARD_WORLDS}
+    torch.save({"weights": weights, "batches": batches},
+               os.path.join(SHARD_DIR, "inputs.pt"))
+    want = {name: float64_union(weights, *u) for name, u in unions.items()}
+    ports = {w: str(free_port()) for w in SHARD_WORLDS}
+    probe_port = str(free_port())
+    commands = ([shard_rank_command(r, w, ports[w]) for w in SHARD_WORLDS
+                 for r in range(w)]
+                + [p2p_probe_command(r, probe_port) for r in range(2)])
+    codes, logs = run_ranks(commands)
+    n_ranks = sum(SHARD_WORLDS)
+    for code, log in zip(codes[:n_ranks], logs[:n_ranks]):
+        if code != 0:
+            raise AssertionError(f"a sharded gloo rank exited {code}:\n"
+                                 f"{log[-6000:]}")
+    report = {"p2p_probe": [{"exit": c, "output": log.strip()[-600:]}
+                            for c, log in zip(codes[n_ranks:],
+                                              logs[n_ranks:])]}
+    print(f"phase 12 (b) gloo send/recv of a CUDA tensor: "
+          f"{json.dumps(report['p2p_probe'])}", flush=True)
+    runs = {}
+    for w in SHARD_WORLDS:
+        ranks = [torch.load(os.path.join(SHARD_DIR, f"w{w}-rank{r}.pt"))
+                 for r in range(w)]
+        rec = {"radius": {name: batches[w][name].radius for name in unions},
+               "step_s": ranks[0]["step_s"],
+               "launches": [r["launches"] for r in ranks],
+               "ranks_apart": [bytes_apart(ranks[0]["bytes"], r["bytes"])
+                               for r in ranks[1:]]}
+        for name in unions:
+            rec[name] = against_float64(ranks[0][name], want[name],
+                                        f"{w} gloo ranks, {name}")
+        if "wrong way" in ranks[0]:
+            rec["wrong_way_grad_rel"] = grad_gap(
+                ranks[0]["wrong way"][1], want["benchmark"][1])
+        report[f"{w} ranks"] = rec
+        runs[f"sharded {w} gloo ranks, rank 0"] = ranks[0]["launches"]
+        print(f"phase 12 (b) {w} gloo ranks on the card: {json.dumps(rec)}",
+              flush=True)
+        if any(rec["launches"]) or any(rec["ranks_apart"]):
+            raise AssertionError(f"{w} gloo ranks: {rec}")
+        if w >= 3 and not rec["wrong_way_grad_rel"][0] > GRAD_RTOL:
+            raise AssertionError("the ring's wrong-way backward went "
+                                 "unseen")
+    if report["4 ranks"]["radius"]["spanning"] < 2:
+        raise AssertionError("the spanning batch takes one hop only")
+    shutil.rmtree(SHARD_DIR)
+    return report, runs
+
+
+def shard_phase(dev, ds, caps):
+    """Phase 12; returns its readings and the launch counts of its runs."""
+    report, runs, secs = {}, {}, {}
+    t0 = time.perf_counter()
+    report["world1"], world1_runs = shard_world1_phase(dev, ds, caps)
+    runs.update(world1_runs)
+    secs["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["gloo"], gloo_runs = shard_gloo_phase(dev, ds, caps)
+    runs.update(gloo_runs)
+    secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["dryrun"] = dryrun_multichip(2, device="cuda", backend="gloo")
+    print(f"phase 12 (c) {report['dryrun']['line']}", flush=True)
+    secs["c"] = time.perf_counter() - t0
+    report["seconds"] = secs
+    print(f"phase 12: {json.dumps(report)}", flush=True)
+    return report, runs
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:
         gloo_rank(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--p2p-probe"]:
+        p2p_probe(*sys.argv[2:])
     else:
         main()

@@ -13,7 +13,9 @@ entropy, RMSE, MAE), each averaged over the entries a mask keeps.
 global count, so the sum of the ranks' values, and of their gradients, is
 the loss of the union batch (``parallel/dp.py`` sums both).  The
 contrastive denominator spans the union batch (its columns gathered), and
-so does the reconstruction's gram.
+so does the reconstruction's gram.  ``contrastive_infonce_replicated`` is
+the node-sharded path's InfoNCE (``parallel/sharded_scgib.py``): readouts
+the same on every rank, each rank adding the terms of the graphs it owns.
 """
 
 from __future__ import annotations
@@ -63,6 +65,27 @@ def contrastive_infonce(z1: torch.Tensor, z2: torch.Tensor,
     return (loss_i * m).sum() / count.clamp_min(1.0)
 
 
+def contrastive_infonce_replicated(z1: torch.Tensor, z2: torch.Tensor,
+                                   graph_mask: torch.Tensor,
+                                   own_mask: torch.Tensor, group,
+                                   tau: float = 1.0) -> torch.Tensor:
+    """InfoNCE of the node-sharded path: z1 and z2 are the readouts of
+    every graph, [G, d], the same on every rank of ``group`` (sums over
+    the group), and this rank adds the terms of the graphs it owns
+    (``own_mask``, a disjoint cover of the real graphs) over the group's
+    count of them.  The terms are ``contrastive_infonce``'s."""
+    m = graph_mask.to(z1.dtype)
+    o = (own_mask & graph_mask).to(z1.dtype)
+    z1n = l2_normalize(z1)
+    z2n = l2_normalize(z2)
+    refl = torch.exp(z1n @ z1n.T / tau)
+    betw = torch.exp(z1n @ z2n.T / tau)
+    denom = refl @ m + betw @ m - torch.diagonal(refl)
+    loss_i = -torch.log(torch.diagonal(betw) / denom.clamp_min(1e-30))
+    count = all_reduce_sum(o.sum(), group)
+    return (loss_i * o).sum() / count.clamp_min(1.0)
+
+
 def kl_loss(kl_node: torch.Tensor, node_mask: torch.Tensor,
             node_graph: torch.Tensor = None, graph_mask: torch.Tensor = None,
             mode: str = "corrected", group=None) -> torch.Tensor:
@@ -71,7 +94,9 @@ def kl_loss(kl_node: torch.Tensor, node_mask: torch.Tensor,
     over the last real graph's nodes only, the reference's accumulation
     bug (models.py:659); it needs ``node_graph`` and ``graph_mask``.
     ``group``: the count is the group's (in ``reference`` mode each rank
-    picks its own last graph, as in the JAX package)."""
+    picks its own last graph, as in the JAX package; the node-sharded
+    model's ``graph_mask`` is the union batch's on every rank, so there
+    its last graph is the union batch's and the mode is exact)."""
     if mode == "corrected":
         w = node_mask.to(kl_node.dtype)
     elif mode == "reference":

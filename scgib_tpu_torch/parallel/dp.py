@@ -159,12 +159,16 @@ def _update(model, optimizer, group):
 
 def dp_pretrain_step_eager(model: nn.Module,
                            optimizer: torch.optim.Optimizer, group,
-                           g, sub, generator=None) -> PretrainLosses:
+                           *batch, generator=None) -> PretrainLosses:
     """One rank's eager DP pretraining step (see the module's note);
-    returns the union batch's losses."""
+    returns the union batch's losses.  ``batch``: this rank's (g, sub),
+    or for the node-sharded model (``parallel/sharded_scgib.py``) its
+    slice of a ``ShardedPretrainBatch``: the same step, whose losses and
+    gradients are each rank's share."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    losses = model(g, sub, rand=uniform_draws(generator, g.node_feat.device))
+    losses = model(*batch, rand=uniform_draws(generator,
+                                              batch[0].node_feat.device))
     losses.total.backward()
     out = _summed(torch.stack(tuple(losses)), group)
     _update(model, optimizer, group)
@@ -270,7 +274,7 @@ def make_dp_pretrain_step(model: nn.Module,
     with ``group=group``.  The returned losses are the union batch's, the
     single-device step's on it."""
     return _DPSteps(lambda pairs, gen: dp_pretrain_step_eager(
-        model, optimizer, group, *pairs[0], gen), optimizer, group)
+        model, optimizer, group, *pairs[0], generator=gen), optimizer, group)
 
 
 def make_dp_finetune_step(model: nn.Module,
@@ -297,4 +301,4 @@ def make_dp_superbatch_step(model: nn.Module,
     buffer's size."""
     return _DPSuperbatchSteps(trainer.superbatch_run(
         byte_spec, lambda g, sub, gen: dp_pretrain_step_eager(
-            model, optimizer, group, g, sub, gen)), optimizer, group)
+            model, optimizer, group, g, sub, generator=gen)), optimizer, group)
