@@ -178,10 +178,30 @@ Phases; any failure raises and exits non-zero before the last line:
      them two processes (``--p2p-probe``) show what gloo's ``send`` and
      ``recv`` do with a CUDA tensor; (c) ``dryrun_multichip(2,
      device="cuda", backend="gloo")``.
- 13. one JSON line of the kernels (with the launches of a fine-tuning step
+ 13. the bf16 compute modes (GIN's ``compute_dtype="bfloat16"``, the
+     attention's ``bf16_dots``, the transformer's bf16 dense tail): (a) the
+     four bf16 kernels (``gin_fwd_bf16`` at N and S, widths 9 and 64 into
+     64; ``gt_fwd_bf16``, ``gt_bwd_rows_bf16``, ``gt_bwd_cols_bf16`` at S,
+     8 heads of 8 and 1 of 64) against their plain bf16 versions, within
+     1e-2 of the plain version's largest entry: error, kernel, plain and
+     float32-kernel ms, the bound at the bf16 tensor-core rate, registers,
+     shared memory, blocks per SM and ptxas spills; (b) PretrainModel(9,
+     64, 32) in each mode on the benchmark batch: the card's losses within
+     1e-3 of the CPU plain path at the same rounding points and within
+     1e-2 of the float32 model in float64, its gradients within 5e-2 of
+     the largest entry of the bf16 mode in float64 (their distance from
+     the float32 model's recorded); (c) ``cli.run_pretrain`` in each mode
+     for 6 captured steps from counts of 0 (8 ``gin_fwd_bf16``, no
+     ``gin_fwd``; 10 each of the three bf16 attention kernels, none of
+     their float32 forms, a step), then the captured step byte-equal to
+     the eager one under deterministic algorithms, the stale-input fault
+     breaking it; (d) step medians, eager and captured, float32 against
+     bf16, both encoders, and each bf16 mode's captured step profiled as in
+     phase 7 (recorded only).
+ 14. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch,
-     phase 11 and phase 12 runs among them), the nvidia-smi line, and
-     {"ok": true, "device": {...}} as the last line.
+     phase 11, phase 12 and phase 13 runs among them), the nvidia-smi line,
+     and {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --gloo-rank R PORT`` is one rank of phase 11 (b),
 ``--shard-rank R WORLD PORT`` one of phase 12 (b) and ``--p2p-probe R
@@ -299,7 +319,12 @@ PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gt_fwd": ("gt_flash", 121, "gt_fwd_kernel"),
         "gt_bwd_rows": ("gt_flash", 146, "gt_row_pass_kernel"),
         "gt_bwd_cols": ("gt_flash", 248, "gt_bwd_cols_kernel"),
-        "gt_bwd_merged": ("gt_flash", 181, "gt_row_pass_kernel")}
+        "gt_bwd_merged": ("gt_flash", 181, "gt_row_pass_kernel"),
+        # the bf16 instantiations (phase 13)
+        "gin_fwd_bf16": ("banded", 69, "gin_fused_fwd_kernel"),
+        "gt_fwd_bf16": ("gt_flash", 121, "gt_fwd_kernel"),
+        "gt_bwd_rows_bf16": ("gt_flash", 146, "gt_row_pass_kernel"),
+        "gt_bwd_cols_bf16": ("gt_flash", 248, "gt_bwd_cols_kernel")}
 # main-path run -> (run_pretrain arguments, steps, launches per step; the
 # wrappers not named launch 0 times)
 RUNS = {"GIN": ({}, STEPS, GIN_PER_STEP),
@@ -316,7 +341,10 @@ ENCODER_BRANCHES = {"GIN": ("band", 8), "Transformer": ("gt_band_64x128", 10),
 # which run's count each kernel reports
 REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
               "gt_bwd_cols": "Transformer",
-              "gt_bwd_merged": "Transformer-merged"}
+              "gt_bwd_merged": "Transformer-merged",
+              "gin_fwd_bf16": "GIN-bf16", "gt_fwd_bf16": "Transformer-bf16",
+              "gt_bwd_rows_bf16": "Transformer-bf16",
+              "gt_bwd_cols_bf16": "Transformer-bf16"}
 GIN_NO_LIBRARY = ("no single PyTorch call computes it: the conv is two "
                   "products around the aggregation (relu((h + A h) W1 + b1) "
                   "W2 + b2) and its backward stage gz0 with dW1, db1, dW2, "
@@ -391,11 +419,13 @@ def windows(blocks, col_off, x):
 
 
 def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
-          tf32x3=False):
+          tf32x3=False, tol=KERNEL_RTOL, flops_per_s=FP32_FLOPS_PER_S):
     """Compare one kernel configuration with its plain version and time
     both; returns the record.  ``tf32x3``: the kernel runs its products in
     3xTF32, so its bound is taken at that rate, and the bound at the fp32
-    SIMT rate is recorded beside it."""
+    SIMT rate is recorded beside it.  ``tol``: the largest error relative
+    to the plain version's largest entry; ``flops_per_s``: the rate of the
+    operations' bound (phase 13's bf16 kernels: the bf16 one)."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -405,11 +435,11 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
     rec = {"name": name, "shape": shape, "max_abs_err": max_abs,
-           "max_rel_err": max_rel, "tol_rel": KERNEL_RTOL,
+           "max_rel_err": max_rel, "tol_rel": tol,
            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
            "library_ms": time_ms(library_fn) if library_fn else None}
     rec["bound_ms"], rec["bound_by"] = bound_ms(
-        nbyt, flops, TF32X3_FLOPS_PER_S if tf32x3 else FP32_FLOPS_PER_S)
+        nbyt, flops, TF32X3_FLOPS_PER_S if tf32x3 else flops_per_s)
     rec["bound_share"] = rec["bound_ms"] / rec["ms"]
     extra = ""
     if tf32x3:
@@ -418,13 +448,13 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
                  f"{rec['bound_fp32_ms'] * 1e3:.3f} us (share "
                  f"{rec['bound_fp32_ms'] / rec['ms']:.3f})")
     print(f"kernel {name} {shape}: max_abs_err {max_abs:.3e} rel "
-          f"{max_rel:.3e} (tol {KERNEL_RTOL}) | ms {rec['ms']:.4f} plain "
+          f"{max_rel:.3e} (tol {tol}) | ms {rec['ms']:.4f} plain "
           f"{rec['plain_ms']:.4f} library {rec['library_ms']} bound "
           f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}, share "
           f"{rec['bound_share']:.3f}){extra}", flush=True)
-    if not max_rel <= KERNEL_RTOL:
+    if not max_rel <= tol:
         raise AssertionError(f"{name} {shape} disagrees with its plain "
-                             f"version: {max_rel:.3e} > {KERNEL_RTOL}")
+                             f"version: {max_rel:.3e} > {tol}")
     return rec
 
 
@@ -434,7 +464,9 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
 # larger one, in any instantiation.
 GT_SPILLS = {("gt_fwd", 2): (4, 4), ("gt_fwd", 4): (4, 4),
              ("gt_bwd_rows", 4): (8, 16), ("gt_bwd_rows", 8): (4, 4),
-             ("gt_bwd_rows", 64): (4, 4), ("gt_bwd_cols", 256): (16, 16)}
+             ("gt_bwd_rows", 64): (4, 4), ("gt_bwd_cols", 256): (16, 16),
+             ("gt_bwd_rows_bf16", 4): (8, 16),
+             ("gt_bwd_rows_bf16", 8): (4, 4)}
 
 
 def attention_ptxas():
@@ -729,7 +761,7 @@ def eager_steps():
         cli.make_pretrain_step = real
 
 
-def profile_phase(encoder="GIN", eager=False):
+def profile_phase(encoder="GIN", eager=False, **options):
     """Device time by kernel over 3 steady steps of a main path (after
     2 unprofiled ones; the captured path's first is its eager warm-up and
     capture), the device's busy share of those steps' wall time (host
@@ -737,7 +769,8 @@ def profile_phase(encoder="GIN", eager=False):
     and copy calls a step; ``port``: [ms, calls] per step of each of the
     port's CUDA kernels.  Where the profiler records no device time (a
     replay it does not break into kernels), the device ms come from CUDA
-    events around each step instead, and ``device_ms_from`` says so."""
+    events around each step instead, and ``device_ms_from`` says so.
+    ``options`` go to ``run_pretrain`` (phase 13: the bf16 modes)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -746,7 +779,7 @@ def profile_phase(encoder="GIN", eager=False):
         steps = run_pretrain(synthetic=1024, batch_size=128, steps=5,
                              lr=1e-4, weight_decay=5e-5, device="cuda",
                              encoder=encoder, log=lambda _: None,
-                             profiler=prof)
+                             profiler=prof, **options)
     wall_ms = sum(r["ms"] for r in steps[2:]) / 3
     events = prof.key_averages()
     # device-side events, less the user annotations (ProfilerStep*, the
@@ -785,16 +818,18 @@ def profile_phase(encoder="GIN", eager=False):
                         for k in sorted({v[2].split()[0]
                                          for v in PATH.values()})}}
     if not busy_ms:
-        summary["device_ms_per_step"] = event_device_ms(encoder, eager)
+        summary["device_ms_per_step"] = event_device_ms(encoder, eager,
+                                                        **options)
         summary["device_ms_from"] = "CUDA events around the step"
         summary["device_busy_share"] = (summary["device_ms_per_step"]
                                         / wall_ms)
-    print(f"profile ({encoder}, {summary['path']}): {json.dumps(summary)}",
-          flush=True)
+    print(f"profile ({encoder}, {summary['path']}"
+          f"{', ' + json.dumps(options, default=str) if options else ''}): "
+          f"{json.dumps(summary)}", flush=True)
     return summary
 
 
-def event_device_ms(encoder, eager):
+def event_device_ms(encoder, eager, **options):
     """Median device time of a steady step, between CUDA events recorded
     before and after it on the current stream."""
     times = []
@@ -821,7 +856,7 @@ def event_device_ms(encoder, eager):
     try:
         run_pretrain(synthetic=1024, batch_size=128, steps=5, lr=1e-4,
                      weight_decay=5e-5, device="cuda", encoder=encoder,
-                     log=lambda _: None, profiler=Timed())
+                     log=lambda _: None, profiler=Timed(), **options)
     finally:
         cli.make_pretrain_step = real
     torch.cuda.synchronize()
@@ -1225,14 +1260,21 @@ def main():
     sharded, shard_runs = shard_phase(dev, ds, caps)
     lap("12 node-sharded pretraining")
 
-    # 13. report
+    # 13. the bf16 compute modes
+    bf16, bf16_records, bf16_runs = bf16_phase(g, sub, dev, ds, caps)
+    records += bf16_records
+    runs.update(bf16_runs)
+    lap("13 bf16 compute modes")
+
+    # 14. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
         widest = max((r for r in recs if r.get("main", True)),
                      key=lambda r: r["bound_ms"])
         run = REPORT_RUN.get(name, "GIN")
-        sup = supervised["steps"]["GIN" if run == "GIN" else "Transformer"]
+        sup = supervised["steps"]["GIN" if run.startswith("GIN")
+                                  else "Transformer"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"scgib_tpu_torch/csrc/{src}.cu",
@@ -1261,7 +1303,7 @@ def main():
                       "verb": verb, "compiled": compiled,
                       "supervised": supervised, "slice9": slice9,
                       "data": data, "dp_remat": dp_remat,
-                      "sharded": sharded,
+                      "sharded": sharded, "bf16": bf16,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,
@@ -3689,6 +3731,275 @@ def shard_phase(dev, ds, caps):
     report["seconds"] = secs
     print(f"phase 12: {json.dumps(report)}", flush=True)
     return report, runs
+
+# --- 13. the bf16 compute modes ----------------------------------------------
+
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+# Each gate sits between the sound readings and a control that must fail
+# it, both taken in the same run.  A bf16 kernel against its plain version
+# reads at most 3.0e-4, and the float32 kernel on the same inputs 2.5e-3
+# and up from that plain version; the bf16 model's gradients against the
+# bf16 mode in float64 read at most 1.2e-3, and 1.0e-2 and up from the
+# float32 model in float64 (NVIDIA H100 80GB HBM3, 700.00 W).
+BF16_RTOL = 1e-3              # bf16 kernels vs their plain bf16 versions
+BF16_CPU_RTOL = 1e-3          # bf16 model losses, card vs the CPU plain path
+BF16_F64_RTOL = 1e-2          # bf16 model losses vs the float32 model in
+                              # float64
+BF16_F64_GRAD = 5e-3          # bf16 model gradients vs the bf16 mode in
+                              # float64, of the largest entry
+GIN_BF16 = {"compute_dtype": "bfloat16"}
+GT_BF16 = {"gt_bf16_dots": True, "gt_dtype": torch.bfloat16}
+BF16_MODES = {"GIN": GIN_BF16, "Transformer": GT_BF16}
+GIN_BF16_PER_STEP = {"gin_fwd_bf16": 8, "gin_bwd": 8, "spmm_self": 8,
+                     "spmm": 2, "pool": 1}
+GT_BF16_PER_STEP = {"gt_fwd_bf16": 10, "gt_bwd_rows_bf16": 10,
+                    "gt_bwd_cols_bf16": 10, "spmm": 2, "pool": 1}
+BF16_RUNS = {"GIN-bf16": (GIN_BF16, STEPS, GIN_BF16_PER_STEP),
+             "Transformer-bf16": ({"encoder": "Transformer", **GT_BF16},
+                                  STEPS, GT_BF16_PER_STEP)}
+
+
+def gin_fwd_bf16_ptxas(din, hid=64, dout=64):
+    """ptxas's spills of the gin_fused_fwd instantiation that the bf16
+    mode launches at these widths (VEC, MT, NT as csrc/banded.cu's
+    plan_fwd picks them)."""
+    vec = 16 if din % 16 == 0 else 1
+    nt = 2 if max(din, hid, dout) <= 64 else 4
+    want = f"gin_fused_fwd_kernelILi{vec}ELi32ELi{nt}ELb1E"
+    recs = [r for e, r in kbuild.ptxas_report("banded").items() if want in e]
+    if len(recs) != 1:
+        raise AssertionError(f"no single ptxas entry {want}: {len(recs)}")
+    return {k: recs[0][k] for k in ("spill_stores", "spill_loads")}
+
+
+def bf16_kernel_phase(g, sub, dev):
+    """Phase 13 (a): the four bf16 kernels against their plain bf16
+    versions at the benchmark shapes, with the float32 kernel's time
+    beside each, the bound at the bf16 tensor-core rate, and each
+    kernel's resources and ptxas spills.  The control: the float32 kernel
+    on the same inputs must sit past the gate from the plain bf16 version,
+    or the gate could not tell a kernel that skipped its rounding."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf, hid, records = torch.bfloat16, 64, []
+
+    def add(rec, plain_fn, resources, spills, f32_fn, allowed=(0, 0)):
+        rec["f32_kernel_ms"] = time_ms(f32_fn)
+        got, want = f32_fn(), plain_fn()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        rec["f32_kernel_rel_vs_plain"] = max(
+            rel_err(a, b)[1] for a, b in zip(got, want))
+        if not rec["f32_kernel_rel_vs_plain"] > BF16_RTOL:
+            raise AssertionError(
+                f"{rec['name']} {rec['shape']}: the float32 kernel is "
+                f"{rec['f32_kernel_rel_vs_plain']:.3e} from the plain bf16 "
+                f"version, within the gate {BF16_RTOL}")
+        rec["resources"] = {**resources, **spills}
+        rec["library_note"] = (GIN_NO_LIBRARY if rec["name"] == "gin_fwd_bf16"
+                               else NO_LIBRARY)
+        print(f"  {rec['name']} {rec['shape']}: f32 kernel "
+              f"{rec['f32_kernel_ms']:.4f} ms, "
+              f"{rec['f32_kernel_rel_vs_plain']:.3e} from the plain bf16 "
+              f"version (control, past {BF16_RTOL}); {rec['resources']}",
+              flush=True)
+        if (spills["spill_stores"] > allowed[0]
+                or spills["spill_loads"] > allowed[1]):
+            raise AssertionError(f"{rec['name']} spills {spills}, past "
+                                 f"{allowed}")
+        records.append(rec)
+
+    for label, batch in (("N", g), ("S", sub)):
+        blocks, col_off = _resolve_band(batch)
+        n = blocks.shape[0] * blocks.shape[1]
+        nnz = int((blocks != 0).sum())
+        for d in (9, hid):
+            h = torch.randn(n, d, device=dev, generator=gen)
+            w1 = torch.randn(d, hid, device=dev, generator=gen) / math.sqrt(d)
+            b1 = torch.randn(hid, device=dev, generator=gen) * 0.1
+            w2 = torch.randn(hid, hid, device=dev, generator=gen) / 8.0
+            b2 = torch.randn(hid, device=dev, generator=gen) * 0.1
+            args = (blocks, col_off, h.to(bf), w1.to(bf), b1, w2.to(bf), b2)
+            plain = functools.partial(kb.gin_fwd_bf16_plain, *args)
+            add(check("gin_fwd_bf16", f"{label}={n} d={d}",
+                      functools.partial(kb.gin_fwd_bf16, *args), plain,
+                      nbytes(*args) + n * hid * 4,
+                      2 * nnz * d + n * d + 2 * n * (d * hid + hid * hid),
+                      tol=BF16_RTOL, flops_per_s=BF16_FLOPS_PER_S), plain,
+                kb.kernel_info("gin_fused_fwd_bf16", d, hid, hid),
+                gin_fwd_bf16_ptxas(d),
+                lambda: kb.gin_fwd(blocks, col_off, h, w1, b1, w2, b2))
+    blocks, off = _resolve_band(sub, gt=True)
+    n = blocks.shape[0] * blocks.shape[1]
+    ptxas = kg.ptxas_report()
+    for heads, hd in ((HEADS, HEAD_DIM), (1, 64)):
+        edges = int((blocks != 0).sum()) * heads
+        q, k, v, gr = (torch.randn(n, heads, hd, device=dev, generator=gen)
+                       for _ in range(4))
+        z = kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True)[1]
+        rho = kg.gt_bwd_rows_plain(blocks, off, q, k, v, gr, z,
+                                   bf16_dots=True)[1]
+        shape = f"S={n} H={heads} hd={hd} blocks={tuple(blocks.shape)}"
+        ins, feat, stat = nbytes(blocks, off, q, k, v), nbytes(q), nbytes(z)
+        cases = (
+            ("gt_fwd_bf16", (q, k, v), kg.gt_fwd, kg.gt_fwd_plain,
+             ins + feat + stat, edges * (4 * hd + 5)),
+            ("gt_bwd_rows_bf16", (q, k, v, gr, z), kg.gt_bwd_rows,
+             kg.gt_bwd_rows_plain, ins + 2 * (feat + stat),
+             edges * (6 * hd + 8)),
+            ("gt_bwd_cols_bf16", (q, k, v, gr, z, rho), kg.gt_bwd_cols,
+             kg.gt_bwd_cols_plain, ins + feat + 2 * stat + 2 * feat,
+             edges * (8 * hd + 10)))
+        for name, ts, wrapper, plain, nbyt, flops in cases:
+            plain = functools.partial(plain, blocks, off, *ts, bf16_dots=True)
+            rec = check(name, shape,
+                        functools.partial(wrapper, blocks, off, *ts,
+                                          bf16_dots=True),
+                        plain, nbyt, flops, tol=BF16_RTOL,
+                        flops_per_s=BF16_FLOPS_PER_S)
+            rec["main"] = hd == HEAD_DIM
+            spills = ptxas[name, hd]
+            add(rec, plain, kg.kernel_info(name, hd),
+                {"spill_stores": spills["spill_stores"],
+                 "spill_loads": spills["spill_loads"]},
+                functools.partial(wrapper, blocks, off, *ts),
+                GT_SPILLS.get((name, hd), (0, 0)))
+    return records
+
+
+def bf16_models(encoder, seed=3):
+    """(bf16-mode model, float32 model) of the same weights at full width,
+    deterministic, the transformer's dropout off."""
+    models = []
+    for mode in (BF16_MODES[encoder], {}):
+        model = PretrainModel(9, hidden=64, d_transfer=32, encoder=encoder,
+                              num_heads=HEADS, deterministic=True, **mode)
+        init_flax_style_(model, torch.Generator().manual_seed(seed))
+        for m in model.modules():
+            if isinstance(m, encoders.GraphTransformerLayer):
+                m.dropout = 0.0
+        models.append(model.train())
+    return models
+
+
+def losses_and_grads(model, g, sub):
+    losses = model(g, sub)
+    losses.total.backward()
+    return ([float(v.detach()) for v in losses],
+            {k: p.grad.detach().cpu().double()
+             for k, p in model.named_parameters()})
+
+
+def bf16_model_phase(g, sub, dev):
+    """Phase 13 (b): the full model in each bf16 mode on the benchmark
+    batch.  The card's losses against the CPU plain path at the same
+    rounding points (float32) and against the float32 model in float64;
+    its gradients against the bf16 mode in float64 (the same rounding
+    points, float64 sums).  The control: the card's gradients must sit
+    past that gate from the float32 model in float64, or the gate could
+    not tell the bf16 mode from a float32 backward.  That distance is the
+    mode's own and is not held to a bound (the bf16 GIN's encoder2 conv
+    weights move 0.12 of the largest gradient there in float64 as in
+    float32, on the CPU)."""
+    g_cpu, sub_cpu = g.to("cpu"), sub.to("cpu")
+    g64 = g.to("cpu")
+    g64.node_feat = g64.node_feat.double()
+    out = {}
+    for encoder in BF16_MODES:
+        model, f32 = bf16_models(encoder)
+        cpu = copy.deepcopy(model)
+        same_points = copy.deepcopy(model).to("cpu", torch.float64)
+        card = losses_and_grads(model.to(dev), g, sub)
+        with torch.no_grad():
+            plain = [float(v) for v in cpu(g_cpu, sub_cpu)]
+        bf64 = losses_and_grads(same_points, g64, sub_cpu)
+        f64 = losses_and_grads(f32.to("cpu", torch.float64), g64, sub_cpu)
+
+        def grad_gap(ref):
+            top = max(float(v.abs().max()) for v in ref.values())
+            return max(float((card[1][k] - ref[k]).abs().max())
+                       for k in ref) / top
+
+        rec = {"losses_card": card[0], "losses_cpu_plain": plain,
+               "losses_float64": f64[0],
+               "loss_rel_vs_cpu": max(abs(a - b) / abs(b)
+                                      for a, b in zip(card[0], plain)),
+               "loss_rel_vs_float64": max(abs(a - b) / abs(b)
+                                          for a, b in zip(card[0], f64[0])),
+               "grad_vs_bf16_float64_of_largest": grad_gap(bf64[1]),
+               "grad_vs_float64_of_largest": grad_gap(f64[1]),
+               "tol": [BF16_CPU_RTOL, BF16_F64_RTOL, BF16_F64_GRAD]}
+        out[encoder] = rec
+        print(f"phase 13 (b) bf16 model ({encoder}): {json.dumps(rec)}",
+              flush=True)
+        if not (all(math.isfinite(x) for x in card[0])
+                and rec["loss_rel_vs_cpu"] <= BF16_CPU_RTOL
+                and rec["loss_rel_vs_float64"] <= BF16_F64_RTOL
+                and rec["grad_vs_bf16_float64_of_largest"] <= BF16_F64_GRAD
+                < rec["grad_vs_float64_of_largest"]):
+            raise AssertionError(f"bf16 model ({encoder}): {rec}")
+    return out
+
+
+def bf16_medians(dev, batches):
+    """Phase 13 (d): the median step (steps 1-5 of 6) of each encoder,
+    float32 against bf16, eager and captured, in the order f32, bf16, bf16,
+    f32 within each path (then ``bf16_phase`` profiles each bf16 mode's
+    captured step, as phase 7 the float32 ones).  Recorded only."""
+    out = {}
+    for encoder in BF16_MODES:
+        kw = {"encoder": encoder} if encoder != "GIN" else {}
+        for path in ("captured", "eager"):
+            for mode in ("f32", "bf16", "bf16", "f32"):
+                model = PretrainModel(9, hidden=64, d_transfer=32,
+                                      num_heads=HEADS, **kw,
+                                      **(BF16_MODES[encoder]
+                                         if mode == "bf16" else {}))
+                init_flax_style_(model, torch.Generator().manual_seed(11))
+                model.to(dev)
+                opt = adam_l2(model, LR, 5e-5)
+                gen = torch.Generator(device=dev).manual_seed(12)
+                step = (make_pretrain_step(model, opt) if path == "captured"
+                        else functools.partial(pretrain_step_eager, model,
+                                               opt))
+                times = []
+                for g, s in batches:
+                    t0 = time.perf_counter()
+                    step(g, s, gen)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out.setdefault(f"{encoder} {path} {mode}", []).append(
+                    statistics.median(times[1:]))
+    print(f"phase 13 (d) step medians, ms: {json.dumps(out)}", flush=True)
+    return out
+
+
+def bf16_phase(g, sub, dev, ds, caps):
+    """Phase 13; returns its readings, its kernel records and the launch
+    counts of its main-path runs."""
+    report, secs = {}, {}
+    t0 = time.perf_counter()
+    records = bf16_kernel_phase(g, sub, dev)
+    secs["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["models"] = bf16_model_phase(g, sub, dev)
+    secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    runs = {name: main_path(name, *spec) for name, spec in BF16_RUNS.items()}
+    batches = bench_batches(dev, ds, caps)
+    with deterministic():
+        report["captured_vs_eager"] = {
+            name: captured_vs_eager(dev, batches, name, kwargs, per_step)
+            for name, (kwargs, _, per_step) in BF16_RUNS.items()}
+    report["main_paths"] = {k: {"step_ms": r["step_ms"],
+                                "counts": {n: c for n, c in r["counts"].items()
+                                           if c}}
+                            for k, r in runs.items()}
+    secs["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["medians"] = bf16_medians(dev, batches)
+    report["profiles"] = {f"{encoder} bf16 captured": profile_phase(
+        encoder, False, **mode) for encoder, mode in BF16_MODES.items()}
+    secs["d"] = time.perf_counter() - t0
+    report["seconds"] = secs
+    print(f"phase 13: {json.dumps(report)}", flush=True)
+    return report, records, runs
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:

@@ -79,7 +79,7 @@ import argparse
 import itertools
 import os
 import time
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -113,7 +113,10 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
                  num_heads: int = 8, gt_bwd: str = "twopass",
                  log: Callable[[str], None] = print,
                  profiler=None, hidden: int = 64, d_transfer: int = 32,
-                 k: int = 1, superbatch: int = 0, **options) -> List[dict]:
+                 k: int = 1, superbatch: int = 0,
+                 compute_dtype: Optional[str] = None,
+                 gt_bf16_dots: bool = False, gt_dtype=None,
+                 **options) -> List[dict]:
     """Pack ``steps`` batches of ``batch_size`` graphs and train on them
     with ``make_pretrain_step`` (on the card the first step eager, then
     CUDA-graph replays).
@@ -122,6 +125,8 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
     (host clock around the step, ended by a device synchronize; batches
     are packed and moved to the device beforehand).  ``gt_bwd`` is the
     graph transformer's attention backward, "twopass" or "merged".
+    ``compute_dtype``, ``gt_bf16_dots`` and ``gt_dtype`` are the encoders'
+    numerics (``PretrainModel``), float32 by default.
     ``options`` go to ``PretrainModel`` (``readout``, ``use_att``,
     ``kl_mode``, ``recons_type``, ``recons_impl``); ``k`` is the ego-net
     radius and the logM reconstruction's number of steps.  ``profiler``, a
@@ -160,7 +165,9 @@ def run_pretrain(synthetic: int = 1024, batch_size: int = 128,
     model = PretrainModel(feat_dim, hidden=hidden, d_transfer=d_transfer,
                           encoder=encoder, num_layers=num_layers,
                           num_heads=num_heads, gt_bwd=gt_bwd,
-                          k_transition=k, **options)
+                          k_transition=k, compute_dtype=compute_dtype,
+                          gt_bf16_dots=gt_bf16_dots, gt_dtype=gt_dtype,
+                          **options)
     init_flax_style_(model, torch.Generator().manual_seed(seed))
     model.to(dev)
     optimizer = adam_l2(model, lr, weight_decay)

@@ -68,6 +68,18 @@
 // mostly zeros per chunk) and ran both products as fp32 SIMT out of shared
 // memory: 13x its byte bound.
 //
+// gin_fused_fwd's bf16 mode (the JAX package's compute_dtype="bfloat16",
+// which its GIN casts h, W1 and W2 to) is a second instantiation, BF16: it
+// reads h, W1 and W2 in bf16 (half of h's bytes), sums A h over the bf16 rows
+// in fp32 (the 0/1 entries times bf16 values are exact), rounds z0 and
+// relu(z1) to bf16 as the products read them, and runs each product as one
+// m16n8k16 bf16 mma.sync (fp32 accumulate) in place of the three TF32
+// ones; the biases are added in fp32 after the products and the output is
+// fp32, JAX's _kernel rounding point for rounding point.  The padded widths
+// (conv 0's 9 features run as 16) are zeros in shared memory, as in the
+// 3xTF32 path.  Its backward is gin_fused_bwd and banded_spmm on the
+// bf16-rounded h, W1 and W2 in fp32, as JAX's _bwd runs its fp32 kernels.
+//
 // gin_fused_bwd is persistent: one block of 8 warps per SM stages W1, W2
 // and b1 once, loops over row tiles of 64 rows (32 above width 64), and
 // keeps dW1 and dW2 in registers across its tiles, so the grid writes one
@@ -86,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "gate_walk.cuh"
 
 namespace {
@@ -96,6 +110,10 @@ using gate_walk::FULL;
 using gate_walk::SEGV;
 constexpr int SPMM_THREADS = 128;
 constexpr int GIN_THREADS = 256;  // 8 warps: gin_fused_fwd, gin_fused_bwd
+
+// gin_fused_fwd's feature and weight type: float, or bf16 in its bf16 mode.
+template <bool BF16>
+using Feat = std::conditional_t<BF16, __nv_bfloat16, float>;
 
 // --- sparse gather of one band row (banded_spmm, the GIN kernels) ----------
 
@@ -114,6 +132,28 @@ __device__ __forceinline__ void load_vec(const float* p, float v[VEC]) {
   }
 }
 
+// VEC consecutive bf16 values as floats, as 16-byte vectors of 8 when VEC is
+// a multiple of 8 (p then 16-byte aligned).
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float v[VEC]) {
+  if constexpr (VEC % 8 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p + j);
+      const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(b[i]);
+        v[j + 2 * i] = f.x; v[j + 2 * i + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = __bfloat162float(p[j]);
+  }
+}
+
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float v[VEC]) {
   if constexpr (VEC == 4) {
@@ -129,10 +169,10 @@ __device__ __forceinline__ void store_vec(float* p, const float v[VEC]) {
 // over the band k < W, where rows k >= rows_left (windows running past the
 // end of x) read as 0, with GATHER rows of x in flight.  `active` is false
 // for a group without a row; `col_ok` false for a lane past the last
-// column.
-template <int VEC, int GATHER>
+// column.  x is float, or bf16 (gin_fused_fwd's bf16 mode), summed in fp32.
+template <int VEC, int GATHER, typename T>
 __device__ void band_row(const __nv_bfloat16* __restrict__ arow, bool active,
-                         int W, const float* __restrict__ xw,
+                         int W, const T* __restrict__ xw,
                          long long rows_left, int ld, int c, bool col_ok,
                          int lpr, float acc[VEC]) {
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
@@ -251,6 +291,52 @@ __device__ __forceinline__ void mma_3xtf32(float c[NT][4], FA A, FB B,
   }
 }
 
+// --- bf16 tensor-core products (gin_fused_fwd's bf16 mode) ------------------
+
+// Two floats rounded to bf16 (round to nearest even, as JAX's astype), lo in
+// the low half: one register of an mma.sync bf16 fragment.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// mma_3xtf32's product with both operands rounded to bf16 as they are read
+// and one m16n8k16 bf16 mma a step, fp32 accumulate (K a multiple of 16):
+// the products of JAX's _kernel on bf16 operands.  The fragments: A's
+// registers hold (row g, columns 2t, 2t + 1), (g + 8, same), (g, 2t + 8,
+// 2t + 9), (g + 8, same); B's (rows 2t, 2t + 1, column g), (2t + 8, 2t + 9,
+// g); C as in m16n8k8.
+template <int NT, class FA, class FB>
+__device__ __forceinline__ void mma_bf16(float c[NT][4], FA A, FB B, int m0,
+                                         int n0, int step, int cnt, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const int k = k0 + 2 * t;
+    const uint32_t a[4] = {pack_bf16(A(m0 + g, k), A(m0 + g, k + 1)),
+                           pack_bf16(A(m0 + g + 8, k), A(m0 + g + 8, k + 1)),
+                           pack_bf16(A(m0 + g, k + 8), A(m0 + g, k + 9)),
+                           pack_bf16(A(m0 + g + 8, k + 8),
+                                     A(m0 + g + 8, k + 9))};
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int n = n0 + (i < cnt ? i : 0) * step + g;
+      const uint32_t b[2] = {pack_bf16(B(k, n), B(k + 1, n)),
+                             pack_bf16(B(k + 8, n), B(k + 9, n))};
+      mma_bf16_16816(c[i], a, b);
+    }
+  }
+}
+
 // The 16 x 8 output tiles of an [M, N] product that this warp of 8 takes:
 // row tile m0 = 16 (warp % (M/16)), column tiles n0 + i step for i < cnt.
 // M / 16 divides 8.
@@ -340,11 +426,12 @@ __device__ void stage_async(float* dst, int ld, const float* src, int R,
 
 // z0 = h + A h for the MT rows from row0 (inside one band tile: MT divides
 // 128) into shared memory, row stride ld: a lane group of lpr lanes a row,
-// VEC columns a lane, GATHER rows of h in flight (band_row).
-template <int VEC, int MT, int GATHER>
+// VEC columns a lane, GATHER rows of h in flight (band_row).  h is float or
+// bf16; z0 is fp32.
+template <int VEC, int MT, int GATHER, typename T>
 __device__ __forceinline__ void gather_z0(
     const __nv_bfloat16* __restrict__ blocks,
-    const long long* __restrict__ col_off, int W, const float* __restrict__ h,
+    const long long* __restrict__ col_off, int W, const T* __restrict__ h,
     long long n, int din, long long row0, int lpr, float* sz0, int ld) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rpw = 32 / lpr;                  // rows a warp gathers at once
@@ -548,18 +635,57 @@ __device__ __forceinline__ void bias_frags(float c[NT][4], const float* sb,
   }
 }
 
+// c[i] = A B + the bias pair of the columns of this lane's fragments of
+// tile i, for either mode: 3xTF32 products summed onto the bias, or (BF16)
+// bf16 products, the bias added in fp32 after them, as JAX's _kernel adds
+// b1 and b2 after its dots.
+template <int NT, bool BF16, class FA, class FB>
+__device__ __forceinline__ void biased_product(float c[NT][4], const float* sb,
+                                               const WarpTiles& t, FA A, FB B,
+                                               int K) {
+  if constexpr (BF16) {
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[i][q] = 0.f;
+    mma_bf16<NT>(c, A, B, t.m0, t.n0, t.step, t.cnt, K);
+    float bias[NT][4];
+    bias_frags<NT>(bias, sb, t);
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) c[i][q] += bias[i][q];
+  } else {
+    bias_frags<NT>(c, sb, t);
+    mma_3xtf32<NT>(c, A, B, t.m0, t.n0, t.step, t.cnt, K);
+  }
+}
+
+// Copy a row-major [R, C] bf16 matrix into shared memory as floats, row
+// stride ld: plain loads, converted (the bf16 mode's weights).
+__device__ void stage_bf16(float* dst, int ld,
+                           const __nv_bfloat16* __restrict__ src, int R,
+                           int C) {
+  for (int e = threadIdx.x; e < R * C; e += GIN_THREADS)
+    dst[(e / C) * ld + e % C] = __bfloat162float(src[e]);
+}
+
 // One row tile of MT rows a block (MT divides 128).  NT bounds the
 // 16 x 8 output tiles a warp takes in either product.  At most 85
 // registers, so that 3 blocks share an SM; the weights' copies allocate
-// in L1 (the source note says why).
-template <int VEC, int MT, int NT>
+// in L1 (the source note says why).  BF16: h, W1 and W2 arrive in bf16
+// (JAX's compute_dtype="bfloat16"); A h is summed over bf16 rows in fp32
+// (exact against the bf16 x bf16 dot of _kernel but for the order of the
+// sums), z0 and relu(z1) are rounded to bf16 as the products read them,
+// the biases and the output stay fp32.
+template <int VEC, int MT, int NT, bool BF16>
 __global__ void __launch_bounds__(GIN_THREADS, 3)
 gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
                      const long long* __restrict__ col_off, int W,
-                     const float* __restrict__ h, long long n, int din,
-                     const float* __restrict__ w1,
+                     const Feat<BF16>* __restrict__ h, long long n, int din,
+                     const Feat<BF16>* __restrict__ w1,
                      const float* __restrict__ b1, int hid,
-                     const float* __restrict__ w2,
+                     const Feat<BF16>* __restrict__ w2,
                      const float* __restrict__ b2, int dout,
                      float* __restrict__ out, int lpr) {
   extern __shared__ float smem[];
@@ -581,8 +707,13 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   zero_pad(sb1, 1, hid, 1, HP, HP);
   zero_pad(sb2, 1, dout, 1, OP, OP);
   zero_pad(sz0, MT, din, MT, DP, LD);
-  stage_async<true>(sw1, LH, w1, din, hid);
-  stage_async<true>(sw2, LO, w2, hid, dout);
+  if constexpr (BF16) {
+    stage_bf16(sw1, LH, w1, din, hid);
+    stage_bf16(sw2, LO, w2, hid, dout);
+  } else {
+    stage_async<true>(sw1, LH, w1, din, hid);
+    stage_async<true>(sw2, LO, w2, hid, dout);
+  }
   stage_async<true>(sb1, HP, b1, 1, hid);
   stage_async<true>(sb2, OP, b2, 1, dout);
   asm volatile("cp.async.commit_group;");
@@ -595,10 +726,10 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   const WarpTiles t1 = warp_tiles(MT, HP), t2 = warp_tiles(MT, OP);
   {
     float c[NT][4];
-    bias_frags<NT>(c, sb1, t1);
-    mma_3xtf32<NT>(c, [=](int m, int k) { return sz0[m * LD + k]; },
-                   [=](int k, int j) { return sw1[k * LH + j]; }, t1.m0,
-                   t1.n0, t1.step, t1.cnt, DP);
+    biased_product<NT, BF16>(c, sb1, t1,
+                             [=](int m, int k) { return sz0[m * LD + k]; },
+                             [=](int k, int j) { return sw1[k * LH + j]; },
+                             DP);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
       if (i < t1.cnt) {
@@ -612,10 +743,9 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
 
   // out = relu(z1) W2 + b2, straight to global memory
   float c[NT][4];
-  bias_frags<NT>(c, sb2, t2);
-  mma_3xtf32<NT>(c, [=](int m, int k) { return sz1[m * LH + k]; },
-                 [=](int k, int o) { return sw2[k * LO + o]; }, t2.m0, t2.n0,
-                 t2.step, t2.cnt, HP);
+  biased_product<NT, BF16>(c, sb2, t2,
+                           [=](int m, int k) { return sz1[m * LH + k]; },
+                           [=](int k, int o) { return sw2[k * LO + o]; }, HP);
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     const int col = t2.n0 + i * t2.step + 2 * ft;
@@ -670,22 +800,41 @@ GinPlan plan_bwd(int din, int hid, int dout) {
                 : bwd_plan<1, 32, 16>(din, hid, dout);
 }
 
-template <int VEC, int MT, int NT>
+template <int VEC, int MT, int NT, bool BF16>
 GinPlan fwd_plan(int din, int hid, int dout) {
   static size_t granted = 0;
-  return {(const void*)gin_fused_fwd_kernel<VEC, MT, NT>, &granted, MT, VEC,
-          sizeof(float) * (size_t)fwd_smem_floats(MT, din, hid, dout)};
+  return {(const void*)gin_fused_fwd_kernel<VEC, MT, NT, BF16>, &granted, MT,
+          VEC, sizeof(float) * (size_t)fwd_smem_floats(MT, din, hid, dout)};
 }
 
 // Row tiles of 32: a warp takes at most two (widths up to 64) or four
 // (up to 128) output tiles of each product.
+template <bool BF16>
 GinPlan plan_fwd(int din, int hid, int dout) {
   const bool narrow = din <= 64 && hid <= 64 && dout <= 64;
   if (din % 16 == 0)
-    return narrow ? fwd_plan<16, 32, 2>(din, hid, dout)
-                  : fwd_plan<16, 32, 4>(din, hid, dout);
-  return narrow ? fwd_plan<1, 32, 2>(din, hid, dout)
-                : fwd_plan<1, 32, 4>(din, hid, dout);
+    return narrow ? fwd_plan<16, 32, 2, BF16>(din, hid, dout)
+                  : fwd_plan<16, 32, 4, BF16>(din, hid, dout);
+  return narrow ? fwd_plan<1, 32, 2, BF16>(din, hid, dout)
+                : fwd_plan<1, 32, 4, BF16>(din, hid, dout);
+}
+
+// Launch gin_fused_fwd (either mode) for these widths.
+int launch_fwd(const GinPlan& p, const void* blocks, const void* col_off,
+               int n_tiles, int W, const void* h, long long n, int din,
+               const void* w1, const void* b1, int hid, const void* w2,
+               const void* b2, int dout, void* out, void* stream) {
+  int err = set_smem(p.kernel, p.smem, p.granted);
+  if (err) return err;
+  const int lpr = lanes_per_row(din, p.vec);
+  void* args[] = {(void*)&blocks, (void*)&col_off, (void*)&W, (void*)&h,
+                  (void*)&n, (void*)&din, (void*)&w1, (void*)&b1,
+                  (void*)&hid, (void*)&w2, (void*)&b2, (void*)&dout,
+                  (void*)&out, (void*)&lpr};
+  err = (int)cudaLaunchKernel(p.kernel, dim3(n_tiles * (TILE / p.mt)),
+                              dim3(GIN_THREADS), args, p.smem,
+                              (cudaStream_t)stream);
+  return err ? err : (int)cudaGetLastError();
 }
 
 // gin_fused_bwd's grid: the blocks that fit on the card at once, at most
@@ -733,18 +882,21 @@ int scgib_gin_fused_fwd(const void* blocks, const void* col_off, int n_tiles,
                         const void* w1, const void* b1, int hid,
                         const void* w2, const void* b2, int dout, void* out,
                         void* stream) {
-  const GinPlan p = plan_fwd(din, hid, dout);
-  int err = set_smem(p.kernel, p.smem, p.granted);
-  if (err) return err;
-  const int lpr = lanes_per_row(din, p.vec);
-  void* args[] = {(void*)&blocks, (void*)&col_off, (void*)&W, (void*)&h,
-                  (void*)&n, (void*)&din, (void*)&w1, (void*)&b1,
-                  (void*)&hid, (void*)&w2, (void*)&b2, (void*)&dout,
-                  (void*)&out, (void*)&lpr};
-  err = (int)cudaLaunchKernel(p.kernel, dim3(n_tiles * (TILE / p.mt)),
-                              dim3(GIN_THREADS), args, p.smem,
-                              (cudaStream_t)stream);
-  return err ? err : (int)cudaGetLastError();
+  return launch_fwd(plan_fwd<false>(din, hid, dout), blocks, col_off,
+                    n_tiles, W, h, n, din, w1, b1, hid, w2, b2, dout, out,
+                    stream);
+}
+
+// The bf16 mode: h, w1 and w2 bf16, b1, b2 and out float; h and blocks
+// 16-byte aligned (the wrapper checks).
+int scgib_gin_fused_fwd_bf16(const void* blocks, const void* col_off,
+                             int n_tiles, int W, const void* h, long long n,
+                             int din, const void* w1, const void* b1,
+                             int hid, const void* w2, const void* b2,
+                             int dout, void* out, void* stream) {
+  return launch_fwd(plan_fwd<true>(din, hid, dout), blocks, col_off,
+                    n_tiles, W, h, n, din, w1, b1, hid, w2, b2, dout, out,
+                    stream);
 }
 
 // Blocks gin_fused_bwd launches for n rows at these widths: the number of
@@ -777,7 +929,8 @@ int scgib_gin_fused_bwd(const void* blocks, const void* col_off, int W,
 
 // For the report: registers a thread, shared memory a block (static +
 // dynamic) and blocks an SM of the kernel a call at these widths launches;
-// which = 0 banded_spmm (width din), 1 gin_fused_bwd, 2 gin_fused_fwd.
+// which = 0 banded_spmm (width din), 1 gin_fused_bwd, 2 gin_fused_fwd,
+// 3 gin_fused_fwd in its bf16 mode.
 int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
   const void* kernel;
   size_t dyn = 0;
@@ -787,8 +940,9 @@ int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
                           : (const void*)banded_spmm_kernel<1>;
     threads = SPMM_THREADS;
   } else {
-    const GinPlan p = which == 1 ? plan_bwd(din, hid, dout)
-                                 : plan_fwd(din, hid, dout);
+    const GinPlan p = which == 1   ? plan_bwd(din, hid, dout)
+                      : which == 2 ? plan_fwd<false>(din, hid, dout)
+                                   : plan_fwd<true>(din, hid, dout);
     if ((err = set_smem(p.kernel, p.smem, p.granted))) return err;
     kernel = p.kernel;
     dyn = p.smem;

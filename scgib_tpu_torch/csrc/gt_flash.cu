@@ -14,7 +14,7 @@
 //   gt_bwd_merged  the row pass that also adds each entry's dk and dv terms
 //                  with atomicAdd.  Replaces _bwd_merged_kernel.
 //                  The row pass and the merged pass are one template,
-//                  gt_row_pass_kernel<HD, MERGED>.
+//                  gt_row_pass_kernel<HD, MERGED, BF16>.
 //
 // Layout (graph/banded.py): blocks [T, TL, BW] bf16 (TL = 64, BW = 128 in
 // the narrow graph-transformer geometry; 128, 256 in the wide one), col_off
@@ -94,8 +94,25 @@
 // Everything is fp32 FMA, with no max shift in the exponential (as
 // gt_flash.py:133).  A zero gate entry contributes exactly 0 in the TPU
 // kernel too (a clipped finite score's exponential times 0), so skipping
-// it changes nothing for finite inputs.  Tensor cores, TMA and bf16
-// operands are later work.
+// it changes nothing for finite inputs.
+//
+// bf16 dots (the JAX package's bf16_dots, its default on a TPU): gt_fwd,
+// the row pass and the column pass have a second instantiation, BF16, that
+// computes what _hdot and _cdot compute on bf16 multiplicands with fp32
+// accumulation.  Each product's two operands are rounded to bf16
+// (__float2bfloat16_rn) before the fp32 FMA chain, and a product of two
+// bf16 values is exact in fp32: q and k for the scores, w and v for out, g
+// and v for G, dS and k for dq, dS and q for dk, w and g for dv.  exp,
+// clip, z, rho, 1 / (z + eps) and the scale stay fp32, the scale applied
+// after the score product and after dq and dk, as in the Pallas kernels
+// (1 / sqrt(hd) is not a power of two: folded into q before the rounding
+// it would round otherwise).  The forward rounds w = e / (z + eps), which
+// needs z first, so its bf16 form walks the row's nonzeros twice.  Still
+// SIMT over the same lane groups, and free of atomics (the merged pass has
+// no bf16 form: ROADMAP Queue 2).  Running the bf16 products on the tensor
+// cores (mma.sync or wgmma over the dense [TL, BW] tile, which the sparse
+// gate leaves mostly empty) is later work, as are TMA and bf16 storage of
+// q, k and v.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/kernels/gt_flash.py).  Every entry launches on the given
@@ -159,16 +176,28 @@ __device__ __forceinline__ int head_width(int hd) {
   return HD == WIDE ? hd : HD;
 }
 
-// F features from p in 16-byte vectors (zeros where !ok).
-template <int F>
+// x rounded to bf16 (round to nearest even, JAX's astype) and back, where
+// BF16: an operand of a product of the bf16-dot kernels (_hdot, _cdot).  A
+// product of two bf16 values is exact in fp32, so fp32 FMA over rounded
+// operands is the TPU's bf16 x bf16 product with fp32 accumulation.
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
+
+// F features from p in 16-byte vectors (zeros where !ok), each rounded to
+// bf16 where BF16: every feature a kernel loads (q, k, v, g) is an operand
+// of a product.
+template <int F, bool BF16 = false>
 __device__ __forceinline__ void loadf(const float* __restrict__ p, bool ok,
                                       float* x) {
 #pragma unroll
   for (int i = 0; i < F / 4; ++i) {
     const float4 v = ok ? __ldg(reinterpret_cast<const float4*>(p) + i)
                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    x[4 * i] = v.x; x[4 * i + 1] = v.y; x[4 * i + 2] = v.z;
-    x[4 * i + 3] = v.w;
+    x[4 * i] = rnd<BF16>(v.x); x[4 * i + 1] = rnd<BF16>(v.y);
+    x[4 * i + 2] = rnd<BF16>(v.z); x[4 * i + 3] = rnd<BF16>(v.w);
   }
 }
 
@@ -182,8 +211,9 @@ __device__ __forceinline__ void storef(float* p, const float* x) {
 
 // This lane's share of a . b over the other sweeps of its WIDE head, for
 // rows a and b (their first feature) and this lane's features c .. c + F -
-// 1 in a head of hw features: 0 unless HD is WIDE.
-template <int HD>
+// 1 in a head of hw features: 0 unless HD is WIDE.  BF16: over the
+// operands rounded to bf16.
+template <int HD, bool BF16 = false>
 __device__ __forceinline__ float other_sweeps(const float* __restrict__ a,
                                               const float* __restrict__ b,
                                               int c, int hw, bool ok) {
@@ -200,8 +230,10 @@ __device__ __forceinline__ float other_sweeps(const float* __restrict__ a,
 #pragma unroll
     for (int i = 0; i < Heads<HD>::F / 4; ++i) {
       const float4 p = __ldg(x + i), r = __ldg(y + i);
-      s = fmaf(p.x, r.x, s); s = fmaf(p.y, r.y, s);
-      s = fmaf(p.z, r.z, s); s = fmaf(p.w, r.w, s);
+      s = fmaf(rnd<BF16>(p.x), rnd<BF16>(r.x), s);
+      s = fmaf(rnd<BF16>(p.y), rnd<BF16>(r.y), s);
+      s = fmaf(rnd<BF16>(p.z), rnd<BF16>(r.z), s);
+      s = fmaf(rnd<BF16>(p.w), rnd<BF16>(r.w), s);
     }
   }
   return s;
@@ -241,8 +273,11 @@ int lanes_per_row(int D, int F) {
 // Forward: lane group of `lpr` lanes per row i < n_rows, features as in
 // the row pass.  One trip over the row's nonzeros: per head the gated
 // exponential e, z += e and acc += e v_j, every k / v load of NG nonzeros
-// in flight before any is used; then out = acc / (z + eps).
-template <int HD>
+// in flight before any is used; then out = acc / (z + eps).  BF16 (bf16
+// dots): q, k and v rounded to bf16, and w = e / (z + eps) rounded before
+// its product with v_j, as _fwd_kernel rounds w_cat; w needs z, so a first
+// trip sums z from the scores alone, and the second adds w v_j.
+template <int HD, bool BF16>
 __global__ void __launch_bounds__(PASS_THREADS)
 gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
               const long long* __restrict__ col_off, int TL, int BW,
@@ -264,12 +299,39 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   for (int c0 = 0; c0 < D; c0 += F * lpr) {
     const int c = c0 + F * grp.lig;
     const bool ok = active && c < D;
-    float qi[F], acc[F], zs[NH];
-    loadf<F>(q + i * D + c, ok, qi);
+    float qi[F], acc[F], zs[NH], winv[NH];
+    loadf<F, BF16>(q + i * D + c, ok, qi);
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.f;
 #pragma unroll
     for (int h = 0; h < NH; ++h) zs[h] = 0.f;
+    if constexpr (BF16) {
+      unsigned long long m =
+          gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
+      while (__any_sync(FULL, m != 0ull)) {
+        float a[NG], kj[NG][F], rest[NG];
+#pragma unroll
+        for (int u = 0; u < NG; ++u) {
+          const int col = gate_walk::take_nonzero(m, 0, grp);
+          const bool has = col >= 0;
+          const long long j = off + (has ? col : 0);
+          a[u] = has ? __bfloat162float(gate[col]) : 0.f;
+          loadf<F, true>(k + j * D + c, has && ok, kj[u]);
+          rest[u] = other_sweeps<HD, true>(q + i * D, k + j * D, c, hw,
+                                           has && ok);
+        }
+#pragma unroll
+        for (int u = 0; u < NG; ++u) {
+          float s[NH];
+          head_dots<HD>(qi, kj[u], s, rest[u]);
+#pragma unroll
+          for (int h = 0; h < NH; ++h)
+            zs[h] += gated_exp(s[h] * scale, a[u], clamp);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < NH; ++h) winv[h] = 1.f / (zs[h] + eps);
+    }
     unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
     while (__any_sync(FULL, m != 0ull)) {
       float a[NG], kj[NG][F], vj[NG][F], rest[NG];
@@ -279,9 +341,10 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
         const bool has = col >= 0;
         const long long j = off + (has ? col : 0);
         a[u] = has ? __bfloat162float(gate[col]) : 0.f;
-        loadf<F>(k + j * D + c, has && ok, kj[u]);
-        loadf<F>(v + j * D + c, has && ok, vj[u]);
-        rest[u] = other_sweeps<HD>(q + i * D, k + j * D, c, hw, has && ok);
+        loadf<F, BF16>(k + j * D + c, has && ok, kj[u]);
+        loadf<F, BF16>(v + j * D + c, has && ok, vj[u]);
+        rest[u] = other_sweeps<HD, BF16>(q + i * D, k + j * D, c, hw,
+                                         has && ok);
       }
 #pragma unroll
       for (int u = 0; u < NG; ++u) {
@@ -290,20 +353,24 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           const float e = gated_exp(s[h] * scale, a[u], clamp);
-          zs[h] += e;
+          float w = e;
+          if constexpr (BF16) w = rnd<true>(e * winv[h]);
+          else zs[h] += e;
 #pragma unroll
           for (int j = 0; j < M::PER; ++j)
-            acc[h * M::PER + j] = fmaf(e, vj[u][h * M::PER + j],
+            acc[h * M::PER + j] = fmaf(w, vj[u][h * M::PER + j],
                                        acc[h * M::PER + j]);
         }
       }
     }
     if (ok) {
+      if constexpr (!BF16) {
 #pragma unroll
-      for (int h = 0; h < NH; ++h) {
-        const float inv = 1.f / (zs[h] + eps);
+        for (int h = 0; h < NH; ++h) {
+          const float inv = 1.f / (zs[h] + eps);
 #pragma unroll
-        for (int j = 0; j < M::PER; ++j) acc[h * M::PER + j] *= inv;
+          for (int j = 0; j < M::PER; ++j) acc[h * M::PER + j] *= inv;
+        }
       }
       storef<F>(out + i * D + c, acc);
       if (NH > 1 || c % hw == 0) {      // the head's leading lane
@@ -317,8 +384,9 @@ gt_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
 // The row pass's terms for up to NG nonzero columns (col < 0: none) of row
 // i's window at `off`: this lane's features of each k_j (kept for dq),
 // and per head the gated exponential e, the clip flag and G = g_i . v_j.
-// Every k / v load is issued before any is used.
-template <int HD>
+// Every k / v load is issued before any is used.  BF16: k_j and v_j (and
+// the other sweeps' features) rounded to bf16.
+template <int HD, bool BF16>
 __device__ __forceinline__ void row_terms(
     const int* col, const __nv_bfloat16* __restrict__ gate, long long off,
     int D, int c, int hw, bool ok, const float* __restrict__ k,
@@ -335,10 +403,10 @@ __device__ __forceinline__ void row_terms(
     const bool has = col[u] >= 0;
     const long long j = off + (has ? col[u] : 0);
     a[u] = has ? __bfloat162float(gate[col[u]]) : 0.f;
-    loadf<F>(k + j * D + c, has && ok, kj[u]);
-    loadf<F>(v + j * D + c, has && ok, vj[u]);
-    rest_s[u] = other_sweeps<HD>(qrow, k + j * D, c, hw, has && ok);
-    rest_g[u] = other_sweeps<HD>(grow, v + j * D, c, hw, has && ok);
+    loadf<F, BF16>(k + j * D + c, has && ok, kj[u]);
+    loadf<F, BF16>(v + j * D + c, has && ok, vj[u]);
+    rest_s[u] = other_sweeps<HD, BF16>(qrow, k + j * D, c, hw, has && ok);
+    rest_g[u] = other_sweeps<HD, BF16>(grow, v + j * D, c, hw, has && ok);
   }
 #pragma unroll
   for (int u = 0; u < NG; ++u) {
@@ -357,8 +425,9 @@ __device__ __forceinline__ void row_terms(
 // The second trip's work for NG terms: dq[f] += dS(head of f) * k_j[f] (e =
 // 0 adds 0); and, in the merged pass, this lane's features of
 // dk_j += dS q_i scale and dv_j += W g_i, with atomicAdd into buffers the
-// caller zeroed.
-template <int HD, bool MERGED>
+// caller zeroed.  BF16 (never with MERGED): dS rounded to bf16 before its
+// product with k_j, as _bwd_rows_kernel rounds dS_cat.
+template <int HD, bool MERGED, bool BF16>
 __device__ __forceinline__ void add_terms(
     const int* col, long long off, int D, int c, bool ok,
     const float (*kj)[Heads<HD>::F], const float (*e)[Heads<HD>::NH],
@@ -373,9 +442,10 @@ __device__ __forceinline__ void add_terms(
 #pragma unroll
     for (int h = 0; h < M::NH; ++h) {
       ds[h] = inside[u][h] ? e[u][h] * (G[u][h] - rh[h]) * inv[h] : 0.f;
+      const float dsr = rnd<BF16>(ds[h]);
 #pragma unroll
       for (int j = 0; j < M::PER; ++j)
-        acc[h * M::PER + j] = fmaf(ds[h], kj[u][h * M::PER + j],
+        acc[h * M::PER + j] = fmaf(dsr, kj[u][h * M::PER + j],
                                    acc[h * M::PER + j]);
     }
     if (MERGED && ok && col[u] >= 0) {
@@ -400,8 +470,10 @@ __device__ __forceinline__ void add_terms(
 // c / hw onwards.  Two trips over the row's nonzeros: rho first, then dq.
 // MERGED: the merged backward, which in its second trip also adds each
 // nonzero's dk and dv terms (and writes no rho); else the two-pass
-// backward's row pass, which writes dq and rho.
-template <int HD, bool MERGED>
+// backward's row pass, which writes dq and rho.  BF16 (bf16 dots; the row
+// pass alone, not MERGED): q, g, k and v rounded to bf16 as they are
+// loaded, and dS before its product with k_j.
+template <int HD, bool MERGED, bool BF16>
 __global__ void __launch_bounds__(PASS_THREADS)
 gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
                    const long long* __restrict__ col_off, int TL, int BW,
@@ -427,8 +499,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
     const bool ok = active && c < D;
     const int h0 = c / hw;              // this lane's first head
     float qi[F], gi[F], inv[NH], rh[NH];
-    loadf<F>(q + i * D + c, ok, qi);
-    loadf<F>(g + i * D + c, ok, gi);
+    loadf<F, BF16>(q + i * D + c, ok, qi);
+    loadf<F, BF16>(g + i * D + c, ok, gi);
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
       inv[h] = ok ? 1.f / (z[i * H + h0 + h] + eps) : 0.f;
@@ -443,8 +515,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
     for (int u = 0; u < NG; ++u)
       col0[u] = gate_walk::take_nonzero(m, 0, grp);
-    row_terms<HD>(col0, gate, off, D, c, hw, ok, k, v, qi, gi, q + i * D,
-                  g + i * D, scale, clamp, k0, e0, G0, in0);
+    row_terms<HD, BF16>(col0, gate, off, D, c, hw, ok, k, v, qi, gi,
+                        q + i * D, g + i * D, scale, clamp, k0, e0, G0, in0);
 #pragma unroll
     for (int u = 0; u < NG; ++u)
 #pragma unroll
@@ -458,8 +530,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
       for (int u = 0; u < NG; ++u)
         col[u] = gate_walk::take_nonzero(m, 0, grp);
-      row_terms<HD>(col, gate, off, D, c, hw, ok, k, v, qi, gi, q + i * D,
-                    g + i * D, scale, clamp, kj, e, G, in);
+      row_terms<HD, BF16>(col, gate, off, D, c, hw, ok, k, v, qi, gi,
+                          q + i * D, g + i * D, scale, clamp, kj, e, G, in);
 #pragma unroll
       for (int u = 0; u < NG; ++u)
 #pragma unroll
@@ -472,8 +544,8 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
     float acc[F];
 #pragma unroll
     for (int f = 0; f < F; ++f) acc[f] = 0.f;
-    add_terms<HD, MERGED>(col0, off, D, c, ok, k0, e0, G0, in0, rh, inv, qi,
-                          gi, scale, acc, dk, dv);
+    add_terms<HD, MERGED, BF16>(col0, off, D, c, ok, k0, e0, G0, in0, rh, inv,
+                                qi, gi, scale, acc, dk, dv);
     m = rest;
     while (__any_sync(FULL, m != 0ull)) {
       int col[NG];
@@ -482,10 +554,10 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 #pragma unroll
       for (int u = 0; u < NG; ++u)
         col[u] = gate_walk::take_nonzero(m, 0, grp);
-      row_terms<HD>(col, gate, off, D, c, hw, ok, k, v, qi, gi, q + i * D,
-                    g + i * D, scale, clamp, kj, e, G, in);
-      add_terms<HD, MERGED>(col, off, D, c, ok, kj, e, G, in, rh, inv, qi,
-                            gi, scale, acc, dk, dv);
+      row_terms<HD, BF16>(col, gate, off, D, c, hw, ok, k, v, qi, gi,
+                          q + i * D, g + i * D, scale, clamp, kj, e, G, in);
+      add_terms<HD, MERGED, BF16>(col, off, D, c, ok, kj, e, G, in, rh, inv,
+                                  qi, gi, scale, acc, dk, dv);
     }
     if (ok) {
 #pragma unroll
@@ -501,8 +573,10 @@ gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
 
 // Column pass: lane group per column c < n_rows (row c of its tile's slab
 // is the gate of the rows attending to it, A being symmetric); features as
-// in the row pass.
-template <int HD>
+// in the row pass.  BF16 (bf16 dots): k, v, q and g rounded to bf16 as they
+// are loaded, and dS and w before their products with q_i and g_i, as
+// _bwd_cols_kernel rounds dS_cat and w_cat.
+template <int HD, bool BF16>
 __global__ void __launch_bounds__(PASS_THREADS)
 gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
                    const long long* __restrict__ col_off, int TL, int BW,
@@ -529,8 +603,8 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
     const bool ok = active && c < D;
     const int h0 = c / hw;
     float kc[F], vc[F], ak[F], av[F];
-    loadf<F>(k + cr * D + c, ok, kc);
-    loadf<F>(v + cr * D + c, ok, vc);
+    loadf<F, BF16>(k + cr * D + c, ok, kc);
+    loadf<F, BF16>(v + cr * D + c, ok, vc);
 #pragma unroll
     for (int f = 0; f < F; ++f) ak[f] = av[f] = 0.f;
     unsigned long long m = gate_walk::gate_mask(gate, active, BW / 8, 0, grp);
@@ -546,11 +620,13 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
       for (int u = 0; u < NG; ++u) {
         const bool has = rr[u] >= 0;
         const long long i = off + (has ? rr[u] : 0);
-        rest_s[u] = other_sweeps<HD>(k + cr * D, q + i * D, c, hw, has && ok);
-        rest_g[u] = other_sweeps<HD>(v + cr * D, g + i * D, c, hw, has && ok);
+        rest_s[u] = other_sweeps<HD, BF16>(k + cr * D, q + i * D, c, hw,
+                                           has && ok);
+        rest_g[u] = other_sweeps<HD, BF16>(v + cr * D, g + i * D, c, hw,
+                                           has && ok);
         a[u] = has ? __bfloat162float(gate[rr[u]]) : 0.f;
-        loadf<F>(q + i * D + c, has && ok, qi[u]);
-        loadf<F>(g + i * D + c, has && ok, gi[u]);
+        loadf<F, BF16>(q + i * D + c, has && ok, qi[u]);
+        loadf<F, BF16>(g + i * D + c, has && ok, gi[u]);
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           zi[u][h] = has && ok ? z[i * H + h0 + h] : 0.f;
@@ -567,9 +643,9 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
           const float sc = s[h] * scale;
           const float e = gated_exp(sc, a[u], clamp);
           const float inv = 1.f / (zi[u][h] + eps);
-          const float ds = (sc >= -clamp && sc <= clamp)
-                               ? e * (G[h] - ri[u][h]) * inv : 0.f;
-          const float w = e * inv;
+          const float ds = rnd<BF16>((sc >= -clamp && sc <= clamp)
+                                         ? e * (G[h] - ri[u][h]) * inv : 0.f);
+          const float w = rnd<BF16>(e * inv);
 #pragma unroll
           for (int j = 0; j < M::PER; ++j) {
             ak[h * M::PER + j] = fmaf(ds, qi[u][h * M::PER + j],
@@ -634,16 +710,18 @@ extern "C" {
 // Every entry: blocks, the feature operands and the outputs 16-byte
 // aligned and H * hd a multiple of 4 (the wrapper checks).
 
+// bf16: the bf16-dot instantiation (bf16_dots=True), else the fp32 one.
 int scgib_gt_fwd(const void* blocks, const void* col_off, int n_tiles, int TL,
                  int BW, const void* q, const void* k, const void* v, int H,
-                 int hd, float scale, float clamp, float eps, void* out,
-                 void* z, void* stream) {
+                 int hd, float scale, float clamp, float eps, int bf16,
+                 void* out, void* z, void* stream) {
   if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
       hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
-      gt_fwd_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
+      auto* kernel = bf16 ? gt_fwd_kernel<HD, true> : gt_fwd_kernel<HD, false>;
+      kernel<<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v, H, scale,
           clamp, eps, lpr, (float*)out, (float*)z, hd));
@@ -653,15 +731,16 @@ int scgib_gt_fwd(const void* blocks, const void* col_off, int n_tiles, int TL,
 int scgib_gt_bwd_rows(const void* blocks, const void* col_off, int n_tiles,
                       int TL, int BW, const void* q, const void* k,
                       const void* v, const void* g, const void* z, int H,
-                      int hd, float scale, float clamp, float eps, void* dq,
-                      void* rho, void* stream) {
+                      int hd, float scale, float clamp, float eps, int bf16,
+                      void* dq, void* rho, void* stream) {
   if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
       hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
-      gt_row_pass_kernel<HD, false><<<pass_grid(n_tiles, TL, lpr),
-                                      PASS_THREADS, 0, s>>>(
+      auto* kernel = bf16 ? gt_row_pass_kernel<HD, false, true>
+                          : gt_row_pass_kernel<HD, false, false>;
+      kernel<<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
           (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
@@ -673,15 +752,16 @@ int scgib_gt_bwd_cols(const void* blocks, const void* col_off, int n_tiles,
                       int TL, int BW, const void* q, const void* k,
                       const void* v, const void* g, const void* z,
                       const void* rho, int H, int hd, float scale,
-                      float clamp, float eps, void* dk, void* dv,
+                      float clamp, float eps, int bf16, void* dk, void* dv,
                       void* stream) {
   if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
       hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
-      gt_bwd_cols_kernel<HD><<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0,
-                               s>>>(
+      auto* kernel = bf16 ? gt_bwd_cols_kernel<HD, true>
+                          : gt_bwd_cols_kernel<HD, false>;
+      kernel<<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
           (const float*)g, (const float*)z, (const float*)rho, H, scale,
@@ -700,8 +780,8 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
       hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
-      gt_row_pass_kernel<HD, true><<<pass_grid(n_tiles, TL, lpr),
-                                     PASS_THREADS, 0, s>>>(
+      gt_row_pass_kernel<HD, true, false><<<pass_grid(n_tiles, TL, lpr),
+                                            PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
           (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
@@ -711,14 +791,21 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
 
 // For the report: registers a thread, shared memory a block and blocks an
 // SM of the kernel that gt_bwd_rows (which = 0), gt_bwd_cols (1), gt_fwd
-// (2) or gt_bwd_merged (3) launches at head width hd.
+// (2), gt_bwd_merged (3), or with bf16 dots gt_bwd_rows (4), gt_bwd_cols (5)
+// or gt_fwd (6) launches at head width hd.
 int scgib_gt_kernel_info(int which, int hd, int* info) {
   const void* kernel = nullptr;
   SCGIB_DISPATCH_HD(
-      hd, kernel = which == 0   ? (const void*)gt_row_pass_kernel<HD, false>
-                   : which == 1 ? (const void*)gt_bwd_cols_kernel<HD>
-                   : which == 2 ? (const void*)gt_fwd_kernel<HD>
-                                : (const void*)gt_row_pass_kernel<HD, true>);
+      hd, const void* table[] = {
+              (const void*)gt_row_pass_kernel<HD, false, false>,
+              (const void*)gt_bwd_cols_kernel<HD, false>,
+              (const void*)gt_fwd_kernel<HD, false>,
+              (const void*)gt_row_pass_kernel<HD, true, false>,
+              (const void*)gt_row_pass_kernel<HD, false, true>,
+              (const void*)gt_bwd_cols_kernel<HD, true>,
+              (const void*)gt_fwd_kernel<HD, true>};
+      if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
+      kernel = table[which]);
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);
   if (err) return err;

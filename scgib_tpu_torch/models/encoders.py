@@ -11,6 +11,10 @@ card, its plain version on the CPU, with no size gate.  A wider conv is
 ``mlp(h + A h)`` with the banded product ``spmm_banded_fast`` (its kernel on
 the card) and the two Linear layers as plain products: the JAX package's
 XLA branch.  The choice depends on the conv's widths only.
+``compute_dtype="bfloat16"`` (the JAX encoder's attribute of that name, or its
+``SCGIB_COMPUTE_DTYPE``) runs the fused layer on bf16 h, W1 and W2
+(``gin_fwd_bf16``: bf16 products, float32 accumulation and output); like
+JAX it leaves the banded SpMM and COO branches in float32.
 
 ``GraphTransformer``: a bias-free embedding, then ``num_layers + 1`` layers of
 per-edge attention with the unshifted ``exp(clamp(score / sqrt(hd), +-5))``
@@ -20,7 +24,14 @@ residual + LayerNorm; padding rows are masked once, after the last layer
 cannot leak into real rows).  With a banded adjacency the attention is
 ``ops/kernels/gt_flash.py::gt_flash_attention``: its CUDA kernels on the
 card, its plain versions on the CPU, at any head width with either
-backward.
+backward.  Two numerics knobs, each a JAX one: ``bf16_dots`` (the flash
+kernels' argument, ``SCGIB_GT_BF16`` there and on by default on a TPU) runs
+every product of the attention on bf16 operands; ``dtype=torch.bfloat16``
+(``GraphTransformerLayer.dtype``, ``SCGIB_GT_ACT_BF16``) runs the dense tail
+the way flax's ``Dense(dtype=bf16)`` and ``LayerNorm(dtype=bf16)`` do:
+operands and bias cast to bf16 (the parameters stay float32), LayerNorm
+statistics in float32 and its output in bf16, one cast back to float32
+after the last layer.  Both default off: float32 throughout.
 
 ``GCN``: three ``nn.Linear`` convs d -> 2h -> 2h -> h over the symmetric
 normalized aggregation D^-1/2 A D^-1/2 x, ReLU after the first two, no
@@ -48,11 +59,12 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.kernels.banded import (MAX_FUSED_DIM, gin_banded_layer,
                                    spmm_banded_fast)
-from ..ops.kernels.gt_flash import gt_flash_attention
+from ..ops.kernels.gt_flash import check_bwd, gt_flash_attention
 from ..ops.segment import (segment_count, segment_normalize_exp,
                            segment_sum)
 from ..ops.spmm import (gather_mean, gather_sum, gcn_degree_norms,
@@ -70,12 +82,17 @@ def _mask_rows(x: torch.Tensor, mask: Optional[torch.Tensor]):
 
 class GIN(nn.Module):
     """``group``: its BatchNorms' sync-BN process group (the JAX
-    encoder's ``axis_name``)."""
+    encoder's ``axis_name``).  ``compute_dtype``: None (float32), or
+    "bfloat16" for the fused layer's bf16 mode."""
 
     def __init__(self, in_dim: int, hidden: int = 64, num_convs: int = 4,
-                 group=None):
+                 group=None, compute_dtype: Optional[str] = None):
         super().__init__()
+        if compute_dtype not in (None, "bfloat16"):
+            raise ValueError(f"compute_dtype must be None or 'bfloat16', got "
+                             f"{compute_dtype!r}")
         self.num_convs = num_convs
+        self.compute_dtype = compute_dtype
         for i in range(num_convs):
             self.add_module(f"conv{i}", MLP2(in_dim if i == 0 else hidden,
                                              hidden, hidden))
@@ -91,9 +108,11 @@ class GIN(nn.Module):
                         mlp.Dense_1.out_features) <= MAX_FUSED_DIM
             if band is not None and fused:
                 branch_counts["band"] += 1
-                h = gin_banded_layer(band[0], band[1], h,
-                                     mlp.Dense_0.weight.t(), mlp.Dense_0.bias,
-                                     mlp.Dense_1.weight.t(), mlp.Dense_1.bias)
+                x, w1, w2 = h, mlp.Dense_0.weight.t(), mlp.Dense_1.weight.t()
+                if self.compute_dtype == "bfloat16":
+                    x, w1, w2 = (t.to(torch.bfloat16) for t in (x, w1, w2))
+                h = gin_banded_layer(band[0], band[1], x, w1,
+                                     mlp.Dense_0.bias, w2, mlp.Dense_1.bias)
             elif band is not None:
                 branch_counts["band_spmm"] += 1
                 h = mlp(h + spmm_banded_fast(band[0], band[1], h))
@@ -213,24 +232,50 @@ def dropout(x: torch.Tensor, rate: float,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+def _dense(lin: nn.Linear, x, dtype):
+    """``lin(x)``, or flax's ``Dense(dtype=dtype)``: input, weight and bias
+    cast to ``dtype``."""
+    if dtype is None:
+        return lin(x)
+    return F.linear(x.to(dtype), lin.weight.to(dtype),
+                    None if lin.bias is None else lin.bias.to(dtype))
+
+
+def _layer_norm(ln: nn.LayerNorm, x, dtype):
+    """``ln(x)``, or flax's ``LayerNorm(dtype=dtype)``: statistics and the
+    affine map in the parameters' dtype (float32), the output in
+    ``dtype``."""
+    if dtype is None:
+        return ln(x)
+    return F.layer_norm(x.to(ln.weight.dtype), ln.normalized_shape,
+                        ln.weight, ln.bias, ln.eps).to(dtype)
+
+
 class GraphTransformerLayer(nn.Module):
     """One graph-transformer layer.  Q, K and V are one fused ``qkv``
     Linear [d, 3d], sliced [q | k | v]; LayerNorm eps 1e-6 as in flax.
     ``dropout`` is the FFN's rate (0.5); set it to 0 to turn it off.
     ``bwd`` picks the attention kernels' backward ("twopass" or
     "merged").  Any head width runs (``gt_flash_attention`` pads one the
-    kernels do not take)."""
+    kernels do not take).  ``bf16_dots`` and ``dtype``: the module's
+    note."""
 
     def __init__(self, hidden: int, num_heads: int, dropout: float = 0.5,
-                 bwd: str = "twopass"):
+                 bwd: str = "twopass", bf16_dots: bool = False, dtype=None):
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} is not a multiple of "
                              f"num_heads {num_heads}")
+        check_bwd(bwd, bf16_dots)
+        if dtype not in (None, torch.bfloat16):
+            raise ValueError(f"dtype must be None (float32) or torch.bfloat16,"
+                             f" got {dtype!r}")
         self.hidden = hidden
         self.num_heads = num_heads
         self.dropout = dropout
         self.bwd = bwd
+        self.bf16_dots = bf16_dots
+        self.dtype = dtype
         self.qkv = nn.Linear(hidden, 3 * hidden)
         self.O = nn.Linear(hidden, hidden)
         self.ln1 = nn.LayerNorm(hidden, eps=1e-6)
@@ -243,35 +288,43 @@ class GraphTransformerLayer(nn.Module):
                 rand=None):
         n, d = h.shape[0], self.hidden
         hd = d // self.num_heads
+        dt = self.dtype
         q, k, v = (part.reshape(n, self.num_heads, hd)
-                   for part in self.qkv(h).split(d, dim=1))
+                   for part in _dense(self.qkv, h, dt).split(d, dim=1))
         if band is not None:
             branch_counts["gt_band_{}x{}".format(*band[0].shape[1:])] += 1
-            attn = gt_flash_attention(band[0], band[1], q, k, v, bwd=self.bwd)
+            attn = gt_flash_attention(band[0], band[1], q, k, v, bwd=self.bwd,
+                                      bf16_dots=self.bf16_dots)
         else:
             branch_counts["gt_coo"] += 1
             score = sddmm_dot(k, q, senders, receivers) / math.sqrt(hd)
             w = segment_normalize_exp(score, receivers, n, mask=edge_mask)
             attn = segment_sum(v[senders] * w[:, :, None], receivers, n,
                                mask=edge_mask)
-        h = self.ln1(h + self.O(attn.reshape(n, d)))
-        h2 = torch.relu(self.ffn1(h))
+        h = _layer_norm(self.ln1, h + _dense(self.O, attn.reshape(n, d), dt),
+                        dt)
+        h2 = torch.relu(_dense(self.ffn1, h, dt))
         if self.training:
             h2 = dropout(h2, self.dropout, rand)
-        return self.ln2(h + self.ffn2(h2))
+        return _layer_norm(self.ln2, h + _dense(self.ffn2, h2, dt), dt)
 
 
 class GraphTransformer(nn.Module):
-    """Bias-free embedding + ``num_layers + 1`` transformer layers."""
+    """Bias-free embedding + ``num_layers + 1`` transformer layers;
+    ``bf16_dots`` and ``dtype`` go to every layer (``dtype`` to the
+    embedding too)."""
 
     def __init__(self, in_dim: int, hidden: int = 64, num_layers: int = 4,
-                 num_heads: int = 8, bwd: str = "twopass"):
+                 num_heads: int = 8, bwd: str = "twopass",
+                 bf16_dots: bool = False, dtype=None):
         super().__init__()
         self.num_layers = num_layers + 1
+        self.dtype = dtype
         self.embed = nn.Linear(in_dim, hidden, bias=False)
         for i in range(self.num_layers):
             self.add_module(f"layer{i}", GraphTransformerLayer(
-                hidden, num_heads, bwd=bwd))
+                hidden, num_heads, bwd=bwd, bf16_dots=bf16_dots,
+                dtype=dtype))
 
     def forward(self, h, senders, receivers, node_mask=None, edge_mask=None,
                 band: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -280,27 +333,36 @@ class GraphTransformer(nn.Module):
         hands it the narrow one when the batch's ``gt_fits`` is set
         (``models/scgib.py::_resolve_band``).  ``rand`` (``shape -> U[0,
         1)``) draws the dropout masks; training mode needs it."""
-        h = _mask_rows(self.embed(h), node_mask)
+        h = _mask_rows(_dense(self.embed, h, self.dtype), node_mask)
         for i in range(self.num_layers):
             h = getattr(self, f"layer{i}")(h, senders, receivers,
                                            edge_mask=edge_mask, band=band,
                                            rand=rand)
+        if self.dtype is not None:     # the readouts and losses take the
+            h = h.to(self.embed.weight.dtype)   # parameters' dtype
         return _mask_rows(h, node_mask)
 
 
 def make_encoder(name: str, in_dim: int, hidden: int, num_layers: int = 4,
-                 num_heads: int = 8, gt_bwd: str = "twopass", group=None):
+                 num_heads: int = 8, gt_bwd: str = "twopass", group=None,
+                 compute_dtype: Optional[str] = None,
+                 gt_bf16_dots: bool = False, gt_dtype=None):
     """``num_layers`` is GIN's conv count and the transformer's layers less
     one; GCN and GraphSAGE have three convs whatever it is.  ``group``
-    (sync-BN) reaches GIN only: the others have no BatchNorm."""
+    (sync-BN) reaches GIN only: the others have no BatchNorm.  The numerics
+    (the module's note): ``compute_dtype`` reaches GIN, ``gt_bf16_dots``
+    and ``gt_dtype`` the transformer; GCN and GraphSAGE compute in float32,
+    as in the JAX package."""
     if name == "GIN":
-        return GIN(in_dim, hidden=hidden, num_convs=num_layers, group=group)
+        return GIN(in_dim, hidden=hidden, num_convs=num_layers, group=group,
+                   compute_dtype=compute_dtype)
     if name == "GCN":
         return GCN(in_dim, hidden=hidden)
     if name == "GraphSAGE":
         return GraphSAGE(in_dim, hidden=hidden)
     if name == "Transformer":
         return GraphTransformer(in_dim, hidden=hidden, num_layers=num_layers,
-                                num_heads=num_heads, bwd=gt_bwd)
+                                num_heads=num_heads, bwd=gt_bwd,
+                                bf16_dots=gt_bf16_dots, dtype=gt_dtype)
     raise ValueError(f"unknown encoder {name!r} (expected GIN | GCN | "
                      "GraphSAGE | Transformer)")

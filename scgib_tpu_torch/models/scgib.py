@@ -135,14 +135,18 @@ class Compressor(nn.Module):
 
 
 class SCGIBCore(nn.Module):
-    """Twin encoders + compression + core<->candidate attention."""
+    """Twin encoders + compression + core<->candidate attention.
+    ``compute_dtype``, ``gt_bf16_dots`` and ``gt_dtype`` select the
+    encoders' numerics (``encoders.make_encoder``)."""
 
     def __init__(self, in_dim: int, hidden: int = 64, encoder: str = "GIN",
                  num_layers: int = 4, num_heads: int = 8,
                  readout: str = "sum", use_att: bool = True,
                  gt_bwd: str = "twopass", gate_bias: float = 1e-4,
                  std_eps: float = 1e-7, deterministic: bool = False,
-                 subgraph_mode: str = "coo", group=None):
+                 subgraph_mode: str = "coo", group=None,
+                 compute_dtype: Optional[str] = None,
+                 gt_bf16_dots: bool = False, gt_dtype=None):
         super().__init__()
         if readout not in ("sum", "s2s"):
             raise ValueError(f"unknown readout {readout!r}")
@@ -156,13 +160,16 @@ class SCGIBCore(nn.Module):
         self.gate_bias = gate_bias
         self.std_eps = std_eps
         self.deterministic = deterministic
+        numerics = dict(compute_dtype=compute_dtype,
+                        gt_bf16_dots=gt_bf16_dots, gt_dtype=gt_dtype)
         self.encoder1 = make_encoder(encoder, in_dim, hidden, num_layers,
-                                     num_heads, gt_bwd, group)
+                                     num_heads, gt_bwd, group, **numerics)
         self.encoder2 = (DenseGIN(in_dim, hidden=hidden,
-                                  num_convs=num_layers, group=group)
+                                  num_convs=num_layers, group=group,
+                                  compute_dtype=compute_dtype)
                          if subgraph_mode == "dense" else
                          make_encoder(encoder, in_dim, hidden, num_layers,
-                                      num_heads, gt_bwd, group))
+                                      num_heads, gt_bwd, group, **numerics))
         self.compressor = Compressor(hidden)
         if use_att:
             self.attn_layer = nn.Linear(2 * hidden, 1)
@@ -272,7 +279,12 @@ class PretrainModel(nn.Module):
     transition targets of ``k_transition`` steps, passed in or carried by
     the batch from ``batch_iterator(logm_k=...)``); any other value gives
     a reconstruction term of 0, as in the JAX package.  ``group``: see the
-    module's note; ``kl_mode='reference'`` is refused with it."""
+    module's note; ``kl_mode='reference'`` is refused with it.
+    ``compute_dtype`` ("bfloat16": GIN's fused conv on bf16 operands),
+    ``gt_bf16_dots`` (the attention's products on bf16 operands) and
+    ``gt_dtype`` (torch.bfloat16: the transformer's dense tail in bf16)
+    reach both encoders; all default to float32 (None), and the parameters
+    stay float32 in every mode."""
 
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
@@ -281,7 +293,9 @@ class PretrainModel(nn.Module):
                  recons_impl: str = "gram", kl_mode: str = "corrected",
                  k_transition: int = 1, gt_bwd: str = "twopass",
                  deterministic: bool = False, normalize_input: bool = True,
-                 subgraph_mode: str = "coo", group=None):
+                 subgraph_mode: str = "coo", group=None,
+                 compute_dtype: Optional[str] = None,
+                 gt_bf16_dots: bool = False, gt_dtype=None):
         super().__init__()
         if kl_mode == "reference" and group is not None:
             # each rank would pick its own "last graph" (losses.kl_loss)
@@ -303,7 +317,9 @@ class PretrainModel(nn.Module):
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
                               gt_bwd=gt_bwd, deterministic=deterministic,
-                              subgraph_mode=subgraph_mode, group=group)
+                              subgraph_mode=subgraph_mode, group=group,
+                              compute_dtype=compute_dtype,
+                              gt_bf16_dots=gt_bf16_dots, gt_dtype=gt_dtype)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         if readout == "s2s":
             self.s2s = Set2Set(hidden)
@@ -353,14 +369,18 @@ class FinetuneModel(nn.Module):
     pretrained core.  Projection -> core -> ``head_mlp`` (2d -> d) ->
     ``Set2Set`` (-> 2d) -> ``predict`` (2d -> d -> num_out), then a sigmoid
     unless ``regression``.  The features are L2-normalized by row and the
-    attention takes its two-pass backward, as the JAX verbs run them."""
+    attention takes its two-pass backward, as the JAX verbs run them.
+    ``compute_dtype``, ``gt_bf16_dots``, ``gt_dtype``: as in
+    ``PretrainModel``."""
 
     def __init__(self, in_dim: int, num_out: int = 1, hidden: int = 64,
                  d_transfer: int = 32, encoder: str = "GIN",
                  num_layers: int = 4, num_heads: int = 8,
                  readout: str = "sum", use_att: bool = True,
                  regression: bool = False, deterministic: bool = False,
-                 subgraph_mode: str = "coo", group=None):
+                 subgraph_mode: str = "coo", group=None,
+                 compute_dtype: Optional[str] = None,
+                 gt_bf16_dots: bool = False, gt_dtype=None):
         super().__init__()
         self.regression = regression
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
@@ -368,7 +388,9 @@ class FinetuneModel(nn.Module):
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
                               deterministic=deterministic,
-                              subgraph_mode=subgraph_mode, group=group)
+                              subgraph_mode=subgraph_mode, group=group,
+                              compute_dtype=compute_dtype,
+                              gt_bf16_dots=gt_bf16_dots, gt_dtype=gt_dtype)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.predict = MLP2(2 * hidden, hidden, num_out)
@@ -392,20 +414,26 @@ class DomainAdaptModel(nn.Module):
     the interaction map, decoded by ``r_transfer_d`` (2d -> d -> 2F), is
     held against the Set2Set readout (``s2s_rev``) of the same normalized
     features the projection takes; the forward is the loss, the
-    unnormalized squared error over real graphs (models.py:276-281)."""
+    unnormalized squared error over real graphs (models.py:276-281).
+    ``compute_dtype``, ``gt_bf16_dots``, ``gt_dtype``: as in
+    ``PretrainModel``."""
 
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
                  num_heads: int = 8, readout: str = "sum",
                  use_att: bool = True, deterministic: bool = False,
-                 subgraph_mode: str = "coo", group=None):
+                 subgraph_mode: str = "coo", group=None,
+                 compute_dtype: Optional[str] = None,
+                 gt_bf16_dots: bool = False, gt_dtype=None):
         super().__init__()
         self.transfer_d = nn.Linear(in_dim, d_transfer, bias=False)
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
                               deterministic=deterministic,
-                              subgraph_mode=subgraph_mode, group=group)
+                              subgraph_mode=subgraph_mode, group=group,
+                              compute_dtype=compute_dtype,
+                              gt_bf16_dots=gt_bf16_dots, gt_dtype=gt_dtype)
         self.head_mlp = MLP2(2 * hidden, hidden, hidden)
         self.s2s = Set2Set(hidden)
         self.s2s_rev = Set2Set(in_dim)

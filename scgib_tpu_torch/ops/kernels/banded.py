@@ -4,16 +4,17 @@ Counterpart of ``scgib_tpu/ops/pallas/banded.py``.  Five wrappers stand for
 the five Pallas kernels there; three CUDA kernels in ``csrc/banded.cu``
 serve them (the SpMM kernel serves three):
 
-  wrapper     TPU kernel it replaces                    CUDA kernel
-  gin_fwd     _kernel            (fused GIN conv)       gin_fused_fwd
-  gin_bwd     _bwd_kernel        (GIN bwd stage 1)      gin_fused_bwd
-  spmm_self   _spmm_self_kernel  (GIN bwd stage 2)      banded_spmm, +x
-  spmm        _spmm_kernel       (recon cross term)     banded_spmm
-  pool        _pool_kernel       (candidate pooling)    banded_spmm, W=1024
+  wrapper       TPU kernel it replaces                  CUDA kernel
+  gin_fwd       _kernel            (fused GIN conv)     gin_fused_fwd
+  gin_fwd_bf16  _kernel, bf16 operands                  gin_fused_fwd, BF16
+  gin_bwd       _bwd_kernel        (GIN bwd stage 1)    gin_fused_bwd
+  spmm_self     _spmm_self_kernel  (GIN bwd stage 2)    banded_spmm, +x
+  spmm          _spmm_kernel       (recon cross term)   banded_spmm
+  pool          _pool_kernel       (candidate pooling)  banded_spmm, W=1024
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting each launch that
-succeeded on its ``launches`` attribute; anything else raises, a blocks
+succeeded (``launch_counts``); anything else raises, a blocks
 tensor that is not 16-byte aligned included, and for ``spmm``,
 ``spmm_self``, ``pool`` and ``gin_bwd`` a feature tensor that is not
 (``gin_fwd`` copies it).  The kernels are built from the repo's sources
@@ -29,7 +30,15 @@ way into shared memory and runs both products on the tensor cores in
 stages the weights once, loops over row tiles, runs its products the same
 way and writes one weight-gradient partial per block, which ``gin_bwd``
 sums with one ``torch.sum``: no atomics, so all three are bitwise
-reproducible on one card.  The source note in
+reproducible on one card.
+
+``gin_fwd_bf16`` is the JAX package's ``compute_dtype="bfloat16"`` conv:
+h, W1 and W2 arrive in bfloat16 (its GIN casts them), every product takes
+bf16 operands with float32 accumulation, z0 and relu(z1) are rounded to
+bf16 before their products, the biases and the output stay float32.
+``gin_banded_layer`` takes that path when h is bfloat16; its backward is
+JAX's ``_bwd``: ``gin_bwd`` and ``spmm_self`` on the rounded operands in
+float32, dh, dW1 and dW2 rounded to bf16 on the way out.  The source note in
 ``csrc/banded.cu`` says what bounds each kernel on an H100 and how the
 design answers it.
 """
@@ -50,9 +59,11 @@ MAX_FUSED_DIM = 128
 ALIGN = 16           # bytes: the kernels read blocks and x in 16-byte
                      # vectors
 
-KERNELS = ("gin_fwd", "gin_bwd", "spmm_self", "spmm", "pool")
+KERNELS = ("gin_fwd", "gin_fwd_bf16", "gin_bwd", "spmm_self", "spmm",
+           "pool")
 
 _lib = None
+_launches = {}
 
 
 def build() -> ctypes.CDLL:
@@ -66,13 +77,14 @@ def build() -> ctypes.CDLL:
     lib.scgib_banded_spmm.argtypes = [P, P, I, I, P, L, I, P, I, P]
     lib.scgib_gin_fused_fwd.argtypes = [P, P, I, I, P, L, I, P, P, I, P, P,
                                         I, P, P]
+    lib.scgib_gin_fused_fwd_bf16.argtypes = lib.scgib_gin_fused_fwd.argtypes
     lib.scgib_gin_fused_bwd_grid.argtypes = [L, I, I, I, P]
     lib.scgib_gin_fused_bwd.argtypes = [P, P, I, P, L, I, P, P, P, I, P, I,
                                         P, P, I, P]
     lib.scgib_kernel_info.argtypes = [I, I, I, I, P]
     for fn in (lib.scgib_banded_spmm, lib.scgib_gin_fused_fwd,
-               lib.scgib_gin_fused_bwd_grid, lib.scgib_gin_fused_bwd,
-               lib.scgib_kernel_info):
+               lib.scgib_gin_fused_fwd_bf16, lib.scgib_gin_fused_bwd_grid,
+               lib.scgib_gin_fused_bwd, lib.scgib_kernel_info):
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
@@ -91,11 +103,12 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
-def _band_args(blocks, col_off, x, name, copy=False):
+def _band_args(blocks, col_off, x, name, copy=False, dtype=torch.float32):
     """Validate the banded operands; returns (blocks, col_off, x)
-    contiguous.  The kernels read blocks and x in 16-byte vectors, so both
-    must start on a 16-byte boundary: a misaligned operand raises or, for
-    x with ``copy``, is copied."""
+    contiguous.  x must be ``dtype`` (float32; bfloat16 for
+    ``gin_fwd_bf16``).  The kernels read blocks and x in 16-byte vectors,
+    so both must start on a 16-byte boundary: a misaligned operand raises
+    or, for x with ``copy``, is copied."""
     if blocks.dim() != 3 or blocks.shape[1] != TILE:
         raise ValueError(f"{name}: blocks must be [T, {TILE}, W], got "
                          f"{tuple(blocks.shape)}")
@@ -104,8 +117,8 @@ def _band_args(blocks, col_off, x, name, copy=False):
                          f"{BAND_MULTIPLE}")
     if blocks.dtype != torch.bfloat16:
         raise TypeError(f"{name}: blocks must be bfloat16")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: features must be float32")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: features must be {str(dtype)[6:]}")
     if col_off.shape != (blocks.shape[0],):
         raise ValueError(f"{name}: col_off must be [T]")
     for t in (blocks, col_off, x):
@@ -158,7 +171,7 @@ def spmm(blocks, col_off, x):
     if not _dispatch("spmm", x):
         return spmm_plain(blocks, col_off, x)
     out = _launch_spmm(blocks, col_off, x, False, "spmm")
-    spmm.launches += 1
+    add_launches("spmm")
     return out
 
 
@@ -167,7 +180,7 @@ def spmm_self(blocks, col_off, x):
     if not _dispatch("spmm_self", x):
         return spmm_self_plain(blocks, col_off, x)
     out = _launch_spmm(blocks, col_off, x, True, "spmm_self")
-    spmm_self.launches += 1
+    add_launches("spmm_self")
     return out
 
 
@@ -178,7 +191,7 @@ def pool(blocks, col_off, data):
     if not _dispatch("pool", data):
         return spmm_plain(blocks, col_off, data)
     out = _launch_spmm(blocks, col_off, data, False, "pool")
-    pool.launches += 1
+    add_launches("pool")
     return out
 
 
@@ -188,6 +201,22 @@ def gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2):
     """``gin_banded_layer_reference``: relu((h + A h) W1 + b1) W2 + b2."""
     z0 = _banded_spmm_impl(blocks, col_off, h) + h
     return torch.relu(z0 @ w1 + b1) @ w2 + b2
+
+
+def _bf16(x, on=True):
+    """x rounded to bfloat16, in its own dtype, where ``on``: an operand of
+    a product of the bf16 kernels."""
+    return x.to(torch.bfloat16).to(x.dtype) if on else x
+
+
+def gin_fwd_bf16_plain(blocks, col_off, h, w1, b1, w2, b2):
+    """``_kernel`` on bf16 operands: h, w1 and w2 bfloat16 (or already
+    rounded), the sums in b1's dtype, z0 and relu(z1) rounded to bf16 before
+    their products, the biases added after them."""
+    ct = b1.dtype
+    h, w1, w2 = h.to(ct), w1.to(ct), w2.to(ct)
+    z0 = _banded_spmm_impl(blocks, col_off, h) + h
+    return _bf16(torch.relu(_bf16(z0) @ w1 + b1)) @ w2 + b2
 
 
 def gin_bwd_plain(blocks, col_off, h, g, w1, b1, w2):
@@ -230,7 +259,32 @@ def gin_fwd(blocks, col_off, h, w1, b1, w2, b2):
         _ptr(blocks), _ptr(col_off), n_tiles, width, _ptr(h), h.shape[0],
         din, _ptr(w1), _ptr(b1), hid, _ptr(w2), _ptr(b2), dout, _ptr(out),
         _stream()), "gin_fwd")
-    gin_fwd.launches += 1
+    add_launches("gin_fwd")
+    return out
+
+
+def gin_fwd_bf16(blocks, col_off, h, w1, b1, w2, b2):
+    """The fused conv with bf16 operands (replaces ``_kernel`` in its bf16
+    mode): h, w1 and w2 bfloat16, b1 and b2 float32; the output float32."""
+    if not _dispatch("gin_fwd_bf16", h):
+        return gin_fwd_bf16_plain(blocks, col_off, h, w1, b1, w2, b2)
+    blocks, col_off, h = _band_args(blocks, col_off, h, "gin_fwd_bf16",
+                                    copy=True, dtype=torch.bfloat16)
+    din, hid, dout = _fused_dims(h, w1, w2, "gin_fwd_bf16")
+    n_tiles, _, width = blocks.shape
+    if h.shape[0] != n_tiles * TILE:
+        raise ValueError(f"gin_fwd_bf16: h needs T*{TILE} rows")
+    if w1.dtype != torch.bfloat16 or w2.dtype != torch.bfloat16:
+        raise TypeError("gin_fwd_bf16: w1 and w2 must be bfloat16")
+    w1, w2 = w1.contiguous(), w2.contiguous()
+    b1, b2 = (t.float().contiguous() for t in (b1, b2))
+    out = torch.empty((h.shape[0], dout), dtype=torch.float32,
+                      device=h.device)
+    _raise_on(build().scgib_gin_fused_fwd_bf16(
+        _ptr(blocks), _ptr(col_off), n_tiles, width, _ptr(h), h.shape[0],
+        din, _ptr(w1), _ptr(b1), hid, _ptr(w2), _ptr(b2), dout, _ptr(out),
+        _stream()), "gin_fwd_bf16")
+    add_launches("gin_fwd_bf16")
     return out
 
 
@@ -268,30 +322,35 @@ def gin_bwd(blocks, col_off, h, g, w1, b1, w2):
         _ptr(blocks), _ptr(col_off), width, _ptr(h), n, din, _ptr(g),
         _ptr(w1), _ptr(b1), hid, _ptr(w2), dout, _ptr(gz0), _ptr(part),
         grid, _stream()), "gin_bwd")
-    gin_bwd.launches += 1
+    add_launches("gin_bwd")
     dw1, db1, dw2, db2 = part.sum(0).split(sizes)
     return gz0, dw1.view(din, hid), db1, dw2.view(hid, dout), db2
 
 
 def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
     """Registers a thread, shared memory a block and blocks an SM of the
-    kernel that ``spmm`` (width ``din``), ``gin_bwd`` or ``gin_fwd``
-    launches."""
+    kernel that ``spmm`` (width ``din``), ``gin_bwd``, ``gin_fwd`` or
+    ``gin_fwd_bf16`` (``gin_fused_fwd_bf16``) launches."""
     info = (ctypes.c_int * 3)()
     _raise_on(build().scgib_kernel_info(
-        {"banded_spmm": 0, "gin_fused_bwd": 1, "gin_fused_fwd": 2}[kernel],
+        {"banded_spmm": 0, "gin_fused_bwd": 1, "gin_fused_fwd": 2,
+         "gin_fused_fwd_bf16": 3}[kernel],
         din, hid, dout, info), kernel)
     return {"registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
 
 
+def add_launches(name: str, n: int = 1):
+    """Add ``n`` to the launch count of ``name``, one of ``KERNELS``."""
+    _launches[name] += n
+
+
 def launch_counts() -> dict:
-    return {name: globals()[name].launches for name in KERNELS}
+    return dict(_launches)
 
 
 def reset_launch_counts():
-    for name in KERNELS:
-        globals()[name].launches = 0
+    _launches.update(dict.fromkeys(KERNELS, 0))
 
 
 reset_launch_counts()
@@ -303,21 +362,29 @@ class _GinBandedLayer(torch.autograd.Function):
     @staticmethod
     def forward(ctx, blocks, col_off, h, w1, b1, w2, b2):
         ctx.save_for_backward(blocks, col_off, h, w1, b1, w2)
-        return gin_fwd(blocks, col_off, h, w1, b1, w2, b2)
+        fwd = gin_fwd_bf16 if h.dtype == torch.bfloat16 else gin_fwd
+        return fwd(blocks, col_off, h, w1, b1, w2, b2)
 
     @staticmethod
     def backward(ctx, g):
         """A == A^T (the packers symmetrize every edge list), so d/dh of
-        h + A h applied to gz0 is the same banded product plus gz0."""
+        h + A h applied to gz0 is the same banded product plus gz0.  In the
+        bf16 mode the float32 kernels run on the bf16 operands, and dh, dW1
+        and dW2 go back in their operands' bf16 (JAX's ``_bwd``)."""
         blocks, col_off, h, w1, b1, w2 = ctx.saved_tensors
-        gz0, dw1, db1, dw2, db2 = gin_bwd(blocks, col_off, h, g, w1, b1, w2)
+        ct = b1.dtype            # the compute dtype of the bf16 mode's sums
+        gz0, dw1, db1, dw2, db2 = gin_bwd(blocks, col_off, h.to(ct), g,
+                                          w1.to(ct), b1, w2.to(ct))
         dh = spmm_self(blocks, col_off, gz0)
-        return None, None, dh, dw1, db1, dw2, db2
+        return (None, None, dh.to(h.dtype), dw1.to(w1.dtype), db1,
+                dw2.to(w2.dtype), db2)
 
 
 def gin_banded_layer(blocks, col_off, h, w1, b1, w2, b2):
     """Fused pre-BN GIN conv relu((h + A h) W1 + b1) W2 + b2, with the
-    kernel backward."""
+    kernel backward.  h, w1 and w2 in bfloat16 (b1, b2 float32) run the
+    bf16 mode (``gin_fwd_bf16``), the JAX package's
+    ``compute_dtype="bfloat16"``; the output is float32 in either."""
     return _GinBandedLayer.apply(blocks, col_off, h, w1, b1, w2, b2)
 
 

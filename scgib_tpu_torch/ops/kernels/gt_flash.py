@@ -10,15 +10,24 @@ for its four Pallas kernels, each served by its own CUDA kernel in
   gt_bwd_cols    _bwd_cols_kernel          dk, dv         (two-pass, columns)
   gt_bwd_merged  _bwd_merged_kernel        dq, dk, dv     (one pass, atomics)
 
+``bf16_dots`` (the JAX package's argument of that name, its default on a
+TPU; here False by default): ``gt_fwd``, ``gt_bwd_rows`` and ``gt_bwd_cols``
+then launch their kernels' bf16-dot instantiations, which round both
+operands of every product to bfloat16 and accumulate in float32 (the TPU's
+bf16 multiplicands), and count those launches as ``gt_fwd_bf16``,
+``gt_bwd_rows_bf16`` and ``gt_bwd_cols_bf16`` in ``launch_counts``.  The
+merged backward has no bf16 form yet (ROADMAP Queue 2):
+``gt_flash_attention(bwd="merged", bf16_dots=True)`` raises.
+
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor and
-launches its kernel for a CUDA tensor, counting each launch that succeeded on
-its ``launches`` attribute; anything else raises.  The kernels compute in
+launches its kernel for a CUDA tensor, counting each launch that succeeded
+(``launch_counts``); anything else raises.  The kernels compute in
 float32 and take any banded geometry [T, tile, band] with band a multiple of 32
 up to 256 (the narrow (64, 128) and the wide (128, 256) ones) and a head width
 hd in ``HEAD_WIDTHS`` (powers of two up to 512) or a multiple of ``SWEEP``
 (512) past it, swept 512 features at a time (``takes_head_width``).  The plain
-versions compute in their inputs' dtype.  Each takes the score scale, 1 /
-sqrt(hd) by default.
+versions compute in their inputs' dtype, rounding where the kernels round
+with ``bf16_dots``.  Each takes the score scale, 1 / sqrt(hd) by default.
 
 Every kernel reads a row's features as 16-byte vectors, a group of lanes
 per row with all its heads, and finds the gate's nonzeros by warp ballot.
@@ -46,10 +55,16 @@ import re
 import torch
 
 from ..spmm_banded import gt_scores, gt_windows
-from .banded import ALIGN, _dispatch, _ptr, _raise_on, _stream
+from .banded import ALIGN, _bf16, _dispatch, _ptr, _raise_on, _stream
 from .build import load, ptxas_report as _ptxas_report
 
-KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged")
+# the wrappers, and the bf16-dot modes of three of them, by their launch
+# counts' names
+KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged",
+           "gt_fwd_bf16", "gt_bwd_rows_bf16", "gt_bwd_cols_bf16")
+# kernel_info's and scgib_gt_kernel_info's index of each wrapper's kernel
+_INFO = {"gt_bwd_rows": 0, "gt_bwd_cols": 1, "gt_fwd": 2, "gt_bwd_merged": 3,
+         "gt_bwd_rows_bf16": 4, "gt_bwd_cols_bf16": 5, "gt_fwd_bf16": 6}
 HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 # Past the widest of HEAD_WIDTHS the kernels take every multiple of SWEEP,
 # a head swept SWEEP features at a time (csrc/gt_flash.cu's WIDE).
@@ -58,6 +73,7 @@ MAX_BAND = 256
 BWD = ("twopass", "merged")
 
 _lib = None
+_launches = {}
 
 
 def build() -> ctypes.CDLL:
@@ -69,11 +85,12 @@ def build() -> ctypes.CDLL:
     lib, = load("gt_flash")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geo = [P, P, I, I, I]                   # blocks, col_off, T, tile, band
-    lib.scgib_gt_fwd.argtypes = geo + [P, P, P, I, I, F, F, F, P, P, P]
-    lib.scgib_gt_bwd_rows.argtypes = geo + [P, P, P, P, P, I, I, F, F, F,
+    # ..., eps, bf16 (an int), outputs, stream
+    lib.scgib_gt_fwd.argtypes = geo + [P, P, P, I, I, F, F, F, I, P, P, P]
+    lib.scgib_gt_bwd_rows.argtypes = geo + [P, P, P, P, P, I, I, F, F, F, I,
                                             P, P, P]
     lib.scgib_gt_bwd_cols.argtypes = geo + [P, P, P, P, P, P, I, I, F, F,
-                                            F, P, P, P]
+                                            F, I, P, P, P]
     lib.scgib_gt_bwd_merged.argtypes = geo + [P, P, P, P, P, I, I, F, F, F,
                                               P, P, P, P]
     lib.scgib_gt_kernel_info.argtypes = [I, I, P]
@@ -99,7 +116,7 @@ def _check_head_widths(lib):
     info = (ctypes.c_int * 3)()
     widths = range(1, 4 * SWEEP + 1)
     want = tuple(hd for hd in widths if takes_head_width(hd))
-    for which in range(4):
+    for which in range(len(_INFO)):
         taken = tuple(hd for hd in widths
                       if lib.scgib_gt_kernel_info(which, hd, info) == 0)
         if taken != want:
@@ -134,17 +151,20 @@ def _per_row(x):
 
 
 def _backward_entries(blocks, col_off, q, k, v, g, z, rho, clamp, eps,
-                      scale):
+                      scale, bf16_dots=False):
     """(W, dS, rho) per entry; rho [T, H, tile] is the row sums of G * W,
-    computed when ``rho`` is None."""
+    computed when ``rho`` is None.  ``bf16_dots``: the scores from q and k,
+    and G from g and v, rounded to bf16."""
     n_tiles, tile, band = blocks.shape
     _, num_heads, hd = q.shape
-    s, e = gt_scores(blocks, col_off, q, k, clamp, scale)
+    s, e = gt_scores(blocks, col_off, _bf16(q, bf16_dots),
+                     _bf16(k, bf16_dots), clamp, scale)
     inv = (1.0 / (_per_tile(z, n_tiles, tile) + eps))[..., None]
     w = e * inv
     G = torch.einsum("tihd,tjhd->thij",
-                     g.reshape(n_tiles, tile, num_heads, hd),
-                     gt_windows(col_off, band, v))
+                     _bf16(g, bf16_dots).reshape(n_tiles, tile, num_heads,
+                                                 hd),
+                     gt_windows(col_off, band, _bf16(v, bf16_dots)))
     rho = (G * w).sum(-1) if rho is None else _per_tile(rho, n_tiles, tile)
     inside = ((s >= -clamp) & (s <= clamp)).to(s.dtype)
     ds = e * inside * (G - rho[..., None]) * inv
@@ -160,39 +180,51 @@ def _add_windows(col_off, win, n):
 
 
 def gt_fwd_plain(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6,
-                 scale=None):
-    """(out [N, H, hd], z [N, H])."""
+                 scale=None, bf16_dots=False):
+    """(out [N, H, hd], z [N, H]).  ``bf16_dots``: q, k, v and w = e / (z +
+    eps) rounded to bf16 before their products (``_fwd_kernel``)."""
     band = blocks.shape[2]
-    _, e = gt_scores(blocks, col_off, q, k, clamp, scale)
+    _, e = gt_scores(blocks, col_off, _bf16(q, bf16_dots),
+                     _bf16(k, bf16_dots), clamp, scale)
     z = e.sum(-1)                                        # [T, H, tile]
-    w = e / (z + eps)[..., None]
-    out = torch.einsum("thij,tjhd->tihd", w, gt_windows(col_off, band, v))
+    if bf16_dots:
+        w = _bf16(e * (1.0 / (z + eps))[..., None])
+    else:
+        w = e / (z + eps)[..., None]
+    out = torch.einsum("thij,tjhd->tihd", w,
+                       gt_windows(col_off, band, _bf16(v, bf16_dots)))
     return out.reshape(q.shape), _per_row(z)
 
 
 def gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
-                      scale=None):
-    """(dq [N, H, hd], rho [N, H])."""
+                      scale=None, bf16_dots=False):
+    """(dq [N, H, hd], rho [N, H]).  ``bf16_dots``: every product's operands
+    rounded to bf16 (``_bwd_rows_kernel``), dS and k for dq among them."""
     band = blocks.shape[2]
     scale = _scale(q.shape[2]) if scale is None else scale
     _, ds, rho = _backward_entries(blocks, col_off, q, k, v, g, z, None,
-                                   clamp, eps, scale)
-    dq = torch.einsum("thij,tjhd->tihd", ds, gt_windows(col_off, band, k))
+                                   clamp, eps, scale, bf16_dots)
+    dq = torch.einsum("thij,tjhd->tihd", _bf16(ds, bf16_dots),
+                      gt_windows(col_off, band, _bf16(k, bf16_dots)))
     return dq.reshape(q.shape) * scale, _per_row(rho)
 
 
 def gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp=5.0,
-                      eps=1e-6, scale=None):
-    """(dk, dv) [N, H, hd] from the row pass's z and rho."""
+                      eps=1e-6, scale=None, bf16_dots=False):
+    """(dk, dv) [N, H, hd] from the row pass's z and rho.  ``bf16_dots``:
+    every product's operands rounded to bf16 (``_bwd_cols_kernel``), dS
+    and q for dk, W and g for dv among them."""
     n_tiles, tile, _ = blocks.shape
     n, num_heads, hd = q.shape
     scale = _scale(hd) if scale is None else scale
     w, ds, _ = _backward_entries(blocks, col_off, q, k, v, g, z, rho, clamp,
-                                 eps, scale)
-    q_t = q.reshape(n_tiles, tile, num_heads, hd)
-    g_t = g.reshape(n_tiles, tile, num_heads, hd)
-    dk = _add_windows(col_off, torch.einsum("thij,tihd->tjhd", ds, q_t), n)
-    dv = _add_windows(col_off, torch.einsum("thij,tihd->tjhd", w, g_t), n)
+                                 eps, scale, bf16_dots)
+    q_t = _bf16(q, bf16_dots).reshape(n_tiles, tile, num_heads, hd)
+    g_t = _bf16(g, bf16_dots).reshape(n_tiles, tile, num_heads, hd)
+    dk = _add_windows(col_off, torch.einsum(
+        "thij,tihd->tjhd", _bf16(ds, bf16_dots), q_t), n)
+    dv = _add_windows(col_off, torch.einsum(
+        "thij,tihd->tjhd", _bf16(w, bf16_dots), g_t), n)
     return dk * scale, dv
 
 
@@ -251,56 +283,61 @@ def _gt_args(name, blocks, col_off, q, *others):
 
 
 def _launch(fn, name, blocks, col_off, geo, tensors, num_heads, hd, clamp,
-            eps, scale, outs):
+            eps, scale, outs, *flags):
     scale = _scale(hd) if scale is None else scale
     _raise_on(fn(_ptr(blocks), _ptr(col_off), *geo,
                  *(_ptr(t) for t in tensors), num_heads, hd, scale, clamp,
-                 eps, *(_ptr(t) for t in outs), _stream()), name)
+                 eps, *flags, *(_ptr(t) for t in outs), _stream()), name)
 
 
-def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None):
-    """(out, z) (replaces ``_fwd_kernel``)."""
+def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None,
+           bf16_dots=False):
+    """(out, z) (replaces ``_fwd_kernel``; with ``bf16_dots`` its bf16
+    mode, counted on ``gt_fwd_bf16``)."""
     if not _dispatch("gt_fwd", q):
-        return gt_fwd_plain(blocks, col_off, q, k, v, clamp, eps, scale)
+        return gt_fwd_plain(blocks, col_off, q, k, v, clamp, eps, scale,
+                            bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
         "gt_fwd", blocks, col_off, q, k, v)
     out = torch.empty_like(ts[0])
     z = torch.empty(ts[0].shape[:2], dtype=torch.float32, device=q.device)
     _launch(build().scgib_gt_fwd, "gt_fwd", blocks, col_off, geo, ts,
-            num_heads, hd, clamp, eps, scale, (out, z))
-    gt_fwd.launches += 1
+            num_heads, hd, clamp, eps, scale, (out, z), int(bf16_dots))
+    add_launches("gt_fwd_bf16" if bf16_dots else "gt_fwd")
     return out, z
 
 
 def gt_bwd_rows(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
-                scale=None):
-    """(dq, rho) (replaces ``_bwd_rows_kernel``)."""
+                scale=None, bf16_dots=False):
+    """(dq, rho) (replaces ``_bwd_rows_kernel``; with ``bf16_dots`` its
+    bf16 mode, counted on ``gt_bwd_rows_bf16``)."""
     if not _dispatch("gt_bwd_rows", q):
         return gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps,
-                                 scale)
+                                 scale, bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
         "gt_bwd_rows", blocks, col_off, q, k, v, g, z)
     dq = torch.empty_like(ts[0])
     rho = torch.empty_like(ts[4])
     _launch(build().scgib_gt_bwd_rows, "gt_bwd_rows", blocks, col_off, geo,
-            ts, num_heads, hd, clamp, eps, scale, (dq, rho))
-    gt_bwd_rows.launches += 1
+            ts, num_heads, hd, clamp, eps, scale, (dq, rho), int(bf16_dots))
+    add_launches("gt_bwd_rows_bf16" if bf16_dots else "gt_bwd_rows")
     return dq, rho
 
 
 def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6,
-                scale=None):
-    """(dk, dv) (replaces ``_bwd_cols_kernel``).  Needs a symmetric A."""
+                scale=None, bf16_dots=False):
+    """(dk, dv) (replaces ``_bwd_cols_kernel``; with ``bf16_dots`` its
+    bf16 mode, counted on ``gt_bwd_cols_bf16``).  Needs a symmetric A."""
     if not _dispatch("gt_bwd_cols", q):
         return gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp,
-                                 eps, scale)
+                                 eps, scale, bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
         "gt_bwd_cols", blocks, col_off, q, k, v, g, z, rho)
     dk = torch.empty_like(ts[0])
     dv = torch.empty_like(ts[0])
     _launch(build().scgib_gt_bwd_cols, "gt_bwd_cols", blocks, col_off, geo,
-            ts, num_heads, hd, clamp, eps, scale, (dk, dv))
-    gt_bwd_cols.launches += 1
+            ts, num_heads, hd, clamp, eps, scale, (dk, dv), int(bf16_dots))
+    add_launches("gt_bwd_cols_bf16" if bf16_dots else "gt_bwd_cols")
     return dk, dv
 
 
@@ -318,18 +355,16 @@ def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
     dv = torch.zeros_like(ts[0])
     _launch(build().scgib_gt_bwd_merged, "gt_bwd_merged", blocks, col_off,
             geo, ts, num_heads, hd, clamp, eps, scale, (dq, dk, dv))
-    gt_bwd_merged.launches += 1
+    add_launches("gt_bwd_merged")
     return dq, dk, dv
 
 
 def kernel_info(kernel: str, hd: int) -> dict:
     """Registers a thread, shared memory a block and blocks an SM of the
-    kernel that ``gt_bwd_rows``, ``gt_bwd_cols``, ``gt_fwd`` or
-    ``gt_bwd_merged`` launches at head width ``hd``."""
+    kernel that ``kernel`` (one of ``KERNELS``: a wrapper, or the bf16 mode
+    of one) launches at head width ``hd``."""
     info = (ctypes.c_int * 3)()
-    _raise_on(build().scgib_gt_kernel_info(
-        {"gt_bwd_rows": 0, "gt_bwd_cols": 1, "gt_fwd": 2,
-         "gt_bwd_merged": 3}[kernel], hd, info), kernel)
+    _raise_on(build().scgib_gt_kernel_info(_INFO[kernel], hd, info), kernel)
     return {"registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
 
@@ -341,23 +376,29 @@ def ptxas_report() -> dict:
     build()
     out = {}
     for entry, rec in _ptxas_report("gt_flash").items():
+        # the template's int, then its bools: [MERGED,] BF16
         m = re.search(r"(gt_fwd|gt_row_pass|gt_bwd_cols)_kernelILi(\d+)E"
-                      r"(Lb1E)?", entry)
+                      r"((?:Lb[01]E)+)E", entry)
         if m:
+            flags = [f == "1" for f in re.findall(r"Lb([01])E", m.group(3))]
             name = {"gt_fwd": "gt_fwd", "gt_bwd_cols": "gt_bwd_cols",
-                    "gt_row_pass": "gt_bwd_merged" if m.group(3)
+                    "gt_row_pass": "gt_bwd_merged" if flags[0]
                     else "gt_bwd_rows"}[m.group(1)]
-            out[name, int(m.group(2))] = rec
+            out[name + ("_bf16" if flags[-1] else ""), int(m.group(2))] = rec
     return out
 
 
+def add_launches(name: str, n: int = 1):
+    """Add ``n`` to the launch count of ``name``, one of ``KERNELS``."""
+    _launches[name] += n
+
+
 def launch_counts() -> dict:
-    return {name: globals()[name].launches for name in KERNELS}
+    return dict(_launches)
 
 
 def reset_launch_counts():
-    for name in KERNELS:
-        globals()[name].launches = 0
+    _launches.update(dict.fromkeys(KERNELS, 0))
 
 
 reset_launch_counts()
@@ -367,10 +408,13 @@ reset_launch_counts()
 
 class _GtFlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, blocks, col_off, q, k, v, clamp, eps, bwd, scale):
-        out, z = gt_fwd(blocks, col_off, q, k, v, clamp, eps, scale)
+    def forward(ctx, blocks, col_off, q, k, v, clamp, eps, bwd, scale,
+                bf16_dots):
+        out, z = gt_fwd(blocks, col_off, q, k, v, clamp, eps, scale,
+                        bf16_dots)
         ctx.save_for_backward(blocks, col_off, q, k, v, z)
         ctx.clamp, ctx.eps, ctx.bwd, ctx.scale = clamp, eps, bwd, scale
+        ctx.bf16_dots = bf16_dots
         return out
 
     @staticmethod
@@ -381,28 +425,47 @@ class _GtFlashAttention(torch.autograd.Function):
         if ctx.bwd == "merged":
             dq, dk, dv = gt_bwd_merged(*args, *consts)
         else:
-            dq, rho = gt_bwd_rows(*args, *consts)
-            dk, dv = gt_bwd_cols(*args, rho, *consts)
-        return None, None, dq, dk, dv, None, None, None, None
+            dq, rho = gt_bwd_rows(*args, *consts, ctx.bf16_dots)
+            dk, dv = gt_bwd_cols(*args, rho, *consts, ctx.bf16_dots)
+        return None, None, dq, dk, dv, None, None, None, None, None
+
+
+def check_bwd(bwd: str, bf16_dots: bool = False):
+    """Raise unless ``bwd`` names a backward that serves ``bf16_dots``."""
+    if bwd not in BWD:
+        raise ValueError(f"bwd must be one of {BWD}, got {bwd!r}")
+    if bwd == "merged" and bf16_dots:
+        raise ValueError("the merged attention backward has no bf16-dot form "
+                         "yet (ROADMAP Queue 2): use bwd='twopass' with "
+                         "bf16_dots=True")
 
 
 def gt_flash_attention(blocks, col_off, q, k, v, clamp: float = 5.0,
-                       eps: float = 1e-6, bwd: str = "twopass"):
+                       eps: float = 1e-6, bwd: str = "twopass",
+                       bf16_dots: bool = False):
     """Graph-transformer banded attention, q/k/v [N, H, hd] -> [N, H, hd]
     (the semantics of ``spmm_banded.gt_banded_attention``) with the kernel
     backward: ``bwd`` is "twopass" (rows then columns) or "merged".  The
     column pass and the merged pass need a symmetric A.  A head width the
     kernels do not take runs zero-padded to ``served_head_width``: the zero
     features add nothing to a score, their outputs are dropped, and the
-    scale stays 1 / sqrt(hd)."""
-    if bwd not in BWD:
-        raise ValueError(f"bwd must be one of {BWD}, got {bwd!r}")
+    scale stays 1 / sqrt(hd).  ``bf16_dots``: every product on bf16
+    operands (two-pass backward only).  bfloat16 q, k and v (a transformer
+    whose dense tail runs in bf16) are cast to float32 for the kernels, and
+    the output and the gradients go back in bfloat16, as the JAX function
+    casts them."""
+    check_bwd(bwd, bf16_dots)
+    dtype = q.dtype
+    if dtype == torch.bfloat16:
+        q, k, v = q.float(), k.float(), v.float()
     num_heads, hd = q.shape[1:]
     width = served_head_width(num_heads, hd)
     if width == hd:
-        return _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps,
-                                       bwd, None)
-    q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
-    out = _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps, bwd,
-                                  _scale(hd))
-    return out[..., :hd]
+        out = _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps,
+                                      bwd, None, bf16_dots)
+    else:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd))
+                   for t in (q, k, v))
+        out = _GtFlashAttention.apply(blocks, col_off, q, k, v, clamp, eps,
+                                      bwd, _scale(hd), bf16_dots)[..., :hd]
+    return out.to(dtype)

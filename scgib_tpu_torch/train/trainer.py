@@ -351,8 +351,7 @@ def _tally() -> Dict[Tuple[str, str], int]:
 def _add_tally(diff: Dict[Tuple[str, str], int], sign: int = 1):
     for (kind, name), n in diff.items():
         if kind == "launch":
-            fn = getattr(kb, name) if name in kb.KERNELS else getattr(kg, name)
-            fn.launches += sign * n
+            (kb if name in kb.KERNELS else kg).add_launches(name, sign * n)
             continue
         counter = (encoders.branch_counts if kind == "encoder"
                    else pool.branch_counts)

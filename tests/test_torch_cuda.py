@@ -15,8 +15,12 @@ Tolerance: rtol 1e-5 of the largest entry for the products (fp32 FMA on
 backward (3xTF32 products, sums over every row) and for the attention
 kernels (exponentials and sums in another order than the plain
 version's).  The GIN forward's 3xTF32 products keep about 21 bits, inside
-1e-5.  Every kernel but the merged attention backward uses no atomics, so
-two runs on one card agree bitwise."""
+1e-5.  The bf16 kernels: 1e-3 of the largest entry (a float32 sum in another
+order can move an operand to the next bf16 value), and the float32 kernel
+on the same inputs must sit past that gate (the gate would catch a kernel
+that skipped its rounding).  Every kernel but the
+merged attention backward uses no atomics, so two runs on one card agree
+bitwise."""
 
 import copy
 import functools
@@ -105,8 +109,9 @@ def test_kernels_match_plain_versions(batch, dev, d):
                                   128, window)
     x = torch.randn(1536, d, device=dev, generator=gen)
     close(kb.pool(pblocks, off, x), kb.spmm_plain(pblocks, off, x))
-    assert kb.launch_counts() == {"gin_fwd": 2, "gin_bwd": 2,
-                                  "spmm_self": 2, "spmm": 2, "pool": 1}
+    assert kb.launch_counts() == {"gin_fwd": 2, "gin_fwd_bf16": 0,
+                                  "gin_bwd": 2, "spmm_self": 2, "spmm": 2,
+                                  "pool": 1}
 
 
 @pytest.mark.parametrize("din", [32, 64])
@@ -348,7 +353,8 @@ def test_gt_kernels_match_plain_versions(batch, dev, gt):
             close(a, w, rtol=1e-4)
         for a, w in zip(merged, (dq, dk, dv)):           # merged vs two-pass
             close(a, w, rtol=1e-4)
-    assert kg.launch_counts() == {"gt_fwd": 2, "gt_bwd_rows": 2,
+    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 0),
+                                  "gt_fwd": 2, "gt_bwd_rows": 2,
                                   "gt_bwd_cols": 2, "gt_bwd_merged": 2}
 
 
@@ -644,7 +650,8 @@ def test_gt_pretrain_steps_on_card(dev, bwd):
                for k in ("kl", "contrastive", "reconstruction"))
     per_call = 2 * 5 * 2             # encoders x layers x steps
     rows = per_call if bwd == "twopass" else 0
-    assert kg.launch_counts() == {"gt_fwd": per_call, "gt_bwd_rows": rows,
+    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 0),
+                                  "gt_fwd": per_call, "gt_bwd_rows": rows,
                                   "gt_bwd_cols": rows,
                                   "gt_bwd_merged": per_call - rows}
     assert dict(encoders.branch_counts) == {"gt_band_64x128": per_call}
@@ -685,12 +692,12 @@ def test_gin_at_any_width_matches_cpu(batch, dev, hidden):
         close(a, w, rtol=1e-4)
     if hidden <= kb.MAX_FUSED_DIM:
         assert branches == {"band": 2}
-        assert counts == {"gin_fwd": 2, "gin_bwd": 2, "spmm_self": 2,
-                          "spmm": 0, "pool": 0}
+        assert counts == {"gin_fwd": 2, "gin_fwd_bf16": 0, "gin_bwd": 2,
+                          "spmm_self": 2, "spmm": 0, "pool": 0}
     else:
         assert branches == {"band_spmm": 2}
-        assert counts == {"gin_fwd": 0, "gin_bwd": 0, "spmm_self": 0,
-                          "spmm": 4, "pool": 0}
+        assert counts == {"gin_fwd": 0, "gin_fwd_bf16": 0, "gin_bwd": 0,
+                          "spmm_self": 0, "spmm": 4, "pool": 0}
 
 
 @pytest.mark.parametrize("case,bwd", [
@@ -717,7 +724,8 @@ def test_attention_at_new_head_widths_matches_cpu(dev, case, bwd):
     for a, w in zip(*grads):
         assert torch.allclose(a, w, rtol=1e-4, atol=1e-4)
     rows = int(bwd == "twopass")
-    assert kg.launch_counts() == {"gt_fwd": 1, "gt_bwd_rows": rows,
+    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 0),
+                                  "gt_fwd": 1, "gt_bwd_rows": rows,
                                   "gt_bwd_cols": rows,
                                   "gt_bwd_merged": 1 - rows}
 
@@ -748,7 +756,8 @@ def test_pretrain_verb_one_epoch_on_card(dev, tmp_path):
     assert len(info["history"]) == 1 and np.isfinite(info["history"][0])
     steps = info["throughput"]["steps"]
     assert steps > 0
-    assert kb.launch_counts() == {"gin_fwd": 8 * steps, "gin_bwd": 8 * steps,
+    assert kb.launch_counts() == {"gin_fwd": 8 * steps, "gin_fwd_bf16": 0,
+                                  "gin_bwd": 8 * steps,
                                   "spmm_self": 8 * steps, "spmm": 2 * steps,
                                   "pool": pool.branch_counts["banded"]}
     variables, meta = checkpoint.load_checkpoint(str(tmp_path / "p.msgpack"))
@@ -964,8 +973,8 @@ def test_gcn_sage_model_on_card_matches_cpu(batch, dev, encoder):
             torch.cuda.synchronize()
             counts = dict(kb.launch_counts())
             branches = dict(encoders.branch_counts)
-    assert counts == {"gin_fwd": 0, "gin_bwd": 0, "spmm_self": 0,
-                      "spmm": 14, "pool": 1}
+    assert counts == {"gin_fwd": 0, "gin_fwd_bf16": 0, "gin_bwd": 0,
+                      "spmm_self": 0, "spmm": 14, "pool": 1}
     prefix = "gcn" if encoder == "GCN" else "sage"
     assert branches == {f"{prefix}_band": 6}
     np.testing.assert_allclose(out[0][0], out[1][0], rtol=1e-4)
@@ -1019,7 +1028,7 @@ def test_dense_mode_captured_step_is_the_eager_step(dev):
     for a, b in zip(eager[0], captured[0]):
         assert torch.equal(a, b)
     assert all(torch.equal(eager[1][k], captured[1][k]) for k in eager[1])
-    assert counts == {"gin_fwd": 3 * 2, "gin_bwd": 3 * 2,
+    assert counts == {"gin_fwd": 3 * 2, "gin_fwd_bf16": 0, "gin_bwd": 3 * 2,
                       "spmm_self": 3 * 2, "spmm": 3 * 2, "pool": 0}
 
 
@@ -1158,3 +1167,125 @@ def test_superbatch_step_captures_one_graph_a_flag(dev):
         assert losses.total.shape == (3,)
         assert torch.isfinite(losses.total).all()
     assert len(step.graphs) == 2
+
+
+# --- the bf16 compute modes --------------------------------------------------
+
+BF = torch.bfloat16
+BF16_GATE = 1e-3
+
+
+def rel_gap(got, want):
+    """The largest error over a kernel's outputs, each relative to its
+    largest entry."""
+    return max(float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(got, want))
+
+
+def bf16_close(got, want, f32):
+    """A bf16 kernel's outputs ``got`` within ``BF16_GATE`` of its plain
+    version's ``want``, and the float32 kernel's ``f32`` on the same inputs
+    past it."""
+    torch.cuda.synchronize()
+    err, control = rel_gap(got, want), rel_gap(f32, want)
+    assert err <= BF16_GATE < control, (err, control)
+
+
+@pytest.mark.parametrize("case", list(GIN_CASES))
+def test_gin_fwd_bf16_matches_plain_at_cases(dev, case):
+    """The bf16 conv against its plain version (the same rounding points,
+    float32 sums in another order: a z0 entry may round to the next bf16,
+    hence 1e-3 of the largest entry, the phase 13 gate); the float32 conv
+    on the unrounded operands sits past the gate."""
+    blocks, off, arrays = gin_case_inputs(case)
+    h, w1, b1, w2, b2 = (torch.from_numpy(a).to(dev) for a in arrays)
+    blocks, off = blocks.to(dev), off.to(dev)
+    args = (blocks, off, h.to(BF), w1.to(BF), b1, w2.to(BF), b2)
+    kb.reset_launch_counts()
+    got = kb.gin_fwd_bf16(*args)
+    assert kb.launch_counts()["gin_fwd_bf16"] == 1
+    assert kb.launch_counts()["gin_fwd"] == 0
+    bf16_close((got,), (kb.gin_fwd_bf16_plain(*args),),
+               (kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),))
+
+
+def bf16_attention_checks(blocks, off, q, k, v, g):
+    """The three bf16-dot kernels against their plain versions, each
+    beside its float32 kernel (``bf16_close``)."""
+    plain = kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True)
+    out, z = kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
+    bf16_close((out, z), plain, kg.gt_fwd(blocks, off, q, k, v))
+    plain = kg.gt_bwd_rows_plain(blocks, off, q, k, v, g, z, bf16_dots=True)
+    dq, rho = kg.gt_bwd_rows(blocks, off, q, k, v, g, z, bf16_dots=True)
+    bf16_close((dq, rho), plain, kg.gt_bwd_rows(blocks, off, q, k, v, g, z))
+    bf16_close(kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho,
+                              bf16_dots=True),
+               kg.gt_bwd_cols_plain(blocks, off, q, k, v, g, z, rho,
+                                    bf16_dots=True),
+               kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_gt_bf16_kernels_match_plain_at_cases(dev, case):
+    blocks, off, arrays = case_inputs(case)
+    blocks, off = blocks.to(dev), off.to(dev)
+    q, k, v, g = (torch.from_numpy(a).to(dev) for a in arrays)
+    kg.reset_launch_counts()
+    bf16_attention_checks(blocks, off, q, k, v, g)
+    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 1),
+                                  "gt_bwd_merged": 0}
+
+
+@pytest.mark.parametrize("hd", kg.HEAD_WIDTHS + (1024,))
+def test_gt_bf16_kernels_match_plain_at_head_widths(batch, dev, hd):
+    _, sub = batch
+    blocks, off = _resolve_band(sub, gt=True)
+    heads = max(1, 4 // hd)
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    q, k, v, g = (torch.randn(sub.num_nodes, heads, hd, device=dev,
+                              generator=gen) for _ in range(4))
+    bf16_attention_checks(blocks, off, q, k, v, g)
+
+
+@pytest.mark.parametrize("encoder,mode", [
+    ("GIN", {"compute_dtype": "bfloat16"}),
+    ("Transformer", {"gt_bf16_dots": True, "gt_dtype": BF})],
+    ids=["GIN", "Transformer"])
+def test_bf16_model_on_card_matches_cpu(batch, dev, encoder, mode):
+    """A bf16-mode model on the card against the same model on the CPU
+    plain path (the same rounding points): losses within 1e-3."""
+    g, sub = batch
+    model = PretrainModel(9, hidden=32, d_transfer=16, encoder=encoder,
+                          num_layers=2, num_heads=4, deterministic=True,
+                          **mode)
+    init_flax_style_(model, torch.Generator().manual_seed(4))
+    for m in model.modules():
+        if isinstance(m, encoders.GraphTransformerLayer):
+            m.dropout = 0.0
+    cpu = copy.deepcopy(model).train()
+    with torch.no_grad():
+        got = model.to(dev).train()(g, sub)
+        want = cpu(g.to("cpu"), sub.to("cpu"))
+    for a, b in zip(got, want):
+        assert abs(float(a) - float(b)) <= 1e-3 * abs(float(b))
+
+
+@pytest.mark.parametrize("encoder,mode", [
+    ("GIN", {"compute_dtype": "bfloat16"}),
+    ("Transformer", {"gt_bf16_dots": True, "gt_dtype": BF})],
+    ids=["GIN", "Transformer"])
+def test_bf16_pretrain_steps_on_card(dev, encoder, mode):
+    """Two captured steps in each bf16 mode: only the bf16 forms launch."""
+    kb.reset_launch_counts()
+    kg.reset_launch_counts()
+    records = cli.run_pretrain(synthetic=48, batch_size=16, steps=2,
+                               device="cuda", encoder=encoder, **mode)
+    assert all(np.isfinite(r[k]) for r in records
+               for k in ("kl", "contrastive", "reconstruction"))
+    counts = {**kb.launch_counts(), **kg.launch_counts()}
+    if encoder == "GIN":
+        assert counts["gin_fwd_bf16"] == 8 * 2 and counts["gin_fwd"] == 0
+    else:
+        assert counts["gt_fwd_bf16"] == counts["gt_bwd_rows_bf16"] == \
+            counts["gt_bwd_cols_bf16"] == 2 * 5 * 2
+        assert counts["gt_fwd"] == counts["gt_bwd_rows"] == 0
