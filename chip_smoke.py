@@ -183,14 +183,15 @@ Phases; any failure raises and exits non-zero before the last line:
      four bf16 kernels (``gin_fwd_bf16`` at N and S, widths 9 and 64 into
      64; ``gt_fwd_bf16``, ``gt_bwd_rows_bf16``, ``gt_bwd_cols_bf16`` at S,
      8 heads of 8 and 1 of 64) against their plain bf16 versions, within
-     1e-2 of the plain version's largest entry: error, kernel, plain and
+     1e-3 of the plain version's largest entry, the float32 kernel on the
+     same inputs past it (the control): error, kernel, plain and
      float32-kernel ms, the bound at the bf16 tensor-core rate, registers,
      shared memory, blocks per SM and ptxas spills; (b) PretrainModel(9,
      64, 32) in each mode on the benchmark batch: the card's losses within
      1e-3 of the CPU plain path at the same rounding points and within
-     1e-2 of the float32 model in float64, its gradients within 5e-2 of
-     the largest entry of the bf16 mode in float64 (their distance from
-     the float32 model's recorded); (c) ``cli.run_pretrain`` in each mode
+     1e-2 of the float32 model in float64, its gradients within 5e-3 of
+     the largest entry of the bf16 mode in float64, the float32 model's
+     past it (the control); (c) ``cli.run_pretrain`` in each mode
      for 6 captured steps from counts of 0 (8 ``gin_fwd_bf16``, no
      ``gin_fwd``; 10 each of the three bf16 attention kernels, none of
      their float32 forms, a step), then the captured step byte-equal to
@@ -198,10 +199,34 @@ Phases; any failure raises and exits non-zero before the last line:
      breaking it; (d) step medians, eager and captured, float32 against
      bf16, both encoders, and each bf16 mode's captured step profiled as in
      phase 7 (recorded only).
- 14. one JSON line of the kernels (with the launches of a fine-tuning step
+ 14. the JAX package's TPU-default Transformer (``gt_bwd="merged"``,
+     ``gt_bf16_dots=True``, float32 dense tail: ``_bwd_merged_kernel`` with
+     ``bf16=True``): (a) ``gt_bwd_merged_bf16`` at S, 8 heads of 8, 1 of 64
+     and 1 of 1024 (the WIDE instantiation), against its plain bf16
+     version within 1e-3 of the largest entry, the float32 merged kernel
+     on the same inputs past it (the control), its distance from the
+     two-pass bf16 kernels recorded; the control of each single rounding
+     point (q, k, v, g, dS before dq, dS before dk, W before dv;
+     tests/gt_rounding.py) for it and the two-pass bf16 passes: every
+     control at least twice the gate from the plain version must lie past
+     the gate from the kernel; ms, bound, resources and ptxas spills; (b)
+     PretrainModel(9, 64, 32) in that mode, card against the CPU plain path
+     and float64 under phase 13 (b)'s gates, the gradients' at 4e-4 of the
+     largest entry (the float32 model's past it, the control); (c) ``cli.run_pretrain`` for 6
+     captured steps from counts of 0: 10 ``gt_bwd_merged_bf16``, 10
+     ``gt_fwd_bf16``, 2 ``spmm`` and 1 ``pool`` a step, no other attention
+     kernel; each captured step held to one eager step from a shared state
+     (``stepwise_vs_eager``: dk and dv are summed with atomics), the
+     stale-input fault breaking it; (d) ``pretrain``, ``finetune``,
+     ``eval`` and ``adapt`` with ``--encoder Transformer --gt_bwd merged
+     --gt_bf16_dots``, one short epoch each, their launch counts those of
+     their steps and evaluation batches; (e) step medians, captured and
+     eager, merged-bf16 beside two-pass-bf16 and merged-float32, and the
+     captured merged-bf16 and merged-float32 steps profiled as in phase 7.
+ 15. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch,
-     phase 11, phase 12 and phase 13 runs among them), the nvidia-smi line,
-     and {"ok": true, "device": {...}} as the last line.
+     phase 11, 12, 13 and 14 runs among them), the nvidia-smi line, and
+     {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --gloo-rank R PORT`` is one rank of phase 11 (b),
 ``--shard-rank R WORLD PORT`` one of phase 12 (b) and ``--p2p-probe R
@@ -276,6 +301,7 @@ from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
 from scgib_tpu_torch.utils.profiling import profile_trace  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+import gt_rounding  # noqa: E402
 from reference_cases import write_stand_in  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -324,7 +350,9 @@ PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gin_fwd_bf16": ("banded", 69, "gin_fused_fwd_kernel"),
         "gt_fwd_bf16": ("gt_flash", 121, "gt_fwd_kernel"),
         "gt_bwd_rows_bf16": ("gt_flash", 146, "gt_row_pass_kernel"),
-        "gt_bwd_cols_bf16": ("gt_flash", 248, "gt_bwd_cols_kernel")}
+        "gt_bwd_cols_bf16": ("gt_flash", 248, "gt_bwd_cols_kernel"),
+        # the merged backward's bf16 instantiation (phase 14)
+        "gt_bwd_merged_bf16": ("gt_flash", 181, "gt_row_pass_kernel")}
 # main-path run -> (run_pretrain arguments, steps, launches per step; the
 # wrappers not named launch 0 times)
 RUNS = {"GIN": ({}, STEPS, GIN_PER_STEP),
@@ -344,7 +372,8 @@ REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
               "gt_bwd_merged": "Transformer-merged",
               "gin_fwd_bf16": "GIN-bf16", "gt_fwd_bf16": "Transformer-bf16",
               "gt_bwd_rows_bf16": "Transformer-bf16",
-              "gt_bwd_cols_bf16": "Transformer-bf16"}
+              "gt_bwd_cols_bf16": "Transformer-bf16",
+              "gt_bwd_merged_bf16": "Transformer-merged-bf16"}
 GIN_NO_LIBRARY = ("no single PyTorch call computes it: the conv is two "
                   "products around the aggregation (relu((h + A h) W1 + b1) "
                   "W2 + b2) and its backward stage gz0 with dW1, db1, dW2, "
@@ -1266,7 +1295,14 @@ def main():
     runs.update(bf16_runs)
     lap("13 bf16 compute modes")
 
-    # 14. report
+    # 14. the JAX package's TPU-default Transformer
+    tpu_default, tpu_records, tpu_runs = tpu_default_phase(g, sub, dev, ds,
+                                                           caps)
+    records += tpu_records
+    runs.update(tpu_runs)
+    lap("14 TPU-default Transformer")
+
+    # 15. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -1304,6 +1340,7 @@ def main():
                       "supervised": supervised, "slice9": slice9,
                       "data": data, "dp_remat": dp_remat,
                       "sharded": sharded, "bf16": bf16,
+                      "tpu_default": tpu_default,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,
@@ -3772,6 +3809,39 @@ def gin_fwd_bf16_ptxas(din, hid=64, dout=64):
     return {k: recs[0][k] for k in ("spill_stores", "spill_loads")}
 
 
+def bf16_vs_f32(rec, plain_fn, resources, spills, f32_fn, allowed=(0, 0),
+                extra=""):
+    """A bf16 kernel's ``check`` record completed with its control: the
+    float32 kernel on the same inputs (``f32_fn``) timed and required past
+    the gate from the plain bf16 version, or the gate could not tell a
+    kernel that skipped its rounding; its resources and ptxas spills (none
+    past ``allowed``).  ``extra``: more of the line it prints."""
+    rec["f32_kernel_ms"] = time_ms(f32_fn)
+    got, want = f32_fn(), plain_fn()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rec["f32_kernel_rel_vs_plain"] = max(
+        rel_err(a, b)[1] for a, b in zip(got, want))
+    if not rec["f32_kernel_rel_vs_plain"] > BF16_RTOL:
+        raise AssertionError(
+            f"{rec['name']} {rec['shape']}: the float32 kernel is "
+            f"{rec['f32_kernel_rel_vs_plain']:.3e} from the plain bf16 "
+            f"version, within the gate {BF16_RTOL}")
+    rec["resources"] = {**resources, **spills}
+    rec["library_note"] = (GIN_NO_LIBRARY if rec["name"] == "gin_fwd_bf16"
+                           else NO_LIBRARY)
+    print(f"  {rec['name']} {rec['shape']}: f32 kernel "
+          f"{rec['f32_kernel_ms']:.4f} ms, "
+          f"{rec['f32_kernel_rel_vs_plain']:.3e} from the plain bf16 "
+          f"version (control, past {BF16_RTOL}); {rec['resources']}{extra}",
+          flush=True)
+    if (spills["spill_stores"] > allowed[0]
+            or spills["spill_loads"] > allowed[1]):
+        raise AssertionError(f"{rec['name']} spills {spills}, past "
+                             f"{allowed}")
+    return rec
+
+
 def bf16_kernel_phase(g, sub, dev):
     """Phase 13 (a): the four bf16 kernels against their plain bf16
     versions at the benchmark shapes, with the float32 kernel's time
@@ -3782,31 +3852,8 @@ def bf16_kernel_phase(g, sub, dev):
     gen = torch.Generator(device=dev).manual_seed(13)
     bf, hid, records = torch.bfloat16, 64, []
 
-    def add(rec, plain_fn, resources, spills, f32_fn, allowed=(0, 0)):
-        rec["f32_kernel_ms"] = time_ms(f32_fn)
-        got, want = f32_fn(), plain_fn()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        rec["f32_kernel_rel_vs_plain"] = max(
-            rel_err(a, b)[1] for a, b in zip(got, want))
-        if not rec["f32_kernel_rel_vs_plain"] > BF16_RTOL:
-            raise AssertionError(
-                f"{rec['name']} {rec['shape']}: the float32 kernel is "
-                f"{rec['f32_kernel_rel_vs_plain']:.3e} from the plain bf16 "
-                f"version, within the gate {BF16_RTOL}")
-        rec["resources"] = {**resources, **spills}
-        rec["library_note"] = (GIN_NO_LIBRARY if rec["name"] == "gin_fwd_bf16"
-                               else NO_LIBRARY)
-        print(f"  {rec['name']} {rec['shape']}: f32 kernel "
-              f"{rec['f32_kernel_ms']:.4f} ms, "
-              f"{rec['f32_kernel_rel_vs_plain']:.3e} from the plain bf16 "
-              f"version (control, past {BF16_RTOL}); {rec['resources']}",
-              flush=True)
-        if (spills["spill_stores"] > allowed[0]
-                or spills["spill_loads"] > allowed[1]):
-            raise AssertionError(f"{rec['name']} spills {spills}, past "
-                                 f"{allowed}")
-        records.append(rec)
+    def add(*args, **kw):
+        records.append(bf16_vs_f32(*args, **kw))
 
     for label, batch in (("N", g), ("S", sub)):
         blocks, col_off = _resolve_band(batch)
@@ -3866,13 +3913,13 @@ def bf16_kernel_phase(g, sub, dev):
     return records
 
 
-def bf16_models(encoder, seed=3):
-    """(bf16-mode model, float32 model) of the same weights at full width,
-    deterministic, the transformer's dropout off."""
+def bf16_models(encoder, mode, seed=3):
+    """(model in ``mode``, float32 model) of the same weights at full
+    width, deterministic, the transformer's dropout off."""
     models = []
-    for mode in (BF16_MODES[encoder], {}):
+    for kw in (mode, {}):
         model = PretrainModel(9, hidden=64, d_transfer=32, encoder=encoder,
-                              num_heads=HEADS, deterministic=True, **mode)
+                              num_heads=HEADS, deterministic=True, **kw)
         init_flax_style_(model, torch.Generator().manual_seed(seed))
         for m in model.modules():
             if isinstance(m, encoders.GraphTransformerLayer):
@@ -3889,23 +3936,27 @@ def losses_and_grads(model, g, sub):
              for k, p in model.named_parameters()})
 
 
-def bf16_model_phase(g, sub, dev):
+def bf16_model_phase(g, sub, dev, modes=None, label="13 (b)",
+                     grad_tol=BF16_F64_GRAD):
     """Phase 13 (b): the full model in each bf16 mode on the benchmark
-    batch.  The card's losses against the CPU plain path at the same
-    rounding points (float32) and against the float32 model in float64;
+    batch (``modes``: {name: (encoder, mode)}, by default each encoder's
+    ``BF16_MODES``; phase 14 (b) the TPU-default Transformer's).  The
+    card's losses against the CPU plain path at the same rounding points
+    (float32) and against the float32 model in float64;
     its gradients against the bf16 mode in float64 (the same rounding
     points, float64 sums).  The control: the card's gradients must sit
     past that gate from the float32 model in float64, or the gate could
     not tell the bf16 mode from a float32 backward.  That distance is the
     mode's own and is not held to a bound (the bf16 GIN's encoder2 conv
     weights move 0.12 of the largest gradient there in float64 as in
-    float32, on the CPU)."""
+    float32, on the CPU).  ``grad_tol``: the gradients' gate."""
     g_cpu, sub_cpu = g.to("cpu"), sub.to("cpu")
     g64 = g.to("cpu")
     g64.node_feat = g64.node_feat.double()
     out = {}
-    for encoder in BF16_MODES:
-        model, f32 = bf16_models(encoder)
+    modes = modes or {e: (e, m) for e, m in BF16_MODES.items()}
+    for name, (encoder, mode) in modes.items():
+        model, f32 = bf16_models(encoder, mode)
         cpu = copy.deepcopy(model)
         same_points = copy.deepcopy(model).to("cpu", torch.float64)
         card = losses_and_grads(model.to(dev), g, sub)
@@ -3927,48 +3978,54 @@ def bf16_model_phase(g, sub, dev):
                                           for a, b in zip(card[0], f64[0])),
                "grad_vs_bf16_float64_of_largest": grad_gap(bf64[1]),
                "grad_vs_float64_of_largest": grad_gap(f64[1]),
-               "tol": [BF16_CPU_RTOL, BF16_F64_RTOL, BF16_F64_GRAD]}
-        out[encoder] = rec
-        print(f"phase 13 (b) bf16 model ({encoder}): {json.dumps(rec)}",
+               "tol": [BF16_CPU_RTOL, BF16_F64_RTOL, grad_tol]}
+        out[name] = rec
+        print(f"phase {label} bf16 model ({name}): {json.dumps(rec)}",
               flush=True)
         if not (all(math.isfinite(x) for x in card[0])
                 and rec["loss_rel_vs_cpu"] <= BF16_CPU_RTOL
                 and rec["loss_rel_vs_float64"] <= BF16_F64_RTOL
-                and rec["grad_vs_bf16_float64_of_largest"] <= BF16_F64_GRAD
+                and rec["grad_vs_bf16_float64_of_largest"] <= grad_tol
                 < rec["grad_vs_float64_of_largest"]):
-            raise AssertionError(f"bf16 model ({encoder}): {rec}")
+            raise AssertionError(f"bf16 model ({name}): {rec}")
+    return out
+
+
+def step_medians(dev, batches, runs):
+    """The median step (steps 1-5 of 6) of each of ``runs``, in their
+    order: (key, PretrainModel arguments, "captured" or "eager"); returns
+    {key: [medians]}."""
+    out = {}
+    for key, kwargs, path in runs:
+        model = PretrainModel(9, hidden=64, d_transfer=32, num_heads=HEADS,
+                              **kwargs)
+        init_flax_style_(model, torch.Generator().manual_seed(11))
+        model.to(dev)
+        opt = adam_l2(model, LR, 5e-5)
+        gen = torch.Generator(device=dev).manual_seed(12)
+        step = (make_pretrain_step(model, opt) if path == "captured"
+                else functools.partial(pretrain_step_eager, model, opt))
+        times = []
+        for g, s in batches:
+            t0 = time.perf_counter()
+            step(g, s, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.setdefault(key, []).append(statistics.median(times[1:]))
     return out
 
 
 def bf16_medians(dev, batches):
-    """Phase 13 (d): the median step (steps 1-5 of 6) of each encoder,
-    float32 against bf16, eager and captured, in the order f32, bf16, bf16,
-    f32 within each path (then ``bf16_phase`` profiles each bf16 mode's
-    captured step, as phase 7 the float32 ones).  Recorded only."""
-    out = {}
-    for encoder in BF16_MODES:
-        kw = {"encoder": encoder} if encoder != "GIN" else {}
-        for path in ("captured", "eager"):
-            for mode in ("f32", "bf16", "bf16", "f32"):
-                model = PretrainModel(9, hidden=64, d_transfer=32,
-                                      num_heads=HEADS, **kw,
-                                      **(BF16_MODES[encoder]
-                                         if mode == "bf16" else {}))
-                init_flax_style_(model, torch.Generator().manual_seed(11))
-                model.to(dev)
-                opt = adam_l2(model, LR, 5e-5)
-                gen = torch.Generator(device=dev).manual_seed(12)
-                step = (make_pretrain_step(model, opt) if path == "captured"
-                        else functools.partial(pretrain_step_eager, model,
-                                               opt))
-                times = []
-                for g, s in batches:
-                    t0 = time.perf_counter()
-                    step(g, s, gen)
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - t0) * 1e3)
-                out.setdefault(f"{encoder} {path} {mode}", []).append(
-                    statistics.median(times[1:]))
+    """Phase 13 (d): the median step of each encoder, float32 against
+    bf16, eager and captured, in the order f32, bf16, bf16, f32 within
+    each path (then ``bf16_phase`` profiles each bf16 mode's captured
+    step, as phase 7 the float32 ones).  Recorded only."""
+    runs = [(f"{encoder} {path} {mode}",
+             {**({"encoder": encoder} if encoder != "GIN" else {}),
+              **(BF16_MODES[encoder] if mode == "bf16" else {})}, path)
+            for encoder in BF16_MODES for path in ("captured", "eager")
+            for mode in ("f32", "bf16", "bf16", "f32")]
+    out = step_medians(dev, batches, runs)
     print(f"phase 13 (d) step medians, ms: {json.dumps(out)}", flush=True)
     return out
 
@@ -4000,6 +4057,217 @@ def bf16_phase(g, sub, dev, ds, caps):
     report["seconds"] = secs
     print(f"phase 13: {json.dumps(report)}", flush=True)
     return report, records, runs
+
+# --- 14. the JAX package's TPU-default Transformer ----------------------------
+
+# the JAX package's Transformer on a TPU: the merged backward (unless
+# SCGIB_GT_BWD_TWOPASS=1) with bf16 dots (unless SCGIB_GT_BF16=0), the dense
+# tail in float32 (SCGIB_GT_ACT_BF16 defaults to 0)
+TPU_DEFAULT = {"gt_bwd": "merged", "gt_bf16_dots": True}
+TPU_DEFAULT_FLAGS = ["--encoder", "Transformer", "--gt_bwd", "merged",
+                     "--gt_bf16_dots"]
+# 14 (b)'s gradient gate, of the largest entry: with the dense tail in
+# float32 the float32 model's gradients lie only 8.0e-4 (the card) to
+# 1.2e-3 (the CPU) from this mode's in float64, where phase 13's bf16 tail
+# moves them 1.0e-2, so phase 13's 5e-3 could not fail a float32 backward;
+# the mode's own reading is 1.9e-4 on the card and 1.8e-4 on the CPU
+# (NVIDIA H100 80GB HBM3, 700.00 W; full width).  The gate sits between.
+TPU_DEFAULT_GRAD = 4e-4
+TPU_DEFAULT_PER_STEP = {"gt_fwd_bf16": 10, "gt_bwd_merged_bf16": 10,
+                        "spmm": 2, "pool": 1}
+TPU_DEFAULT_FT_PER_STEP = {"gt_fwd_bf16": 10, "gt_bwd_merged_bf16": 10,
+                           "pool": 1}
+TPU_DEFAULT_EVAL_PER_BATCH = {"gt_fwd_bf16": 10, "pool": 1}
+# "merged" in the name: captured_vs_eager holds it step by step
+TPU_DEFAULT_RUN = ("Transformer-merged-bf16",
+                   ({"encoder": "Transformer", **TPU_DEFAULT}, STEPS,
+                    TPU_DEFAULT_PER_STEP))
+TPU_DEFAULT_HEADS = ((HEADS, HEAD_DIM), (1, 64), (1, 1024))
+TPU_DEFAULT_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_tpu_default")
+TPU_DEFAULT_N = 600           # molecules of the verbs' runs
+# step medians: (merged bf16, two-pass bf16, merged float32) in turns
+TPU_MEDIAN_MODES = {"merged-bf16": TPU_DEFAULT,
+                    "twopass-bf16": {"gt_bf16_dots": True},
+                    "merged-f32": {"gt_bwd": "merged"}}
+
+
+def rounding_controls(kernel, got, inputs, rho=None):
+    """``gt_rounding.controls`` at the bf16 gate; raises where a kernel
+    lies within the gate of a separated control (it could have skipped
+    that rounding and passed)."""
+    records = gt_rounding.controls(kernel, got, inputs, BF16_RTOL, rho=rho)
+    missed = gt_rounding.unseen(records, BF16_RTOL)
+    if missed:
+        raise AssertionError(f"{kernel}: within {BF16_RTOL} of the control "
+                             f"that skips {missed}: {records}")
+    return {p: {"control_vs_plain": a, "kernel_vs_control": k,
+                "separated": sep} for p, (a, k, sep) in records.items()}
+
+
+def tpu_default_kernel_phase(sub, dev):
+    """Phase 14 (a): ``gt_bwd_merged_bf16`` against its plain version at
+    S, with the float32 merged kernel on the same inputs as the control,
+    its distance from the two-pass bf16 kernels (the same rounding points,
+    sums in another order), the controls of every single rounding point
+    for it and for the two-pass bf16 passes, and its resources and ptxas
+    spills."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    blocks, off = _resolve_band(sub, gt=True)
+    n = blocks.shape[0] * blocks.shape[1]
+    ptxas = kg.ptxas_report()
+    records, controls = [], {}
+    for heads, hd in TPU_DEFAULT_HEADS:
+        edges = int((blocks != 0).sum()) * heads
+        q, k, v, gr = (torch.randn(n, heads, hd, device=dev, generator=gen)
+                       for _ in range(4))
+        z = kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True)[1]
+        shape = f"S={n} H={heads} hd={hd} blocks={tuple(blocks.shape)}"
+        ins, feat, stat = nbytes(blocks, off, q, k, v), nbytes(q), nbytes(z)
+        args = (blocks, off, q, k, v, gr, z)
+        plain = functools.partial(kg.gt_bwd_merged_plain, *args,
+                                  bf16_dots=True)
+        rec = check("gt_bwd_merged_bf16", shape,
+                    functools.partial(kg.gt_bwd_merged, *args,
+                                      bf16_dots=True),
+                    plain, ins + feat + stat + 3 * feat,
+                    edges * (10 * hd + 10), tol=BF16_RTOL,
+                    flops_per_s=BF16_FLOPS_PER_S)
+        rec["main"] = hd == HEAD_DIM
+        got = kg.gt_bwd_merged(*args, bf16_dots=True)
+        dq, rho = kg.gt_bwd_rows(*args, bf16_dots=True)
+        cols = kg.gt_bwd_cols(*args, rho, bf16_dots=True)
+        torch.cuda.synchronize()
+        rec["rel_vs_twopass_bf16"] = max(
+            rel_err(a, b)[1] for a, b in zip(got, (dq,) + cols))
+        controls[shape] = {
+            "gt_bwd_merged_bf16": rounding_controls("merged", got, args),
+            "gt_bwd_rows_bf16": rounding_controls("rows", (dq, rho), args),
+            "gt_bwd_cols_bf16": rounding_controls("cols", cols, args,
+                                                  rho=rho)}
+        key = hd if hd in kg.HEAD_WIDTHS else 0           # 0: WIDE
+        records.append(bf16_vs_f32(
+            rec, plain, kg.kernel_info("gt_bwd_merged_bf16", hd),
+            {x: ptxas["gt_bwd_merged_bf16", key][x]
+             for x in ("spill_stores", "spill_loads")},
+            functools.partial(kg.gt_bwd_merged, *args),
+            GT_SPILLS.get(("gt_bwd_merged_bf16", key), (0, 0)),
+            f"; {rec['rel_vs_twopass_bf16']:.3e} from the two-pass bf16 "
+            f"kernels; rounding controls {json.dumps(controls[shape])}"))
+    return records, controls
+
+
+def tpu_default_verbs():
+    """Phase 14 (d): ``pretrain`` (one epoch), ``finetune`` BACE from its
+    checkpoint (one epoch, ``--out``), ``eval`` of that checkpoint on the
+    test split and ``adapt`` (one epoch), each with the TPU-default flags
+    at full width on ``TPU_DEFAULT_N`` molecules; each run's launches
+    those of its steps and evaluation batches."""
+    shutil.rmtree(TPU_DEFAULT_DIR, ignore_errors=True)
+    os.makedirs(TPU_DEFAULT_DIR)
+    pre, ft, ad = (os.path.join(TPU_DEFAULT_DIR, f) for f in
+                   ("pre.msgpack", "ft.msgpack", "adapted.msgpack"))
+    data = ["--synthetic", str(TPU_DEFAULT_N)]
+    bace_data = ["--dataset", "BACE"] + data
+    spec = cli.DATASETS["BACE"]
+    want = split_batches(spec, TPU_DEFAULT_N, 9)
+    report = {}
+    info, secs = verb_run("pretrain (TPU default)", [
+        "pretrain", "--epochs", "1", "--out", pre] + data + TPU_DEFAULT_FLAGS)
+    steps = info["throughput"]["steps"]
+    expect_exact("pretrain (TPU default)",
+                 add_counts((TPU_DEFAULT_PER_STEP, steps)))
+    report["pretrain"] = {"s": secs, "steps": steps,
+                          "loss": info["best_loss"]}
+    run, secs = verb_run("finetune (TPU default)", [
+        "finetune", "--epochs", "1", "--pretrained", pre, "--out", ft]
+        + bace_data + TPU_DEFAULT_FLAGS)
+    steps = run["last"]["throughput"]["steps"]
+    if steps != want["steps"]:
+        raise AssertionError(f"finetune (TPU default): {steps} steps, "
+                             f"expected {want['steps']}")
+    expect_exact("finetune (TPU default)", add_counts(
+        (TPU_DEFAULT_FT_PER_STEP, steps),
+        (TPU_DEFAULT_EVAL_PER_BATCH, want["evals"])))
+    hist = run["last"]["history"]
+    report["finetune"] = {"s": secs, "steps": steps, "history": hist}
+    out, secs = verb_run("eval (TPU default)", [
+        "eval", "--checkpoint", ft, "--split", "all"] + bace_data
+        + TPU_DEFAULT_FLAGS)
+    expect_exact("eval (TPU default)", add_counts(
+        (TPU_DEFAULT_EVAL_PER_BATCH, want["evals"] + want["train_evals"])))
+    if not abs(out["test"] - hist[-1][2]) <= 1e-6:
+        raise AssertionError(f"eval (TPU default): test {out['test']} is "
+                             f"not the run's final {hist[-1][2]}")
+    report["eval"] = {"s": secs, **out}
+    info, secs = verb_run("adapt (TPU default)", [
+        "adapt", "--epochs", "1", "--pretrained", pre, "--out", ad] + data
+        + TPU_DEFAULT_FLAGS)
+    expect_exact("adapt (TPU default)",
+                 add_counts((TPU_DEFAULT_FT_PER_STEP, want["adapt"])))
+    report["adapt"] = {"s": secs, "loss": info["best_loss"]}
+    values = [report["pretrain"]["loss"], report["adapt"]["loss"]] + [
+        x for row in hist for x in row]
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"TPU-default verbs: not finite: {report}")
+    shutil.rmtree(TPU_DEFAULT_DIR)
+    print(f"phase 14 (d) verbs: {json.dumps(report)}", flush=True)
+    return report
+
+
+def tpu_default_medians(dev, batches):
+    """Phase 14 (e): the median step (steps 1-5 of 6) of the Transformer,
+    merged bf16, two-pass bf16 and merged float32 in turns (a, b, c, c, b,
+    a), captured and eager; then the captured merged-bf16 and
+    merged-float32 steps profiled as in phase 7.  Recorded only."""
+    order = list(TPU_MEDIAN_MODES) + list(TPU_MEDIAN_MODES)[::-1]
+    out = step_medians(dev, batches, [
+        (f"{path} {mode}", {"encoder": "Transformer",
+                            **TPU_MEDIAN_MODES[mode]}, path)
+        for path in ("captured", "eager") for mode in order])
+    print(f"phase 14 (e) step medians, ms: {json.dumps(out)}", flush=True)
+    profiles = {f"Transformer {mode} captured": profile_phase(
+        "Transformer", False, **TPU_MEDIAN_MODES[mode])
+        for mode in ("merged-bf16", "merged-f32")}
+    for label, prof in profiles.items():
+        ms, calls = prof["port"]["gt_row_pass_kernel"]
+        per_call = f"{ms / calls * 1e3:.2f} us a call" if calls else \
+            "not in the profile"
+        print(f"phase 14 (e) {label}: merged backward in step {per_call} "
+              f"({calls} calls a step), device "
+              f"{prof['device_ms_per_step']:.3f} ms a step", flush=True)
+    return out, profiles
+
+
+def tpu_default_phase(g, sub, dev, ds, caps):
+    """Phase 14; returns its readings, its kernel records and the launch
+    counts of its main-path run."""
+    report, secs = {}, {}
+    t0 = time.perf_counter()
+    records, report["rounding_controls"] = tpu_default_kernel_phase(sub, dev)
+    secs["a"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["model"] = bf16_model_phase(
+        g, sub, dev, {"Transformer-merged-bf16": ("Transformer",
+                                                  TPU_DEFAULT)}, "14 (b)",
+        TPU_DEFAULT_GRAD)
+    secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()
+    name, spec = TPU_DEFAULT_RUN
+    runs = {name: main_path(name, *spec)}
+    batches = bench_batches(dev, ds, caps)
+    with deterministic():
+        report["captured_vs_eager"] = captured_vs_eager(
+            dev, batches, name, spec[0], spec[2])
+    report["main_path"] = {"step_ms": runs[name]["step_ms"],
+                           "counts": {k: c for k, c in
+                                      runs[name]["counts"].items() if c}}
+    secs["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["verbs"] = tpu_default_verbs()
+    secs["d"], t0 = time.perf_counter() - t0, time.perf_counter()
+    report["medians"], report["profiles"] = tpu_default_medians(dev, batches)
+    secs["e"] = time.perf_counter() - t0
+    report["seconds"] = secs
+    print(f"phase 14: {json.dumps(report)}", flush=True)
+    return report, records, runs
+
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--gloo-rank"]:

@@ -65,6 +65,16 @@ uint8 buffer, prefetched to the device, K steps a call (one CUDA-graph
 replay on the card).  ``preprocess`` writes a dataset's cache; ``download``
 fetches a dataset's raw files (``data/download.py``).
 
+The numerics: ``pretrain``, ``finetune``, ``eval`` and ``adapt`` take
+``--gt_bwd twopass|merged``, ``--gt_bf16_dots``, ``--gt_dtype
+float32|bfloat16`` and ``--compute_dtype float32|bfloat16``, the
+counterparts of the JAX verbs' environment knobs ``SCGIB_GT_BWD_TWOPASS``,
+``SCGIB_GT_BF16``, ``SCGIB_GT_ACT_BF16`` and ``SCGIB_COMPUTE_DTYPE``
+(defaults: two-pass, off, float32, float32; saved in the run's config, and
+a config without them means the defaults).  The JAX package's own
+Transformer on a TPU is ``--encoder Transformer --gt_bwd merged
+--gt_bf16_dots``.
+
 Two flags are the port's own: ``--device`` (``cuda``, the default, or
 ``cpu`` for the plain path), on every verb, and ``pretrain --steps N``,
 which instead of the epoch loop takes N optimizer steps on molecules of
@@ -315,13 +325,33 @@ def _args_config(args):
     return {k: v for k, v in vars(args).items() if k != "fn"}
 
 
+# the numerics flags -> their defaults, the counterparts of the JAX verbs'
+# knobs SCGIB_GT_BWD_TWOPASS, SCGIB_GT_BF16, SCGIB_GT_ACT_BF16 and
+# SCGIB_COMPUTE_DTYPE; a config without them (a JAX checkpoint's, an older
+# port one's) means these
+NUMERICS = {"gt_bwd": "twopass", "gt_bf16_dots": False, "gt_dtype": "float32",
+            "compute_dtype": "float32"}
+
+
+def _numerics(cfg) -> dict:
+    """The models' numerics arguments from a run's config (its args or a
+    checkpoint's saved config): float32 is None to the models."""
+    cfg = {**NUMERICS, **{k: cfg[k] for k in NUMERICS if k in cfg}}
+    return dict(gt_bwd=cfg["gt_bwd"],
+                gt_bf16_dots=bool(cfg["gt_bf16_dots"]),
+                gt_dtype=(torch.bfloat16 if cfg["gt_dtype"] == "bfloat16"
+                          else None),
+                compute_dtype=(None if cfg["compute_dtype"] == "float32"
+                               else cfg["compute_dtype"]))
+
+
 def _model(args, feat_dim: int) -> PretrainModel:
     return PretrainModel(feat_dim, hidden=args.hidden,
                          d_transfer=args.d_transfer, encoder=args.encoder,
                          num_layers=args.num_layers, num_heads=args.num_heads,
                          readout=args.readout, use_att=bool(args.use_att),
                          recons_type=args.recons_type, kl_mode=args.kl_mode,
-                         k_transition=args.k)
+                         k_transition=args.k, **_numerics(vars(args)))
 
 
 def _train(model, ds, args, seed: int, autosave):
@@ -363,7 +393,7 @@ def cmd_pretrain(args):
             hidden=args.hidden, d_transfer=args.d_transfer, k=args.k,
             readout=args.readout, use_att=bool(args.use_att),
             kl_mode=args.kl_mode, recons_type=args.recons_type,
-            superbatch=args.superbatch)
+            superbatch=args.superbatch, **_numerics(vars(args)))
     if args.curriculum:
         return _run_curriculum(args, dev)
 
@@ -460,12 +490,12 @@ def _spec(args):
 
 
 def _model_kwargs(cfg) -> dict:
-    """The architecture options of a run's config (its args or a
-    checkpoint's saved config)."""
+    """The architecture and numerics options of a run's config (its args
+    or a checkpoint's saved config)."""
     return dict(hidden=int(cfg["hidden"]), d_transfer=int(cfg["d_transfer"]),
                 encoder=cfg["encoder"], num_layers=int(cfg["num_layers"]),
                 num_heads=int(cfg["num_heads"]), readout=cfg["readout"],
-                use_att=bool(int(cfg["use_att"])))
+                use_att=bool(int(cfg["use_att"])), **_numerics(cfg))
 
 
 def _splits(ds: GraphDataset, spec, seed: int):
@@ -656,6 +686,19 @@ def _common(sp, optim: OptimConfig, epochs: int,
                     help="attention heads of the transformer")
     sp.add_argument("--readout", default=m.readout, choices=["sum", "s2s"])
     sp.add_argument("--use_att", type=int, default=int(m.use_att))
+    sp.add_argument("--gt_bwd", default=NUMERICS["gt_bwd"],
+                    choices=["twopass", "merged"],
+                    help="the attention's backward (SCGIB_GT_BWD_TWOPASS "
+                         "in the JAX verbs)")
+    sp.add_argument("--gt_bf16_dots", action="store_true",
+                    help="the attention's products on bf16 operands "
+                         "(SCGIB_GT_BF16)")
+    sp.add_argument("--gt_dtype", default=NUMERICS["gt_dtype"],
+                    choices=["float32", "bfloat16"],
+                    help="the transformer's dense tail (SCGIB_GT_ACT_BF16)")
+    sp.add_argument("--compute_dtype", default=NUMERICS["compute_dtype"],
+                    choices=["float32", "bfloat16"],
+                    help="GIN's fused conv (SCGIB_COMPUTE_DTYPE)")
     sp.add_argument("--lr", type=float, default=optim.lr)
     sp.add_argument("--weight_decay", type=float,
                     default=optim.weight_decay)

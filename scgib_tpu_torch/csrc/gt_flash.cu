@@ -96,23 +96,26 @@
 // kernel too (a clipped finite score's exponential times 0), so skipping
 // it changes nothing for finite inputs.
 //
-// bf16 dots (the JAX package's bf16_dots, its default on a TPU): gt_fwd,
-// the row pass and the column pass have a second instantiation, BF16, that
-// computes what _hdot and _cdot compute on bf16 multiplicands with fp32
-// accumulation.  Each product's two operands are rounded to bf16
-// (__float2bfloat16_rn) before the fp32 FMA chain, and a product of two
-// bf16 values is exact in fp32: q and k for the scores, w and v for out, g
-// and v for G, dS and k for dq, dS and q for dk, w and g for dv.  exp,
-// clip, z, rho, 1 / (z + eps) and the scale stay fp32, the scale applied
-// after the score product and after dq and dk, as in the Pallas kernels
-// (1 / sqrt(hd) is not a power of two: folded into q before the rounding
-// it would round otherwise).  The forward rounds w = e / (z + eps), which
-// needs z first, so its bf16 form walks the row's nonzeros twice.  Still
-// SIMT over the same lane groups, and free of atomics (the merged pass has
-// no bf16 form: ROADMAP Queue 2).  Running the bf16 products on the tensor
-// cores (mma.sync or wgmma over the dense [TL, BW] tile, which the sparse
-// gate leaves mostly empty) is later work, as are TMA and bf16 storage of
-// q, k and v.
+// bf16 dots (the JAX package's bf16_dots, its default on a TPU): every
+// kernel has a second instantiation, BF16, that computes what _hdot and
+// _cdot compute on bf16 multiplicands with fp32 accumulation.  Each
+// product's two operands are rounded to bf16 (__float2bfloat16_rn) before
+// the fp32 FMA chain, and a product of two bf16 values is exact in fp32: q
+// and k for the scores, w and v for out, g and v for G, dS and k for dq, dS
+// and q for dk, w and g for dv.  exp, clip, z, rho, 1 / (z + eps) and the
+// scale stay fp32, the scale applied after the score product and after
+// the dq and dk products, as in the Pallas kernels: dS is rounded before it
+// is scaled (1 / sqrt(hd) is not a power of two at hd 8, so rnd(dS * scale)
+// is not rnd(dS) * scale; folded into q before the rounding it would round
+// otherwise).  The forward rounds w = e / (z + eps), which needs z first,
+// so its bf16 form walks the row's nonzeros twice.  The merged pass's BF16
+// form (gt_row_pass_kernel<HD, true, true>, _bwd_merged_kernel with
+// bf16=True) is the bf16 row pass whose atomicAdds take the rounded dS and
+// q for dk and the rounded w and g for dv, as _cdot(dS_cat, q_t) and
+// _cdot(w_cat, g_t) round them.  Still SIMT over the same lane groups.
+// Running the bf16 products on the tensor cores (mma.sync or wgmma over
+// the dense [TL, BW] tile, which the sparse gate leaves mostly empty) is
+// later work, as are TMA and bf16 storage of q, k and v.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/kernels/gt_flash.py).  Every entry launches on the given
@@ -425,8 +428,11 @@ __device__ __forceinline__ void row_terms(
 // The second trip's work for NG terms: dq[f] += dS(head of f) * k_j[f] (e =
 // 0 adds 0); and, in the merged pass, this lane's features of
 // dk_j += dS q_i scale and dv_j += W g_i, with atomicAdd into buffers the
-// caller zeroed.  BF16 (never with MERGED): dS rounded to bf16 before its
-// product with k_j, as _bwd_rows_kernel rounds dS_cat.
+// caller zeroed.  BF16: dS rounded to bf16 before its products with k_j
+// and (merged) q_i, and before the scale, as _bwd_rows_kernel and
+// _bwd_merged_kernel round dS_cat; W rounded before its product with g_i,
+// as _bwd_merged_kernel rounds w_cat (q_i, g_i and k_j are rounded at
+// load).
 template <int HD, bool MERGED, bool BF16>
 __device__ __forceinline__ void add_terms(
     const int* col, long long off, int D, int c, bool ok,
@@ -441,11 +447,11 @@ __device__ __forceinline__ void add_terms(
     float ds[M::NH];
 #pragma unroll
     for (int h = 0; h < M::NH; ++h) {
-      ds[h] = inside[u][h] ? e[u][h] * (G[u][h] - rh[h]) * inv[h] : 0.f;
-      const float dsr = rnd<BF16>(ds[h]);
+      ds[h] = rnd<BF16>(inside[u][h] ? e[u][h] * (G[u][h] - rh[h]) * inv[h]
+                                     : 0.f);
 #pragma unroll
       for (int j = 0; j < M::PER; ++j)
-        acc[h * M::PER + j] = fmaf(dsr, kj[u][h * M::PER + j],
+        acc[h * M::PER + j] = fmaf(ds[h], kj[u][h * M::PER + j],
                                    acc[h * M::PER + j]);
     }
     if (MERGED && ok && col[u] >= 0) {
@@ -453,7 +459,7 @@ __device__ __forceinline__ void add_terms(
       float* dvj = dv + (off + col[u]) * D + c;
 #pragma unroll
       for (int h = 0; h < M::NH; ++h) {
-        const float w = e[u][h] * inv[h];
+        const float w = rnd<BF16>(e[u][h] * inv[h]);
 #pragma unroll
         for (int j = 0; j < M::PER; ++j) {
           const int f = h * M::PER + j;
@@ -470,9 +476,9 @@ __device__ __forceinline__ void add_terms(
 // c / hw onwards.  Two trips over the row's nonzeros: rho first, then dq.
 // MERGED: the merged backward, which in its second trip also adds each
 // nonzero's dk and dv terms (and writes no rho); else the two-pass
-// backward's row pass, which writes dq and rho.  BF16 (bf16 dots; the row
-// pass alone, not MERGED): q, g, k and v rounded to bf16 as they are
-// loaded, and dS before its product with k_j.
+// backward's row pass, which writes dq and rho.  BF16 (bf16 dots): q, g,
+// k and v rounded to bf16 as they are loaded, and dS (and, MERGED, W)
+// before its products (add_terms).
 template <int HD, bool MERGED, bool BF16>
 __global__ void __launch_bounds__(PASS_THREADS)
 gt_row_pass_kernel(const __nv_bfloat16* __restrict__ blocks,
@@ -773,15 +779,16 @@ int scgib_gt_bwd_cols(const void* blocks, const void* col_off, int n_tiles,
 int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
                         int TL, int BW, const void* q, const void* k,
                         const void* v, const void* g, const void* z, int H,
-                        int hd, float scale, float clamp, float eps,
+                        int hd, float scale, float clamp, float eps, int bf16,
                         void* dq, void* dk, void* dv, void* stream) {
   if (bad_geometry(BW, H, hd)) return (int)cudaErrorInvalidValue;
   const long long rows = (long long)n_tiles * TL;
   cudaStream_t s = (cudaStream_t)stream;
   SCGIB_DISPATCH_HD(
       hd, const int lpr = lanes_per_row(H * hd, Heads<HD>::F);
-      gt_row_pass_kernel<HD, true, false><<<pass_grid(n_tiles, TL, lpr),
-                                            PASS_THREADS, 0, s>>>(
+      auto* kernel = bf16 ? gt_row_pass_kernel<HD, true, true>
+                          : gt_row_pass_kernel<HD, true, false>;
+      kernel<<<pass_grid(n_tiles, TL, lpr), PASS_THREADS, 0, s>>>(
           (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
           rows, (const float*)q, (const float*)k, (const float*)v,
           (const float*)g, (const float*)z, H, scale, clamp, eps, lpr,
@@ -791,8 +798,8 @@ int scgib_gt_bwd_merged(const void* blocks, const void* col_off, int n_tiles,
 
 // For the report: registers a thread, shared memory a block and blocks an
 // SM of the kernel that gt_bwd_rows (which = 0), gt_bwd_cols (1), gt_fwd
-// (2), gt_bwd_merged (3), or with bf16 dots gt_bwd_rows (4), gt_bwd_cols (5)
-// or gt_fwd (6) launches at head width hd.
+// (2), gt_bwd_merged (3), or with bf16 dots gt_bwd_rows (4), gt_bwd_cols
+// (5), gt_fwd (6) or gt_bwd_merged (7) launches at head width hd.
 int scgib_gt_kernel_info(int which, int hd, int* info) {
   const void* kernel = nullptr;
   SCGIB_DISPATCH_HD(
@@ -803,8 +810,9 @@ int scgib_gt_kernel_info(int which, int hd, int* info) {
               (const void*)gt_row_pass_kernel<HD, true, false>,
               (const void*)gt_row_pass_kernel<HD, false, true>,
               (const void*)gt_bwd_cols_kernel<HD, true>,
-              (const void*)gt_fwd_kernel<HD, true>};
-      if (which < 0 || which > 6) return (int)cudaErrorInvalidValue;
+              (const void*)gt_fwd_kernel<HD, true>,
+              (const void*)gt_row_pass_kernel<HD, true, true>};
+      if (which < 0 || which > 7) return (int)cudaErrorInvalidValue;
       kernel = table[which]);
   cudaFuncAttributes attr;
   int err = (int)cudaFuncGetAttributes(&attr, kernel);

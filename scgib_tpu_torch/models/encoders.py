@@ -266,7 +266,7 @@ class GraphTransformerLayer(nn.Module):
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} is not a multiple of "
                              f"num_heads {num_heads}")
-        check_bwd(bwd, bf16_dots)
+        check_bwd(bwd)
         if dtype not in (None, torch.bfloat16):
             raise ValueError(f"dtype must be None (float32) or torch.bfloat16,"
                              f" got {dtype!r}")

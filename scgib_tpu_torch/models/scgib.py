@@ -284,7 +284,9 @@ class PretrainModel(nn.Module):
     ``gt_bf16_dots`` (the attention's products on bf16 operands) and
     ``gt_dtype`` (torch.bfloat16: the transformer's dense tail in bf16)
     reach both encoders; all default to float32 (None), and the parameters
-    stay float32 in every mode."""
+    stay float32 in every mode.  ``gt_bwd``: the attention's backward,
+    "twopass" (the default) or "merged"; "merged" with ``gt_bf16_dots``
+    is the JAX package's own Transformer configuration on a TPU."""
 
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
                  encoder: str = "GIN", num_layers: int = 4,
@@ -368,10 +370,9 @@ class FinetuneModel(nn.Module):
     """``Mainmodel_finetuning`` (models.py:501-520): fresh heads around the
     pretrained core.  Projection -> core -> ``head_mlp`` (2d -> d) ->
     ``Set2Set`` (-> 2d) -> ``predict`` (2d -> d -> num_out), then a sigmoid
-    unless ``regression``.  The features are L2-normalized by row and the
-    attention takes its two-pass backward, as the JAX verbs run them.
-    ``compute_dtype``, ``gt_bf16_dots``, ``gt_dtype``: as in
-    ``PretrainModel``."""
+    unless ``regression``.  The features are L2-normalized by row.
+    ``gt_bwd``, ``compute_dtype``, ``gt_bf16_dots``, ``gt_dtype``: as in
+    ``PretrainModel`` (the attention's backward two-pass by default)."""
 
     def __init__(self, in_dim: int, num_out: int = 1, hidden: int = 64,
                  d_transfer: int = 32, encoder: str = "GIN",
@@ -379,6 +380,7 @@ class FinetuneModel(nn.Module):
                  readout: str = "sum", use_att: bool = True,
                  regression: bool = False, deterministic: bool = False,
                  subgraph_mode: str = "coo", group=None,
+                 gt_bwd: str = "twopass",
                  compute_dtype: Optional[str] = None,
                  gt_bf16_dots: bool = False, gt_dtype=None):
         super().__init__()
@@ -387,7 +389,7 @@ class FinetuneModel(nn.Module):
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
-                              deterministic=deterministic,
+                              gt_bwd=gt_bwd, deterministic=deterministic,
                               subgraph_mode=subgraph_mode, group=group,
                               compute_dtype=compute_dtype,
                               gt_bf16_dots=gt_bf16_dots, gt_dtype=gt_dtype)
@@ -415,7 +417,7 @@ class DomainAdaptModel(nn.Module):
     held against the Set2Set readout (``s2s_rev``) of the same normalized
     features the projection takes; the forward is the loss, the
     unnormalized squared error over real graphs (models.py:276-281).
-    ``compute_dtype``, ``gt_bf16_dots``, ``gt_dtype``: as in
+    ``gt_bwd``, ``compute_dtype``, ``gt_bf16_dots``, ``gt_dtype``: as in
     ``PretrainModel``."""
 
     def __init__(self, in_dim: int, hidden: int = 64, d_transfer: int = 32,
@@ -423,6 +425,7 @@ class DomainAdaptModel(nn.Module):
                  num_heads: int = 8, readout: str = "sum",
                  use_att: bool = True, deterministic: bool = False,
                  subgraph_mode: str = "coo", group=None,
+                 gt_bwd: str = "twopass",
                  compute_dtype: Optional[str] = None,
                  gt_bf16_dots: bool = False, gt_dtype=None):
         super().__init__()
@@ -430,7 +433,7 @@ class DomainAdaptModel(nn.Module):
         self.core = SCGIBCore(d_transfer, hidden=hidden, encoder=encoder,
                               num_layers=num_layers, num_heads=num_heads,
                               readout=readout, use_att=use_att,
-                              deterministic=deterministic,
+                              gt_bwd=gt_bwd, deterministic=deterministic,
                               subgraph_mode=subgraph_mode, group=group,
                               compute_dtype=compute_dtype,
                               gt_bf16_dots=gt_bf16_dots, gt_dtype=gt_dtype)

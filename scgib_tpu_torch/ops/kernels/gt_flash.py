@@ -11,13 +11,13 @@ for its four Pallas kernels, each served by its own CUDA kernel in
   gt_bwd_merged  _bwd_merged_kernel        dq, dk, dv     (one pass, atomics)
 
 ``bf16_dots`` (the JAX package's argument of that name, its default on a
-TPU; here False by default): ``gt_fwd``, ``gt_bwd_rows`` and ``gt_bwd_cols``
-then launch their kernels' bf16-dot instantiations, which round both
-operands of every product to bfloat16 and accumulate in float32 (the TPU's
-bf16 multiplicands), and count those launches as ``gt_fwd_bf16``,
-``gt_bwd_rows_bf16`` and ``gt_bwd_cols_bf16`` in ``launch_counts``.  The
-merged backward has no bf16 form yet (ROADMAP Queue 2):
-``gt_flash_attention(bwd="merged", bf16_dots=True)`` raises.
+TPU; here False by default): every wrapper then launches its kernel's
+bf16-dot instantiation, which rounds both operands of every product to
+bfloat16 and accumulates in float32 (the TPU's bf16 multiplicands), and
+counts those launches as ``gt_fwd_bf16``, ``gt_bwd_rows_bf16``,
+``gt_bwd_cols_bf16`` and ``gt_bwd_merged_bf16`` in ``launch_counts``.
+``gt_flash_attention(bwd="merged", bf16_dots=True)`` is the JAX package's
+own configuration on a TPU (``_bwd_merged_kernel`` with ``bf16=True``).
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor and
 launches its kernel for a CUDA tensor, counting each launch that succeeded
@@ -58,13 +58,14 @@ from ..spmm_banded import gt_scores, gt_windows
 from .banded import ALIGN, _bf16, _dispatch, _ptr, _raise_on, _stream
 from .build import load, ptxas_report as _ptxas_report
 
-# the wrappers, and the bf16-dot modes of three of them, by their launch
-# counts' names
+# the wrappers, and their bf16-dot modes, by their launch counts' names
 KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged",
-           "gt_fwd_bf16", "gt_bwd_rows_bf16", "gt_bwd_cols_bf16")
+           "gt_fwd_bf16", "gt_bwd_rows_bf16", "gt_bwd_cols_bf16",
+           "gt_bwd_merged_bf16")
 # kernel_info's and scgib_gt_kernel_info's index of each wrapper's kernel
 _INFO = {"gt_bwd_rows": 0, "gt_bwd_cols": 1, "gt_fwd": 2, "gt_bwd_merged": 3,
-         "gt_bwd_rows_bf16": 4, "gt_bwd_cols_bf16": 5, "gt_fwd_bf16": 6}
+         "gt_bwd_rows_bf16": 4, "gt_bwd_cols_bf16": 5, "gt_fwd_bf16": 6,
+         "gt_bwd_merged_bf16": 7}
 HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 # Past the widest of HEAD_WIDTHS the kernels take every multiple of SWEEP,
 # a head swept SWEEP features at a time (csrc/gt_flash.cu's WIDE).
@@ -92,7 +93,7 @@ def build() -> ctypes.CDLL:
     lib.scgib_gt_bwd_cols.argtypes = geo + [P, P, P, P, P, P, I, I, F, F,
                                             F, I, P, P, P]
     lib.scgib_gt_bwd_merged.argtypes = geo + [P, P, P, P, P, I, I, F, F, F,
-                                              P, P, P, P]
+                                              I, P, P, P, P]
     lib.scgib_gt_kernel_info.argtypes = [I, I, P]
     for fn in (lib.scgib_gt_fwd, lib.scgib_gt_bwd_rows,
                lib.scgib_gt_bwd_cols, lib.scgib_gt_bwd_merged,
@@ -229,12 +230,15 @@ def gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp=5.0,
 
 
 def gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
-                        scale=None):
-    """(dq, dk, dv) [N, H, hd] in one pass."""
+                        scale=None, bf16_dots=False):
+    """(dq, dk, dv) [N, H, hd] in one pass.  ``bf16_dots``: rounded where
+    ``_bwd_merged_kernel`` rounds with ``bf16=True``, which are the row and
+    column passes' rounding points (dS before dq and before dk, W before
+    dv, and q, k, v, g)."""
     dq, rho = gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps,
-                                scale)
+                                scale, bf16_dots)
     return (dq,) + gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho,
-                                     clamp, eps, scale)
+                                     clamp, eps, scale, bf16_dots)
 
 
 # --- wrappers ----------------------------------------------------------------
@@ -342,20 +346,22 @@ def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6,
 
 
 def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
-                  scale=None):
-    """(dq, dk, dv) in one pass (replaces ``_bwd_merged_kernel``); dk and
+                  scale=None, bf16_dots=False):
+    """(dq, dk, dv) in one pass (replaces ``_bwd_merged_kernel``; with
+    ``bf16_dots`` its bf16 mode, counted on ``gt_bwd_merged_bf16``); dk and
     dv are summed with atomics, so their last bits vary between runs."""
     if not _dispatch("gt_bwd_merged", q):
         return gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp,
-                                   eps, scale)
+                                   eps, scale, bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
         "gt_bwd_merged", blocks, col_off, q, k, v, g, z)
     dq = torch.empty_like(ts[0])
     dk = torch.zeros_like(ts[0])
     dv = torch.zeros_like(ts[0])
     _launch(build().scgib_gt_bwd_merged, "gt_bwd_merged", blocks, col_off,
-            geo, ts, num_heads, hd, clamp, eps, scale, (dq, dk, dv))
-    add_launches("gt_bwd_merged")
+            geo, ts, num_heads, hd, clamp, eps, scale, (dq, dk, dv),
+            int(bf16_dots))
+    add_launches("gt_bwd_merged_bf16" if bf16_dots else "gt_bwd_merged")
     return dq, dk, dv
 
 
@@ -423,21 +429,17 @@ class _GtFlashAttention(torch.autograd.Function):
         args = (blocks, col_off, q, k, v, g.contiguous(), z)
         consts = (ctx.clamp, ctx.eps, ctx.scale)
         if ctx.bwd == "merged":
-            dq, dk, dv = gt_bwd_merged(*args, *consts)
+            dq, dk, dv = gt_bwd_merged(*args, *consts, ctx.bf16_dots)
         else:
             dq, rho = gt_bwd_rows(*args, *consts, ctx.bf16_dots)
             dk, dv = gt_bwd_cols(*args, rho, *consts, ctx.bf16_dots)
         return None, None, dq, dk, dv, None, None, None, None, None
 
 
-def check_bwd(bwd: str, bf16_dots: bool = False):
-    """Raise unless ``bwd`` names a backward that serves ``bf16_dots``."""
+def check_bwd(bwd: str):
+    """Raise unless ``bwd`` names a backward."""
     if bwd not in BWD:
         raise ValueError(f"bwd must be one of {BWD}, got {bwd!r}")
-    if bwd == "merged" and bf16_dots:
-        raise ValueError("the merged attention backward has no bf16-dot form "
-                         "yet (ROADMAP Queue 2): use bwd='twopass' with "
-                         "bf16_dots=True")
 
 
 def gt_flash_attention(blocks, col_off, q, k, v, clamp: float = 5.0,
@@ -450,11 +452,11 @@ def gt_flash_attention(blocks, col_off, q, k, v, clamp: float = 5.0,
     kernels do not take runs zero-padded to ``served_head_width``: the zero
     features add nothing to a score, their outputs are dropped, and the
     scale stays 1 / sqrt(hd).  ``bf16_dots``: every product on bf16
-    operands (two-pass backward only).  bfloat16 q, k and v (a transformer
+    operands, with either backward.  bfloat16 q, k and v (a transformer
     whose dense tail runs in bf16) are cast to float32 for the kernels, and
     the output and the gradients go back in bfloat16, as the JAX function
     casts them."""
-    check_bwd(bwd, bf16_dots)
+    check_bwd(bwd)
     dtype = q.dtype
     if dtype == torch.bfloat16:
         q, k, v = q.float(), k.float(), v.float()

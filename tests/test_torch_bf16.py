@@ -15,10 +15,14 @@ Tolerances: rtol = atol = 1e-2 for the forward outputs,
 output (JAX rounds each Dense product and its bias add to bf16 separately,
 torch's bf16 ``linear`` once), 1e-1 for the attention's gradients against
 JAX's merged backward (the JAX package's own 10x rule for bf16 dots,
-tests/test_graph_transformer.py).  Where both sides round at the same
-points (the plain versions against the Pallas kernels) they also agree to
-1e-5 relative: only the order of float32 sums differs, while float32 and
-bf16 products differ by 1e-2.
+tests/test_graph_transformer.py) when the port's backward is two-pass.
+Where both sides round at the same points (the plain versions against the
+Pallas kernels, and ``gt_flash_attention(bwd="merged", bf16_dots=True)``,
+the JAX package's own configuration on a TPU, against JAX's) they also
+agree to 1e-5 relative: only the order of float32 sums differs, while
+float32 and bf16 products differ by 1e-2.  Each rounding point of the
+bf16 backward has a control, the plain backward with that rounding alone
+left out (``gt_rounding.py``), which the Pallas kernels must lie past.
 """
 
 import jax
@@ -40,7 +44,8 @@ from scgib_tpu.ops.pallas import gt_flash as jgt
 
 from scgib_tpu_torch import cli
 from scgib_tpu_torch.config import DATASETS
-from scgib_tpu_torch.data.loader import GraphDataset, plan_capacities
+from scgib_tpu_torch.data.loader import (GraphDataset, batch_iterator,
+                                          plan_capacities)
 from scgib_tpu_torch.data.synthetic import random_dataset
 from scgib_tpu_torch.graph import banded
 from scgib_tpu_torch.graph.batching import pack_graphs
@@ -59,6 +64,7 @@ from scgib_tpu_torch.train.trainer import (TrainState,
                                            masked_adam)
 from scgib_tpu_torch.utils.params import from_jax_variables, init_flax_style_
 
+import gt_rounding
 from gt_cases import case_inputs
 
 BF = torch.bfloat16
@@ -173,8 +179,8 @@ ATTN_CASES = ("narrow", "wide-16x4", "narrow-edges")
 
 @pytest.fixture(scope="module", params=ATTN_CASES)
 def pallas_bf16(request):
-    """One case of gt_cases: the Pallas forward and two-pass backward in
-    interpret mode with bf16 dots."""
+    """One case of gt_cases: the Pallas forward, two-pass backward and
+    merged backward in interpret mode with bf16 dots."""
     blocks, off, (q, k, v, g) = case_inputs(request.param)
     n, heads, hd = q.shape
     flat = [jnp.asarray(x.reshape(n, heads * hd)) for x in (q, k, v, g)]
@@ -183,8 +189,11 @@ def pallas_bf16(request):
         out, z = jgt._run_fwd(jb, jo, *flat[:3], heads, hd, 5.0, 1e-6, True)
         dq, dk, dv = jgt._run_bwd_twopass(jb, jo, *flat, z, heads, hd, 5.0,
                                           1e-6, True)
+        merged = jgt._run_bwd_merged(jb, jo, *flat, z, heads, hd, 5.0, 1e-6,
+                                     True)
     return (blocks, off, [t(x) for x in (q, k, v, g)],
-            {"fwd": (out, z), "rows": (dq,), "cols": (dk, dv)})
+            {"fwd": (out, z), "rows": (dq,), "cols": (dk, dv),
+             "merged": merged})
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "rows", "cols"])
@@ -234,20 +243,112 @@ def test_flash_attention_bf16_matches_jax():
                                    rtol=1e-1, atol=1e-1, err_msg=f"d{name}")
 
 
-def test_merged_backward_with_bf16_dots_raises():
-    blocks, off, (q, k, v, _) = case_inputs("narrow")
-    q, k, v = map(t, (q, k, v))
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        kg.gt_flash_attention(blocks, off, q, k, v, bwd="merged",
-                              bf16_dots=True)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        GraphTransformerLayer(16, 2, bwd="merged", bf16_dots=True)
-    with pytest.raises(ValueError, match="ROADMAP Queue 2"):
-        PretrainModel(9, hidden=16, d_transfer=8, encoder="Transformer",
-                      gt_bwd="merged", gt_bf16_dots=True)
-    # the merged backward stays in float32, the two-pass one takes either
-    GraphTransformerLayer(16, 2, bwd="merged")
-    GraphTransformerLayer(16, 2, bf16_dots=True)
+def test_merged_bf16_plain_version_matches_pallas_kernel(pallas_bf16):
+    """``gt_bwd_merged(bf16_dots=True)`` on the CPU (its plain version)
+    against ``_bwd_merged_kernel`` with ``bf16=True``, the JAX package's
+    backward on a TPU, from the Pallas forward's z: the same rounding
+    points, so within SAME_POINTS; the float32 plain version lands past ten
+    times that."""
+    blocks, off, (q, k, v, g), want = pallas_bf16
+    z = t(want["fwd"][1])
+    kg.reset_launch_counts()
+    got = kg.gt_bwd_merged(blocks, off, q, k, v, g, z, bf16_dots=True)
+    f32 = kg.gt_bwd_merged(blocks, off, q, k, v, g, z)
+    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 0)
+    for a, b in zip(got, want["merged"]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b).reshape(a.shape),
+                                   rtol=1e-2, atol=1e-2)
+        assert rel(a, b) <= SAME_POINTS
+    assert max(rel(a, b) for a, b in zip(f32, want["merged"])) > \
+        10 * SAME_POINTS
+
+
+@pytest.mark.parametrize("kernel", ["rows", "cols", "merged"])
+def test_each_rounding_point_has_a_control(pallas_bf16, kernel):
+    """Each rounding point of the bf16-dot backward left out alone
+    (``gt_rounding.py``: q, k, v, g, dS before dq, dS before dk, W before
+    dv, those the kernel has): here every control lies at least twice
+    SAME_POINTS from the sound plain version, and the Pallas kernel past
+    SAME_POINTS from each, so the gate that holds the plain versions to
+    the kernels would catch a single rounding skipped."""
+    blocks, off, (q, k, v, g), want = pallas_bf16
+    got = [t(x).reshape(q.shape) for x in want[kernel]]
+    records = gt_rounding.controls(
+        kernel, got, (blocks, off, q, k, v, g, t(want["fwd"][1])),
+        SAME_POINTS)
+    assert set(records) == set(gt_rounding.KERNELS[kernel][1])
+    assert all(sep for _, _, sep in records.values()), records
+    assert not gt_rounding.unseen(records, SAME_POINTS), records
+
+
+def test_flash_attention_merged_bf16_matches_jax(monkeypatch):
+    """``gt_flash_attention(bwd="merged", bf16_dots=True)``, the JAX
+    package's own configuration on a TPU, against JAX's
+    ``gt_flash_attention(..., True)`` with its default (merged) backward:
+    the same rounding points on both sides, so the output and dq, dk, dv
+    agree within SAME_POINTS (the two-pass comparison above needs 1e-1)."""
+    monkeypatch.delenv("SCGIB_GT_BWD_TWOPASS", raising=False)
+    blocks, off, (q, k, v, g) = case_inputs("narrow")
+    jb, jo = jblocks(blocks), jnp.asarray(off.numpy().astype(np.int32))
+
+    def jloss(q, k, v):
+        out = jgt.gt_flash_attention(jb, jo, q, k, v, 5.0, 1e-6, True)
+        return jnp.sum(out * g), out
+
+    with pltpu.force_tpu_interpret_mode():
+        (_, jout), jgrads = jax.value_and_grad(
+            jloss, argnums=(0, 1, 2), has_aux=True)(
+                *(jnp.asarray(x) for x in (q, k, v)))
+    ts = [t(x).requires_grad_() for x in (q, k, v)]
+    out = kg.gt_flash_attention(blocks, off, *ts, bwd="merged",
+                                bf16_dots=True)
+    (out * t(g)).sum().backward()
+    assert rel(out, jout) <= SAME_POINTS
+    for x, jg_, name in zip(ts, jgrads, "qkv"):
+        assert rel(x.grad, jg_) <= SAME_POINTS, f"d{name}"
+
+
+def test_tpu_default_transformer_matches_its_twopass_twin():
+    """A small Transformer ``PretrainModel`` in the JAX package's TPU
+    configuration (``gt_bwd="merged"``, ``gt_bf16_dots=True``) against its
+    two-pass bf16 twin of the same weights: on the CPU both backwards are
+    the same plain passes, so losses and gradients agree to float32
+    summation order; the float32-dot model is 1e-3 and more away (the
+    control)."""
+    GraphTransformerLayer(16, 2, bwd="merged", bf16_dots=True)
+    ds = GraphDataset(random_dataset(12, seed=5, min_nodes=8, max_nodes=20),
+                      k=1)
+    g, sub = (b.to("cpu") for b in next(batch_iterator(
+        ds, 12, plan_capacities(ds, 12), shuffle=False)))
+    results = []
+    for kw in (dict(gt_bwd="merged", gt_bf16_dots=True),
+               dict(gt_bf16_dots=True), dict(gt_bwd="merged")):
+        model = PretrainModel(9, hidden=WIDTH, d_transfer=8,
+                              encoder="Transformer", num_layers=1,
+                              num_heads=2, deterministic=True, **kw)
+        init_flax_style_(model, torch.Generator().manual_seed(6))
+        for m in model.modules():
+            if isinstance(m, GraphTransformerLayer):
+                m.dropout = 0.0
+                assert (m.bwd, m.bf16_dots) == (kw.get("gt_bwd", "twopass"),
+                                                kw.get("gt_bf16_dots", False))
+        losses = model.train()(g, sub)
+        losses.total.backward()
+        results.append(([float(x) for x in losses],
+                        [p.grad.clone() for p in model.parameters()]))
+    (tpu, tpu_grads), (twin, twin_grads), (f32, f32_grads) = results
+
+    def apart(grads):
+        """The largest gradient difference from the twin's, relative to
+        each tensor's largest entry (at least 1e-3 of the largest)."""
+        floor = 1e-3 * max(float(x.abs().max()) for x in twin_grads)
+        return max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    floor)
+                   for a, b in zip(grads, twin_grads))
+    np.testing.assert_allclose(tpu, twin, rtol=1e-6)
+    assert apart(tpu_grads) <= 1e-6
+    assert apart(f32_grads) > 1e-3
+    assert max(abs(a - b) / abs(b) for a, b in zip(f32, twin)) > 1e-6
 
 
 # --- the transformer layer's bf16 dense tail ---------------------------------

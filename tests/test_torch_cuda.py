@@ -18,7 +18,9 @@ version's).  The GIN forward's 3xTF32 products keep about 21 bits, inside
 1e-5.  The bf16 kernels: 1e-3 of the largest entry (a float32 sum in another
 order can move an operand to the next bf16 value), and the float32 kernel
 on the same inputs must sit past that gate (the gate would catch a kernel
-that skipped its rounding).  Every kernel but the
+that skipped its rounding), as must the control of each single rounding
+point that lies at least twice the gate from the plain version
+(``gt_rounding.py``).  Every kernel but the
 merged attention backward uses no atomics, so two runs on one card agree
 bitwise."""
 
@@ -44,6 +46,7 @@ from scgib_tpu_torch.train import checkpoint, trainer
 from scgib_tpu_torch.utils.params import (from_jax_variables,
                                           init_flax_style_, to_jax_variables)
 
+import gt_rounding
 from gin_cases import CASES as GIN_CASES
 from gin_cases import case_inputs as gin_case_inputs
 from gt_cases import CASES, EMPTY, WIDTHS, banded_graph, case_inputs, qkvg
@@ -1210,19 +1213,32 @@ def test_gin_fwd_bf16_matches_plain_at_cases(dev, case):
 
 
 def bf16_attention_checks(blocks, off, q, k, v, g):
-    """The three bf16-dot kernels against their plain versions, each
-    beside its float32 kernel (``bf16_close``)."""
+    """The four bf16-dot kernels against their plain versions, each
+    beside its float32 kernel (``bf16_close``); and each backward kernel
+    past the gate from the control of every rounding point the gate can
+    separate (``gt_rounding.py``)."""
     plain = kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True)
     out, z = kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
     bf16_close((out, z), plain, kg.gt_fwd(blocks, off, q, k, v))
     plain = kg.gt_bwd_rows_plain(blocks, off, q, k, v, g, z, bf16_dots=True)
     dq, rho = kg.gt_bwd_rows(blocks, off, q, k, v, g, z, bf16_dots=True)
     bf16_close((dq, rho), plain, kg.gt_bwd_rows(blocks, off, q, k, v, g, z))
-    bf16_close(kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho,
-                              bf16_dots=True),
+    cols = kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho, bf16_dots=True)
+    bf16_close(cols,
                kg.gt_bwd_cols_plain(blocks, off, q, k, v, g, z, rho,
                                     bf16_dots=True),
                kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho))
+    merged = kg.gt_bwd_merged(blocks, off, q, k, v, g, z, bf16_dots=True)
+    bf16_close(merged,
+               kg.gt_bwd_merged_plain(blocks, off, q, k, v, g, z,
+                                      bf16_dots=True),
+               kg.gt_bwd_merged(blocks, off, q, k, v, g, z))
+    inputs = (blocks, off, q, k, v, g, z)
+    for kernel, got, given in (("rows", (dq, rho), None),
+                               ("cols", cols, rho), ("merged", merged, None)):
+        records = gt_rounding.controls(kernel, got, inputs, BF16_GATE,
+                                       rho=given)
+        assert not gt_rounding.unseen(records, BF16_GATE), (kernel, records)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -1232,8 +1248,7 @@ def test_gt_bf16_kernels_match_plain_at_cases(dev, case):
     q, k, v, g = (torch.from_numpy(a).to(dev) for a in arrays)
     kg.reset_launch_counts()
     bf16_attention_checks(blocks, off, q, k, v, g)
-    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 1),
-                                  "gt_bwd_merged": 0}
+    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 1)
 
 
 @pytest.mark.parametrize("hd", kg.HEAD_WIDTHS + (1024,))
@@ -1272,10 +1287,12 @@ def test_bf16_model_on_card_matches_cpu(batch, dev, encoder, mode):
 
 @pytest.mark.parametrize("encoder,mode", [
     ("GIN", {"compute_dtype": "bfloat16"}),
-    ("Transformer", {"gt_bf16_dots": True, "gt_dtype": BF})],
-    ids=["GIN", "Transformer"])
+    ("Transformer", {"gt_bf16_dots": True, "gt_dtype": BF}),
+    ("Transformer", {"gt_bf16_dots": True, "gt_bwd": "merged"})],
+    ids=["GIN", "Transformer", "Transformer-merged"])
 def test_bf16_pretrain_steps_on_card(dev, encoder, mode):
-    """Two captured steps in each bf16 mode: only the bf16 forms launch."""
+    """Two captured steps in each bf16 mode (the last the JAX package's
+    TPU-default Transformer): only the bf16 forms launch."""
     kb.reset_launch_counts()
     kg.reset_launch_counts()
     records = cli.run_pretrain(synthetic=48, batch_size=16, steps=2,
@@ -1285,6 +1302,11 @@ def test_bf16_pretrain_steps_on_card(dev, encoder, mode):
     counts = {**kb.launch_counts(), **kg.launch_counts()}
     if encoder == "GIN":
         assert counts["gin_fwd_bf16"] == 8 * 2 and counts["gin_fwd"] == 0
+    elif mode.get("gt_bwd") == "merged":
+        assert counts["gt_fwd_bf16"] == counts["gt_bwd_merged_bf16"] == \
+            2 * 5 * 2
+        assert not any(counts[k] for k in kg.KERNELS
+                       if k not in ("gt_fwd_bf16", "gt_bwd_merged_bf16"))
     else:
         assert counts["gt_fwd_bf16"] == counts["gt_bwd_rows_bf16"] == \
             counts["gt_bwd_cols_bf16"] == 2 * 5 * 2

@@ -223,7 +223,11 @@ def test_cli_has_every_jax_flag_with_its_default():
     want = _pretrain_flags(jcli.build_parser())
     got = _pretrain_flags(cli.build_parser())
     assert {k: got.get(k, "missing") for k in want} == want
-    assert set(got) - set(want) == {"steps", "device"}
+    # the port's own, and the four numerics flags (the JAX verbs take those
+    # as environment knobs)
+    assert set(got) - set(want) == {"steps", "device", "gt_bwd",
+                                    "gt_bf16_dots", "gt_dtype",
+                                    "compute_dtype"}
 
 
 @pytest.mark.parametrize("flags,want", [

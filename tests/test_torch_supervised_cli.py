@@ -7,10 +7,14 @@ the same weights, batches and noise draws); the pretrained core grafted in
 (the JAX package's committed checkpoint and the port's own ``pretrain``
 output, bit for bit); repeats, the journal and the sheet; ``adapt``'s
 checkpoint read by the JAX package's ``load_checkpoint`` and run by its
-``DomainAdaptModel``; and a run without a card refused.
+``DomainAdaptModel``; a run without a card refused; and the four numerics
+flags (the JAX verbs' environment knobs) reaching the models, saved in
+the config, and ``pretrain --steps`` in the JAX package's TPU-default
+Transformer mode.
 """
 
 import argparse
+import itertools
 import json
 import pathlib
 
@@ -28,7 +32,14 @@ from scgib_tpu.models.scgib import DomainAdaptModel as JDomainAdaptModel
 from scgib_tpu.train import checkpoint as jckpt
 
 from scgib_tpu_torch import cli
+from scgib_tpu_torch.data.loader import (GraphDataset, batch_iterator,
+                                         plan_capacities)
+from scgib_tpu_torch.data.synthetic import random_dataset
+from scgib_tpu_torch.models import encoders
+from scgib_tpu_torch.models.scgib import PretrainModel
 from scgib_tpu_torch.train import checkpoint as ckpt
+from scgib_tpu_torch.train.trainer import adam_l2, make_pretrain_step
+from scgib_tpu_torch.utils.params import init_flax_style_
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SMALL = ["--synthetic", "100", "--hidden", "16", "--d_transfer", "8",
@@ -47,7 +58,10 @@ def test_verbs_have_every_jax_flag_with_its_default(verb):
     want = _flags(jcli.build_parser(), verb)
     got = _flags(cli.build_parser(), verb)
     assert {k: got.get(k, "missing") for k in want} == want
-    assert set(got) - set(want) == {"device"}
+    # the port's own, and the four numerics flags (the JAX verbs take those
+    # as environment knobs)
+    assert set(got) - set(want) == {"device", "gt_bwd", "gt_bf16_dots",
+                                    "gt_dtype", "compute_dtype"}
 
 
 def test_finetune_then_eval_reproduces_the_test_metric(tmp_path, capsys):
@@ -183,3 +197,107 @@ def test_verbs_refuse_to_fall_back_to_cpu(monkeypatch, verb):
             "adapt": ["adapt"]}[verb]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cli.main(args + ["--synthetic", "8"])
+
+
+# --- the numerics flags ------------------------------------------------------
+
+VERB_ARGS = {"pretrain": [], "finetune": ["--dataset", "BACE"],
+             "eval": ["--dataset", "BACE", "--checkpoint", "x.msgpack"],
+             "adapt": []}
+TPU_DEFAULT = ["--gt_bwd", "merged", "--gt_bf16_dots"]
+
+
+def _built(verb, args):
+    """The model the verb builds from its parsed ``args``."""
+    if verb == "pretrain":
+        return cli._model(args, 9)
+    cls = cli.DomainAdaptModel if verb == "adapt" else cli.FinetuneModel
+    return cls(9, **cli._model_kwargs(vars(args)))
+
+
+def _numerics_of(model):
+    """(attention bwd, bf16_dots, dtype) of every transformer layer and
+    compute_dtype of every GIN, in both encoders."""
+    out = set()
+    for m in model.modules():
+        if isinstance(m, encoders.GraphTransformerLayer):
+            out.add((m.bwd, m.bf16_dots, m.dtype))
+        elif isinstance(m, encoders.GIN):
+            out.add(m.compute_dtype)
+    return out
+
+
+@pytest.mark.parametrize("verb", list(VERB_ARGS))
+def test_numerics_flags_reach_the_model(verb):
+    """``--gt_bwd``, ``--gt_bf16_dots``, ``--gt_dtype`` and
+    ``--compute_dtype`` (the JAX verbs' SCGIB_GT_BWD_TWOPASS,
+    SCGIB_GT_BF16, SCGIB_GT_ACT_BF16, SCGIB_COMPUTE_DTYPE) parse with
+    the defaults two-pass, off, float32, float32, and reach the built
+    model's attention and GIN."""
+    parser = cli.build_parser()
+    small = ["--hidden", "16", "--num_heads", "2", "--num_layers", "1"]
+    base = [verb] + VERB_ARGS[verb] + small
+    args = parser.parse_args(base)
+    assert {k: getattr(args, k) for k in cli.NUMERICS} == cli.NUMERICS
+    assert _numerics_of(_built(verb, args)) == {None}
+    args = parser.parse_args(base + ["--encoder", "Transformer"])
+    assert _numerics_of(_built(verb, args)) == {("twopass", False, None)}
+    args = parser.parse_args(base + ["--encoder", "Transformer",
+                                     "--gt_dtype", "bfloat16"]
+                             + TPU_DEFAULT)
+    assert _numerics_of(_built(verb, args)) == {
+        ("merged", True, torch.bfloat16)}
+    args = parser.parse_args(base + ["--compute_dtype", "bfloat16"])
+    assert _numerics_of(_built(verb, args)) == {"bfloat16"}
+
+
+def test_numerics_are_saved_in_the_config(tmp_path):
+    """The flags are saved in the run's config and a checkpoint's config
+    builds the model with them; a config without them (a JAX checkpoint's,
+    an older port one's) means the defaults."""
+    out = str(tmp_path / "ft.msgpack")
+    cli.main(["finetune", "--dataset", "BACE", "--epochs", "0", "--out", out,
+              "--encoder", "Transformer", "--num_layers", "1", "--num_heads",
+              "2", "--gt_dtype", "bfloat16"] + TPU_DEFAULT + SMALL)
+    cfg = ckpt.load_checkpoint(out)[1]["config"]
+    assert {k: cfg[k] for k in cli.NUMERICS} == {
+        "gt_bwd": "merged", "gt_bf16_dots": True, "gt_dtype": "bfloat16",
+        "compute_dtype": "float32"}
+    model = cli.FinetuneModel(9, **cli._model_kwargs(cfg))
+    assert _numerics_of(model) == {("merged", True, torch.bfloat16)}
+    old = {k: v for k, v in cfg.items() if k not in cli.NUMERICS}
+    model = cli.FinetuneModel(9, **cli._model_kwargs(old))
+    assert _numerics_of(model) == {("twopass", False, None)}
+
+
+def test_pretrain_steps_in_the_tpu_default_mode_on_cpu():
+    """``pretrain --steps 2 --encoder Transformer --gt_bwd merged
+    --gt_bf16_dots --device cpu`` gives the losses of the same run built
+    by hand (dataset, model, Adam and captured-step code as
+    ``run_pretrain`` builds them), bit for bit; without the flags the
+    losses differ (the forward's products are float32)."""
+    small = ["--synthetic", "48", "--batch_size", "16", "--hidden", "16",
+             "--d_transfer", "8", "--num_layers", "1", "--num_heads", "2",
+             "--encoder", "Transformer", "--device", "cpu"]
+    argv = ["pretrain", "--steps", "2"] + small
+    got = cli.main(argv + TPU_DEFAULT)
+    default = cli.main(argv)
+    args = cli.build_parser(steps=True).parse_args(argv)
+    ds = GraphDataset(random_dataset(48, seed=7, min_nodes=10, max_nodes=30),
+                      k=1)
+    caps = plan_capacities(ds, 16)
+    batches = itertools.islice(itertools.chain.from_iterable(
+        batch_iterator(ds, 16, caps, seed=7 + e) for e in itertools.count()),
+        2)
+    model = PretrainModel(9, hidden=16, d_transfer=8, encoder="Transformer",
+                          num_layers=1, num_heads=2, gt_bwd="merged",
+                          gt_bf16_dots=True)
+    init_flax_style_(model, torch.Generator().manual_seed(7))
+    step = make_pretrain_step(model, adam_l2(model, args.lr,
+                                             args.weight_decay))
+    gen = torch.Generator().manual_seed(8)
+    want = [[float(x) for x in step(g.to("cpu"), s.to("cpu"), gen)]
+            for g, s in batches]
+    names = ("kl", "contrastive", "reconstruction")
+    assert [[r[k] for k in names] for r in got] == want
+    assert [[r[k] for k in names] for r in default] != want
