@@ -186,7 +186,10 @@ Phases; any failure raises and exits non-zero before the last line:
      1e-3 of the plain version's largest entry, the float32 kernel on the
      same inputs past it (the control): error, kernel, plain and
      float32-kernel ms, the bound at the bf16 tensor-core rate, registers,
-     shared memory, blocks per SM and ptxas spills; (b) PretrainModel(9,
+     shared memory, blocks per SM and ptxas spills, the route each took
+     (``gt_fwd_bf16`` its staged kernel); the forward past the gate from
+     the control of each of its rounding points (tests/gt_rounding.py)
+     that lies twice the gate from the plain version; (b) PretrainModel(9,
      64, 32) in each mode on the benchmark batch: the card's losses within
      1e-3 of the CPU plain path at the same rounding points and within
      1e-2 of the float32 model in float64, its gradients within 5e-3 of
@@ -201,15 +204,26 @@ Phases; any failure raises and exits non-zero before the last line:
      phase 7 (recorded only).
  14. the JAX package's TPU-default Transformer (``gt_bwd="merged"``,
      ``gt_bf16_dots=True``, float32 dense tail: ``_bwd_merged_kernel`` with
-     ``bf16=True``): (a) ``gt_bwd_merged_bf16`` at S, 8 heads of 8, 1 of 64
-     and 1 of 1024 (the WIDE instantiation), against its plain bf16
-     version within 1e-3 of the largest entry, the float32 merged kernel
-     on the same inputs past it (the control), its distance from the
-     two-pass bf16 kernels recorded; the control of each single rounding
-     point (q, k, v, g, dS before dq, dS before dk, W before dv;
-     tests/gt_rounding.py) for it and the two-pass bf16 passes: every
-     control at least twice the gate from the plain version must lie past
-     the gate from the kernel; ms, bound, resources and ptxas spills; (b)
+     ``bf16=True``): (a) ``gt_fwd_bf16`` and ``gt_bwd_merged_bf16`` at S,
+     8 heads of 8 and 1 head of 64, 128, 256, 512 and 1024 (the WIDE
+     instantiation), each on the route ``gt_route`` picks (the staged
+     kernels where a block fits: 8 x 8, 1 x 64, 1 x 128) and, at 8 x 8
+     and 1 x 64, on the lane-group kernel too (the other route), against
+     its plain bf16 version within 1e-3 of the largest entry past one bf16
+     step of each term whose rounded factor (w, dS) ties within 2^-14 of a
+     rounding midpoint (``gt_rounding.tie_slack``: a float32 sum in
+     another order may round it either way), the error itself recorded,
+     the float32
+     kernel on the same inputs past it (the control), the merged pass's
+     distance from the two-pass bf16 kernels recorded; the control of each
+     single rounding point (q, k, v, g, dS before dq, dS before dk, W
+     before dv; tests/gt_rounding.py) for it and the two-pass bf16 passes,
+     on random inputs and, for the points those leave within twice the
+     gate (v and w before out, dS before dk, W before dv), on crafted ones
+     (``gt_rounding.separating_inputs``) at 8 x 8 and 1 x 64 on both
+     routes: every control at least twice the gate from the plain version
+     must lie past the gate from the kernel; ms, bound, resources and
+     ptxas spills of each route; (b)
      PretrainModel(9, 64, 32) in that mode, card against the CPU plain path
      and float64 under phase 13 (b)'s gates, the gradients' at 4e-4 of the
      largest entry (the float32 model's past it, the control); (c) ``cli.run_pretrain`` for 6
@@ -217,12 +231,16 @@ Phases; any failure raises and exits non-zero before the last line:
      ``gt_fwd_bf16``, 2 ``spmm`` and 1 ``pool`` a step, no other attention
      kernel; each captured step held to one eager step from a shared state
      (``stepwise_vs_eager``: dk and dv are summed with atomics), the
-     stale-input fault breaking it; (d) ``pretrain``, ``finetune``,
-     ``eval`` and ``adapt`` with ``--encoder Transformer --gt_bwd merged
-     --gt_bf16_dots``, one short epoch each, their launch counts those of
-     their steps and evaluation batches; (e) step medians, captured and
-     eager, merged-bf16 beside two-pass-bf16 and merged-float32, and the
-     captured merged-bf16 and merged-float32 steps profiled as in phase 7.
+     stale-input fault breaking it; every ``gt_fwd_bf16`` and
+     ``gt_bwd_merged_bf16`` launch on the staged route; (d) ``pretrain``,
+     ``finetune``, ``eval`` and ``adapt`` with ``--encoder Transformer
+     --gt_bwd merged --gt_bf16_dots``, one short epoch each, their launch
+     counts those of their steps and evaluation batches; (e) step medians,
+     captured and eager, merged-bf16 beside two-pass-bf16 and
+     merged-float32, and the captured merged-bf16 step on its staged
+     kernels, on the lane-group ones and on the staged ones in two other
+     splits, and the merged-float32 step, in turns, profiled as in phase
+     7, each attention kernel's time in the step read through ``PATH``.
  15. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch,
      phase 11, 12, 13 and 14 runs among them), the nvidia-smi line, and
@@ -336,7 +354,8 @@ SCAN_INNER = 3                # inner steps of the scan step
 HEADS, HEAD_DIM = 8, 8        # the graph transformer's attention
 WIDE_HDS = (64, 128, 256, 512, 1024)  # one head of each, checked at S
 SERVED_HDS = (1024, 1100)     # through gt_flash_attention (1100 padded)
-# wrapper -> (source, TPU kernel line, CUDA kernel)
+# wrapper -> (source, TPU kernel line, CUDA kernel; where it has two
+# routes, the staged route's kernel and then the lane-group one)
 PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gin_bwd": ("banded", 141, "gin_fused_bwd_kernel"),
         "spmm_self": ("banded", 177, "banded_spmm_kernel"),
@@ -348,11 +367,14 @@ PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gt_bwd_merged": ("gt_flash", 181, "gt_row_pass_kernel"),
         # the bf16 instantiations (phase 13)
         "gin_fwd_bf16": ("banded", 69, "gin_fused_fwd_kernel"),
-        "gt_fwd_bf16": ("gt_flash", 121, "gt_fwd_kernel"),
+        "gt_fwd_bf16": ("gt_flash", 121,
+                        "gt_fwd_staged_bf16_kernel gt_fwd_kernel"),
         "gt_bwd_rows_bf16": ("gt_flash", 146, "gt_row_pass_kernel"),
         "gt_bwd_cols_bf16": ("gt_flash", 248, "gt_bwd_cols_kernel"),
         # the merged backward's bf16 instantiation (phase 14)
-        "gt_bwd_merged_bf16": ("gt_flash", 181, "gt_row_pass_kernel")}
+        "gt_bwd_merged_bf16": ("gt_flash", 181,
+                               "gt_bwd_merged_staged_bf16_kernel "
+                               "gt_row_pass_kernel")}
 # main-path run -> (run_pretrain arguments, steps, launches per step; the
 # wrappers not named launch 0 times)
 RUNS = {"GIN": ({}, STEPS, GIN_PER_STEP),
@@ -448,13 +470,18 @@ def windows(blocks, col_off, x):
 
 
 def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
-          tf32x3=False, tol=KERNEL_RTOL, flops_per_s=FP32_FLOPS_PER_S):
+          tf32x3=False, tol=KERNEL_RTOL, flops_per_s=FP32_FLOPS_PER_S,
+          ties=None):
     """Compare one kernel configuration with its plain version and time
     both; returns the record.  ``tf32x3``: the kernel runs its products in
     3xTF32, so its bound is taken at that rate, and the bound at the fp32
     SIMT rate is recorded beside it.  ``tol``: the largest error relative
     to the plain version's largest entry; ``flops_per_s``: the rate of the
-    operations' bound (phase 13's bf16 kernels: the bf16 one)."""
+    operations' bound (phase 13's bf16 kernels: the bf16 one).  ``ties``:
+    a bf16 kernel's ``gt_rounding.tie_slack`` (a callable): each entry may
+    also lie one bf16 step of every term whose rounded factor ties, which
+    a float32 sum in another order rounds either way; the error past that
+    is held to ``tol``, and the error itself is recorded beside it."""
     got = kernel_fn()
     want = plain_fn()
     torch.cuda.synchronize()
@@ -463,6 +490,7 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     max_abs = max(e[0] for e in errs)
     max_rel = max(e[1] for e in errs)
+    gated = max_rel
     rec = {"name": name, "shape": shape, "max_abs_err": max_abs,
            "max_rel_err": max_rel, "tol_rel": tol,
            "ms": time_ms(kernel_fn), "plain_ms": time_ms(plain_fn),
@@ -476,14 +504,20 @@ def check(name, shape, kernel_fn, plain_fn, nbyt, flops, library_fn=None,
         extra = (f" at the 3xTF32 rate; at the fp32 SIMT rate "
                  f"{rec['bound_fp32_ms'] * 1e3:.3f} us (share "
                  f"{rec['bound_fp32_ms'] / rec['ms']:.3f})")
+    if ties is not None:
+        gated, rec["tie_entries"] = gt_rounding.beyond_ties(got, want,
+                                                            ties())
+        rec["max_rel_err_beyond_ties"] = gated
+        extra += (f"; past the ties {gated:.3e} ({rec['tie_entries']} "
+                  f"entries took a tie's step)")
     print(f"kernel {name} {shape}: max_abs_err {max_abs:.3e} rel "
           f"{max_rel:.3e} (tol {tol}) | ms {rec['ms']:.4f} plain "
           f"{rec['plain_ms']:.4f} library {rec['library_ms']} bound "
           f"{rec['bound_ms'] * 1e3:.3f} us ({rec['bound_by']}, share "
           f"{rec['bound_share']:.3f}){extra}", flush=True)
-    if not max_rel <= tol:
+    if not gated <= tol:
         raise AssertionError(f"{name} {shape} disagrees with its plain "
-                             f"version: {max_rel:.3e} > {tol}")
+                             f"version: {gated:.3e} > {tol}")
     return rec
 
 
@@ -501,10 +535,13 @@ GT_SPILLS = {("gt_fwd", 2): (4, 4), ("gt_fwd", 4): (4, 4),
 def attention_ptxas():
     """Registers and spill bytes of every instantiation of
     csrc/gt_flash.cu, from the ptxas report kept beside its library (built
-    in this run or before it): every wrapper at every width of
-    ``HEAD_WIDTHS`` and WIDE (0), none spilling past ``GT_SPILLS``."""
+    in this run or before it): every wrapper's lane-group kernel at every
+    width of ``HEAD_WIDTHS`` and WIDE (0), and the staged kernels at every
+    width of ``STAGED_HEAD_WIDTHS``, none spilling past ``GT_SPILLS``."""
     report = kg.ptxas_report()
-    want = {(k, hd) for k in kg.KERNELS for hd in kg.HEAD_WIDTHS + (0,)}
+    want = {(k, hd) for k in kg.KERNELS for hd in kg.HEAD_WIDTHS + (0,)} | {
+        (kg.ptxas_key(k, "staged"), hd) for k in kg.STAGED
+        for hd in kg.STAGED_HEAD_WIDTHS}
     faults = sorted(want - set(report))
     for key, rec in sorted(report.items()):
         spill = (rec.get("spill_stores"), rec.get("spill_loads"))
@@ -844,8 +881,8 @@ def profile_phase(encoder="GIN", eager=False, **options):
                        for ms, n, name in kernels[:12]],
                "port": {k: [sum(ms for ms, _, name in kernels if k in name),
                             sum(n for _, n, name in kernels if k in name)]
-                        for k in sorted({v[2].split()[0]
-                                         for v in PATH.values()})}}
+                        for k in sorted({name for v in PATH.values()
+                                         for name in v[2].split()})}}
     if not busy_ms:
         summary["device_ms_per_step"] = event_device_ms(encoder, eager,
                                                         **options)
@@ -1311,12 +1348,23 @@ def main():
         run = REPORT_RUN.get(name, "GIN")
         sup = supervised["steps"]["GIN" if run.startswith("GIN")
                                   else "Transformer"]
+        # a wrapper with two routes: each route's CUDA kernel (staged, then
+        # lane-group), its launches in the reporting run, the shapes held
+        names = port_kernel.split()
+        routes = {route: {
+            "port_kernel": f"scgib_tpu_torch/csrc/{src}.cu::{kernel}",
+            "launches": runs[run]["routes"].get(f"{name} {route}", 0),
+            "shapes": [r["shape"] for r in recs
+                       if r.get("kernel_route") == route]}
+            for route, kernel in zip(kg.ROUTES, names)} \
+            if len(names) > 1 else None
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"scgib_tpu_torch/csrc/{src}.cu",
             "replaces": f"scgib_tpu/ops/pallas/{src}.py:{line}",
             "status": "ported",
-            "port_kernel": f"scgib_tpu_torch/csrc/{src}.cu::{port_kernel}",
+            "port_kernel": f"scgib_tpu_torch/csrc/{src}.cu::{names[0]}",
+            "kernel_routes": routes,
             "launches": runs[run]["counts"][name], "launches_run": run,
             "launches_by_run": {
                 **{r: runs[r]["counts"][name] for r in runs},
@@ -1384,7 +1432,15 @@ def main_path(name, kwargs, steps, per_step, band=None):
     band = band or default_band
     if branches != ({"banded": steps}, {band: layers * steps}):
         raise AssertionError(f"{name} left the kernel branches: {branches}")
-    return {"counts": counts, "step_ms": step_ms, "steps": records}
+    routes = {f"{k} {r}": c for (k, r), c in kg.route_counts().items() if c}
+    heads = kwargs.get("num_heads", HEADS)
+    for kernel in kg.STAGED:
+        route = kg.gt_route(kernel, heads, kwargs.get("hidden", 64) // heads)
+        if routes.get(f"{kernel} {route.name}", 0) != counts[kernel]:
+            raise AssertionError(f"{name}: {kernel} left its {route.name} "
+                                 f"route: {routes}")
+    return {"counts": counts, "routes": routes, "step_ms": step_ms,
+            "steps": records}
 
 
 # --- 6. the pretrain verb, its options and the repaired widths ---------------
@@ -1881,8 +1937,8 @@ def ft_profile(dev, batches):
                        for ms, n, name in kernels[:10]],
                "port": {k: [sum(ms for ms, _, name in kernels if k in name),
                             sum(n for _, n, name in kernels if k in name)]
-                        for k in sorted({v[2].split()[0]
-                                         for v in PATH.values()})}}
+                        for k in sorted({name for v in PATH.values()
+                                         for name in v[2].split()})}}
         out[enc] = rec
         print(f"profile (finetune, {enc}, captured): {json.dumps(rec)}",
               flush=True)
@@ -3846,9 +3902,14 @@ def bf16_kernel_phase(g, sub, dev):
     """Phase 13 (a): the four bf16 kernels against their plain bf16
     versions at the benchmark shapes, with the float32 kernel's time
     beside each, the bound at the bf16 tensor-core rate, and each
-    kernel's resources and ptxas spills.  The control: the float32 kernel
-    on the same inputs must sit past the gate from the plain bf16 version,
-    or the gate could not tell a kernel that skipped its rounding."""
+    kernel's resources and ptxas spills, and the route it took.  The
+    control: the float32 kernel on the same inputs must sit past the gate
+    from the plain bf16 version, or the gate could not tell a kernel that
+    skipped its rounding; and the forward past the gate from the control
+    of each of its rounding points (q, k, v, w before out;
+    tests/gt_rounding.py) that lies at least twice the gate from the
+    plain version (q, k and v here; w before out only on phase 14 (a)'s
+    crafted inputs)."""
     gen = torch.Generator(device=dev).manual_seed(13)
     bf, hid, records = torch.bfloat16, 64, []
 
@@ -3898,18 +3959,25 @@ def bf16_kernel_phase(g, sub, dev):
              edges * (8 * hd + 10)))
         for name, ts, wrapper, plain, nbyt, flops in cases:
             plain = functools.partial(plain, blocks, off, *ts, bf16_dots=True)
-            rec = check(name, shape,
-                        functools.partial(wrapper, blocks, off, *ts,
-                                          bf16_dots=True),
-                        plain, nbyt, flops, tol=BF16_RTOL,
-                        flops_per_s=BF16_FLOPS_PER_S)
+            kernel = functools.partial(wrapper, blocks, off, *ts,
+                                       bf16_dots=True)
+            rec = check(name, shape, kernel, plain, nbyt, flops,
+                        tol=BF16_RTOL, flops_per_s=BF16_FLOPS_PER_S)
             rec["main"] = hd == HEAD_DIM
-            spills = ptxas[name, hd]
-            add(rec, plain, kg.kernel_info(name, hd),
-                {"spill_stores": spills["spill_stores"],
-                 "spill_loads": spills["spill_loads"]},
+            info = kg.kernel_info(name, hd, heads)
+            rec["kernel_route"] = info["route"]
+            extra = ""
+            if name == "gt_fwd_bf16":
+                rec["rounding_controls"] = rounding_controls(
+                    "fwd", kernel(), (blocks, off, q, k, v))
+                extra = (f"; rounding controls "
+                         f"{json.dumps(rec['rounding_controls'])}")
+            key = kg.ptxas_key(name, info["route"])
+            add(rec, plain, info,
+                {x: ptxas[key, hd][x] for x in ("spill_stores",
+                                                "spill_loads")},
                 functools.partial(wrapper, blocks, off, *ts),
-                GT_SPILLS.get((name, hd), (0, 0)))
+                GT_SPILLS.get((key, hd), (0, 0)), extra)
     return records
 
 
@@ -4083,8 +4151,19 @@ TPU_DEFAULT_RUN = ("Transformer-merged-bf16",
                    ({"encoder": "Transformer", **TPU_DEFAULT}, STEPS,
                     TPU_DEFAULT_PER_STEP))
 TPU_DEFAULT_HEADS = ((HEADS, HEAD_DIM), (1, 64), (1, 1024))
+# phase 14 (a)'s shapes: those, and one head of each of WIDE_HDS
+TPU_DEFAULT_SHAPES = tuple(dict.fromkeys(
+    TPU_DEFAULT_HEADS + tuple((1, w) for w in WIDE_HDS)))
 TPU_DEFAULT_DIR = os.path.join(ROOT, ".scratch", "chip_smoke_tpu_default")
 TPU_DEFAULT_N = 600           # molecules of the verbs' runs
+# phase 14 (e)'s other splits of the staged kernels at 8 x 8 ({wrapper:
+# (parts, threads a block)}), profiled beside gt_route's choice (4 parts,
+# 128 threads for the forward and 256 for the merged pass): the readings
+# that chose it
+STAGED_ALTERNATIVES = {
+    "staged 2 parts": {"gt_fwd_bf16": (2, 256),
+                       "gt_bwd_merged_bf16": (2, 256)},
+    "staged 1 part": {"gt_fwd_bf16": (1, 256), "gt_bwd_merged_bf16": (1, 512)}}
 # step medians: (merged bf16, two-pass bf16, merged float32) in turns
 TPU_MEDIAN_MODES = {"merged-bf16": TPU_DEFAULT,
                     "twopass-bf16": {"gt_bf16_dots": True},
@@ -4104,19 +4183,78 @@ def rounding_controls(kernel, got, inputs, rho=None):
                 "separated": sep} for p, (a, k, sep) in records.items()}
 
 
+@contextlib.contextmanager
+def lane_group_route(staged=None):
+    """Every wrapper on its lane-group kernel (the other route of rows 6b
+    and 9b), to time and hold it beside the staged route at the same shapes;
+    or, given ``staged`` {wrapper: (parts, threads)}, those wrappers on
+    their staged kernels in that many parts and threads a block (the
+    alternatives to ``gt_route``'s choice that phase 14 (e) times)."""
+    real = kg.gt_route
+
+    def route(kernel, heads, hd, tile=64, band=128):
+        if staged is None or kernel not in staged:
+            return kg.Route("lane_group")
+        split, threads = staged[kernel]
+        return kg.Route("staged", split, threads, kg.staged_smem(
+            kernel, tile, band, heads * hd // split, heads // split))
+    kg.gt_route = route
+    try:
+        yield
+    finally:
+        kg.gt_route = real
+
+
+def crafted_controls(dev, heads, hd):
+    """The controls that random inputs leave within twice the gate (v and w
+    before out; dS before dk, w before dv), on
+    ``gt_rounding.separating_inputs``: the kernels on their routes within
+    the gate of the plain versions and past it from every control at least
+    twice the gate away; {kernel: controls}."""
+    out = {}
+    ins = [x.to(dev) for x in gt_rounding.separating_inputs("fwd", heads,
+                                                            hd)]
+    got = kg.gt_fwd(*ins, bf16_dots=True)
+    gap = gt_rounding.rel_gap(got, kg.gt_fwd_plain(*ins, bf16_dots=True))
+    out["gt_fwd_bf16"] = {"rel_vs_plain": gap,
+                          **rounding_controls("fwd", got, ins)}
+    ins = [x.to(dev) for x in gt_rounding.separating_inputs("merged", heads,
+                                                            hd)]
+    ins.append(kg.gt_fwd_plain(*ins[:5], bf16_dots=True)[1])
+    got = kg.gt_bwd_merged(*ins, bf16_dots=True)
+    gap = gt_rounding.rel_gap(got,
+                              kg.gt_bwd_merged_plain(*ins, bf16_dots=True))
+    out["gt_bwd_merged_bf16"] = {"rel_vs_plain": gap,
+                                 **rounding_controls("merged", got, ins)}
+    dq, rho = kg.gt_bwd_rows(*ins, bf16_dots=True)
+    out["gt_bwd_cols_bf16"] = rounding_controls(
+        "cols", kg.gt_bwd_cols(*ins, rho, bf16_dots=True), ins, rho=rho)
+    torch.cuda.synchronize()
+    for name, rec in out.items():
+        if rec.get("rel_vs_plain", 0.0) > BF16_RTOL:
+            raise AssertionError(f"{name} on the crafted inputs: {rec}")
+    return out
+
+
 def tpu_default_kernel_phase(sub, dev):
-    """Phase 14 (a): ``gt_bwd_merged_bf16`` against its plain version at
-    S, with the float32 merged kernel on the same inputs as the control,
-    its distance from the two-pass bf16 kernels (the same rounding points,
-    sums in another order), the controls of every single rounding point
-    for it and for the two-pass bf16 passes, and its resources and ptxas
-    spills."""
+    """Phase 14 (a): ``gt_fwd_bf16`` and ``gt_bwd_merged_bf16`` at S, at
+    every shape of ``TPU_DEFAULT_SHAPES``, on the route ``gt_route`` picks
+    and, where that is the staged one at a shape of ``TPU_DEFAULT_HEADS``,
+    on the lane-group kernel too (the other route, timed beside it): each
+    against its plain bf16 version (past the ties' steps,
+    ``gt_rounding.tie_slack``), the float32 kernel on the same inputs as
+    the control; the merged pass's distance from the two-pass bf16
+    kernels; the controls of every single rounding point (q, k, v, g, dS
+    before dq, dS before dk, W before dv; tests/gt_rounding.py) for it and
+    the two-pass bf16 passes on random inputs, and of the points those
+    leave unseparated on ``crafted_controls``' inputs; ms, bound,
+    resources and ptxas spills of each route."""
     gen = torch.Generator(device=dev).manual_seed(14)
     blocks, off = _resolve_band(sub, gt=True)
     n = blocks.shape[0] * blocks.shape[1]
     ptxas = kg.ptxas_report()
     records, controls = [], {}
-    for heads, hd in TPU_DEFAULT_HEADS:
+    for heads, hd in TPU_DEFAULT_SHAPES:
         edges = int((blocks != 0).sum()) * heads
         q, k, v, gr = (torch.randn(n, heads, hd, device=dev, generator=gen)
                        for _ in range(4))
@@ -4124,35 +4262,70 @@ def tpu_default_kernel_phase(sub, dev):
         shape = f"S={n} H={heads} hd={hd} blocks={tuple(blocks.shape)}"
         ins, feat, stat = nbytes(blocks, off, q, k, v), nbytes(q), nbytes(z)
         args = (blocks, off, q, k, v, gr, z)
-        plain = functools.partial(kg.gt_bwd_merged_plain, *args,
-                                  bf16_dots=True)
-        rec = check("gt_bwd_merged_bf16", shape,
-                    functools.partial(kg.gt_bwd_merged, *args,
-                                      bf16_dots=True),
-                    plain, ins + feat + stat + 3 * feat,
-                    edges * (10 * hd + 10), tol=BF16_RTOL,
-                    flops_per_s=BF16_FLOPS_PER_S)
-        rec["main"] = hd == HEAD_DIM
-        got = kg.gt_bwd_merged(*args, bf16_dots=True)
-        dq, rho = kg.gt_bwd_rows(*args, bf16_dots=True)
-        cols = kg.gt_bwd_cols(*args, rho, bf16_dots=True)
-        torch.cuda.synchronize()
-        rec["rel_vs_twopass_bf16"] = max(
-            rel_err(a, b)[1] for a, b in zip(got, (dq,) + cols))
-        controls[shape] = {
-            "gt_bwd_merged_bf16": rounding_controls("merged", got, args),
-            "gt_bwd_rows_bf16": rounding_controls("rows", (dq, rho), args),
-            "gt_bwd_cols_bf16": rounding_controls("cols", cols, args,
-                                                  rho=rho)}
-        key = hd if hd in kg.HEAD_WIDTHS else 0           # 0: WIDE
-        records.append(bf16_vs_f32(
-            rec, plain, kg.kernel_info("gt_bwd_merged_bf16", hd),
-            {x: ptxas["gt_bwd_merged_bf16", key][x]
-             for x in ("spill_stores", "spill_loads")},
-            functools.partial(kg.gt_bwd_merged, *args),
-            GT_SPILLS.get(("gt_bwd_merged_bf16", key), (0, 0)),
-            f"; {rec['rel_vs_twopass_bf16']:.3e} from the two-pass bf16 "
-            f"kernels; rounding controls {json.dumps(controls[shape])}"))
+        key_hd = hd if hd in kg.HEAD_WIDTHS else 0           # 0: WIDE
+        cases = (("gt_fwd_bf16", kg.gt_fwd, kg.gt_fwd_plain, args[:5],
+                  ins + feat + stat, edges * (4 * hd + 5)),
+                 ("gt_bwd_merged_bf16", kg.gt_bwd_merged,
+                  kg.gt_bwd_merged_plain, args, ins + feat + stat + 3 * feat,
+                  edges * (10 * hd + 10)))
+        for name, wrapper, plain_fn, ts, nbyt, flops in cases:
+            route = kg.gt_route(name, heads, hd).name
+            routes = [route] + (["lane_group"] if route == "staged" and (
+                heads, hd) in TPU_DEFAULT_HEADS else [])
+            plain = functools.partial(plain_fn, *ts, bf16_dots=True)
+            for taken in routes:
+                with (lane_group_route() if taken != route
+                      else contextlib.nullcontext()):
+                    kernel = functools.partial(wrapper, *ts, bf16_dots=True)
+                    rec = check(name, f"{shape} route={taken}", kernel,
+                                plain, nbyt, flops, tol=BF16_RTOL,
+                                flops_per_s=BF16_FLOPS_PER_S,
+                                ties=functools.partial(
+                                    gt_rounding.tie_slack,
+                                    "fwd" if name == "gt_fwd_bf16"
+                                    else "merged", ts))
+                    rec["main"] = hd == HEAD_DIM and taken == route
+                    rec["kernel_route"] = taken
+                    key = kg.ptxas_key(name, taken)
+                    extra = ""
+                    if name == "gt_bwd_merged_bf16" and (
+                            heads, hd) in TPU_DEFAULT_HEADS:
+                        got = kernel()
+                        dq, rho = kg.gt_bwd_rows(*args, bf16_dots=True)
+                        cols = kg.gt_bwd_cols(*args, rho, bf16_dots=True)
+                        torch.cuda.synchronize()
+                        rec["rel_vs_twopass_bf16"] = max(
+                            rel_err(a, b)[1]
+                            for a, b in zip(got, (dq,) + cols))
+                        rec["rounding_controls"] = rounding_controls(
+                            "merged", got, args)
+                        if taken == route:
+                            controls[shape] = {
+                                "gt_bwd_merged_bf16":
+                                    rec["rounding_controls"],
+                                "gt_bwd_rows_bf16": rounding_controls(
+                                    "rows", (dq, rho), args),
+                                "gt_bwd_cols_bf16": rounding_controls(
+                                    "cols", cols, args, rho=rho)}
+                        extra = (f"; {rec['rel_vs_twopass_bf16']:.3e} from "
+                                 f"the two-pass bf16 kernels; rounding "
+                                 f"controls "
+                                 f"{json.dumps(rec['rounding_controls'])}")
+                    records.append(bf16_vs_f32(
+                        rec, plain, kg.kernel_info(
+                            name, hd, heads if taken == "staged" else None),
+                        {x: ptxas[key, key_hd][x]
+                         for x in ("spill_stores", "spill_loads")},
+                        functools.partial(wrapper, *ts),
+                        GT_SPILLS.get((key, key_hd), (0, 0)), extra))
+    for heads, hd in TPU_DEFAULT_HEADS[:2]:
+        for route in ("staged", "lane_group"):
+            with (lane_group_route() if route == "lane_group"
+                  else contextlib.nullcontext()):
+                crafted = crafted_controls(dev, heads, hd)
+            controls[f"crafted H={heads} hd={hd} route={route}"] = crafted
+            print(f"phase 14 (a) crafted inputs, {heads} x {hd}, {route}: "
+                  f"{json.dumps(crafted)}", flush=True)
     return records, controls
 
 
@@ -4217,23 +4390,39 @@ def tpu_default_verbs():
 def tpu_default_medians(dev, batches):
     """Phase 14 (e): the median step (steps 1-5 of 6) of the Transformer,
     merged bf16, two-pass bf16 and merged float32 in turns (a, b, c, c, b,
-    a), captured and eager; then the captured merged-bf16 and
-    merged-float32 steps profiled as in phase 7.  Recorded only."""
+    a), captured and eager; then the captured merged-bf16 step on the
+    staged route, on the lane-group kernels and on the staged
+    kernels in ``STAGED_ALTERNATIVES``' splits, and the merged-float32 step,
+    in turns (a, b, ..., b, a), profiled as in phase 7, each attention
+    kernel's in-step time read through ``PATH``.  Recorded only."""
     order = list(TPU_MEDIAN_MODES) + list(TPU_MEDIAN_MODES)[::-1]
     out = step_medians(dev, batches, [
         (f"{path} {mode}", {"encoder": "Transformer",
                             **TPU_MEDIAN_MODES[mode]}, path)
         for path in ("captured", "eager") for mode in order])
     print(f"phase 14 (e) step medians, ms: {json.dumps(out)}", flush=True)
-    profiles = {f"Transformer {mode} captured": profile_phase(
-        "Transformer", False, **TPU_MEDIAN_MODES[mode])
-        for mode in ("merged-bf16", "merged-f32")}
-    for label, prof in profiles.items():
-        ms, calls = prof["port"]["gt_row_pass_kernel"]
-        per_call = f"{ms / calls * 1e3:.2f} us a call" if calls else \
-            "not in the profile"
-        print(f"phase 14 (e) {label}: merged backward in step {per_call} "
-              f"({calls} calls a step), device "
+    profiles = {}
+    order = [("merged-bf16", "staged"), ("merged-bf16", "lane_group"),
+             *(("merged-bf16", alt) for alt in STAGED_ALTERNATIVES),
+             ("merged-f32", "lane_group")]
+    for label, route in order + order[-2::-1]:
+        key = (f"Transformer {label} captured"
+               + (f" {route}" if label.endswith("bf16") else ""))
+        with (contextlib.nullcontext() if route == "staged"
+              else lane_group_route(STAGED_ALTERNATIVES.get(route))):
+            prof = profile_phase("Transformer", False,
+                                 **TPU_MEDIAN_MODES[label])
+        profiles.setdefault(key, []).append(prof)
+        dots = "_bf16" if label.endswith("bf16") else ""
+        per_call = {}
+        for wrapper in ("gt_fwd", "gt_bwd_merged"):
+            for kernel in PATH[wrapper + dots][2].split():
+                ms, calls = prof["port"][kernel]
+                if calls:
+                    per_call[kernel] = [ms / calls * 1e3, calls]
+        prof["in_step_us"] = per_call
+        print(f"phase 14 (e) {key}: in step (us a call, calls a step) "
+              f"{json.dumps(per_call)}, device "
               f"{prof['device_ms_per_step']:.3f} ms a step", flush=True)
     return out, profiles
 

@@ -15,6 +15,9 @@
 //                  with atomicAdd.  Replaces _bwd_merged_kernel.
 //                  The row pass and the merged pass are one template,
 //                  gt_row_pass_kernel<HD, MERGED, BF16>.
+//   gt_fwd_staged_bf16_kernel, gt_bwd_merged_staged_bf16_kernel
+//                  the forward and the merged pass with bf16 dots, staged
+//                  in shared memory: their second route (below).
 //
 // Layout (graph/banded.py): blocks [T, TL, BW] bf16 (TL = 64, BW = 128 in
 // the narrow graph-transformer geometry; 128, 256 in the wide one), col_off
@@ -108,14 +111,15 @@
 // is scaled (1 / sqrt(hd) is not a power of two at hd 8, so rnd(dS * scale)
 // is not rnd(dS) * scale; folded into q before the rounding it would round
 // otherwise).  The forward rounds w = e / (z + eps), which needs z first,
-// so its bf16 form walks the row's nonzeros twice.  The merged pass's BF16
+// so its bf16 lane-group form walks the row's nonzeros twice (the staged
+// forward, once).  The merged pass's BF16
 // form (gt_row_pass_kernel<HD, true, true>, _bwd_merged_kernel with
 // bf16=True) is the bf16 row pass whose atomicAdds take the rounded dS and
 // q for dk and the rounded w and g for dv, as _cdot(dS_cat, q_t) and
 // _cdot(w_cat, g_t) round them.  Still SIMT over the same lane groups.
 // Running the bf16 products on the tensor cores (mma.sync or wgmma over
 // the dense [TL, BW] tile, which the sparse gate leaves mostly empty) is
-// later work, as are TMA and bf16 storage of q, k and v.
+// untried, as are TMA and bf16 storage of q, k and v.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/kernels/gt_flash.py).  Every entry launches on the given
@@ -671,11 +675,563 @@ gt_bwd_cols_kernel(const __nv_bfloat16* __restrict__ blocks,
   }
 }
 
+// --- The staged bf16 kernels: rows 6b and 9b --------------------------------
+//
+// The forward and the merged backward with bf16 dots, the JAX package's
+// own attention on a TPU, have a design of their own where a block's
+// operands fit its shared memory (the route, chosen on the host by shape:
+// ops/kernels/gt_flash.py::gt_route; other shapes run the lane-group
+// kernels above).  One block takes row tile t, or the heads of one of its
+// `split` equal parts of the features (Db = D / split features, whole
+// heads).  The tile's rows attend to one contiguous window of k and v,
+// rows [col_off[t], col_off[t] + BW), as the TPU kernel's block load
+// (gt_flash.py:130, 137): the block copies that window of k and v, its own
+// q rows (and g rows, and 1 / (z + eps)), and its gate rows [TL, BW] into
+// shared memory with 16-byte cp.async copies, rounds every copied operand
+// to bf16 once, in place, and then walks each row's nonzeros as the lane
+// groups do (a group per row, 4 features a lane, the ballot walk over the
+// staged gate), every k_j and v_j read from shared memory.  The rounding
+// points are the lane-group kernels' (the comment above gt_fwd_kernel and
+// add_terms), and so are the sums' orders but for dk and dv.
+//
+// gt_fwd_staged_bf16_kernel makes one trip over a row's nonzeros: each
+// exponential is computed once and kept, in registers for the first KEEP
+// nonzeros and past them in `spill` (device memory the wrapper allocates,
+// a row slot of BW - KEEP nonzeros a head for each group of lanes, written
+// by each head's leading lane; molecule rows have at most 8 nonzeros, so
+// it is rarely touched); z is summed, and w = rnd(e / (z + eps)) times the
+// staged v_j is added from the kept values.  No score or exponential is
+// computed twice, and no row of k or v is read twice from device memory.
+//
+// gt_bwd_merged_staged_bf16_kernel runs in two phases.  The row phase is
+// the row pass (rho, then dq; the first NG nonzeros' terms kept in
+// registers, the rest recomputed from shared memory) and marks each
+// nonzero (r, j) in a 64-bit mask of column j (integer atomicOr).  The
+// column phase gives each window column j to a lane group, which walks
+// the rows of its mask, recomputes their terms from the same operands in
+// the same order (so the same dS and W) and sums dk_j and dv_j in
+// registers, in row order; then one float4 atomicAdd of each into dk and
+// dv (the TPU kernel's window, gt_flash.py:242-245): Db / 4 global
+// atomics a touched window column instead of 2 D a nonzero.  Shared-memory
+// float atomics, the first design, are compare-and-swap loops on this card
+// and were slower (PERF.md).  Windows of neighbouring tiles overlap, so
+// the global sums stay unordered where more than two tiles add to a row.
+
+constexpr int STAGED_MAX_THREADS = 512;   // a staged block: 128, 256 or
+                                          // 512 threads
+constexpr int STAGED_MAX_FEATURES = 128;   // a block's features: one pass
+                                           // of at most 32 lanes of 4
+constexpr int KEEP = 2 * GATHER;        // exponentials the staged forward
+                                        // keeps in registers a row
+constexpr size_t SMEM_LIMIT = 232448;   // shared memory one block may take
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// This thread's 16-byte copies of rows r0 .. r0 + rows - 1 of x (`stride`
+// floats a row), features cb .. cb + width - 1, into dst [rows][width]:
+// pieces threadIdx.x, threadIdx.x + blockDim.x, ... (round_staged
+// rounds the same pieces, so a thread needs only its own copies landed).
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ x,
+                                      long long r0, int rows, int stride,
+                                      int cb, int width) {
+  const int per_row = width / 4;
+  for (int p = threadIdx.x; p < rows * per_row; p += blockDim.x) {
+    const int r = p / per_row;
+    cp_async16(dst + 4 * p,
+               x + (r0 + r) * stride + cb + 4 * (p - r * per_row));
+  }
+}
+
+__device__ __forceinline__ void stage_bytes(void* dst, const void* src,
+                                            int pieces) {
+  for (int p = threadIdx.x; p < pieces; p += blockDim.x)
+    cp_async16(static_cast<char*>(dst) + 16 * p,
+               static_cast<const char*>(src) + 16 * p);
+}
+
+// The pieces of dst that this thread staged, rounded to bf16 in place.
+__device__ __forceinline__ void round_staged(float* dst, int pieces) {
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int p = threadIdx.x; p < pieces; p += blockDim.x) {
+    float4 x = d[p];
+    x.x = rnd<true>(x.x); x.y = rnd<true>(x.y);
+    x.z = rnd<true>(x.z); x.w = rnd<true>(x.w);
+    d[p] = x;
+  }
+}
+
+// 4 features from shared memory (zeros where !ok).
+__device__ __forceinline__ void load4(const float* p, bool ok, float* x) {
+  const float4 v = ok ? *reinterpret_cast<const float4*>(p)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+}
+
+// gate_walk::gate_mask over a gate row staged in shared memory.
+__device__ __forceinline__ unsigned long long gate_mask_shared(
+    const __nv_bfloat16* arow, int nvec, const gate_walk::LaneGroup& g) {
+  uint4 v[gate_walk::SEGV];
+#pragma unroll
+  for (int i = 0; i < gate_walk::SEGV; ++i) {
+    const int q = i * g.lpr + g.lig;
+    v[i] = q < nvec ? reinterpret_cast<const uint4*>(arow)[q]
+                    : make_uint4(0u, 0u, 0u, 0u);
+  }
+  unsigned long long m = 0ull;
+#pragma unroll
+  for (int i = 0; i < gate_walk::SEGV; ++i) {
+    const unsigned w[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      if (w[h] & 0x7fffu) m |= 1ull << (8 * i + 2 * h);
+      if (w[h] & 0x7fff0000u) m |= 1ull << (8 * i + 2 * h + 1);
+    }
+  }
+  return m;
+}
+
+// Per head of this lane, the gated exponential of column col (< 0: none)
+// of a row whose rounded q features are qi; k staged [BW][Db].
+template <int HD>
+__device__ __forceinline__ void staged_exp(int col,
+                                           const __nv_bfloat16* gate,
+                                           const float* ks, int Db, int c,
+                                           bool ok, const float* qi,
+                                           float scale, float clamp,
+                                           float* e) {
+  const bool has = col >= 0;
+  float kj[4], s[Heads<HD>::NH];
+  load4(ks + (has ? col : 0) * Db + c, has && ok, kj);
+  head_dots<HD>(qi, kj, s);
+  const float a = has ? __bfloat162float(gate[col]) : 0.f;
+#pragma unroll
+  for (int h = 0; h < Heads<HD>::NH; ++h)
+    e[h] = gated_exp(s[h] * scale, a, clamp);
+}
+
+// acc += rnd(e / (z + eps)) v_j over this lane's features, v staged.
+template <int HD>
+__device__ __forceinline__ void add_wv(int col, const float* e,
+                                       const float* winv, const float* vs,
+                                       int Db, int c, bool ok, float* acc) {
+  using M = Heads<HD>;
+  if (col < 0 || !ok) return;
+  float vj[4];
+  load4(vs + col * Db + c, true, vj);
+#pragma unroll
+  for (int h = 0; h < M::NH; ++h) {
+    const float w = rnd<true>(e[h] * winv[h]);
+#pragma unroll
+    for (int j = 0; j < M::PER; ++j)
+      acc[h * M::PER + j] = fmaf(w, vj[h * M::PER + j], acc[h * M::PER + j]);
+  }
+}
+
+// Forward, bf16 dots, staged: block = (tile, part); a lane group of `lpr`
+// lanes per row, rows slot, slot + slots, ... of the tile.  Shared memory:
+// k and v windows and q rows [BW or TL][Db] floats, then the gate rows.
+template <int HD>
+__global__ void __launch_bounds__(STAGED_MAX_THREADS)
+gt_fwd_staged_bf16_kernel(const __nv_bfloat16* __restrict__ blocks,
+                          const long long* __restrict__ col_off, int TL,
+                          int BW, const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, int H, int split,
+                          int lpr, float scale, float clamp, float eps,
+                          float* __restrict__ out, float* __restrict__ z,
+                          float* __restrict__ spill) {
+  using M = Heads<HD>;
+  constexpr int NH = M::NH, NG = M::NG;
+  static_assert(M::F == 4, "a staged lane holds 4 features");
+  extern __shared__ float4 staged_buf[];
+  const int t = blockIdx.x / split;
+  const int D = H * HD, Db = D / split, cb = (blockIdx.x - t * split) * Db;
+  const long long off = col_off[t], r0 = (long long)t * TL;
+  float* ks = reinterpret_cast<float*>(staged_buf);
+  float* vs = ks + BW * Db;
+  float* qs = vs + BW * Db;
+  __nv_bfloat16* gs = reinterpret_cast<__nv_bfloat16*>(qs + TL * Db);
+  stage(ks, k, off, BW, D, cb, Db);
+  stage(vs, v, off, BW, D, cb, Db);
+  stage(qs, q, r0, TL, D, cb, Db);
+  stage_bytes(gs, blocks + r0 * BW, TL * BW / 8);
+  cp_async_wait_all();
+  round_staged(ks, BW * Db / 4);
+  round_staged(vs, BW * Db / 4);
+  round_staged(qs, TL * Db / 4);
+  __syncthreads();
+
+  const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
+  const int slots = blockDim.x / lpr;
+  const int c = 4 * grp.lig;               // this lane's first feature
+  const bool ok = c < Db;
+  const int hg = (cb + c) / HD;            // and its first head
+  const int hl = c / HD, Hb = Db / HD;     // in the part, and the part's
+  const bool leads = ok && (NH > 1 || c % HD == 0);
+  // this group's spill: [BW - KEEP][Hb]
+  float* my_spill =
+      spill + ((long long)blockIdx.x * slots + threadIdx.x / lpr) *
+                  (BW - KEEP) * Hb;
+  for (int r = threadIdx.x / lpr; r < TL; r += slots) {
+    const __nv_bfloat16* gate = gs + r * BW;
+    unsigned long long m = gate_mask_shared(gate, BW / 8, grp);
+    float qi[4], zs[NH];
+    load4(qs + r * Db + c, ok, qi);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) zs[h] = 0.f;
+    int col0[KEEP];
+    float e0[KEEP][NH];
+#pragma unroll
+    for (int u = 0; u < KEEP; ++u)
+      col0[u] = gate_walk::take_nonzero(m, 0, grp);
+#pragma unroll
+    for (int u = 0; u < KEEP; ++u) {
+      staged_exp<HD>(col0[u], gate, ks, Db, c, ok, qi, scale, clamp, e0[u]);
+#pragma unroll
+      for (int h = 0; h < NH; ++h) zs[h] += e0[u][h];
+    }
+    const unsigned long long rest = m;     // the nonzeros past the first KEEP
+    for (int n = 0; __any_sync(FULL, m != 0ull); n += NG) {
+      int col[NG];
+#pragma unroll
+      for (int u = 0; u < NG; ++u)
+        col[u] = gate_walk::take_nonzero(m, 0, grp);
+#pragma unroll
+      for (int u = 0; u < NG; ++u) {
+        float e[NH];
+        staged_exp<HD>(col[u], gate, ks, Db, c, ok, qi, scale, clamp, e);
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          zs[h] += e[h];
+          if (leads && col[u] >= 0) my_spill[(n + u) * Hb + hl + h] = e[h];
+        }
+      }
+    }
+    __syncwarp();
+    float winv[NH], acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < NH; ++h) winv[h] = 1.f / (zs[h] + eps);
+#pragma unroll
+    for (int u = 0; u < KEEP; ++u)
+      add_wv<HD>(col0[u], e0[u], winv, vs, Db, c, ok, acc);
+    m = rest;
+    for (int n = 0; __any_sync(FULL, m != 0ull); n += NG) {
+      int col[NG];
+#pragma unroll
+      for (int u = 0; u < NG; ++u)
+        col[u] = gate_walk::take_nonzero(m, 0, grp);
+#pragma unroll
+      for (int u = 0; u < NG; ++u) {
+        float e[NH];
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+          e[h] = ok && col[u] >= 0 ? my_spill[(n + u) * Hb + hl + h] : 0.f;
+        add_wv<HD>(col[u], e, winv, vs, Db, c, ok, acc);
+      }
+    }
+    __syncwarp();                          // before the next row's spill
+    if (ok) {
+      const long long i = r0 + r;
+      storef<4>(out + i * D + cb + c, acc);
+      if (NH > 1 || c % HD == 0) {      // the head's leading lane
+#pragma unroll
+        for (int h = 0; h < NH; ++h) z[i * H + hg + h] = zs[h];
+      }
+    }
+  }
+}
+
+// The merged pass's terms for NG columns (col < 0: none), from the staged
+// k and v: per head the gated exponential, G = g_i . v_j and the clip flag.
+template <int HD>
+__device__ __forceinline__ void staged_terms(
+    const int* col, const __nv_bfloat16* gate, const float* ks,
+    const float* vs, int Db, int c, bool ok, const float* qi,
+    const float* gi, float scale, float clamp, float (*e)[Heads<HD>::NH],
+    float (*G)[Heads<HD>::NH], bool (*inside)[Heads<HD>::NH]) {
+  using M = Heads<HD>;
+#pragma unroll
+  for (int u = 0; u < M::NG; ++u) {
+    const bool has = col[u] >= 0;
+    const int j = has ? col[u] : 0;
+    float kj[4], vj[4], s[M::NH];
+    load4(ks + j * Db + c, has && ok, kj);
+    load4(vs + j * Db + c, has && ok, vj);
+    head_dots<HD>(qi, kj, s);
+    head_dots<HD>(gi, vj, G[u]);
+    const float a = has ? __bfloat162float(gate[j]) : 0.f;
+#pragma unroll
+    for (int h = 0; h < M::NH; ++h) {
+      const float sc = s[h] * scale;
+      e[u][h] = gated_exp(sc, a, clamp);
+      inside[u][h] = (sc >= -clamp) && (sc <= clamp);
+    }
+  }
+}
+
+// The row phase's second trip for NG terms: dq += rnd(dS) k_j, dS rounded
+// as add_terms rounds it.
+template <int HD>
+__device__ __forceinline__ void staged_dq(
+    const int* col, const float (*e)[Heads<HD>::NH],
+    const float (*G)[Heads<HD>::NH], const bool (*inside)[Heads<HD>::NH],
+    const float* rh, const float* inv, const float* ks, int Db, int c,
+    bool ok, float* acc) {
+  using M = Heads<HD>;
+#pragma unroll
+  for (int u = 0; u < M::NG; ++u) {
+    if (col[u] < 0 || !ok) continue;
+    float kj[4];
+    load4(ks + col[u] * Db + c, true, kj);
+#pragma unroll
+    for (int h = 0; h < M::NH; ++h) {
+      const float ds = rnd<true>(
+          inside[u][h] ? e[u][h] * (G[u][h] - rh[h]) * inv[h] : 0.f);
+#pragma unroll
+      for (int j = 0; j < M::PER; ++j)
+        acc[h * M::PER + j] = fmaf(ds, kj[h * M::PER + j],
+                                   acc[h * M::PER + j]);
+    }
+  }
+}
+
+// Row r's nonzero columns into the tile's column masks (bit r % 64 of
+// word r / 64 of column j), by the group's first lane.
+__device__ __forceinline__ void mark_columns(const int* col, int n, int r,
+                                             int words,
+                                             unsigned long long* cols,
+                                             const gate_walk::LaneGroup& g) {
+  if (g.lig != 0) return;
+  for (int u = 0; u < n; ++u)
+    if (col[u] >= 0)
+      atomicOr(cols + col[u] * words + r / 64, 1ull << (r % 64));
+}
+
+// Merged backward, bf16 dots, staged: block = (tile, part), lane groups as
+// in the forward.  Shared memory: k and v windows [BW][Db] and q and g
+// rows [TL][Db] (floats), the gate rows [TL][BW], 1 / (z + eps) and rho
+// [TL][Hb], and the column masks [BW][words].  Row phase: a group a row,
+// rho (the first NG nonzeros' terms kept, the rest recomputed), dq, and
+// the row's nonzeros into the column masks.  Column phase: a group a
+// window column j, over the rows of its mask the terms again (the same
+// operands in the same order, so the same dS and W), dk_j += rnd(dS) q_i
+// and dv_j += rnd(W) g_i in registers, then one float4 atomic of each
+// into dk (scaled) and dv.  dk and dv must be zeroed by the caller.
+template <int HD>
+__global__ void __launch_bounds__(STAGED_MAX_THREADS)
+gt_bwd_merged_staged_bf16_kernel(
+    const __nv_bfloat16* __restrict__ blocks,
+    const long long* __restrict__ col_off, int TL, int BW,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ g,
+    const float* __restrict__ z, int H, int split, int lpr, float scale,
+    float clamp, float eps, float* __restrict__ dq, float* __restrict__ dk,
+    float* __restrict__ dv) {
+  using M = Heads<HD>;
+  constexpr int NH = M::NH, NG = M::NG;
+  static_assert(M::F == 4, "a staged lane holds 4 features");
+  extern __shared__ float4 staged_buf[];
+  const int t = blockIdx.x / split;
+  const int D = H * HD, Db = D / split, Hb = Db / HD;
+  const int cb = (blockIdx.x - t * split) * Db;
+  const int words = (TL + 63) / 64;
+  const long long off = col_off[t], r0 = (long long)t * TL;
+  float* ks = reinterpret_cast<float*>(staged_buf);
+  float* vs = ks + BW * Db;
+  float* qs = vs + BW * Db;
+  float* gs = qs + TL * Db;
+  __nv_bfloat16* gate_s = reinterpret_cast<__nv_bfloat16*>(gs + TL * Db);
+  float* invs = reinterpret_cast<float*>(gate_s + TL * BW);
+  float* rhos = invs + TL * Hb;
+  unsigned long long* cols =
+      reinterpret_cast<unsigned long long*>(rhos + TL * Hb);
+  stage(ks, k, off, BW, D, cb, Db);
+  stage(vs, v, off, BW, D, cb, Db);
+  stage(qs, q, r0, TL, D, cb, Db);
+  stage(gs, g, r0, TL, D, cb, Db);
+  stage_bytes(gate_s, blocks + r0 * BW, TL * BW / 8);
+  for (int p = threadIdx.x; p < TL * Hb; p += blockDim.x)
+    invs[p] = 1.f / (z[(r0 + p / Hb) * H + cb / HD + p % Hb] + eps);
+  for (int p = threadIdx.x; p < BW * words; p += blockDim.x) cols[p] = 0ull;
+  cp_async_wait_all();
+  round_staged(ks, BW * Db / 4);
+  round_staged(vs, BW * Db / 4);
+  round_staged(qs, TL * Db / 4);
+  round_staged(gs, TL * Db / 4);
+  __syncthreads();
+
+  const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
+  const int slots = blockDim.x / lpr;
+  const int c = 4 * grp.lig;
+  const bool ok = c < Db;
+  const int hl = c / HD;         // this lane's first head in the part
+  for (int r = threadIdx.x / lpr; r < TL; r += slots) {
+    const __nv_bfloat16* gate = gate_s + r * BW;
+    unsigned long long m = gate_mask_shared(gate, BW / 8, grp);
+    float qi[4], gi[4], inv[NH], rh[NH];
+    load4(qs + r * Db + c, ok, qi);
+    load4(gs + r * Db + c, ok, gi);
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      inv[h] = ok ? invs[r * Hb + hl + h] : 0.f;
+      rh[h] = 0.f;
+    }
+    // first trip: rho; the first NG nonzeros' terms stay in registers
+    int col0[NG];
+    float e0[NG][NH], G0[NG][NH];
+    bool in0[NG][NH];
+#pragma unroll
+    for (int u = 0; u < NG; ++u)
+      col0[u] = gate_walk::take_nonzero(m, 0, grp);
+    mark_columns(col0, NG, r, words, cols, grp);
+    staged_terms<HD>(col0, gate, ks, vs, Db, c, ok, qi, gi, scale, clamp, e0,
+                     G0, in0);
+#pragma unroll
+    for (int u = 0; u < NG; ++u)
+#pragma unroll
+      for (int h = 0; h < NH; ++h) rh[h] = fmaf(G0[u][h], e0[u][h] * inv[h],
+                                                rh[h]);
+    const unsigned long long rest = m;
+    while (__any_sync(FULL, m != 0ull)) {
+      int col[NG];
+      float e[NG][NH], G[NG][NH];
+      bool in[NG][NH];
+#pragma unroll
+      for (int u = 0; u < NG; ++u)
+        col[u] = gate_walk::take_nonzero(m, 0, grp);
+      mark_columns(col, NG, r, words, cols, grp);
+      staged_terms<HD>(col, gate, ks, vs, Db, c, ok, qi, gi, scale, clamp, e,
+                       G, in);
+#pragma unroll
+      for (int u = 0; u < NG; ++u)
+#pragma unroll
+        for (int h = 0; h < NH; ++h) rh[h] = fmaf(G[u][h], e[u][h] * inv[h],
+                                                  rh[h]);
+    }
+    // second trip: dq
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    staged_dq<HD>(col0, e0, G0, in0, rh, inv, ks, Db, c, ok, acc);
+    m = rest;
+    while (__any_sync(FULL, m != 0ull)) {
+      int col[NG];
+      float e[NG][NH], G[NG][NH];
+      bool in[NG][NH];
+#pragma unroll
+      for (int u = 0; u < NG; ++u)
+        col[u] = gate_walk::take_nonzero(m, 0, grp);
+      staged_terms<HD>(col, gate, ks, vs, Db, c, ok, qi, gi, scale, clamp, e,
+                       G, in);
+      staged_dq<HD>(col, e, G, in, rh, inv, ks, Db, c, ok, acc);
+    }
+    if (ok) {
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[f] *= scale;
+      storef<4>(dq + (r0 + r) * D + cb + c, acc);
+      if (NH > 1 || c % HD == 0) {      // the head's leading lane
+#pragma unroll
+        for (int h = 0; h < NH; ++h) rhos[r * Hb + hl + h] = rh[h];
+      }
+    }
+  }
+  __syncthreads();
+
+  // column phase: dk_j and dv_j of window column j, summed over the tile's
+  // rows in row order, then added once
+  for (int j = threadIdx.x / lpr; j < BW; j += slots) {
+    float kj[4], vj[4], ak[4] = {0.f, 0.f, 0.f, 0.f},
+                        av[4] = {0.f, 0.f, 0.f, 0.f};
+    load4(ks + j * Db + c, ok, kj);
+    load4(vs + j * Db + c, ok, vj);
+    bool touched = false;
+    for (int w = 0; w < words; ++w) {
+      unsigned long long b = cols[j * words + w];
+      touched |= b != 0ull;
+      while (__any_sync(FULL, b != 0ull)) {
+        const int rr = b ? 64 * w + __ffsll((long long)b) - 1 : -1;
+        b &= b - 1ull;
+        const bool has = rr >= 0;
+        const int r = has ? rr : 0;
+        float qr[4], gr[4], s[NH], G[NH];
+        load4(qs + r * Db + c, has && ok, qr);
+        load4(gs + r * Db + c, has && ok, gr);
+        head_dots<HD>(qr, kj, s);
+        head_dots<HD>(gr, vj, G);
+        const float a = has ? __bfloat162float(gate_s[r * BW + j]) : 0.f;
+        if (!(has && ok)) continue;
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const float sc = s[h] * scale;
+          const float e = gated_exp(sc, a, clamp);
+          const float inv = invs[r * Hb + hl + h];
+          const float ds = rnd<true>((sc >= -clamp && sc <= clamp)
+                                         ? e * (G[h] - rhos[r * Hb + hl + h]) *
+                                               inv
+                                         : 0.f);
+          const float wv = rnd<true>(e * inv);
+#pragma unroll
+          for (int jj = 0; jj < M::PER; ++jj) {
+            const int f = h * M::PER + jj;
+            ak[f] = fmaf(ds, qr[f], ak[f]);
+            av[f] = fmaf(wv, gr[f], av[f]);
+          }
+        }
+      }
+    }
+    if (touched && ok) {
+      const long long at = (off + j) * D + cb + c;
+      atomicAdd(reinterpret_cast<float4*>(dk + at),
+                make_float4(ak[0] * scale, ak[1] * scale, ak[2] * scale,
+                            ak[3] * scale));
+      atomicAdd(reinterpret_cast<float4*>(dv + at),
+                make_float4(av[0], av[1], av[2], av[3]));
+    }
+  }
+}
+
 // Every kernel reads float4s: D a multiple of 4, and a band of whole
 // 32-column pieces up to MAX_BAND.
 bool bad_geometry(int BW, int H, int hd) {
   return BW <= 0 || BW % 32 != 0 || BW > MAX_BAND || H <= 0 ||
          (H * hd) % 4 != 0;
+}
+
+// The staged kernels take whole heads a part, at most STAGED_MAX_FEATURES
+// features a block, tiles of whole warps of rows and blocks of 128, 256 or
+// 512 threads.
+bool bad_staged(int TL, int BW, int H, int hd, int split, int threads) {
+  if (bad_geometry(BW, H, hd) || split < 1 || H % split != 0) return true;
+  const int Db = H * hd / split;
+  return Db % 4 != 0 || Db > STAGED_MAX_FEATURES || TL <= 0 || TL % 32 != 0 ||
+         (threads != 128 && threads != 256 && threads != STAGED_MAX_THREADS);
+}
+
+// Dynamic shared memory of a staged block (merged: the backward's).
+size_t staged_smem(bool merged, int TL, int BW, int Db, int Hb) {
+  const size_t gate = (size_t)TL * BW * sizeof(__nv_bfloat16);
+  if (!merged) return 4 * (size_t)(2 * BW + TL) * Db + gate;
+  return 4 * ((size_t)(2 * BW + 2 * TL) * Db + (size_t)2 * TL * Hb) + gate +
+         8 * (size_t)BW * ((TL + 63) / 64);
+}
+
+// Let `kernel` take up to SMEM_LIMIT of dynamic shared memory (once each).
+int allow_smem(const void* kernel) {
+  static const void* done[64];
+  static int n_done = 0;
+  for (int i = 0; i < n_done; ++i)
+    if (done[i] == kernel) return 0;
+  const int err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_LIMIT);
+  if (err == 0 && n_done < 64) done[n_done++] = kernel;
+  return err;
 }
 
 unsigned pass_grid(int n_tiles, int TL, int lpr) {
@@ -709,6 +1265,21 @@ unsigned pass_grid(int n_tiles, int TL, int lpr) {
       if (hd <= SWEEP || hd % SWEEP != 0)                     \
         return (int)cudaErrorInvalidValue;                    \
       { constexpr int HD = WIDE; __VA_ARGS__; }               \
+  }
+
+// The head widths of the staged kernels: a lane holds 4 features.
+#define SCGIB_DISPATCH_STAGED_HD(hd, ...)                     \
+  switch (hd) {                                               \
+    case 1: { constexpr int HD = 1; __VA_ARGS__; } break;     \
+    case 2: { constexpr int HD = 2; __VA_ARGS__; } break;     \
+    case 4: { constexpr int HD = 4; __VA_ARGS__; } break;     \
+    case 8: { constexpr int HD = 8; __VA_ARGS__; } break;     \
+    case 16: { constexpr int HD = 16; __VA_ARGS__; } break;   \
+    case 32: { constexpr int HD = 32; __VA_ARGS__; } break;   \
+    case 64: { constexpr int HD = 64; __VA_ARGS__; } break;   \
+    case 128: { constexpr int HD = 128; __VA_ARGS__; } break; \
+    default:                                                  \
+      return (int)cudaErrorInvalidValue;                      \
   }
 
 extern "C" {
@@ -823,6 +1394,86 @@ int scgib_gt_kernel_info(int which, int hd, int* info) {
     return err;
   info[0] = attr.numRegs;
   info[1] = (int)attr.sharedSizeBytes;
+  info[2] = per_sm;
+  return 0;
+}
+
+// The staged forward with bf16 dots (the gt_fwd wrapper's staged route):
+// n_tiles * split blocks of `threads`.  spill: n_tiles * split * (threads
+// / lanes_per_row(H * hd / split, 4)) * (BW - KEEP) * (H / split) floats
+// the wrapper allocates.
+int scgib_gt_fwd_staged(const void* blocks, const void* col_off, int n_tiles,
+                        int TL, int BW, const void* q, const void* k,
+                        const void* v, int H, int hd, int split, int threads,
+                        float scale, float clamp, float eps, void* out,
+                        void* z, void* spill, void* stream) {
+  if (bad_staged(TL, BW, H, hd, split, threads))
+    return (int)cudaErrorInvalidValue;
+  const int Db = H * hd / split;
+  const size_t smem = staged_smem(false, TL, BW, Db, Db / hd);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  SCGIB_DISPATCH_STAGED_HD(
+      hd, auto* kernel = gt_fwd_staged_bf16_kernel<HD>;
+      if (const int err = allow_smem((const void*)kernel)) return err;
+      kernel<<<n_tiles * split, threads, smem, s>>>(
+          (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
+          (const float*)q, (const float*)k, (const float*)v, H, split,
+          lanes_per_row(Db, 4), scale, clamp, eps, (float*)out, (float*)z,
+          (float*)spill));
+  return (int)cudaGetLastError();
+}
+
+// The staged merged backward with bf16 dots (the gt_bwd_merged wrapper's
+// staged route).  dk and dv must be zeroed by the caller.
+int scgib_gt_bwd_merged_staged(const void* blocks, const void* col_off,
+                               int n_tiles, int TL, int BW, const void* q,
+                               const void* k, const void* v, const void* g,
+                               const void* z, int H, int hd, int split,
+                               int threads, float scale, float clamp,
+                               float eps, void* dq, void* dk, void* dv,
+                               void* stream) {
+  if (bad_staged(TL, BW, H, hd, split, threads))
+    return (int)cudaErrorInvalidValue;
+  const int Db = H * hd / split;
+  const size_t smem = staged_smem(true, TL, BW, Db, Db / hd);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  SCGIB_DISPATCH_STAGED_HD(
+      hd, auto* kernel = gt_bwd_merged_staged_bf16_kernel<HD>;
+      if (const int err = allow_smem((const void*)kernel)) return err;
+      kernel<<<n_tiles * split, threads, smem, s>>>(
+          (const __nv_bfloat16*)blocks, (const long long*)col_off, TL, BW,
+          (const float*)q, (const float*)k, (const float*)v,
+          (const float*)g, (const float*)z, H, split, lanes_per_row(Db, 4),
+          scale, clamp, eps, (float*)dq, (float*)dk, (float*)dv));
+  return (int)cudaGetLastError();
+}
+
+// For the report: registers a thread, shared memory a block (static and
+// dynamic) and blocks an SM of the staged forward (which = 0) or merged
+// backward (1) at this shape; an error for a shape they do not take.
+int scgib_gt_staged_info(int which, int hd, int H, int TL, int BW, int split,
+                         int threads, int* info) {
+  if (which < 0 || which > 1 || bad_staged(TL, BW, H, hd, split, threads))
+    return (int)cudaErrorInvalidValue;
+  const int Db = H * hd / split;
+  const size_t smem = staged_smem(which == 1, TL, BW, Db, Db / hd);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const void* kernel = nullptr;
+  SCGIB_DISPATCH_STAGED_HD(
+      hd, kernel = which ? (const void*)gt_bwd_merged_staged_bf16_kernel<HD>
+                         : (const void*)gt_fwd_staged_bf16_kernel<HD>);
+  int err = allow_smem(kernel);
+  if (err) return err;
+  cudaFuncAttributes attr;
+  if ((err = (int)cudaFuncGetAttributes(&attr, kernel))) return err;
+  int per_sm = 0;
+  if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)))
+    return err;
+  info[0] = attr.numRegs;
+  info[1] = (int)(attr.sharedSizeBytes + smem);
   info[2] = per_sm;
   return 0;
 }

@@ -19,6 +19,17 @@ counts those launches as ``gt_fwd_bf16``, ``gt_bwd_rows_bf16``,
 ``gt_flash_attention(bwd="merged", bf16_dots=True)`` is the JAX package's
 own configuration on a TPU (``_bwd_merged_kernel`` with ``bf16=True``).
 
+Routes.  ``gt_fwd_bf16`` and ``gt_bwd_merged_bf16`` (rows 6b and 9b) have
+two CUDA kernels each, and ``gt_route`` picks one from the shape before the
+launch: the staged kernel (``gt_fwd_staged_bf16_kernel``,
+``gt_bwd_merged_staged_bf16_kernel``: a block a row tile, or a part of its
+heads, with the tile's window of k and v, its q (and g) rows and its gate
+rows copied into shared memory) wherever a block's staged bytes fit its
+shared memory, and the lane-group kernel of every other wrapper elsewhere
+(wide heads, or the wide geometry at large widths).  Both routes count
+their launches under the wrapper's name; ``route_counts`` splits them by
+route.  A launch failure on either raises.
+
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor and
 launches its kernel for a CUDA tensor, counting each launch that succeeded
 (``launch_counts``); anything else raises.  The kernels compute in
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import re
+from typing import NamedTuple
 
 import torch
 
@@ -67,6 +79,19 @@ _INFO = {"gt_bwd_rows": 0, "gt_bwd_cols": 1, "gt_fwd": 2, "gt_bwd_merged": 3,
          "gt_bwd_rows_bf16": 4, "gt_bwd_cols_bf16": 5, "gt_fwd_bf16": 6,
          "gt_bwd_merged_bf16": 7}
 HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+# the wrappers with a staged route, scgib_gt_staged_info's index of each
+STAGED = {"gt_fwd_bf16": 0, "gt_bwd_merged_bf16": 1}
+STAGED_HEAD_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
+ROUTES = ("staged", "lane_group")
+# csrc/gt_flash.cu's STAGED_MAX_FEATURES, KEEP, SMEM_LIMIT; and how many
+# parts a staged route splits a tile's heads into, at most
+STAGED_MAX_FEATURES = 128
+STAGED_MIN_FEATURES = 16
+STAGED_MAX_SPLIT = 4
+KEEP = 8
+SMEM_LIMIT = 232448        # bytes of shared memory one block may take
+SM_SMEM = 233472           # bytes of shared memory an SM has for blocks
+BLOCK_RESERVE = 1024       # bytes the card reserves a block
 # Past the widest of HEAD_WIDTHS the kernels take every multiple of SWEEP,
 # a head swept SWEEP features at a time (csrc/gt_flash.cu's WIDE).
 SWEEP = 512
@@ -75,6 +100,7 @@ BWD = ("twopass", "merged")
 
 _lib = None
 _launches = {}
+_route_launches = {}
 
 
 def build() -> ctypes.CDLL:
@@ -95,9 +121,17 @@ def build() -> ctypes.CDLL:
     lib.scgib_gt_bwd_merged.argtypes = geo + [P, P, P, P, P, I, I, F, F, F,
                                               I, P, P, P, P]
     lib.scgib_gt_kernel_info.argtypes = [I, I, P]
+    # ..., H, hd, split, threads, scale, clamp, eps, outputs (and the
+    # forward's spill), stream
+    lib.scgib_gt_fwd_staged.argtypes = geo + [P, P, P, I, I, I, I, F, F, F,
+                                              P, P, P, P]
+    lib.scgib_gt_bwd_merged_staged.argtypes = geo + [P, P, P, P, P, I, I, I,
+                                                     I, F, F, F, P, P, P, P]
+    lib.scgib_gt_staged_info.argtypes = [I, I, I, I, I, I, I, P]
     for fn in (lib.scgib_gt_fwd, lib.scgib_gt_bwd_rows,
                lib.scgib_gt_bwd_cols, lib.scgib_gt_bwd_merged,
-               lib.scgib_gt_kernel_info):
+               lib.scgib_gt_kernel_info, lib.scgib_gt_fwd_staged,
+               lib.scgib_gt_bwd_merged_staged, lib.scgib_gt_staged_info):
         fn.restype = ctypes.c_int
     _check_head_widths(lib)
     _lib = lib
@@ -113,7 +147,9 @@ def takes_head_width(hd: int) -> bool:
 def _check_head_widths(lib):
     """``takes_head_width`` must say what the source's dispatch
     (``SCGIB_DISPATCH_HD``) takes, up to 4 sweeps: ``scgib_gt_kernel_info``
-    fails for any other width."""
+    fails for any other width; and ``STAGED_HEAD_WIDTHS`` what the staged
+    kernels' (``SCGIB_DISPATCH_STAGED_HD``) take, at the narrowest tile
+    whose staged bytes fit at every one of them."""
     info = (ctypes.c_int * 3)()
     widths = range(1, 4 * SWEEP + 1)
     want = tuple(hd for hd in widths if takes_head_width(hd))
@@ -123,6 +159,13 @@ def _check_head_widths(lib):
         if taken != want:
             raise RuntimeError(f"csrc/gt_flash.cu takes head widths {taken}, "
                                f"the wrapper states {want}")
+    for name, which in STAGED.items():
+        taken = tuple(hd for hd in widths if lib.scgib_gt_staged_info(
+            which, hd, max(1, 4 // hd), 64, 32, 1, 128, info) == 0)
+        if taken != STAGED_HEAD_WIDTHS:
+            raise RuntimeError(f"csrc/gt_flash.cu stages {name} at head "
+                               f"widths {taken}, the wrapper states "
+                               f"{STAGED_HEAD_WIDTHS}")
 
 
 def _scale(hd: int) -> float:
@@ -137,6 +180,81 @@ def served_head_width(num_heads: int, hd: int) -> int:
         if width >= hd and (num_heads * width) % 4 == 0:
             return width
     return -(-hd // SWEEP) * SWEEP
+
+
+# --- routes ------------------------------------------------------------------
+
+class Route(NamedTuple):
+    """How a wrapper runs at a shape: ``name`` one of ``ROUTES``; for the
+    staged route ``split`` blocks a row tile (each on H / split whole
+    heads) of ``threads`` threads and ``smem_bytes`` of dynamic shared
+    memory."""
+    name: str
+    split: int = 1
+    threads: int = 0
+    smem_bytes: int = 0
+
+
+def _lanes_per_row(features: int) -> int:
+    """csrc/gt_flash.cu's lanes_per_row at 4 features a lane."""
+    lpr = 4
+    while lpr < 32 and 4 * lpr < features:
+        lpr *= 2
+    return lpr
+
+
+def staged_smem(kernel: str, tile: int, band: int, features: int,
+                heads: int) -> int:
+    """csrc/gt_flash.cu's staged_smem: bytes of dynamic shared memory of a
+    staged block of ``kernel`` (one of ``STAGED``) over ``features``
+    features in ``heads`` heads: the k and v windows and the q rows in
+    float32, the gate rows in bf16; the merged pass also the g rows, 1 /
+    (z + eps) and rho, and a 64-bit mask of the tile's rows a column (per
+    64 rows)."""
+    gate = 2 * tile * band
+    if kernel == "gt_fwd_bf16":
+        return 4 * (2 * band + tile) * features + gate
+    return (4 * ((2 * band + 2 * tile) * features + 2 * tile * heads) + gate
+            + 8 * band * -(-tile // 64))
+
+
+def _blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of shared memory that fit on an SM."""
+    return SM_SMEM // (smem + BLOCK_RESERVE)
+
+
+def gt_route(kernel: str, num_heads: int, hd: int, tile: int = 64,
+             band: int = 128) -> Route:
+    """The route of ``kernel`` (one of ``KERNELS``) at ``num_heads`` heads
+    of width ``hd`` in the geometry (``tile``, ``band``).  Staged where
+    ``kernel`` has a staged kernel, ``hd`` is one of
+    ``STAGED_HEAD_WIDTHS`` and a block fits ``SMEM_LIMIT``: split into the
+    most parts of whole heads, up to ``STAGED_MAX_SPLIT``, of at least
+    ``STAGED_MIN_FEATURES`` features (and at most ``STAGED_MAX_FEATURES``)
+    whose block fits; blocks of 128 threads where four or more such blocks
+    fit an SM's shared memory, 256 where two or three do and 512 where one
+    does, twice that (up to 512) for the merged pass, whose ~97 registers
+    a thread (the forward's ~60) leave fewer blocks resident; measured on
+    the card (PERF.md).  Else the lane-group kernel.
+    Deterministic in the shape alone."""
+    if kernel in STAGED and hd in STAGED_HEAD_WIDTHS and tile % 32 == 0:
+        width = num_heads * hd
+        for split in range(min(STAGED_MAX_SPLIT, num_heads), 0, -1):
+            features = width // split
+            if num_heads % split or features % 4 or (
+                    split > 1 and features < STAGED_MIN_FEATURES) or (
+                    features > STAGED_MAX_FEATURES):
+                continue
+            smem = staged_smem(kernel, tile, band, features,
+                               num_heads // split)
+            if smem > SMEM_LIMIT:
+                continue
+            per_sm = _blocks_per_sm(smem)
+            threads = 128 if per_sm >= 4 else 256 if per_sm >= 2 else 512
+            if kernel == "gt_bwd_merged_bf16":
+                threads = min(2 * threads, 512)
+            return Route("staged", split, threads, smem)
+    return Route("lane_group")
 
 
 # --- plain versions ----------------------------------------------------------
@@ -288,10 +406,14 @@ def _gt_args(name, blocks, col_off, q, *others):
 
 def _launch(fn, name, blocks, col_off, geo, tensors, num_heads, hd, clamp,
             eps, scale, outs, *flags):
-    scale = _scale(hd) if scale is None else scale
+    """``hd``: the head width, or (head width, split, threads) for a
+    staged kernel."""
+    widths = hd if isinstance(hd, tuple) else (hd,)
+    scale = _scale(widths[0]) if scale is None else scale
     _raise_on(fn(_ptr(blocks), _ptr(col_off), *geo,
-                 *(_ptr(t) for t in tensors), num_heads, hd, scale, clamp,
-                 eps, *flags, *(_ptr(t) for t in outs), _stream()), name)
+                 *(_ptr(t) for t in tensors), num_heads, *widths, scale,
+                 clamp, eps, *flags, *(_ptr(t) for t in outs), _stream()),
+              name)
 
 
 def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None,
@@ -305,9 +427,25 @@ def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None,
         "gt_fwd", blocks, col_off, q, k, v)
     out = torch.empty_like(ts[0])
     z = torch.empty(ts[0].shape[:2], dtype=torch.float32, device=q.device)
-    _launch(build().scgib_gt_fwd, "gt_fwd", blocks, col_off, geo, ts,
-            num_heads, hd, clamp, eps, scale, (out, z), int(bf16_dots))
-    add_launches("gt_fwd_bf16" if bf16_dots else "gt_fwd")
+    name = "gt_fwd_bf16" if bf16_dots else "gt_fwd"
+    route = gt_route(name, num_heads, hd, *geo[1:])
+    if route.name == "staged":
+        # the exponentials past a row's first KEEP nonzeros: a row slot
+        # of band - KEEP a head for each group of lanes
+        groups = geo[0] * route.split * route.threads // _lanes_per_row(
+            num_heads * hd // route.split)
+        spill = torch.empty(groups * (geo[2] - KEEP) * num_heads
+                            // route.split, dtype=torch.float32,
+                            device=q.device)
+        _launch(build().scgib_gt_fwd_staged, "gt_fwd", blocks, col_off, geo,
+                ts, num_heads, (hd, route.split, route.threads), clamp, eps,
+                scale, (out, z, spill))
+    else:
+        _launch(build().scgib_gt_fwd, "gt_fwd", blocks, col_off, geo, ts,
+                num_heads, hd, clamp, eps, scale, (out, z), int(bf16_dots))
+    add_launches(name)
+    if bf16_dots:
+        add_route_launches(name, route.name)
     return out, z
 
 
@@ -358,30 +496,70 @@ def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
     dq = torch.empty_like(ts[0])
     dk = torch.zeros_like(ts[0])
     dv = torch.zeros_like(ts[0])
-    _launch(build().scgib_gt_bwd_merged, "gt_bwd_merged", blocks, col_off,
-            geo, ts, num_heads, hd, clamp, eps, scale, (dq, dk, dv),
-            int(bf16_dots))
-    add_launches("gt_bwd_merged_bf16" if bf16_dots else "gt_bwd_merged")
+    name = "gt_bwd_merged_bf16" if bf16_dots else "gt_bwd_merged"
+    route = gt_route(name, num_heads, hd, *geo[1:])
+    if route.name == "staged":
+        _launch(build().scgib_gt_bwd_merged_staged, "gt_bwd_merged", blocks,
+                col_off, geo, ts, num_heads, (hd, route.split, route.threads),
+                clamp, eps, scale, (dq, dk, dv))
+    else:
+        _launch(build().scgib_gt_bwd_merged, "gt_bwd_merged", blocks,
+                col_off, geo, ts, num_heads, hd, clamp, eps, scale,
+                (dq, dk, dv), int(bf16_dots))
+    add_launches(name)
+    if bf16_dots:
+        add_route_launches(name, route.name)
     return dq, dk, dv
 
 
-def kernel_info(kernel: str, hd: int) -> dict:
+def kernel_info(kernel: str, hd: int, num_heads=None, tile: int = 64,
+                band: int = 128) -> dict:
     """Registers a thread, shared memory a block and blocks an SM of the
     kernel that ``kernel`` (one of ``KERNELS``: a wrapper, or the bf16 mode
-    of one) launches at head width ``hd``."""
+    of one) launches at head width ``hd``, with its ``route``.  Given
+    ``num_heads`` (and the geometry ``tile``, ``band``), the kernel of the
+    route ``gt_route`` picks at that shape, and for the staged route its
+    ``blocks_per_tile`` and dynamic shared memory among ``smem_bytes``;
+    else the lane-group kernel."""
     info = (ctypes.c_int * 3)()
-    _raise_on(build().scgib_gt_kernel_info(_INFO[kernel], hd, info), kernel)
-    return {"registers": info[0], "smem_bytes": info[1],
+    route = (gt_route(kernel, num_heads, hd, tile, band)
+             if num_heads is not None else Route("lane_group"))
+    if route.name == "staged":
+        _raise_on(build().scgib_gt_staged_info(
+            STAGED[kernel], hd, num_heads, tile, band, route.split,
+            route.threads, info), kernel)
+    else:
+        _raise_on(build().scgib_gt_kernel_info(_INFO[kernel], hd, info),
+                  kernel)
+    staged = route.name == "staged"
+    return {"route": route.name,
+            "blocks_per_tile": route.split if staged else None,
+            "threads": route.threads if staged else None,
+            "registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
+
+
+def ptxas_key(kernel: str, route: str = "lane_group") -> str:
+    """``ptxas_report``'s name of the instantiations of ``kernel``'s
+    ``route``: the wrapper's name, and " staged" after it for a staged
+    kernel."""
+    return kernel + (" staged" if route == "staged" else "")
 
 
 def ptxas_report() -> dict:
     """ptxas's ``registers``, ``spill_stores`` and ``spill_loads`` (bytes)
-    of every instantiation, by (wrapper, head width); head width 0 is the
-    WIDE instantiation, which every multiple of ``SWEEP`` past it runs."""
+    of every instantiation, by (``ptxas_key``, head width); head width 0
+    is the WIDE instantiation, which every multiple of ``SWEEP`` past it
+    runs."""
     build()
     out = {}
     for entry, rec in _ptxas_report("gt_flash").items():
+        m = re.search(r"(gt_fwd|gt_bwd_merged)_staged_bf16_kernelILi(\d+)EE",
+                      entry)
+        if m:
+            out[ptxas_key(m.group(1) + "_bf16", "staged"),
+                int(m.group(2))] = rec
+            continue
         # the template's int, then its bools: [MERGED,] BF16
         m = re.search(r"(gt_fwd|gt_row_pass|gt_bwd_cols)_kernelILi(\d+)E"
                       r"((?:Lb[01]E)+)E", entry)
@@ -399,12 +577,25 @@ def add_launches(name: str, n: int = 1):
     _launches[name] += n
 
 
+def add_route_launches(name: str, route: str, n: int = 1):
+    """Add ``n`` to the count of ``name``'s launches on ``route``, for a
+    wrapper with a staged route (one of ``STAGED``)."""
+    _route_launches[name, route] += n
+
+
 def launch_counts() -> dict:
     return dict(_launches)
 
 
+def route_counts() -> dict:
+    """{(wrapper, route): launches} of the wrappers with a staged route."""
+    return dict(_route_launches)
+
+
 def reset_launch_counts():
     _launches.update(dict.fromkeys(KERNELS, 0))
+    _route_launches.update(dict.fromkeys(
+        [(k, r) for k in STAGED for r in ROUTES], 0))
 
 
 reset_launch_counts()

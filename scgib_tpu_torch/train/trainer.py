@@ -338,20 +338,25 @@ class CaptureGuard(TorchDispatchMode):
 
 # --- the counts a step ticks -------------------------------------------------
 
-def _tally() -> Dict[Tuple[str, str], int]:
-    """Every count the step ticks: the kernels' launches and the branch
-    counts of the encoders and the pooling."""
+def _tally() -> Dict[Tuple[str, object], int]:
+    """Every count the step ticks: the kernels' launches (and the routes of
+    those with two), and the branch counts of the encoders and the
+    pooling."""
     out = {("launch", k): v for k, v in
            {**kb.launch_counts(), **kg.launch_counts()}.items()}
+    out.update({("route", k): v for k, v in kg.route_counts().items()})
     out.update({("encoder", k): v for k, v in encoders.branch_counts.items()})
     out.update({("pool", k): v for k, v in pool.branch_counts.items()})
     return out
 
 
-def _add_tally(diff: Dict[Tuple[str, str], int], sign: int = 1):
+def _add_tally(diff: Dict[Tuple[str, object], int], sign: int = 1):
     for (kind, name), n in diff.items():
         if kind == "launch":
             (kb if name in kb.KERNELS else kg).add_launches(name, sign * n)
+            continue
+        if kind == "route":
+            kg.add_route_launches(*name, sign * n)
             continue
         counter = (encoders.branch_counts if kind == "encoder"
                    else pool.branch_counts)

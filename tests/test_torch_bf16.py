@@ -263,22 +263,111 @@ def test_merged_bf16_plain_version_matches_pallas_kernel(pallas_bf16):
         10 * SAME_POINTS
 
 
-@pytest.mark.parametrize("kernel", ["rows", "cols", "merged"])
+@pytest.mark.parametrize("kernel", ["rows", "cols", "merged", "fwd"])
 def test_each_rounding_point_has_a_control(pallas_bf16, kernel):
-    """Each rounding point of the bf16-dot backward left out alone
+    """Each rounding point of the bf16-dot kernels left out alone
     (``gt_rounding.py``: q, k, v, g, dS before dq, dS before dk, W before
-    dv, those the kernel has): here every control lies at least twice
-    SAME_POINTS from the sound plain version, and the Pallas kernel past
-    SAME_POINTS from each, so the gate that holds the plain versions to
-    the kernels would catch a single rounding skipped."""
+    dv, those the backward kernel has; the forward's q, k, v and w before
+    out): here every control lies at least twice SAME_POINTS from the sound
+    plain version, and the Pallas kernel past SAME_POINTS from each, so the
+    gate that holds the plain versions to the kernels would catch a single
+    rounding skipped.  The forward's plain version (``gt_fwd_plain``, the
+    control with no rounding left out) lies within SAME_POINTS of
+    ``_fwd_kernel``."""
     blocks, off, (q, k, v, g), want = pallas_bf16
-    got = [t(x).reshape(q.shape) for x in want[kernel]]
-    records = gt_rounding.controls(
-        kernel, got, (blocks, off, q, k, v, g, t(want["fwd"][1])),
-        SAME_POINTS)
+    if kernel == "fwd":
+        got = [t(want["fwd"][0]).reshape(q.shape),
+               t(want["fwd"][1]).reshape(q.shape[:2])]
+        inputs = (blocks, off, q, k, v)
+        plain = kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True)
+        assert gt_rounding.rel_gap(plain, got) <= SAME_POINTS
+        sound = gt_rounding.forward_without(None, *inputs)
+        assert all(torch.equal(a, sound[x])
+                   for a, x in zip(plain, ("out", "z")))
+    else:
+        got = [t(x).reshape(q.shape) for x in want[kernel]]
+        inputs = (blocks, off, q, k, v, g, t(want["fwd"][1]))
+    records = gt_rounding.controls(kernel, got, inputs, SAME_POINTS)
     assert set(records) == set(gt_rounding.KERNELS[kernel][1])
     assert all(sep for _, _, sep in records.values()), records
     assert not gt_rounding.unseen(records, SAME_POINTS), records
+
+
+# the points random inputs do not separate at the card's 1e-3 gate, by the
+# kernels whose controls ``separating_inputs`` sets apart for them
+CRAFTED = {"fwd": ("v", "w before out"),
+           "merged": ("dS before dk", "w before dv"),
+           "cols": ("dS before dk", "w before dv")}
+
+
+CARD_GATE = 1e-3          # chip_smoke.py's BF16_RTOL
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "merged"])
+def test_tie_slack_admits_no_skipped_rounding(pallas_bf16, kernel):
+    """``gt_rounding.tie_slack`` (the bf16 step of each term whose rounded
+    factor lies within TIE of a rounding midpoint, which chip_smoke.py's
+    phase 14 (a) admits past its gate): the plain version is 0 past its
+    own ties, the Pallas kernel (the same rounding points, another
+    summation order) no further past them than from the plain version,
+    and every single-rounding control at least twice the card's gate
+    from the plain version still past the gate beyond the ties, so the
+    allowance hides none that the gate separates."""
+    blocks, off, (q, k, v, g), want = pallas_bf16
+    z = t(want["fwd"][1])
+    if kernel == "fwd":
+        inputs = (blocks, off, q, k, v)
+        plain = kg.gt_fwd_plain(*inputs, bf16_dots=True)
+        pallas = [t(want["fwd"][0]).reshape(q.shape), z.reshape(q.shape[:2])]
+        controls = {p: gt_rounding.forward_without(p, *inputs)
+                    for p in gt_rounding.FWD_POINTS}
+        names = ("out", "z")
+    else:
+        inputs = (blocks, off, q, k, v, g, z)
+        plain = kg.gt_bwd_merged_plain(*inputs, bf16_dots=True)
+        pallas = [t(x).reshape(q.shape) for x in want["merged"]]
+        controls = {p: gt_rounding.backward_without(p, *inputs)
+                    for p in gt_rounding.POINTS}
+        names = ("dq", "dk", "dv")
+    slack = gt_rounding.tie_slack(kernel, inputs)
+    assert gt_rounding.beyond_ties(plain, plain, slack)[0] == 0.0
+    assert gt_rounding.beyond_ties(pallas, plain, slack)[0] <= \
+        gt_rounding.rel_gap(pallas, plain)
+    for point, ctl in controls.items():
+        got = [ctl[x] for x in names]
+        if gt_rounding.rel_gap(got, plain) >= 2 * CARD_GATE:
+            past = gt_rounding.beyond_ties(got, plain, slack)[0]
+            assert past > CARD_GATE, point
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (1, 64)], ids=["8x8", "1x64"])
+@pytest.mark.parametrize("kernel", sorted(CRAFTED))
+def test_separating_inputs_set_the_controls_apart(kernel, shape):
+    """``gt_rounding.separating_inputs`` at the card's shapes: the controls
+    of the points that random inputs leave within twice the card's gate lie
+    past it (the plain versions on the CPU stand for a kernel that rounds
+    where they do: they lie past the gate from each such control too)."""
+    heads, hd = shape
+    inputs = gt_rounding.separating_inputs(kernel, heads, hd)
+    if kernel == "fwd":
+        got = kg.gt_fwd(*inputs, bf16_dots=True)
+        records = gt_rounding.controls(kernel, got, inputs, CARD_GATE)
+    else:
+        z = kg.gt_fwd(*inputs[:5], bf16_dots=True)[1]
+        inputs = inputs + (z,)
+        rho = None
+        if kernel == "merged":
+            got = kg.gt_bwd_merged(*inputs, bf16_dots=True)
+        else:
+            rho = kg.gt_bwd_rows(*inputs, bf16_dots=True)[1]
+            got = kg.gt_bwd_cols(*inputs, rho, bf16_dots=True)
+        records = gt_rounding.controls(kernel, got, inputs, CARD_GATE,
+                                       rho=rho)
+    for point in CRAFTED[kernel]:
+        apart, kernel_apart, separated = records[point]
+        assert separated and kernel_apart == apart > 10 * CARD_GATE, \
+            (point, records)
+    assert not gt_rounding.unseen(records, CARD_GATE)
 
 
 def test_flash_attention_merged_bf16_matches_jax(monkeypatch):

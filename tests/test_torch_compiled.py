@@ -329,7 +329,8 @@ def test_capture_guard_refuses_host_reads():
 def test_tally_round_trip():
     before = trainer._tally()
     diff = {("launch", "gt_fwd"): 3, ("pool", "banded"): 1,
-            ("encoder", "gt_band_64x128"): 10}
+            ("encoder", "gt_band_64x128"): 10,
+            ("route", ("gt_fwd_bf16", "staged")): 2}
     trainer._add_tally(diff)
     after = trainer._tally()
     assert {k: after.get(k, 0) - before.get(k, 0) for k in diff} == diff

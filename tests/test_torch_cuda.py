@@ -34,6 +34,7 @@ import torch
 
 from scgib_tpu_torch import cli
 from scgib_tpu_torch.data.synthetic import random_dataset
+from scgib_tpu_torch.graph import banded
 from scgib_tpu_torch.graph.batching import pack_graphs, pack_subgraphs
 from scgib_tpu_torch.graph.egonet import extract_egonets
 from scgib_tpu_torch.models.scgib import PretrainModel, _resolve_band
@@ -782,7 +783,8 @@ def test_wide_head_kernels_share_one_instantiation(dev):
 def test_attention_ptxas_report_survives_a_built_library(dev):
     """Once the library is built, loading it again builds nothing and
     still gives ptxas's report of every instantiation (which phase 2 of
-    chip_smoke.py reads), the WIDE one without a spill."""
+    chip_smoke.py reads), the WIDE one and the staged ones without a
+    spill."""
     from scgib_tpu_torch.ops.kernels import build
     kg.build()
     so = build._so_path("gt_flash")
@@ -792,12 +794,16 @@ def test_attention_ptxas_report_survives_a_built_library(dev):
     build.load("gt_flash")
     assert so.stat().st_mtime_ns == built
     report = kg.ptxas_report()
+    staged = {(kg.ptxas_key(k, "staged"), hd) for k in kg.STAGED
+              for hd in kg.STAGED_HEAD_WIDTHS}
     assert set(report) == {(k, hd) for k in kg.KERNELS
-                           for hd in kg.HEAD_WIDTHS + (0,)}
+                           for hd in kg.HEAD_WIDTHS + (0,)} | staged
     for k in kg.KERNELS:
         wide = report[k, 0]
         assert wide["spill_stores"] == wide["spill_loads"] == 0
         assert wide["registers"] == kg.kernel_info(k, 1024)["registers"]
+    for key in staged:                       # the staged kernels: no spill
+        assert report[key]["spill_stores"] == report[key]["spill_loads"] == 0
 
 
 def _ft_steps(dev, batches, kwargs, accum, captured):
@@ -1305,9 +1311,163 @@ def test_bf16_pretrain_steps_on_card(dev, encoder, mode):
     elif mode.get("gt_bwd") == "merged":
         assert counts["gt_fwd_bf16"] == counts["gt_bwd_merged_bf16"] == \
             2 * 5 * 2
+        routes = kg.route_counts()           # each launch on one route
+        for name in kg.STAGED:
+            assert sum(routes[name, r] for r in kg.ROUTES) == counts[name]
         assert not any(counts[k] for k in kg.KERNELS
                        if k not in ("gt_fwd_bf16", "gt_bwd_merged_bf16"))
     else:
         assert counts["gt_fwd_bf16"] == counts["gt_bwd_rows_bf16"] == \
             counts["gt_bwd_cols_bf16"] == 2 * 5 * 2
         assert counts["gt_fwd"] == counts["gt_bwd_rows"] == 0
+
+
+# --- the staged routes of rows 6b and 9b -------------------------------------
+
+@pytest.fixture
+def route(request, monkeypatch):
+    """The route the wrappers take: "staged" (``gt_route``'s pick) or
+    "lane_group" (every wrapper on its lane-group kernel)."""
+    if request.param == "lane_group":
+        monkeypatch.setattr(kg, "gt_route",
+                            lambda *args, **kw: kg.Route("lane_group"))
+    return request.param
+
+
+@pytest.mark.parametrize("route", ["staged", "lane_group"], indirect=True)
+@pytest.mark.parametrize("shape", [(8, 8), (1, 64), (1, 1024)],
+                         ids=["8x8", "1x64", "1x1024"])
+@pytest.mark.parametrize("kernel", ["gt_fwd_bf16", "gt_bwd_merged_bf16"])
+def test_gt_bf16_routes_match_plain(batch, dev, kernel, shape, route):
+    """Both routes of rows 6b and 9b against their plain bf16 versions on
+    the ego-net batch, the float32 kernel past the gate; the launch is
+    counted on the wrapper's name and on the route it took (the staged
+    route where ``gt_route`` stages the shape: not at 1 x 1024)."""
+    _, sub = batch
+    blocks, off = _resolve_band(sub, gt=True)
+    heads, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(hd)
+    q, k, v, g = (torch.randn(sub.num_nodes, heads, hd, device=dev,
+                              generator=gen) for _ in range(4))
+    kg.reset_launch_counts()
+    if kernel == "gt_fwd_bf16":
+        args = (blocks, off, q, k, v)
+        got = kg.gt_fwd(*args, bf16_dots=True)
+        bf16_close(got, kg.gt_fwd_plain(*args, bf16_dots=True),
+                   kg.gt_fwd(*args))
+    else:
+        args = (blocks, off, q, k, v, g,
+                kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True)[1])
+        got = kg.gt_bwd_merged(*args, bf16_dots=True)
+        bf16_close(got, kg.gt_bwd_merged_plain(*args, bf16_dots=True),
+                   kg.gt_bwd_merged(*args))
+    taken = kg.gt_route(kernel, heads, hd).name
+    assert taken == ("lane_group" if route == "lane_group" or hd == 1024
+                     else "staged")
+    assert kg.launch_counts()[kernel] == 1
+    assert kg.route_counts()[kernel, taken] == 1
+
+
+def test_staged_forward_is_the_lane_group_forward(batch, dev, monkeypatch):
+    """The staged forward rounds where the lane-group one does and sums in
+    the same order; only the compiler's fusing of a product into a sum
+    (an FMA in one kernel, not in the other) may move a last bit: within
+    1e-6 of the largest entry (measured 1e-8 on z)."""
+    _, sub = batch
+    blocks, off = _resolve_band(sub, gt=True)
+    q, k, v, _ = _gt_inputs(sub.num_nodes, dev, 15)
+    staged = kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
+    monkeypatch.setattr(kg, "gt_route",
+                        lambda *args, **kw: kg.Route("lane_group"))
+    lane = kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
+    torch.cuda.synchronize()
+    assert rel_gap(staged, lane) <= 1e-6
+
+
+@pytest.mark.parametrize("route", ["staged", "lane_group"], indirect=True)
+@pytest.mark.parametrize("shape", [(8, 8), (1, 64)], ids=["8x8", "1x64"])
+def test_crafted_inputs_hold_the_kernels_past_each_control(dev, shape,
+                                                           route):
+    """On ``gt_rounding.separating_inputs`` the controls that random inputs
+    leave within twice the gate (v and w before out; dS before dk, w
+    before dv) lie far from the plain version: each kernel on its route
+    within the gate of its plain version and past it from every control
+    at least twice the gate away."""
+    heads, hd = shape
+    ins = [x.to(dev) for x in gt_rounding.separating_inputs("fwd", heads,
+                                                            hd)]
+    got = kg.gt_fwd(*ins, bf16_dots=True)
+    bf16_close(got, kg.gt_fwd_plain(*ins, bf16_dots=True), kg.gt_fwd(*ins))
+    records = gt_rounding.controls("fwd", got, ins, BF16_GATE)
+    assert records["v"][2] and records["w before out"][2], records
+    assert not gt_rounding.unseen(records, BF16_GATE), records
+    ins = [x.to(dev) for x in gt_rounding.separating_inputs("merged", heads,
+                                                            hd)]
+    ins.append(kg.gt_fwd_plain(*ins[:5], bf16_dots=True)[1])
+    got = kg.gt_bwd_merged(*ins, bf16_dots=True)
+    bf16_close(got, kg.gt_bwd_merged_plain(*ins, bf16_dots=True),
+               kg.gt_bwd_merged(*ins))
+    records = gt_rounding.controls("merged", got, ins, BF16_GATE)
+    assert records["dS before dk"][2] and records["w before dv"][2], records
+    assert not gt_rounding.unseen(records, BF16_GATE), records
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (1, 64)], ids=["8x8", "1x64"])
+@pytest.mark.parametrize("kernel", sorted(kg.STAGED))
+def test_staged_kernel_info_reports_its_route(dev, kernel, shape):
+    """``kernel_info`` at a staged shape: the route, its blocks a tile and
+    threads, and the shared memory ``gt_route`` computed (none static),
+    at least one block an SM."""
+    heads, hd = shape
+    route = kg.gt_route(kernel, heads, hd)
+    info = kg.kernel_info(kernel, hd, heads)
+    assert info["route"] == route.name == "staged"
+    assert (info["blocks_per_tile"], info["threads"]) == (route.split,
+                                                          route.threads)
+    assert info["smem_bytes"] == route.smem_bytes
+    assert info["blocks_per_sm"] >= 1
+    assert kg.kernel_info(kernel, hd)["route"] == "lane_group"
+
+
+def test_staged_launch_refuses_a_shape_it_does_not_take(batch, dev,
+                                                        monkeypatch):
+    """A staged launch at a shape whose block does not fit (one head of
+    1024) raises, and counts nothing: no route gives way to another."""
+    _, sub = batch
+    blocks, off = _resolve_band(sub, gt=True)
+    q, k, v, _ = _gt_inputs(sub.num_nodes, dev, 16, heads=1, hd=1024)
+    monkeypatch.setattr(kg, "gt_route", lambda *args, **kw: kg.Route(
+        "staged", 1, 512, kg.SMEM_LIMIT))
+    kg.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
+    assert kg.launch_counts()["gt_fwd_bf16"] == 0
+    assert not any(kg.route_counts().values())
+
+
+@pytest.mark.parametrize("kernel", sorted(kg.STAGED))
+def test_staged_kernels_keep_every_nonzero_of_dense_rows(dev, kernel):
+    """Rows of 29-57 nonzeros, far past the KEEP exponentials the staged
+    forward holds in registers (the rest go through its spill) and the NG
+    terms the merged pass keeps: both staged kernels against their plain
+    versions, on the staged route."""
+    n = 256
+    u, v = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    keep = np.abs(u - v) <= 28
+    b = banded.pack_banded(u[keep].astype(np.int32), v[keep].astype(np.int32),
+                           None, n, tile=64, band=128, align=8)
+    blocks = torch.from_numpy(b.blocks).to(torch.bfloat16).to(dev)
+    off = torch.from_numpy(b.col_off.astype(np.int64)).to(dev)
+    assert int((blocks != 0).sum(-1).max()) > 50
+    q, k, v, g = _gt_inputs(n, dev, 17)
+    assert kg.gt_route(kernel, 8, 8).name == "staged"
+    if kernel == "gt_fwd_bf16":
+        bf16_close(kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True),
+                   kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True),
+                   kg.gt_fwd(blocks, off, q, k, v))
+    else:
+        z = kg.gt_fwd_plain(blocks, off, q, k, v, bf16_dots=True)[1]
+        args = (blocks, off, q, k, v, g, z)
+        bf16_close(kg.gt_bwd_merged(*args, bf16_dots=True),
+                   kg.gt_bwd_merged_plain(*args, bf16_dots=True),
+                   kg.gt_bwd_merged(*args))

@@ -428,7 +428,47 @@ def test_wrappers_take_plain_versions_on_cpu_without_launching():
     kg.reset_launch_counts()
     out, z = kg.gt_fwd(blocks, off, q, k, v)
     kg.gt_bwd_merged(blocks, off, q, k, v, g, z)
+    kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
+    kg.gt_bwd_merged(blocks, off, q, k, v, g, z, bf16_dots=True)
     assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 0)
+    assert not any(kg.route_counts().values())
+
+
+# (kernel, heads, head width, tile, band) -> (route, blocks a tile, threads)
+ROUTE_CASES = {
+    ("gt_fwd_bf16", 8, 8, 64, 128): ("staged", 4, 128),
+    ("gt_bwd_merged_bf16", 8, 8, 64, 128): ("staged", 4, 256),
+    ("gt_fwd_bf16", 1, 64, 64, 128): ("staged", 1, 256),
+    ("gt_bwd_merged_bf16", 1, 64, 64, 128): ("staged", 1, 512),
+    ("gt_fwd_bf16", 2, 32, 64, 128): ("staged", 2, 128),
+    ("gt_fwd_bf16", 16, 4, 64, 128): ("staged", 4, 128),
+    ("gt_bwd_merged_bf16", 1, 64, 128, 256): ("lane_group", None, None),
+    ("gt_fwd_bf16", 1, 256, 64, 128): ("lane_group", None, None),
+    ("gt_bwd_merged_bf16", 1, 1024, 64, 128): ("lane_group", None, None),
+    ("gt_fwd", 8, 8, 64, 128): ("lane_group", None, None),
+    ("gt_bwd_merged", 8, 8, 64, 128): ("lane_group", None, None),
+    ("gt_bwd_rows_bf16", 8, 8, 64, 128): ("lane_group", None, None)}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES),
+                         ids=lambda c: "-".join(map(str, c)))
+def test_route_stages_what_fits_and_keeps_the_rest_on_lane_groups(case):
+    """``gt_route``: the staged kernels of rows 6b and 9b where a block of
+    whole heads fits the shared memory (the bench's 8 x 8 and 1 x 64 in
+    the narrow geometry), the lane-group kernels for wide heads, the wide
+    geometry's large blocks and every other wrapper; a staged block's
+    bytes are ``staged_smem``'s and fit."""
+    kernel, heads, hd, tile, band = case
+    route = kg.gt_route(kernel, heads, hd, tile, band)
+    name, split, threads = ROUTE_CASES[case]
+    assert route.name == name
+    assert route == kg.gt_route(kernel, heads, hd, tile, band)
+    if name == "staged":
+        assert (route.split, route.threads) == (split, threads)
+        assert route.smem_bytes == kg.staged_smem(
+            kernel, tile, band, heads * hd // split, heads // split)
+        assert route.smem_bytes <= kg.SMEM_LIMIT
+        assert heads % split == 0
 
 
 # --- modules 8-10: layer and encoder -----------------------------------------
