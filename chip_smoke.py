@@ -187,9 +187,13 @@ Phases; any failure raises and exits non-zero before the last line:
      same inputs past it (the control): error, kernel, plain and
      float32-kernel ms, the bound at the bf16 tensor-core rate, registers,
      shared memory, blocks per SM and ptxas spills, the route each took
-     (``gt_fwd_bf16`` its staged kernel); the forward past the gate from
-     the control of each of its rounding points (tests/gt_rounding.py)
-     that lies twice the gate from the plain version; (b) PretrainModel(9,
+     (``gt_fwd_bf16`` its staged kernel; ``gin_fwd_bf16`` the
+     instantiation ``gin_route`` names); the attention forward and
+     ``gin_fwd_bf16`` past the gate from the control of each of their
+     rounding points (tests/gt_rounding.py, tests/gin_rounding.py) that
+     lies twice the gate from the plain version, ``gin_fwd_bf16`` also on
+     crafted inputs (``gin_rounding.separating_inputs``) that set both of
+     its controls 1/32 of the largest entry apart; (b) PretrainModel(9,
      64, 32) in each mode on the benchmark batch: the card's losses within
      1e-3 of the CPU plain path at the same rounding points and within
      1e-2 of the float32 model in float64, its gradients within 5e-3 of
@@ -201,7 +205,8 @@ Phases; any failure raises and exits non-zero before the last line:
      the eager one under deterministic algorithms, the stale-input fault
      breaking it; (d) step medians, eager and captured, float32 against
      bf16, both encoders, and each bf16 mode's captured step profiled as in
-     phase 7 (recorded only).
+     phase 7 with each kernel instantiation's time in the step (recorded
+     only).
  14. the JAX package's TPU-default Transformer (``gt_bwd="merged"``,
      ``gt_bf16_dots=True``, float32 dense tail: ``_bwd_merged_kernel`` with
      ``bf16=True``): (a) ``gt_fwd_bf16`` and ``gt_bwd_merged_bf16`` at S,
@@ -260,6 +265,7 @@ import itertools
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -319,6 +325,7 @@ from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
 from scgib_tpu_torch.utils.profiling import profile_trace  # noqa: E402
 
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+import gin_rounding  # noqa: E402
 import gt_rounding  # noqa: E402
 from reference_cases import write_stand_in  # noqa: E402
 
@@ -366,7 +373,7 @@ PATH = {"gin_fwd": ("banded", 69, "gin_fused_fwd_kernel"),
         "gt_bwd_cols": ("gt_flash", 248, "gt_bwd_cols_kernel"),
         "gt_bwd_merged": ("gt_flash", 181, "gt_row_pass_kernel"),
         # the bf16 instantiations (phase 13)
-        "gin_fwd_bf16": ("banded", 69, "gin_fused_fwd_kernel"),
+        "gin_fwd_bf16": ("banded", 69, "gin_fused_fwd_bf16_kernel"),
         "gt_fwd_bf16": ("gt_flash", 121,
                         "gt_fwd_staged_bf16_kernel gt_fwd_kernel"),
         "gt_bwd_rows_bf16": ("gt_flash", 146, "gt_row_pass_kernel"),
@@ -858,6 +865,7 @@ def profile_phase(encoder="GIN", eager=False, **options):
          and not e.key.startswith("ProfilerStep")),
         reverse=True)
     busy_ms = sum(k[0] for k in kernels)
+    port_names = {name for v in PATH.values() for name in v[2].split()}
     host = {name: sum(e.count for e in events if e.key == name) / 3
             for name in HOST_CALLS}
     # what each host kernel launch of the profiled steps was for
@@ -881,8 +889,8 @@ def profile_phase(encoder="GIN", eager=False, **options):
                        for ms, n, name in kernels[:12]],
                "port": {k: [sum(ms for ms, _, name in kernels if k in name),
                             sum(n for _, n, name in kernels if k in name)]
-                        for k in sorted({name for v in PATH.values()
-                                         for name in v[2].split()})}}
+                        for k in sorted(port_names)},
+               "port_instances": port_instances(kernels, port_names)}
     if not busy_ms:
         summary["device_ms_per_step"] = event_device_ms(encoder, eager,
                                                         **options)
@@ -893,6 +901,19 @@ def profile_phase(encoder="GIN", eager=False, **options):
           f"{', ' + json.dumps(options, default=str) if options else ''}): "
           f"{json.dumps(summary)}", flush=True)
     return summary
+
+
+def port_instances(kernels, names):
+    """[ms, calls] a step of each instantiation (``name<args>``) of the
+    port's kernels ``names`` among a profile's (ms, calls, name) rows."""
+    out = {}
+    for ms, n, name in kernels:
+        m = re.search(r"(\w+_kernel<[^>]*>)", name)
+        if m and m.group(1).split("<")[0] in names:
+            rec = out.setdefault(m.group(1), [0.0, 0.0])
+            rec[0] += ms
+            rec[1] += n
+    return out
 
 
 def event_device_ms(encoder, eager, **options):
@@ -3853,16 +3874,53 @@ BF16_RUNS = {"GIN-bf16": (GIN_BF16, STEPS, GIN_BF16_PER_STEP),
 
 
 def gin_fwd_bf16_ptxas(din, hid=64, dout=64):
-    """ptxas's spills of the gin_fused_fwd instantiation that the bf16
-    mode launches at these widths (VEC, MT, NT as csrc/banded.cu's
-    plan_fwd picks them)."""
-    vec = 16 if din % 16 == 0 else 1
-    nt = 2 if max(din, hid, dout) <= 64 else 4
-    want = f"gin_fused_fwd_kernelILi{vec}ELi32ELi{nt}ELb1E"
+    """ptxas's registers and spills of the instantiation that
+    ``gin_fwd_bf16`` launches at these widths (``kb.gin_route``'s, as
+    csrc/banded.cu's plan_fwd_bf16 picks it)."""
+    vec, mt, nt = re.search(r"<(\d+), (\d+), (\d+)>",
+                            kb.gin_route(din, hid, dout)).groups()
+    want = f"gin_fused_fwd_bf16_kernelILi{vec}ELi{mt}ELi{nt}EE"
     recs = [r for e, r in kbuild.ptxas_report("banded").items() if want in e]
     if len(recs) != 1:
         raise AssertionError(f"no single ptxas entry {want}: {len(recs)}")
-    return {k: recs[0][k] for k in ("spill_stores", "spill_loads")}
+    return {"ptxas_registers": recs[0]["registers"],
+            **{k: recs[0][k] for k in ("spill_stores", "spill_loads")}}
+
+
+def gin_controls(got, inputs):
+    """``gin_rounding.controls`` at the bf16 gate; raises where the kernel
+    lies within the gate of a separated control (it could have skipped
+    that rounding and passed)."""
+    records = gin_rounding.controls(got, inputs, BF16_RTOL)
+    missed = gin_rounding.unseen(records, BF16_RTOL)
+    if missed:
+        raise AssertionError(f"gin_fwd_bf16: within {BF16_RTOL} of the "
+                             f"control that skips {missed}: {records}")
+    return {p: {"control_vs_plain": a, "kernel_vs_control": k,
+                "separated": sep} for p, (a, k, sep) in records.items()}
+
+
+def gin_crafted_controls(dev):
+    """``gin_fwd_bf16`` at widths 9 and 64 into 64, on
+    ``gin_rounding.separating_inputs`` (both controls 1/32 of the largest
+    entry from the plain version): within the gate of the plain version
+    and past it from each control; {shape: readings}."""
+    out = {}
+    for din in (9, 64):
+        ins = [x.to(dev) for x in gin_rounding.separating_inputs(din, 64,
+                                                                 64)]
+        got = kb.gin_fwd_bf16(*ins)
+        torch.cuda.synchronize()
+        rec = {"rel_vs_plain": rel_err(got, kb.gin_fwd_bf16_plain(*ins))[1],
+               **gin_controls(got, ins)}
+        out[f"d={din}"] = rec
+        if not (rec["rel_vs_plain"] <= BF16_RTOL and all(
+                rec[p]["separated"] for p in gin_rounding.POINTS)):
+            raise AssertionError(f"gin_fwd_bf16 on the crafted inputs, "
+                                 f"{din}: {rec}")
+    print(f"phase 13 (a) gin_fwd_bf16 crafted inputs: {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def bf16_vs_f32(rec, plain_fn, resources, spills, f32_fn, allowed=(0, 0),
@@ -3905,11 +3963,14 @@ def bf16_kernel_phase(g, sub, dev):
     kernel's resources and ptxas spills, and the route it took.  The
     control: the float32 kernel on the same inputs must sit past the gate
     from the plain bf16 version, or the gate could not tell a kernel that
-    skipped its rounding; and the forward past the gate from the control
-    of each of its rounding points (q, k, v, w before out;
+    skipped its rounding; and the attention forward past the gate from
+    the control of each of its rounding points (q, k, v, w before out;
     tests/gt_rounding.py) that lies at least twice the gate from the
     plain version (q, k and v here; w before out only on phase 14 (a)'s
-    crafted inputs)."""
+    crafted inputs), ``gin_fwd_bf16`` from those of z0 and relu(z1)
+    (tests/gin_rounding.py) here and on crafted inputs
+    (``gin_crafted_controls``).  Returns the records and the crafted
+    readings."""
     gen = torch.Generator(device=dev).manual_seed(13)
     bf, hid, records = torch.bfloat16, 64, []
 
@@ -3920,7 +3981,7 @@ def bf16_kernel_phase(g, sub, dev):
         blocks, col_off = _resolve_band(batch)
         n = blocks.shape[0] * blocks.shape[1]
         nnz = int((blocks != 0).sum())
-        for d in (9, hid):
+        for d in (9, 32, hid):
             h = torch.randn(n, d, device=dev, generator=gen)
             w1 = torch.randn(d, hid, device=dev, generator=gen) / math.sqrt(d)
             b1 = torch.randn(hid, device=dev, generator=gen) * 0.1
@@ -3928,14 +3989,18 @@ def bf16_kernel_phase(g, sub, dev):
             b2 = torch.randn(hid, device=dev, generator=gen) * 0.1
             args = (blocks, col_off, h.to(bf), w1.to(bf), b1, w2.to(bf), b2)
             plain = functools.partial(kb.gin_fwd_bf16_plain, *args)
-            add(check("gin_fwd_bf16", f"{label}={n} d={d}",
-                      functools.partial(kb.gin_fwd_bf16, *args), plain,
-                      nbytes(*args) + n * hid * 4,
-                      2 * nnz * d + n * d + 2 * n * (d * hid + hid * hid),
-                      tol=BF16_RTOL, flops_per_s=BF16_FLOPS_PER_S), plain,
-                kb.kernel_info("gin_fused_fwd_bf16", d, hid, hid),
+            kernel = functools.partial(kb.gin_fwd_bf16, *args)
+            rec = check("gin_fwd_bf16", f"{label}={n} d={d}", kernel, plain,
+                        nbytes(*args) + n * hid * 4,
+                        2 * nnz * d + n * d + 2 * n * (d * hid + hid * hid),
+                        tol=BF16_RTOL, flops_per_s=BF16_FLOPS_PER_S)
+            rec["rounding_controls"] = gin_controls(kernel(), args)
+            add(rec, plain, kb.kernel_info("gin_fused_fwd_bf16", d, hid, hid),
                 gin_fwd_bf16_ptxas(d),
-                lambda: kb.gin_fwd(blocks, col_off, h, w1, b1, w2, b2))
+                lambda: kb.gin_fwd(blocks, col_off, h, w1, b1, w2, b2),
+                extra=f"; rounding controls "
+                      f"{json.dumps(rec['rounding_controls'])}")
+    crafted = gin_crafted_controls(dev)
     blocks, off = _resolve_band(sub, gt=True)
     n = blocks.shape[0] * blocks.shape[1]
     ptxas = kg.ptxas_report()
@@ -3978,7 +4043,7 @@ def bf16_kernel_phase(g, sub, dev):
                                                 "spill_loads")},
                 functools.partial(wrapper, blocks, off, *ts),
                 GT_SPILLS.get((key, hd), (0, 0)), extra)
-    return records
+    return records, crafted
 
 
 def bf16_models(encoder, mode, seed=3):
@@ -4103,7 +4168,7 @@ def bf16_phase(g, sub, dev, ds, caps):
     counts of its main-path runs."""
     report, secs = {}, {}
     t0 = time.perf_counter()
-    records = bf16_kernel_phase(g, sub, dev)
+    records, report["gin_crafted_controls"] = bf16_kernel_phase(g, sub, dev)
     secs["a"], t0 = time.perf_counter() - t0, time.perf_counter()
     report["models"] = bf16_model_phase(g, sub, dev)
     secs["b"], t0 = time.perf_counter() - t0, time.perf_counter()

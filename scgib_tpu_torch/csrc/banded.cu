@@ -69,16 +69,23 @@
 // memory: 13x its byte bound.
 //
 // gin_fused_fwd's bf16 mode (the JAX package's compute_dtype="bfloat16",
-// which its GIN casts h, W1 and W2 to) is a second instantiation, BF16: it
-// reads h, W1 and W2 in bf16 (half of h's bytes), sums A h over the bf16 rows
-// in fp32 (the 0/1 entries times bf16 values are exact), rounds z0 and
-// relu(z1) to bf16 as the products read them, and runs each product as one
-// m16n8k16 bf16 mma.sync (fp32 accumulate) in place of the three TF32
-// ones; the biases are added in fp32 after the products and the output is
-// fp32, JAX's _kernel rounding point for rounding point.  The padded widths
-// (conv 0's 9 features run as 16) are zeros in shared memory, as in the
-// 3xTF32 path.  Its backward is gin_fused_bwd and banded_spmm on the
-// bf16-rounded h, W1 and W2 in fp32, as JAX's _bwd runs its fp32 kernels.
+// which its GIN casts h, W1 and W2 to) reads h, W1 and W2 in bf16 (half of
+// h's bytes), sums A h over the bf16 rows in fp32 (the 0/1 entries times
+// bf16 values are exact), rounds z0 and relu(z1) to bf16, and runs each
+// product as one m16n8k16 bf16 mma.sync (fp32 accumulate) in place of the
+// three TF32 ones; the biases are added in fp32 after the products and the
+// output is fp32, JAX's _kernel rounding point for rounding point.  Its
+// kernel, gin_fused_fwd_bf16_kernel, keeps the operands in bf16 in shared
+// memory (28 KB a block at width 64, against 52.7 KB of floats for the
+// float32 kernel): W1 and W2 are copied as bf16 with 16-byte cp.async
+// before the gather starts, the gather stores z0 rounded once and the first
+// product's epilogue relu(z1) rounded once, and the products read their
+// fragments with ldmatrix, converting nothing; the gather takes 8 lanes a
+// row at width 64 (one 16-byte load of a row of h a lane), so all 8 warps
+// gather the tile's 32 rows in one pass.  The padded widths (9 features run
+// as 16) are zeros in shared memory.
+// The backward is gin_fused_bwd and banded_spmm on the bf16-rounded h, W1
+// and W2 in fp32, as JAX's _bwd runs its fp32 kernels.
 //
 // gin_fused_bwd is persistent: one block of 8 warps per SM stages W1, W2
 // and b1 once, loops over row tiles of 64 rows (32 above width 64), and
@@ -110,10 +117,6 @@ using gate_walk::FULL;
 using gate_walk::SEGV;
 constexpr int SPMM_THREADS = 128;
 constexpr int GIN_THREADS = 256;  // 8 warps: gin_fused_fwd, gin_fused_bwd
-
-// gin_fused_fwd's feature and weight type: float, or bf16 in its bf16 mode.
-template <bool BF16>
-using Feat = std::conditional_t<BF16, __nv_bfloat16, float>;
 
 // --- sparse gather of one band row (banded_spmm, the GIN kernels) ----------
 
@@ -165,16 +168,18 @@ __device__ __forceinline__ void store_vec(float* p, const float v[VEC]) {
 
 // One lane group of `lpr` lanes (a power of two; every group of the warp
 // calls this together) adds, for its row `arow` of A,
-//   acc[j] += sum_k A[row][k] * xw[k * ld + c + j],  j < VEC,
+//   acc[s VEC + j] += sum_k A[row][k] * xw[k * ld + c + s lpr VEC + j],
+// j < VEC, s < SPREAD (SPREAD pieces of VEC columns a lane, lpr VEC apart),
 // over the band k < W, where rows k >= rows_left (windows running past the
 // end of x) read as 0, with GATHER rows of x in flight.  `active` is false
 // for a group without a row; `col_ok` false for a lane past the last
-// column.  x is float, or bf16 (gin_fused_fwd's bf16 mode), summed in fp32.
-template <int VEC, int GATHER, typename T>
+// column, and piece s > 0 is read where its columns lie before ld.  x is
+// float, or bf16 (gin_fused_fwd's bf16 mode), summed in fp32.
+template <int VEC, int GATHER, typename T, int SPREAD = 1>
 __device__ void band_row(const __nv_bfloat16* __restrict__ arow, bool active,
                          int W, const T* __restrict__ xw,
                          long long rows_left, int ld, int c, bool col_ok,
-                         int lpr, float acc[VEC]) {
+                         int lpr, float acc[VEC * SPREAD]) {
   const gate_walk::LaneGroup grp = gate_walk::lane_group(lpr);
   const int nvec = W / 8;                  // 16-byte vectors in a row
   for (int s0 = 0; s0 < nvec; s0 += SEGV * lpr) {
@@ -186,21 +191,26 @@ __device__ void band_row(const __nv_bfloat16* __restrict__ arow, bool active,
 #pragma unroll
       for (int u = 0; u < GATHER; ++u)
         col[u] = gate_walk::take_nonzero(m, s0, grp);
-      float a[GATHER], xv[GATHER][VEC];
+      float a[GATHER], xv[GATHER][VEC * SPREAD];
 #pragma unroll
       for (int u = 0; u < GATHER; ++u) {
         a[u] = 0.f;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) xv[u][j] = 0.f;
+        for (int j = 0; j < VEC * SPREAD; ++j) xv[u][j] = 0.f;
         if (col[u] >= 0 && col[u] < rows_left) {
           a[u] = __bfloat162float(arow[col[u]]);
-          if (col_ok) load_vec<VEC>(xw + (long long)col[u] * ld + c, xv[u]);
+#pragma unroll
+          for (int s = 0; s < SPREAD; ++s)
+            if (col_ok && (s == 0 || c + s * lpr * VEC < ld))
+              load_vec<VEC>(xw + (long long)col[u] * ld + c + s * lpr * VEC,
+                            xv[u] + s * VEC);
         }
       }
 #pragma unroll
       for (int u = 0; u < GATHER; ++u)
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc[j] = fmaf(a[u], xv[u][j], acc[j]);
+        for (int j = 0; j < VEC * SPREAD; ++j)
+          acc[j] = fmaf(a[u], xv[u][j], acc[j]);
     }
   }
 }
@@ -309,34 +319,6 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// mma_3xtf32's product with both operands rounded to bf16 as they are read
-// and one m16n8k16 bf16 mma a step, fp32 accumulate (K a multiple of 16):
-// the products of JAX's _kernel on bf16 operands.  The fragments: A's
-// registers hold (row g, columns 2t, 2t + 1), (g + 8, same), (g, 2t + 8,
-// 2t + 9), (g + 8, same); B's (rows 2t, 2t + 1, column g), (2t + 8, 2t + 9,
-// g); C as in m16n8k8.
-template <int NT, class FA, class FB>
-__device__ __forceinline__ void mma_bf16(float c[NT][4], FA A, FB B, int m0,
-                                         int n0, int step, int cnt, int K) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const int k = k0 + 2 * t;
-    const uint32_t a[4] = {pack_bf16(A(m0 + g, k), A(m0 + g, k + 1)),
-                           pack_bf16(A(m0 + g + 8, k), A(m0 + g + 8, k + 1)),
-                           pack_bf16(A(m0 + g, k + 8), A(m0 + g, k + 9)),
-                           pack_bf16(A(m0 + g + 8, k + 8),
-                                     A(m0 + g + 8, k + 9))};
-#pragma unroll
-    for (int i = 0; i < NT; ++i) {
-      const int n = n0 + (i < cnt ? i : 0) * step + g;
-      const uint32_t b[2] = {pack_bf16(B(k, n), B(k + 1, n)),
-                             pack_bf16(B(k + 8, n), B(k + 9, n))};
-      mma_bf16_16816(c[i], a, b);
-    }
-  }
-}
-
 // The 16 x 8 output tiles of an [M, N] product that this warp of 8 takes:
 // row tile m0 = 16 (warp % (M/16)), column tiles n0 + i step for i < cnt.
 // M / 16 divides 8.
@@ -424,15 +406,40 @@ __device__ void stage_async(float* dst, int ld, const float* src, int R,
   }
 }
 
+// VEC columns of z0 into shared memory: as they are (fp32), or rounded to
+// bf16 once (gin_fused_fwd_bf16), as 16-byte vectors of 8 when VEC allows.
+template <int VEC>
+__device__ __forceinline__ void store_z0(float* p, const float v[VEC]) {
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) p[j] = v[j];
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_z0(__nv_bfloat16* p,
+                                         const float v[VEC]) {
+  if constexpr (VEC % 8 == 0) {
+#pragma unroll
+    for (int j = 0; j < VEC; j += 8)
+      *reinterpret_cast<uint4*>(p + j) = make_uint4(
+          pack_bf16(v[j], v[j + 1]), pack_bf16(v[j + 2], v[j + 3]),
+          pack_bf16(v[j + 4], v[j + 5]), pack_bf16(v[j + 6], v[j + 7]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) p[j] = __float2bfloat16_rn(v[j]);
+  }
+}
+
 // z0 = h + A h for the MT rows from row0 (inside one band tile: MT divides
 // 128) into shared memory, row stride ld: a lane group of lpr lanes a row,
-// VEC columns a lane, GATHER rows of h in flight (band_row).  h is float or
-// bf16; z0 is fp32.
-template <int VEC, int MT, int GATHER, typename T>
+// SPREAD pieces of VEC columns a lane (band_row), GATHER rows of h in
+// flight.  h is float or bf16, summed in fp32; z0 is stored fp32, or bf16
+// (store_z0).
+template <int VEC, int MT, int GATHER, typename T, typename Z,
+          int SPREAD = 1>
 __device__ __forceinline__ void gather_z0(
     const __nv_bfloat16* __restrict__ blocks,
     const long long* __restrict__ col_off, int W, const T* __restrict__ h,
-    long long n, int din, long long row0, int lpr, float* sz0, int ld) {
+    long long n, int din, long long row0, int lpr, Z* sz0, int ld) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rpw = 32 / lpr;                  // rows a warp gathers at once
   const long long off = col_off[row0 / TILE];
@@ -440,19 +447,23 @@ __device__ __forceinline__ void gather_z0(
     const int r = r1 + warp * rpw + lane / lpr;
     const bool active = r < MT;
     const long long row = row0 + (active ? r : 0);
-    for (int c0 = 0; c0 < din; c0 += lpr * VEC) {
+    for (int c0 = 0; c0 < din; c0 += lpr * VEC * SPREAD) {
       const int c = c0 + (lane % lpr) * VEC;
       const bool col_ok = active && c < din;
-      float acc[VEC];
+      float acc[VEC * SPREAD];
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-      if (col_ok) load_vec<VEC>(h + row * din + c, acc);
-      band_row<VEC, GATHER>(blocks + row * W, active, W, h + off * din,
-                            n - off, din, c, col_ok, lpr, acc);
-      if (col_ok) {
+      for (int j = 0; j < VEC * SPREAD; ++j) acc[j] = 0.f;
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) sz0[r * ld + c + j] = acc[j];
-      }
+      for (int s = 0; s < SPREAD; ++s)
+        if (col_ok && (s == 0 || c + s * lpr * VEC < din))
+          load_vec<VEC>(h + row * din + c + s * lpr * VEC, acc + s * VEC);
+      band_row<VEC, GATHER, T, SPREAD>(blocks + row * W, active, W,
+                                       h + off * din, n - off, din, c,
+                                       col_ok, lpr, acc);
+#pragma unroll
+      for (int s = 0; s < SPREAD; ++s)
+        if (col_ok && (s == 0 || c + s * lpr * VEC < din))
+          store_z0<VEC>(sz0 + r * ld + c + s * lpr * VEC, acc + s * VEC);
     }
   }
 }
@@ -635,57 +646,18 @@ __device__ __forceinline__ void bias_frags(float c[NT][4], const float* sb,
   }
 }
 
-// c[i] = A B + the bias pair of the columns of this lane's fragments of
-// tile i, for either mode: 3xTF32 products summed onto the bias, or (BF16)
-// bf16 products, the bias added in fp32 after them, as JAX's _kernel adds
-// b1 and b2 after its dots.
-template <int NT, bool BF16, class FA, class FB>
-__device__ __forceinline__ void biased_product(float c[NT][4], const float* sb,
-                                               const WarpTiles& t, FA A, FB B,
-                                               int K) {
-  if constexpr (BF16) {
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c[i][q] = 0.f;
-    mma_bf16<NT>(c, A, B, t.m0, t.n0, t.step, t.cnt, K);
-    float bias[NT][4];
-    bias_frags<NT>(bias, sb, t);
-#pragma unroll
-    for (int i = 0; i < NT; ++i)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) c[i][q] += bias[i][q];
-  } else {
-    bias_frags<NT>(c, sb, t);
-    mma_3xtf32<NT>(c, A, B, t.m0, t.n0, t.step, t.cnt, K);
-  }
-}
-
-// Copy a row-major [R, C] bf16 matrix into shared memory as floats, row
-// stride ld: plain loads, converted (the bf16 mode's weights).
-__device__ void stage_bf16(float* dst, int ld,
-                           const __nv_bfloat16* __restrict__ src, int R,
-                           int C) {
-  for (int e = threadIdx.x; e < R * C; e += GIN_THREADS)
-    dst[(e / C) * ld + e % C] = __bfloat162float(src[e]);
-}
-
 // One row tile of MT rows a block (MT divides 128).  NT bounds the
 // 16 x 8 output tiles a warp takes in either product.  At most 85
 // registers, so that 3 blocks share an SM; the weights' copies allocate
-// in L1 (the source note says why).  BF16: h, W1 and W2 arrive in bf16
-// (JAX's compute_dtype="bfloat16"); A h is summed over bf16 rows in fp32
-// (exact against the bf16 x bf16 dot of _kernel but for the order of the
-// sums), z0 and relu(z1) are rounded to bf16 as the products read them,
-// the biases and the output stay fp32.
-template <int VEC, int MT, int NT, bool BF16>
+// in L1 (the source note says why).
+template <int VEC, int MT, int NT>
 __global__ void __launch_bounds__(GIN_THREADS, 3)
 gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
                      const long long* __restrict__ col_off, int W,
-                     const Feat<BF16>* __restrict__ h, long long n, int din,
-                     const Feat<BF16>* __restrict__ w1,
+                     const float* __restrict__ h, long long n, int din,
+                     const float* __restrict__ w1,
                      const float* __restrict__ b1, int hid,
-                     const Feat<BF16>* __restrict__ w2,
+                     const float* __restrict__ w2,
                      const float* __restrict__ b2, int dout,
                      float* __restrict__ out, int lpr) {
   extern __shared__ float smem[];
@@ -707,13 +679,8 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   zero_pad(sb1, 1, hid, 1, HP, HP);
   zero_pad(sb2, 1, dout, 1, OP, OP);
   zero_pad(sz0, MT, din, MT, DP, LD);
-  if constexpr (BF16) {
-    stage_bf16(sw1, LH, w1, din, hid);
-    stage_bf16(sw2, LO, w2, hid, dout);
-  } else {
-    stage_async<true>(sw1, LH, w1, din, hid);
-    stage_async<true>(sw2, LO, w2, hid, dout);
-  }
+  stage_async<true>(sw1, LH, w1, din, hid);
+  stage_async<true>(sw2, LO, w2, hid, dout);
   stage_async<true>(sb1, HP, b1, 1, hid);
   stage_async<true>(sb2, OP, b2, 1, dout);
   asm volatile("cp.async.commit_group;");
@@ -726,10 +693,10 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   const WarpTiles t1 = warp_tiles(MT, HP), t2 = warp_tiles(MT, OP);
   {
     float c[NT][4];
-    biased_product<NT, BF16>(c, sb1, t1,
-                             [=](int m, int k) { return sz0[m * LD + k]; },
-                             [=](int k, int j) { return sw1[k * LH + j]; },
-                             DP);
+    bias_frags<NT>(c, sb1, t1);
+    mma_3xtf32<NT>(c, [=](int m, int k) { return sz0[m * LD + k]; },
+                   [=](int k, int j) { return sw1[k * LH + j]; }, t1.m0,
+                   t1.n0, t1.step, t1.cnt, DP);
 #pragma unroll
     for (int i = 0; i < NT; ++i) {
       if (i < t1.cnt) {
@@ -743,9 +710,10 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
 
   // out = relu(z1) W2 + b2, straight to global memory
   float c[NT][4];
-  biased_product<NT, BF16>(c, sb2, t2,
-                           [=](int m, int k) { return sz1[m * LH + k]; },
-                           [=](int k, int o) { return sw2[k * LO + o]; }, HP);
+  bias_frags<NT>(c, sb2, t2);
+  mma_3xtf32<NT>(c, [=](int m, int k) { return sz1[m * LH + k]; },
+                 [=](int k, int o) { return sw2[k * LO + o]; }, t2.m0, t2.n0,
+                 t2.step, t2.cnt, HP);
 #pragma unroll
   for (int i = 0; i < NT; ++i) {
     const int col = t2.n0 + i * t2.step + 2 * ft;
@@ -753,6 +721,256 @@ gin_fused_fwd_kernel(const __nv_bfloat16* __restrict__ blocks,
     if (i < t2.cnt && col < dout) { o[0] = c[i][0]; o[8 * dout] = c[i][2]; }
     if (i < t2.cnt && col + 1 < dout) {
       o[1] = c[i][1]; o[8 * dout + 1] = c[i][3];
+    }
+  }
+}
+
+// --- gin_fused_fwd_bf16: the bf16 mode on bf16 shared memory ----------------
+
+// Rows of gin_fused_fwd_bf16's shared arrays are padded by 8 bf16 values (16
+// bytes): at a row stride of 2 P + 16 bytes (P a multiple of 16) the 8 rows
+// an ldmatrix reads fall on 8 different 16-byte bank groups.
+constexpr int BF16_PAD = 8;
+
+// Pieces of VEC columns a lane gathers in gin_fused_fwd_bf16 (band_row's
+// SPREAD): two where VEC is 1, so that 9 features take a group of 8 lanes a
+// row and a warp gathers 4 rows at once, as at width 64.
+template <int VEC>
+constexpr int bf16_spread = VEC == 1 ? 2 : 1;
+
+// Bytes of gin_fused_fwd_bf16's shared memory: b1 [HP] and b2 [OP] in fp32,
+// then in bf16 W1 [DP][HP+8], W2 [HP][OP+8], and per tile z0 [MT][DP+8] and
+// relu(z1) [MT][HP+8], with DP, HP, OP the widths padded to 16 (zeros there).
+__host__ __device__ constexpr int fwd_bf16_smem_bytes(int mt, int din,
+                                                      int hid, int dout) {
+  return 4 * (pad16(hid) + pad16(dout))
+         + 2 * (pad16(din) * (pad16(hid) + BF16_PAD)
+                + pad16(hid) * (pad16(dout) + BF16_PAD)
+                + mt * (pad16(din) + pad16(hid) + 2 * BF16_PAD));
+}
+
+// zero_pad of a bf16 array: a warp a row, a lane a column.
+__device__ void zero_pad(__nv_bfloat16* a, int R, int C, int RP, int CP,
+                         int ld) {
+  if (R == RP && C == CP) return;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < RP; r += GIN_THREADS / 32)
+    for (int c = (r < R ? C : 0) + lane; c < CP; c += 32)
+      a[r * ld + c] = __float2bfloat16_rn(0.f);
+}
+
+// Copy a row-major [R, C] bf16 matrix into shared memory with row stride ld
+// (values; dst 16-byte aligned, ld a multiple of 8) asynchronously,
+// allocating in L1 as stage_async<true> does: 16-byte copies of 8 values
+// where the rows allow it, else 4-byte copies of 2, else (an odd C) plain
+// loads and stores.  A thread's row and piece advance without a division.
+// The caller commits and waits.
+__device__ void stage_bf16_async(__nv_bfloat16* dst, int ld,
+                                 const __nv_bfloat16* src, int R, int C) {
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
+  const int step = C % 8 == 0 && ((uintptr_t)src & 15) == 0  ? 8
+                   : C % 2 == 0 && ((uintptr_t)src & 3) == 0 ? 2
+                                                              : 1;
+  const int cv = C / step, dr = GIN_THREADS / cv, dc = GIN_THREADS % cv;
+  int r = threadIdx.x / cv, q = threadIdx.x % cv;   // row, piece
+  while (r < R) {
+    const int c = q * step;
+    const uint32_t to = base + 2u * (r * ld + c);
+    const __nv_bfloat16* from = src + (long long)r * C + c;
+    if (step == 8)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(to),
+                   "l"(from));
+    else if (step == 2)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(to),
+                   "l"(from));
+    else
+      dst[r * ld + c] = *from;
+    r += dr;
+    q += dc;
+    if (q >= cv) {
+      q -= cv;
+      ++r;
+    }
+  }
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (ldmatrix): lane l gives the
+// address of row l % 8 of matrix l / 8 and gets, of each, (row l / 4,
+// columns 2 (l % 4), + 1), or with TRANS (rows 2 (l % 4), + 1, column l / 4).
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4],
+                                            const __nv_bfloat16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a)
+        : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a)
+        : "memory");
+}
+
+// The tiles of an [M, N] product (N a multiple of 16) that this warp of 8
+// takes in gin_fused_fwd_bf16: row tile m0 = 16 (warp % (M/16)), and the
+// pairs of adjacent 8-column tiles first + i step, i < cnt.  M / 16
+// divides 8.
+struct PairTiles {
+  int m0, first, step, cnt;
+};
+
+__device__ __forceinline__ PairTiles pair_tiles(int M, int N) {
+  const int warp = threadIdx.x >> 5, nm = M / 16, wpm = 8 / nm;
+  const int first = warp / nm, np = N / 16;
+  // a warp without a pair reads pair 0, in bounds, and stores nothing
+  return {(warp % nm) * 16, first < np ? first : 0, wpm,
+          first < np ? (np - first + wpm - 1) / wpm : 0};
+}
+
+// c[2 i + s] = A[m0:m0+16, 0:K] B[0:K, 16 p + 8 s : + 8] for this warp's
+// pairs p = t.first + i t.step (i < t.cnt <= NT / 2), one m16n8k16 bf16
+// mma.sync a tile and k-step, fp32 accumulate; A [M][lda] and B [K][ldb]
+// are bf16 row-major in shared memory, read by ldmatrix and converted
+// nowhere.  Lane l addresses row l % 16 and column 8 (l / 16) of a 16 x 16
+// block: of A (x4) its four 8 x 8 quarters in the order of the A fragment's
+// registers, of B (x4.trans) the two k-halves of both tiles of a pair.  K is
+// a multiple of 16.  A pair past t.cnt repeats pair t.first's reads (no
+// branch), and its sums are never stored.
+template <int NT>
+__device__ __forceinline__ void mma_bf16_ldm(float c[NT][4],
+                                             const __nv_bfloat16* A, int lda,
+                                             const __nv_bfloat16* B, int ldb,
+                                             const PairTiles& t, int K) {
+  const int lane = threadIdx.x & 31, lr = lane & 15, lc = (lane >> 4) * 8;
+  const __nv_bfloat16* a = A + (t.m0 + lr) * lda + lc;
+  const __nv_bfloat16* b[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i)
+    b[i] = B + lr * ldb + 16 * (t.first + (i < t.cnt ? i : 0) * t.step) + lc;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t af[4];
+    ldmatrix_x4<false>(af, a + k0);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) {
+      uint32_t bf[4];
+      ldmatrix_x4<true>(bf, b[i] + k0 * ldb);
+      mma_bf16_16816(c[2 * i], af, bf);
+      mma_bf16_16816(c[2 * i + 1], af, bf + 2);
+    }
+  }
+}
+
+// The column of this lane's fragment pair (c[.][0], c[.][1]) in tile s of
+// pair i.
+__device__ __forceinline__ int pair_col(const PairTiles& t, int i, int s) {
+  return 16 * (t.first + i * t.step) + 8 * s + 2 * (threadIdx.x & 3);
+}
+
+// gin_fused_fwd's bf16 mode (the JAX package's compute_dtype="bfloat16"),
+// designed for its rounding points: one row tile of MT rows a block (MT
+// divides 128), NT bounding the 16 x 8 output tiles a warp takes in either
+// product.  W1 and W2 are copied as bf16 into shared memory with cp.async
+// before the gather starts and arrive while it runs.  The gather sums A h
+// over the bf16 rows of h in fp32 and stores z0 = h + A h rounded to bf16
+// once; the first product's epilogue adds b1 in fp32 and stores relu(z1)
+// rounded to bf16 once (JAX's _kernel rounds both there); the products read
+// their bf16 operands with ldmatrix into m16n8k16 bf16 mma.sync, fp32
+// accumulate, and b2 is added in fp32 to the fp32 output.
+template <int VEC, int MT, int NT>
+__global__ void __launch_bounds__(GIN_THREADS, 3)
+gin_fused_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ blocks,
+                          const long long* __restrict__ col_off, int W,
+                          const __nv_bfloat16* __restrict__ h, long long n,
+                          int din, const __nv_bfloat16* __restrict__ w1,
+                          const float* __restrict__ b1, int hid,
+                          const __nv_bfloat16* __restrict__ w2,
+                          const float* __restrict__ b2, int dout,
+                          float* __restrict__ out, int lpr) {
+  extern __shared__ float smem[];
+  const int DP = pad16(din), HP = pad16(hid), OP = pad16(dout);
+  const int LD = DP + BF16_PAD, LH = HP + BF16_PAD, LO = OP + BF16_PAD;
+  float* sb1 = smem;
+  float* sb2 = sb1 + HP;
+  __nv_bfloat16* sw1 = reinterpret_cast<__nv_bfloat16*>(sb2 + OP);  // W1[k][j]
+  __nv_bfloat16* sw2 = sw1 + DP * LH;                               // W2[j][o]
+  __nv_bfloat16* sz0 = sw2 + HP * LO;       // bf16(h + A h)
+  __nv_bfloat16* sz1 = sz0 + MT * LD;       // bf16(relu(z0 W1 + b1))
+  const int fg = (threadIdx.x & 31) >> 2;  // fragment row
+
+  // the weights and biases first, in flight while the padding is zeroed
+  // (the copies never write there, and the first product fills z1 whole)
+  // and the gather runs
+  stage_bf16_async(sw1, LH, w1, din, hid);
+  stage_bf16_async(sw2, LO, w2, hid, dout);
+  stage_async<true>(sb1, HP, b1, 1, hid);
+  stage_async<true>(sb2, OP, b2, 1, dout);
+  asm volatile("cp.async.commit_group;");
+  zero_pad(sw1, din, hid, DP, HP, LH);
+  zero_pad(sw2, hid, dout, HP, OP, LO);
+  zero_pad(sb1, 1, hid, 1, HP, HP);
+  zero_pad(sb2, 1, dout, 1, OP, OP);
+  zero_pad(sz0, MT, din, MT, DP, LD);
+  const long long row0 = (long long)blockIdx.x * MT;
+  gather_z0<VEC, MT, 2, __nv_bfloat16, __nv_bfloat16, bf16_spread<VEC>>(
+      blocks, col_off, W, h, n, din, row0, lpr, sz0, LD);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+
+  // relu(z1) = relu(z0 W1 + b1), rounded to bf16
+  const PairTiles t1 = pair_tiles(MT, HP), t2 = pair_tiles(MT, OP);
+  {
+    float c[NT][4] = {};
+    mma_bf16_ldm<NT>(c, sz0, LD, sw1, LH, t1, DP);
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (i < t1.cnt) {
+          const int col = pair_col(t1, i, s);
+          const float* f = c[2 * i + s];
+          const float2 b = *reinterpret_cast<const float2*>(sb1 + col);
+          __nv_bfloat16* z = sz1 + (t1.m0 + fg) * LH + col;
+          *reinterpret_cast<uint32_t*>(z) = pack_bf16(
+              fmaxf(f[0] + b.x, 0.f), fmaxf(f[1] + b.y, 0.f));
+          *reinterpret_cast<uint32_t*>(z + 8 * LH) = pack_bf16(
+              fmaxf(f[2] + b.x, 0.f), fmaxf(f[3] + b.y, 0.f));
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // out = relu(z1) W2 + b2, straight to global memory
+  float c[NT][4] = {};
+  mma_bf16_ldm<NT>(c, sz1, LH, sw2, LO, t2, HP);
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int col = pair_col(t2, i, s);
+      if (i < t2.cnt && col < dout) {
+        const float* f = c[2 * i + s];
+        const float2 b = *reinterpret_cast<const float2*>(sb2 + col);
+        float* o = out + (row0 + t2.m0 + fg) * dout + col;
+        if (col + 1 < dout && dout % 2 == 0) {   // 8-byte aligned pairs
+          *reinterpret_cast<float2*>(o) = make_float2(f[0] + b.x, f[1] + b.y);
+          *reinterpret_cast<float2*>(o + 8 * dout) =
+              make_float2(f[2] + b.x, f[3] + b.y);
+        } else {
+          o[0] = f[0] + b.x;
+          o[8 * dout] = f[2] + b.x;
+          if (col + 1 < dout) {
+            o[1] = f[1] + b.y;
+            o[8 * dout + 1] = f[3] + b.y;
+          }
+        }
+      }
     }
   }
 }
@@ -780,7 +998,7 @@ int lanes_per_row(int d, int vec) {
 struct GinPlan {
   const void* kernel;
   size_t* granted;
-  int mt, vec;
+  int mt, vec;     // rows a tile; columns a lane gathers (lanes_per_row)
   size_t smem;
 };
 
@@ -800,23 +1018,43 @@ GinPlan plan_bwd(int din, int hid, int dout) {
                 : bwd_plan<1, 32, 16>(din, hid, dout);
 }
 
-template <int VEC, int MT, int NT, bool BF16>
+template <int VEC, int MT, int NT>
 GinPlan fwd_plan(int din, int hid, int dout) {
   static size_t granted = 0;
-  return {(const void*)gin_fused_fwd_kernel<VEC, MT, NT, BF16>, &granted, MT,
-          VEC, sizeof(float) * (size_t)fwd_smem_floats(MT, din, hid, dout)};
+  return {(const void*)gin_fused_fwd_kernel<VEC, MT, NT>, &granted, MT, VEC,
+          sizeof(float) * (size_t)fwd_smem_floats(MT, din, hid, dout)};
 }
 
 // Row tiles of 32: a warp takes at most two (widths up to 64) or four
 // (up to 128) output tiles of each product.
-template <bool BF16>
 GinPlan plan_fwd(int din, int hid, int dout) {
   const bool narrow = din <= 64 && hid <= 64 && dout <= 64;
   if (din % 16 == 0)
-    return narrow ? fwd_plan<16, 32, 2, BF16>(din, hid, dout)
-                  : fwd_plan<16, 32, 4, BF16>(din, hid, dout);
-  return narrow ? fwd_plan<1, 32, 2, BF16>(din, hid, dout)
-                : fwd_plan<1, 32, 4, BF16>(din, hid, dout);
+    return narrow ? fwd_plan<16, 32, 2>(din, hid, dout)
+                  : fwd_plan<16, 32, 4>(din, hid, dout);
+  return narrow ? fwd_plan<1, 32, 2>(din, hid, dout)
+                : fwd_plan<1, 32, 4>(din, hid, dout);
+}
+
+template <int VEC, int MT, int NT>
+GinPlan fwd_bf16_plan(int din, int hid, int dout) {
+  static size_t granted = 0;
+  return {(const void*)gin_fused_fwd_bf16_kernel<VEC, MT, NT>, &granted, MT,
+          VEC * bf16_spread<VEC>,
+          (size_t)fwd_bf16_smem_bytes(MT, din, hid, dout)};
+}
+
+// gin_fused_fwd_bf16: row tiles of 32 as plan_fwd; h gathered 8 values (one
+// 16-byte load) a lane where din allows it, so that at width 64 a row takes
+// 8 lanes and the 8 warps gather the tile's 32 rows in one pass; else one
+// value a lane in two pieces (bf16_spread), 9 features on 8 lanes too.
+GinPlan plan_fwd_bf16(int din, int hid, int dout) {
+  const bool narrow = din <= 64 && hid <= 64 && dout <= 64;
+  if (din % 8 == 0)
+    return narrow ? fwd_bf16_plan<8, 32, 2>(din, hid, dout)
+                  : fwd_bf16_plan<8, 32, 4>(din, hid, dout);
+  return narrow ? fwd_bf16_plan<1, 32, 2>(din, hid, dout)
+                : fwd_bf16_plan<1, 32, 4>(din, hid, dout);
 }
 
 // Launch gin_fused_fwd (either mode) for these widths.
@@ -882,21 +1120,21 @@ int scgib_gin_fused_fwd(const void* blocks, const void* col_off, int n_tiles,
                         const void* w1, const void* b1, int hid,
                         const void* w2, const void* b2, int dout, void* out,
                         void* stream) {
-  return launch_fwd(plan_fwd<false>(din, hid, dout), blocks, col_off,
+  return launch_fwd(plan_fwd(din, hid, dout), blocks, col_off,
                     n_tiles, W, h, n, din, w1, b1, hid, w2, b2, dout, out,
                     stream);
 }
 
 // The bf16 mode: h, w1 and w2 bf16, b1, b2 and out float; h and blocks
-// 16-byte aligned (the wrapper checks).
+// 16-byte aligned (the wrapper checks).  gin_fused_fwd_bf16_kernel, on bf16
+// shared memory.
 int scgib_gin_fused_fwd_bf16(const void* blocks, const void* col_off,
                              int n_tiles, int W, const void* h, long long n,
                              int din, const void* w1, const void* b1,
                              int hid, const void* w2, const void* b2,
                              int dout, void* out, void* stream) {
-  return launch_fwd(plan_fwd<true>(din, hid, dout), blocks, col_off,
-                    n_tiles, W, h, n, din, w1, b1, hid, w2, b2, dout, out,
-                    stream);
+  return launch_fwd(plan_fwd_bf16(din, hid, dout), blocks, col_off, n_tiles,
+                    W, h, n, din, w1, b1, hid, w2, b2, dout, out, stream);
 }
 
 // Blocks gin_fused_bwd launches for n rows at these widths: the number of
@@ -930,7 +1168,7 @@ int scgib_gin_fused_bwd(const void* blocks, const void* col_off, int W,
 // For the report: registers a thread, shared memory a block (static +
 // dynamic) and blocks an SM of the kernel a call at these widths launches;
 // which = 0 banded_spmm (width din), 1 gin_fused_bwd, 2 gin_fused_fwd,
-// 3 gin_fused_fwd in its bf16 mode.
+// 3 gin_fused_fwd_bf16.
 int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
   const void* kernel;
   size_t dyn = 0;
@@ -941,8 +1179,8 @@ int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
     threads = SPMM_THREADS;
   } else {
     const GinPlan p = which == 1   ? plan_bwd(din, hid, dout)
-                      : which == 2 ? plan_fwd<false>(din, hid, dout)
-                                   : plan_fwd<true>(din, hid, dout);
+                      : which == 2 ? plan_fwd(din, hid, dout)
+                                   : plan_fwd_bf16(din, hid, dout);
     if ((err = set_smem(p.kernel, p.smem, p.granted))) return err;
     kernel = p.kernel;
     dyn = p.smem;

@@ -1,12 +1,13 @@
 """Banded-adjacency kernels: CUDA wrappers, plain versions, autograd.
 
 Counterpart of ``scgib_tpu/ops/pallas/banded.py``.  Five wrappers stand for
-the five Pallas kernels there; three CUDA kernels in ``csrc/banded.cu``
-serve them (the SpMM kernel serves three):
+the five Pallas kernels there, and a sixth for the fused conv's bf16 mode;
+four CUDA kernels in ``csrc/banded.cu`` serve them (the SpMM kernel serves
+three):
 
   wrapper       TPU kernel it replaces                  CUDA kernel
   gin_fwd       _kernel            (fused GIN conv)     gin_fused_fwd
-  gin_fwd_bf16  _kernel, bf16 operands                  gin_fused_fwd, BF16
+  gin_fwd_bf16  _kernel, bf16 operands                  gin_fused_fwd_bf16
   gin_bwd       _bwd_kernel        (GIN bwd stage 1)    gin_fused_bwd
   spmm_self     _spmm_self_kernel  (GIN bwd stage 2)    banded_spmm, +x
   spmm          _spmm_kernel       (recon cross term)   banded_spmm
@@ -35,7 +36,11 @@ reproducible on one card.
 ``gin_fwd_bf16`` is the JAX package's ``compute_dtype="bfloat16"`` conv:
 h, W1 and W2 arrive in bfloat16 (its GIN casts them), every product takes
 bf16 operands with float32 accumulation, z0 and relu(z1) are rounded to
-bf16 before their products, the biases and the output stay float32.
+bf16 before their products, the biases and the output stay float32.  Its
+kernel, ``gin_fused_fwd_bf16``, keeps the operands in bf16 in shared
+memory, each rounded once, and copies the weights asynchronously while the
+gather runs; ``gin_route`` names the instantiation it launches at given
+widths.
 ``gin_banded_layer`` takes that path when h is bfloat16; its backward is
 JAX's ``_bwd``: ``gin_bwd`` and ``spmm_self`` on the rounded operands in
 float32, dh, dW1 and dW2 rounded to bf16 on the way out.  The source note in
@@ -263,6 +268,23 @@ def gin_fwd(blocks, col_off, h, w1, b1, w2, b2):
     return out
 
 
+def gin_route(din: int, hid: int, dout: int) -> str:
+    """The instantiation of ``gin_fused_fwd_bf16_kernel<VEC, MT, NT>`` that
+    ``gin_fwd_bf16`` launches at these widths, as ``plan_fwd_bf16`` in
+    ``csrc/banded.cu`` picks it: row tiles of MT = 32; VEC = 8 (one
+    16-byte load of h a lane) where din is a multiple of 8, else 1 (two
+    pieces a lane); NT = 2 output tiles a warp up to width 64, 4 past it.
+    Every width from 1 to ``MAX_FUSED_DIM`` (the block's bf16 shared
+    memory is 28 KB at width 64 and 88 KB at 128, inside a block's 227
+    KB); raises past them.  Deterministic in the widths alone."""
+    if not all(1 <= w <= MAX_FUSED_DIM for w in (din, hid, dout)):
+        raise ValueError(f"gin_route: widths ({din}, {hid}, {dout}) outside "
+                         f"1 .. {MAX_FUSED_DIM}")
+    vec = 8 if din % 8 == 0 else 1
+    nt = 2 if max(din, hid, dout) <= 64 else 4
+    return f"gin_fused_fwd_bf16_kernel<{vec}, 32, {nt}>"
+
+
 def gin_fwd_bf16(blocks, col_off, h, w1, b1, w2, b2):
     """The fused conv with bf16 operands (replaces ``_kernel`` in its bf16
     mode): h, w1 and w2 bfloat16, b1 and b2 float32; the output float32."""
@@ -330,13 +352,16 @@ def gin_bwd(blocks, col_off, h, g, w1, b1, w2):
 def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
     """Registers a thread, shared memory a block and blocks an SM of the
     kernel that ``spmm`` (width ``din``), ``gin_bwd``, ``gin_fwd`` or
-    ``gin_fwd_bf16`` (``gin_fused_fwd_bf16``) launches."""
+    ``gin_fwd_bf16`` (``gin_fused_fwd_bf16``) launches; for the last also
+    its ``route``, the instantiation ``gin_route`` names."""
     info = (ctypes.c_int * 3)()
     _raise_on(build().scgib_kernel_info(
         {"banded_spmm": 0, "gin_fused_bwd": 1, "gin_fused_fwd": 2,
          "gin_fused_fwd_bf16": 3}[kernel],
         din, hid, dout, info), kernel)
-    return {"registers": info[0], "smem_bytes": info[1],
+    route = ({"route": gin_route(din, hid, dout)}
+             if kernel == "gin_fused_fwd_bf16" else {})
+    return {**route, "registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2]}
 
 

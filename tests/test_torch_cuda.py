@@ -47,6 +47,7 @@ from scgib_tpu_torch.train import checkpoint, trainer
 from scgib_tpu_torch.utils.params import (from_jax_variables,
                                           init_flax_style_, to_jax_variables)
 
+import gin_rounding
 import gt_rounding
 from gin_cases import CASES as GIN_CASES
 from gin_cases import case_inputs as gin_case_inputs
@@ -669,13 +670,20 @@ def test_gt_pretrain_steps_on_card(dev, bwd):
 def test_gin_at_any_width_matches_cpu(batch, dev, hidden):
     """The GIN encoder on the card against itself on the CPU, forward and
     backward: at 30 (not a multiple of 4) through the fused kernels, past
-    128 through the banded SpMM with the MLP as plain products."""
+    128 through the banded SpMM with the MLP as plain products.  The
+    weights come from a seed, as x and ct do: drawn from torch's default
+    generator, seeded anew in every process, about one draw in a hundred
+    at widths 160 and 256 put a relu input within float32 rounding of
+    zero, where the gradients of float32 and float64 on the CPU part by
+    1e-3 to 7e-2 of the largest entry as well."""
     g, _ = batch
     band = _resolve_band(g)
     rng = np.random.default_rng(hidden)
     x = rng.normal(size=(512, 32)).astype(np.float32)
     ct = torch.from_numpy(rng.normal(size=(512, hidden)).astype(np.float32))
-    gin = encoders.GIN(32, hidden=hidden, num_convs=2)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(hidden)
+        gin = encoders.GIN(32, hidden=hidden, num_convs=2)
     runs = []
     for device in (dev, torch.device("cpu")):
         kb.reset_launch_counts()
@@ -1471,3 +1479,59 @@ def test_staged_kernels_keep_every_nonzero_of_dense_rows(dev, kernel):
         bf16_close(kg.gt_bwd_merged(*args, bf16_dots=True),
                    kg.gt_bwd_merged_plain(*args, bf16_dots=True),
                    kg.gt_bwd_merged(*args))
+
+
+# --- row 1b: the bf16 conv's kernel ------------------------------------------
+
+def _gin_bf16_inputs(n, d, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, d, device=dev, generator=gen)
+    w1 = torch.randn(d, d, device=dev, generator=gen) / d ** 0.5
+    w2 = torch.randn(d, d, device=dev, generator=gen) / d ** 0.5
+    b1, b2 = (torch.randn(d, device=dev, generator=gen) * 0.1
+              for _ in range(2))
+    return h, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("d", [9, 16, 64, 128])
+def test_gin_fwd_bf16_matches_plain(batch, dev, d):
+    """``gin_fused_fwd_bf16`` against the plain bf16 conv on the ego-net
+    batch at widths 9 (the atoms' own, one value a lane in two pieces), 16,
+    64 and 128 (the NT = 4 plan), within 1e-3 of the largest entry, the
+    float32 kernel past it; one launch counted."""
+    _, sub = batch
+    blocks, off = _resolve_band(sub)
+    h, w1, b1, w2, b2 = _gin_bf16_inputs(sub.num_nodes, d, dev, d)
+    args = (blocks, off, h.to(BF), w1.to(BF), b1, w2.to(BF), b2)
+    kb.reset_launch_counts()
+    got = kb.gin_fwd_bf16(*args)
+    assert kb.launch_counts()["gin_fwd_bf16"] == 1
+    bf16_close((got,), (kb.gin_fwd_bf16_plain(*args),),
+               (kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),))
+
+
+@pytest.mark.parametrize("din", [9, 64])
+def test_gin_crafted_inputs_hold_the_kernel_past_each_control(dev, din):
+    """On ``gin_rounding.separating_inputs`` both controls (z0 and
+    relu(z1) left unrounded) lie 1/32 of the largest entry from the plain
+    version: the kernel within the gate of the plain version and past it
+    from both."""
+    ins = [x.to(dev) for x in gin_rounding.separating_inputs(din, 64, 64)]
+    got = kb.gin_fwd_bf16(*ins)
+    torch.cuda.synchronize()
+    assert rel_gap((got,), (kb.gin_fwd_bf16_plain(*ins),)) <= BF16_GATE
+    records = gin_rounding.controls(got, ins, BF16_GATE)
+    assert all(sep for _, _, sep in records.values()), records
+    assert not gin_rounding.unseen(records, BF16_GATE), records
+
+
+@pytest.mark.parametrize("d", [9, 64, 128])
+def test_gin_kernel_info_reports_its_route(dev, d):
+    """``kernel_info`` of the bf16 conv names ``gin_route``'s
+    instantiation; its bf16 shared memory is less than the float32
+    kernel's at the same widths, with at least as many blocks an SM."""
+    new = kb.kernel_info("gin_fused_fwd_bf16", d, d, d)
+    f32 = kb.kernel_info("gin_fused_fwd", d, d, d)
+    assert new["route"] == kb.gin_route(d, d, d)
+    assert new["smem_bytes"] < f32["smem_bytes"]
+    assert new["blocks_per_sm"] >= f32["blocks_per_sm"] >= 1
