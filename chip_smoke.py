@@ -1005,10 +1005,10 @@ def stale_inputs(real):
     then run on the batch they were first given."""
     seen = set()
 
-    def replay(self, entry, batches):
+    def replay(self, entry, batches, spans=None):
         if id(entry) not in seen:
             seen.add(id(entry))
-            return real(self, entry, batches)
+            return real(self, entry, batches, spans)
         graph, _, out, added = entry
         graph.replay()
         trainer._add_tally(added)

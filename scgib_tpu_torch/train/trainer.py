@@ -35,7 +35,13 @@ that reads the device back to the host is refused as it is dispatched); it
 never falls back to the eager step.  The launch and branch counts tick once at
 capture; each replay adds what its capture added, so they stay counts per
 optimizer step.  A step's graphs live as long as the step.  On the CPU the step
-is the eager one.  ``donate`` has no counterpart.
+is the eager one.  ``donate`` has no counterpart.  While a ``torch.profiler``
+session is open, each call keeps its spans (``utils/profiling.py``):
+``scgib.step``, of kind eager, capture or replay, and the parts of a replay
+(``scgib.step.key``: the graph's lookup; ``.inputs``: the copies into the
+input buffers, counted with their bytes; ``.replay``: ``graph.replay()``;
+``.tally``: the counts' update; ``.outputs``: the clones of the outputs,
+counted); with no session open a call reads no clock and keeps nothing.
 
 ``remat`` (``make_pretrain_step`` and ``make_pretrain_scan_step``, as in
 the JAX package): the forward runs under ``torch.utils.checkpoint``
@@ -85,6 +91,7 @@ from ..models.scgib import PretrainLosses, PretrainModel, uniform_draws
 from ..ops import pool
 from ..ops.kernels import banded as kb
 from ..ops.kernels import gt_flash as kg
+from ..utils import profiling
 from ..utils.params import to_jax_variables
 
 
@@ -394,6 +401,22 @@ def _clone(out):
     return type(out)(*(t.clone() for t in out))
 
 
+_KEY, _INPUTS, _REPLAY, _TALLY, _OUTPUTS = profiling.STEP_PARTS
+
+
+def _replay_counts(entry) -> Dict[str, dict]:
+    """A replay's host calls besides the graph's launch, by the part that
+    makes them: a copy into each input buffer (and its bytes), and a clone
+    of each output."""
+    _, buffers, out, _ = entry
+    inputs = [v for buf in buffers for _, v in _fields(buf)
+              if isinstance(v, torch.Tensor)]
+    return {_INPUTS: {"copies": len(inputs),
+                      "bytes": sum(v.nbytes for v in inputs)},
+            _OUTPUTS: {"clones": (1 if isinstance(out, torch.Tensor)
+                                  else len(out))}}
+
+
 def _pairs(batches):
     return list(zip(batches[::2], batches[1::2]))
 
@@ -435,6 +458,7 @@ class _CapturedSteps:
         self.what = what
         self.graphs: Dict[tuple, tuple] = {}
         self.generators: Dict[tuple, torch.Generator] = {}
+        self.counts: Dict[tuple, Dict[str, dict]] = {}  # a replay's, by part
 
     def __call__(self, g, sub, generator: Optional[torch.Generator] = None):
         pairs = (list(zip(g, sub)) if isinstance(g, (list, tuple))
@@ -447,19 +471,30 @@ class _CapturedSteps:
         return _pairs(batches)
 
     def _step(self, batches: tuple, generator: Optional[torch.Generator]):
+        # while a profiler session is open, the call's spans (see
+        # utils/profiling.py); else None, and the call reads no clock
+        spans = profiling.step_spans()
         dev = next(v for _, v in _fields(batches[0])
                    if isinstance(v, torch.Tensor)).device
         if dev.type != "cuda":
-            return self.run(self._arg(batches), generator)
+            out = self.run(self._arg(batches), generator)
+            if spans is not None:
+                spans.end("eager")
+            return out
         if generator is None:
             generator = torch.cuda.default_generators[
                 dev.index if dev.index is not None
                 else torch.cuda.current_device()]
         key = batch_key(*batches) + self.mode()
         entry = self.graphs.get(key)
+        if spans is not None:
+            spans.part(_KEY)
         if entry is not None:
             with _lent(self.generators[key], generator):
-                return self._replay(entry, batches)
+                out = self._replay(entry, batches, spans)
+            if spans is not None:
+                spans.end("replay", self.counts[key])
+            return out
         # the first batch of this key trains eagerly (the capture's
         # warm-up), then the graph is captured on input buffers of its shape
         buffers = tuple(_input_buffers(b) for b in batches)
@@ -469,7 +504,10 @@ class _CapturedSteps:
             out = self.run(self._arg(batches), generator)
         torch.cuda.current_stream(dev).wait_stream(side)
         self.graphs[key] = self._capture(buffers, generator)
+        self.counts[key] = _replay_counts(self.graphs[key])
         self.generators[key] = generator
+        if spans is not None:
+            spans.end("capture")
         return out
 
     def _capture(self, buffers, generator):
@@ -494,15 +532,27 @@ class _CapturedSteps:
         _add_tally(added, -1)                 # the capture ran nothing
         return graph, buffers, out, added
 
-    def _replay(self, entry, batches):
+    def _replay(self, entry, batches,
+                spans: Optional[profiling.StepSpans] = None):
+        """The graph replayed on ``batches``; ``spans``, where given, end a
+        part after each of the four that follow the key's lookup."""
         graph, buffers, out, added = entry
         for buf, batch in zip(buffers, batches):
             for name, v in _fields(batch):
                 if isinstance(v, torch.Tensor):
                     getattr(buf, name).copy_(v, non_blocking=True)
+        if spans is not None:
+            spans.part(_INPUTS)
         graph.replay()
+        if spans is not None:
+            spans.part(_REPLAY)
         _add_tally(added)
-        return _clone(out)
+        if spans is not None:
+            spans.part(_TALLY)
+        out = _clone(out)
+        if spans is not None:
+            spans.part(_OUTPUTS)
+        return out
 
 
 def make_pretrain_step(model: PretrainModel, optimizer: torch.optim.Optimizer,
