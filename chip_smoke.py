@@ -246,7 +246,18 @@ Phases; any failure raises and exits non-zero before the last line:
      kernels, on the lane-group ones and on the staged ones in two other
      splits, and the merged-float32 step, in turns, profiled as in phase
      7, each attention kernel's time in the step read through ``PATH``.
- 15. one JSON line of the kernels (with the launches of a fine-tuning step
+ 15. the GIN layer's BatchNorm -> ReLU -> row mask (ops/kernels/batchnorm.py,
+     four kernels that replace no Pallas kernel): (a) each kernel against
+     its plain version at the benchmark batch's N and S rows, width 64,
+     with the batch's own row masks: error, kernel / plain time, the bytes'
+     bound and its share, resources and grid; (b) its launches in 3 GIN
+     pretraining steps (8 of each kernel a step), 2 Transformer steps
+     (none), one captured fine-tuning step and one evaluation batch (GIN);
+     (c) the captured GIN step profiled as in phase 7 with the composed
+     ops in the kernels' place and with the kernels, in turns (composed,
+     kernels, kernels, composed): device ms and device kernels a step, and
+     each kernel's time in the step.
+ 16. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch,
      phase 11, 12, 13 and 14 runs among them), the nvidia-smi line, and
      {"ok": true, "device": {...}} as the last line.
@@ -298,6 +309,7 @@ from scgib_tpu_torch.models.scgib import (  # noqa: E402
     uniform_draws)
 from scgib_tpu_torch.ops import pool as pool_mod  # noqa: E402
 from scgib_tpu_torch.ops.kernels import banded as kb  # noqa: E402
+from scgib_tpu_torch.ops.kernels import batchnorm as kbn  # noqa: E402
 from scgib_tpu_torch.ops.kernels import build as kbuild  # noqa: E402
 from scgib_tpu_torch.ops.kernels import gt_flash as kg  # noqa: E402
 from scgib_tpu_torch.train import checkpoint, loops  # noqa: E402
@@ -403,6 +415,10 @@ REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
               "gt_bwd_rows_bf16": "Transformer-bf16",
               "gt_bwd_cols_bf16": "Transformer-bf16",
               "gt_bwd_merged_bf16": "Transformer-merged-bf16"}
+# the BatchNorm tail's wrappers -> their CUDA kernels (phase 15), and the
+# launches of each a GIN step (one a conv of the two 4-conv encoders)
+BN_PATH = {k: f"{k}_kernel" for k in kbn.KERNELS}
+BN_PER_STEP = 8
 GIN_NO_LIBRARY = ("no single PyTorch call computes it: the conv is two "
                   "products around the aggregation (relu((h + A h) W1 + b1) "
                   "W2 + b2) and its backward stage gz0 with dW1, db1, dW2, "
@@ -865,7 +881,8 @@ def profile_phase(encoder="GIN", eager=False, **options):
          and not e.key.startswith("ProfilerStep")),
         reverse=True)
     busy_ms = sum(k[0] for k in kernels)
-    port_names = {name for v in PATH.values() for name in v[2].split()}
+    port_names = ({name for v in PATH.values() for name in v[2].split()}
+                  | set(BN_PATH.values()))
     host = {name: sum(e.count for e in events if e.key == name) / 3
             for name in HOST_CALLS}
     # what each host kernel launch of the profiled steps was for
@@ -1257,6 +1274,118 @@ def medians_phase(encoder_names=("GIN", "Transformer")):
     return out
 
 
+# --- 15. the GIN layer's BatchNorm -> ReLU -> row mask ----------------------
+
+@contextlib.contextmanager
+def composed_bn_tail():
+    """Within: ``MaskedBatchNorm.normalize_relu`` takes its composed ops on
+    the card too (the tail before the kernels), for a comparison."""
+    real = kbn._dispatch
+    kbn._dispatch = lambda name, x: name != "masked_bn_relu" and real(name,
+                                                                    x)
+    try:
+        yield
+    finally:
+        kbn._dispatch = real
+
+
+def bn_launches(dev):
+    """The four kernels' launches: 3 GIN pretraining steps, 2 Transformer
+    steps, one captured fine-tuning step and one evaluation batch (GIN),
+    each from counts of 0."""
+    out = {}
+    for label, kwargs, steps in (("GIN", {}, 3),
+                                 ("Transformer", {"encoder": "Transformer"},
+                                  2)):
+        kbn.reset_launch_counts()
+        run_pretrain(synthetic=1024, batch_size=128, steps=steps, lr=1e-4,
+                     weight_decay=5e-5, device="cuda", log=lambda _: None,
+                     **kwargs)
+        torch.cuda.synchronize()
+        out[f"{label} pretraining, {steps} steps"] = kbn.launch_counts()
+        want = BN_PER_STEP * steps if label == "GIN" else 0
+        if out[f"{label} pretraining, {steps} steps"] != dict.fromkeys(
+                kbn.KERNELS, want):
+            raise AssertionError(f"BatchNorm kernels in {label} steps: "
+                                 f"{out}, expected {want} each")
+    _, _, batches = bace(dev, 3)
+    model, opt = ft_model(dev, {})
+    step = make_finetune_step(model, opt, "bce")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    step(*batches[0], gen)                    # eager warm-up, capture
+    kbn.reset_launch_counts()
+    step(*batches[1], gen)
+    torch.cuda.synchronize()
+    out["finetune step"] = kbn.launch_counts()
+    kbn.reset_launch_counts()
+    make_eval_fn(model)(*fresh(batches[2], dev), gen)
+    torch.cuda.synchronize()
+    out["eval batch"] = kbn.launch_counts()
+    if out["eval batch"] != {"bn_stats": 0, "bn_apply": BN_PER_STEP,
+                             "bn_grad_stats": 0, "bn_grad_apply": 0}:
+        raise AssertionError(f"BatchNorm kernels in an eval batch: {out}")
+    return out
+
+
+def bn_phase(g, sub, dev):
+    """Phase 15: the four kernels at the benchmark batch's shapes, their
+    launches, and the captured GIN step with and without them."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    records = []
+    f = 64
+    for label, batch in (("N", g), ("S", sub)):
+        n, mask = batch.num_nodes, batch.node_mask
+        x = 1.5 + torch.randn(n, f, device=dev, generator=gen)
+        dy = torch.randn(n, f, device=dev, generator=gen)
+        scale = 1 + 0.3 * torch.randn(f, device=dev, generator=gen)
+        bias = 0.2 * torch.randn(f, device=dev, generator=gen)
+        run = (torch.zeros(f, device=dev), torch.ones(f, device=dev))
+        totals = kbn.bn_stats(x, mask)
+        _, stats = kbn.bn_apply(x, mask, totals, scale, bias, *run)
+        terms = kbn.bn_grad_stats(dy, x, mask, stats, totals, scale)[2]
+        rows, shape = n * f * 4, f"{label}={n} d={f}"
+        small = nbytes(scale, bias, *run)
+        cases = (
+            ("bn_stats", lambda: kbn.bn_stats(x, mask),
+             lambda: kbn.bn_stats_plain(x, mask),
+             rows + n + totals.numel() * 8),
+            ("bn_apply",
+             lambda: kbn.bn_apply(x, mask, totals, scale, bias, *run),
+             lambda: kbn.bn_apply_plain(x, mask, totals, scale, bias, *run),
+             2 * rows + n + totals.numel() * 8 + small + stats.numel() * 4),
+            ("bn_grad_stats",
+             lambda: kbn.bn_grad_stats(dy, x, mask, stats, totals, scale),
+             lambda: kbn.bn_grad_stats_plain(dy, x, mask, stats, totals,
+                                             scale),
+             2 * rows + n + nbytes(stats) + small + 4 * f * 4),
+            ("bn_grad_apply",
+             lambda: kbn.bn_grad_apply(dy, x, mask, stats, terms),
+             lambda: kbn.bn_grad_apply_plain(dy, x, mask, stats, terms),
+             3 * rows + n + nbytes(stats, terms)))
+        for name, kernel_fn, plain_fn, nbyt in cases:
+            rec = check(name, shape, kernel_fn, plain_fn, nbyt, 0)
+            rec["resources"] = kbn.kernel_info(name, n, f)
+            rec["library_note"] = ("no single PyTorch call computes it: "
+                                   "BatchNorm over the rows a mask keeps, "
+                                   "one-pass moments, then relu and the "
+                                   "row mask")
+            records.append(rec)
+    launches = bn_launches(dev)
+    profiles = []
+    for tail in ("composed", "kernels", "kernels", "composed"):
+        with (composed_bn_tail() if tail == "composed"
+              else contextlib.nullcontext()):
+            prof = profile_phase("GIN")
+        profiles.append({
+            "tail": tail, "device_ms_per_step": prof["device_ms_per_step"],
+            "device_kernels_per_step": prof["device_kernels_per_step"],
+            "wall_ms_per_step": prof["wall_ms_per_step"],
+            "in_step": {k: prof["port"].get(v) for k, v in BN_PATH.items()}})
+    report = {"records": records, "launches": launches, "profiles": profiles}
+    print(f"phase 15: {json.dumps(report)}", flush=True)
+    return report
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -1360,7 +1489,11 @@ def main():
     runs.update(tpu_runs)
     lap("14 TPU-default Transformer")
 
-    # 15. report
+    # 15. the BatchNorm tail's kernels
+    batchnorm = bn_phase(g, sub, dev)
+    lap("15 BatchNorm tail")
+
+    # 16. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -1410,6 +1543,7 @@ def main():
                       "data": data, "dp_remat": dp_remat,
                       "sharded": sharded, "bf16": bf16,
                       "tpu_default": tpu_default,
+                      "batchnorm": batchnorm,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,

@@ -4,7 +4,9 @@
 Counterpart of ``scgib_tpu/models/encoders.py``.
 
 ``GIN``: ``num_convs`` layers of ``MLP(h_v + sum_{u->v} h_u)`` (GINConv,
-eps = 0) -> masked BatchNorm -> ReLU, re-zeroing padding rows after each.
+eps = 0) -> masked BatchNorm -> ReLU, re-zeroing padding rows after each
+(``MaskedBatchNorm.normalize_relu``: on the card one operation of four CUDA
+kernels, ``ops/kernels/batchnorm.py``; ``DenseGIN`` shares it).
 With a banded adjacency a conv up to ``MAX_FUSED_DIM`` wide is the fused
 layer (``ops/kernels/banded.py::gin_banded_layer``): its CUDA kernels on the
 card, its plain version on the CPU, with no size gate.  A wider conv is
@@ -69,15 +71,9 @@ from ..ops.segment import (segment_count, segment_normalize_exp,
                            segment_sum)
 from ..ops.spmm import (gather_mean, gather_sum, gcn_degree_norms,
                         gcn_norm_sum, sddmm_dot)
-from .layers import MLP2, MaskedBatchNorm
+from .layers import MLP2, MaskedBatchNorm, _mask_rows
 
 branch_counts: collections.Counter = collections.Counter()
-
-
-def _mask_rows(x: torch.Tensor, mask: Optional[torch.Tensor]):
-    if mask is None:
-        return x
-    return x * mask.to(x.dtype)[:, None]
 
 
 class GIN(nn.Module):
@@ -119,8 +115,7 @@ class GIN(nn.Module):
             else:
                 branch_counts["coo"] += 1
                 h = mlp(h + gather_sum(h, senders, receivers, n, edge_mask))
-            h = getattr(self, f"bn{i}")(h, node_mask)
-            h = _mask_rows(torch.relu(h), node_mask)
+            h = getattr(self, f"bn{i}").normalize_relu(h, node_mask)
         return h
 
 
@@ -214,11 +209,8 @@ class DenseGIN(GIN):
             h = h * keep
         for i in range(self.num_convs):
             z = (h + torch.bmm(adj.to(h.dtype), h)).reshape(c * s, -1)
-            z = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(z),
-                                        flat_mask)
-            h = torch.relu(z).reshape(c, s, -1)
-            if keep is not None:
-                h = h * keep
+            h = getattr(self, f"bn{i}").normalize_relu(
+                getattr(self, f"conv{i}")(z), flat_mask).reshape(c, s, -1)
         return h
 
 

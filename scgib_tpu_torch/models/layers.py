@@ -9,7 +9,9 @@ follow the flax tree (``scale``, ``bias``; running ``mean``, ``var``;
 Train or eval mode is the module's ``training`` flag.  Both BatchNorms
 leave their running statistics alone inside ``statistics_frozen`` (the
 recomputed forward of activation checkpointing, which must not move them a
-second time).
+second time).  ``MaskedBatchNorm.normalize_relu`` is the GIN layer's
+BatchNorm -> ReLU -> row mask: the composed ops on the CPU, one operation
+of four CUDA kernels on the card (``ops/kernels/batchnorm.py``).
 """
 
 from __future__ import annotations
@@ -20,9 +22,16 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.kernels import batchnorm as kbn
 from ..ops.segment import (segment_broadcast, segment_count, segment_mean,
                            segment_sum)
 from ..parallel.collectives import all_reduce_sum
+
+
+def _mask_rows(x: torch.Tensor, mask: Optional[torch.Tensor]):
+    if mask is None:
+        return x
+    return x * mask.to(x.dtype)[:, None]
 
 
 class MaskedBatchNorm(nn.Module):
@@ -83,6 +92,19 @@ class MaskedBatchNorm(nn.Module):
             mean, var = self.mean, self.var
         a = self.scale * torch.rsqrt(var + self.eps)
         return x * a + (self.bias - mean * a)
+
+    def normalize_relu(self, x: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``relu(self(x, mask))`` with the rows ``mask`` drops zeroed: on
+        the CPU those composed ops (the plain version); on the card
+        ``masked_bn_relu``'s kernels, with the same statistics, running
+        updates and gradients."""
+        if not kbn._dispatch("masked_bn_relu", x):
+            return _mask_rows(torch.relu(self(x, mask)), mask)
+        return kbn.masked_bn_relu(
+            x, mask, self.scale, self.bias, self.mean, self.var,
+            training=self.training, update=not self.frozen,
+            momentum=self.momentum, eps=self.eps, group=self.group)
 
 
 class SegmentBatchNorm(nn.Module):

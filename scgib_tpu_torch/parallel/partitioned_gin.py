@@ -16,11 +16,9 @@ statistics are the group's) and in eval mode.
 
 from __future__ import annotations
 
-import torch
 from torch import nn
 
-from ..models.encoders import _mask_rows
-from ..models.layers import MLP2, MaskedBatchNorm
+from ..models.layers import MLP2, MaskedBatchNorm, _mask_rows
 from .edge_partition import ring_partitioned_spmm
 
 
@@ -50,6 +48,5 @@ class PartitionedGIN(nn.Module):
                                         receivers_local, edge_mask,
                                         self.group)
             h = getattr(self, f"conv{i}")(h + agg)
-            h = getattr(self, f"bn{i}")(h, node_mask)
-            h = _mask_rows(torch.relu(h), node_mask)
+            h = getattr(self, f"bn{i}").normalize_relu(h, node_mask)
         return h

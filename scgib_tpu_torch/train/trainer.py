@@ -90,6 +90,7 @@ from ..models.losses import (bce_loss, bce_with_logits_loss,
 from ..models.scgib import PretrainLosses, PretrainModel, uniform_draws
 from ..ops import pool
 from ..ops.kernels import banded as kb
+from ..ops.kernels import batchnorm as kbn
 from ..ops.kernels import gt_flash as kg
 from ..utils import profiling
 from ..utils.params import to_jax_variables
@@ -345,12 +346,16 @@ class CaptureGuard(TorchDispatchMode):
 
 # --- the counts a step ticks -------------------------------------------------
 
+# the modules whose kernels' launches the tally counts, by their ``KERNELS``
+_KERNEL_MODULES = (kb, kbn, kg)
+
+
 def _tally() -> Dict[Tuple[str, object], int]:
     """Every count the step ticks: the kernels' launches (and the routes of
     those with two), and the branch counts of the encoders and the
     pooling."""
-    out = {("launch", k): v for k, v in
-           {**kb.launch_counts(), **kg.launch_counts()}.items()}
+    out = {("launch", k): v for m in _KERNEL_MODULES
+           for k, v in m.launch_counts().items()}
     out.update({("route", k): v for k, v in kg.route_counts().items()})
     out.update({("encoder", k): v for k, v in encoders.branch_counts.items()})
     out.update({("pool", k): v for k, v in pool.branch_counts.items()})
@@ -360,7 +365,8 @@ def _tally() -> Dict[Tuple[str, object], int]:
 def _add_tally(diff: Dict[Tuple[str, object], int], sign: int = 1):
     for (kind, name), n in diff.items():
         if kind == "launch":
-            (kb if name in kb.KERNELS else kg).add_launches(name, sign * n)
+            next(m for m in _KERNEL_MODULES
+                 if name in m.KERNELS).add_launches(name, sign * n)
             continue
         if kind == "route":
             kg.add_route_launches(*name, sign * n)

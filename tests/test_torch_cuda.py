@@ -4,7 +4,9 @@ attention's kernel backward against autograd on the CPU, operand checks,
 short pretraining runs, the captured steps (GCN and GraphSAGE, dense
 ego-nets among them) and the captured evaluation against their eager
 forms, the captured remat step against the plain one and the captured
-data-parallel step at world size 1 over NCCL against the single step.
+data-parallel step at world size 1 over NCCL against the single step; the
+GIN layer's BatchNorm -> ReLU -> row mask kernels against their plain
+versions in float64 and, over two gloo ranks on the card, as sync-BN.
 Marked ``cuda``; without a CUDA device every
 test skips.  On a machine with one:
 
@@ -40,13 +42,16 @@ from scgib_tpu_torch.graph.egonet import extract_egonets
 from scgib_tpu_torch.models.scgib import PretrainModel, _resolve_band
 from scgib_tpu_torch.ops import pool
 from scgib_tpu_torch.models import encoders
+from scgib_tpu_torch.models.layers import MaskedBatchNorm, _mask_rows
 from scgib_tpu_torch.ops.kernels import banded as kb
+from scgib_tpu_torch.ops.kernels import batchnorm as kbn
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention
 from scgib_tpu_torch.train import checkpoint, trainer
 from scgib_tpu_torch.utils.params import (from_jax_variables,
                                           init_flax_style_, to_jax_variables)
 
+import bn_sync_ranks
 import gin_rounding
 import gt_rounding
 from gin_cases import CASES as GIN_CASES
@@ -573,8 +578,10 @@ def test_captured_step_is_the_eager_step(dev, encoder):
         eager = _steps(dev, batches, kw, False)
         kb.reset_launch_counts()
         kg.reset_launch_counts()
+        kbn.reset_launch_counts()
         captured = _steps(dev, batches, kw, True)
         counts = {**kb.launch_counts(), **kg.launch_counts()}
+        bn_counts = kbn.launch_counts()
     finally:
         torch.use_deterministic_algorithms(False)
     assert len(captured[4].graphs) == 1
@@ -587,6 +594,9 @@ def test_captured_step_is_the_eager_step(dev, encoder):
         assert counts["gin_fwd"] == 3 * 4 and counts["pool"] == 3
     else:
         assert counts["gt_fwd"] == 3 * 6 and counts["gt_bwd_rows"] == 3 * 6
+    # the BatchNorm -> ReLU -> row mask of each GIN conv, 2 an encoder
+    assert bn_counts == dict.fromkeys(kbn.KERNELS,
+                                      3 * 4 if encoder == "GIN" else 0)
 
 
 def test_gt_twopass_backward_is_bitwise_reproducible(batch, dev):
@@ -913,17 +923,25 @@ def test_captured_remat_step_is_the_captured_plain_step(dev, encoder):
         for remat in (False, True):
             kb.reset_launch_counts()
             kg.reset_launch_counts()
+            kbn.reset_launch_counts()
             runs.append((_steps(dev, batches, {"encoder": encoder}, True,
                                 remat=remat),
-                         {**kb.launch_counts(), **kg.launch_counts()}))
+                         {**kb.launch_counts(), **kg.launch_counts()},
+                         kbn.launch_counts()))
     finally:
         torch.use_deterministic_algorithms(False)
-    (plain, n_plain), (remat, n_remat) = runs
+    (plain, n_plain, bn_plain), (remat, n_remat, bn_remat) = runs
     _same_steps(plain, remat)
     fwd = ("gin_fwd", "pool") if encoder == "GIN" else ("gt_fwd", "pool")
     assert {k: n_remat[k] - n_plain[k] for k in n_plain
             if n_remat[k] != n_plain[k]} == {
         **{k: n_plain[k] for k in fwd}, "spmm": n_plain["spmm"] // 2}
+    # the recomputed forward runs the BatchNorm's forward kernels again,
+    # with its running statistics frozen (the steps' bits say so)
+    per = 3 * 4 if encoder == "GIN" else 0
+    assert bn_plain == dict.fromkeys(kbn.KERNELS, per)
+    assert bn_remat == {"bn_stats": 2 * per, "bn_apply": 2 * per,
+                        "bn_grad_stats": per, "bn_grad_apply": per}
 
 
 def test_dp_step_at_world_size_one_is_the_single_step(dev):
@@ -1038,6 +1056,7 @@ def test_dense_mode_captured_step_is_the_eager_step(dev):
     try:
         eager = _steps(dev, out, kw, False)
         kb.reset_launch_counts()
+        kbn.reset_launch_counts()
         captured = _steps(dev, out, kw, True)
         counts = kb.launch_counts()
     finally:
@@ -1047,6 +1066,8 @@ def test_dense_mode_captured_step_is_the_eager_step(dev):
     assert all(torch.equal(eager[1][k], captured[1][k]) for k in eager[1])
     assert counts == {"gin_fwd": 3 * 2, "gin_fwd_bf16": 0, "gin_bwd": 3 * 2,
                       "spmm_self": 3 * 2, "spmm": 3 * 2, "pool": 0}
+    # DenseGIN's two convs take the BatchNorm kernels as GIN's do
+    assert kbn.launch_counts() == dict.fromkeys(kbn.KERNELS, 3 * 4)
 
 
 @pytest.mark.parametrize("live_noise", [False, True])
@@ -1309,11 +1330,14 @@ def test_bf16_pretrain_steps_on_card(dev, encoder, mode):
     TPU-default Transformer): only the bf16 forms launch."""
     kb.reset_launch_counts()
     kg.reset_launch_counts()
+    kbn.reset_launch_counts()
     records = cli.run_pretrain(synthetic=48, batch_size=16, steps=2,
                                device="cuda", encoder=encoder, **mode)
     assert all(np.isfinite(r[k]) for r in records
                for k in ("kl", "contrastive", "reconstruction"))
     counts = {**kb.launch_counts(), **kg.launch_counts()}
+    assert kbn.launch_counts() == dict.fromkeys(
+        kbn.KERNELS, 8 * 2 if encoder == "GIN" else 0)
     if encoder == "GIN":
         assert counts["gin_fwd_bf16"] == 8 * 2 and counts["gin_fwd"] == 0
     elif mode.get("gt_bwd") == "merged":
@@ -1535,3 +1559,108 @@ def test_gin_kernel_info_reports_its_route(dev, d):
     assert new["route"] == kb.gin_route(d, d, d)
     assert new["smem_bytes"] < f32["smem_bytes"]
     assert new["blocks_per_sm"] >= f32["blocks_per_sm"] >= 1
+
+
+# --- the GIN layer's BatchNorm -> ReLU -> row mask (ops/kernels/batchnorm.py)
+
+BN_SHAPES = {"3072x64": (3072, 64, True), "9728x64": (9728, 64, True),
+             "9728x64 no mask": (9728, 64, False),
+             "3072x30": (3072, 30, True), "3072x256": (3072, 256, True)}
+BN_RTOL = 1e-6      # float32 results of float64 sums, against float64
+
+
+def _bn_inputs(n, f, masked, dev, seed):
+    """x (offset from 0, as a conv's output is), dy, the mask (~80% kept or
+    None) and a module's scale, bias and running statistics."""
+    gen = torch.Generator().manual_seed(seed)
+    x = 1.5 + torch.randn(n, f, generator=gen)
+    dy = torch.randn(n, f, generator=gen)
+    mask = torch.rand(n, generator=gen) < 0.8 if masked else None
+    params = (1 + 0.3 * torch.randn(f, generator=gen),
+              0.2 * torch.randn(f, generator=gen),
+              0.5 * torch.randn(f, generator=gen),
+              0.5 + torch.rand(f, generator=gen))
+    return [None if t is None else t.to(dev)
+            for t in (x, dy, mask) + params]
+
+
+def _rel(got, want):
+    torch.cuda.synchronize()
+    return float((got.double() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("mode", ["train", "eval"])
+@pytest.mark.parametrize("shape", list(BN_SHAPES))
+def test_bn_kernels_match_float64_plain(dev, shape, mode):
+    """Each of the four kernels against its plain version in float64 on
+    the same inputs (the backward's on the forward kernel's own
+    coefficients, so the relu gate is the same): the totals to 1e-12, the
+    rest within float32 rounding (``BN_RTOL`` of the largest entry); in
+    train mode the float32 composed ops (``MaskedBatchNorm`` then relu and
+    the row mask) read farther from float64 than the kernels, the control
+    of that tolerance.  One launch each, the same bits twice."""
+    n, f, masked = BN_SHAPES[shape]
+    x, dy, mask, scale, bias, rmean, rvar = _bn_inputs(n, f, masked, dev, n)
+    d = (lambda t: None if t is None else t.double())
+    kbn.reset_launch_counts()
+    totals = None
+    if mode == "train":
+        totals = kbn.bn_stats(x, mask)
+        assert torch.equal(totals, kbn.bn_stats(x, mask))
+        assert _rel(totals, kbn.bn_stats_plain(d(x), mask)) <= 1e-12
+    run = (rmean.clone(), rvar.clone())
+    y, stats = kbn.bn_apply(x, mask, totals, scale, bias, *run, update=True)
+    run64 = (d(rmean), d(rvar))
+    y64, stats64 = kbn.bn_apply_plain(d(x), mask, totals, d(scale), d(bias),
+                                      *run64, update=True)
+    err = _rel(y, y64)
+    assert err <= BN_RTOL
+    for k in range(4):                          # a, c, mean, rsqrt
+        assert _rel(stats[k], stats64[k]) <= BN_RTOL, kbn.STATS[k]
+    assert torch.equal(stats[4].double(), stats64[4])
+    for got, want in zip(run, run64):
+        assert _rel(got, want) <= BN_RTOL
+    if mode == "train":
+        bn = MaskedBatchNorm(f).to(dev)
+        with torch.no_grad():
+            for t, v in ((bn.scale, scale), (bn.bias, bias),
+                         (bn.mean, rmean), (bn.var, rvar)):
+                t.copy_(v)
+            control = _mask_rows(torch.relu(bn(x, mask)), mask)
+        assert err < _rel(control, y64), (err, _rel(control, y64))
+    grads = kbn.bn_grad_stats(dy, x, mask, stats, totals, scale)
+    want = kbn.bn_grad_stats_plain(d(dy), d(x), mask, d(stats), totals,
+                                   d(scale))
+    for name, a, b in zip(("dscale", "dbias", "terms"), grads, want):
+        assert _rel(a, b) <= BN_RTOL, name
+    dx = kbn.bn_grad_apply(dy, x, mask, stats, grads[2])
+    assert _rel(dx, kbn.bn_grad_apply_plain(d(dy), d(x), mask, d(stats),
+                                            d(grads[2]))) <= BN_RTOL
+    assert torch.equal(dx, kbn.bn_grad_apply(dy, x, mask, stats, grads[2]))
+    if masked:
+        assert not y[~mask].any() and not dx[~mask].any()
+    assert kbn.launch_counts() == {
+        "bn_stats": 2 if mode == "train" else 0, "bn_apply": 1,
+        "bn_grad_stats": 1, "bn_grad_apply": 2}
+
+
+def test_bn_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.randn(64, 8, device=dev)
+    with pytest.raises(TypeError):
+        kbn.bn_stats(x.double(), None)
+    with pytest.raises(ValueError):
+        kbn.bn_stats(x, torch.ones(63, dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):
+        kbn.bn_apply(x, None, None, torch.ones(7, device=dev),
+                     torch.zeros(8, device=dev), torch.zeros(8, device=dev),
+                     torch.ones(8, device=dev))
+
+
+def test_sync_bn_over_two_gloo_ranks_on_the_card(dev, tmp_path):
+    """Two gloo ranks on the one card, each with half of a batch, one
+    sync-BN group: the kernels give the float64 composed ops' outputs, dx
+    and running statistics, each rank's own dscale and dbias, and summed
+    over the ranks the union batch's (``bn_sync_ranks.py``)."""
+    worst = bn_sync_ranks.gaps(bn_sync_ranks.spawn(tmp_path, "cuda"))
+    assert max(worst.values()) <= 1e-5, worst
