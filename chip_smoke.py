@@ -257,14 +257,27 @@ Phases; any failure raises and exits non-zero before the last line:
      ops in the kernels' place and with the kernels, in turns (composed,
      kernels, kernels, composed): device ms and device kernels a step, and
      each kernel's time in the step.
- 16. one JSON line of the kernels (with the launches of a fine-tuning step
+ 16. S-CGIB at Peptides-func sizes (128 of the generator's molecules of
+     120-182 atoms, 3-hop ego-nets) on the bands sized from the data: (a)
+     the widths, 512 for the atoms and 384 for the ego-nets, every edge
+     kept in its window; (b) gin_fwd, gin_bwd, spmm_self and spmm at those
+     bands and rows on exact integer inputs, gin_fwd and gin_bwd on
+     positive random ones (the plain versions in TF32 past the
+     tolerance), and the pooling, against their plain versions and timed;
+     (c) the captured GIN step's launches and branches a replay (8 fused
+     convs each way, the reconstruction and the pooling banded, no COO
+     aggregation) and its host ms to the loss read against the same step
+     on the COO path, in turns (banded, coo, coo, banded); (d) the
+     benchmark batch keeps 256.
+ 17. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch,
      phase 11, 12, 13 and 14 runs among them), the nvidia-smi line, and
      {"ok": true, "device": {...}} as the last line.
 
 ``python3 chip_smoke.py --gloo-rank R PORT`` is one rank of phase 11 (b),
 ``--shard-rank R WORLD PORT`` one of phase 12 (b) and ``--p2p-probe R
-PORT`` one of its probe; the script starts them itself.
+PORT`` one of its probe; the script starts them itself.  ``python3
+chip_smoke.py --wide-bands`` runs the build and phase 16 alone.
 """
 
 import collections
@@ -304,6 +317,7 @@ from scgib_tpu_torch.data.loader import (  # noqa: E402
 from scgib_tpu_torch.graph import wire  # noqa: E402
 from scgib_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from scgib_tpu_torch.models import encoders  # noqa: E402
+from scgib_tpu_torch.models import losses as losses_mod  # noqa: E402
 from scgib_tpu_torch.models.scgib import (  # noqa: E402
     DomainAdaptModel, FinetuneModel, PretrainModel, _resolve_band,
     uniform_draws)
@@ -627,69 +641,8 @@ def kernel_phase(g, sub, dev):
     records = []
     hid = 64
     for label, batch in (("N", g), ("S", sub)):
-        blocks, col_off = _resolve_band(batch)
-        n = blocks.shape[0] * blocks.shape[1]
-        nnz = int((blocks != 0).sum())
-        bf = blocks.float()
-        for d in (32, 64):
-            h = torch.randn(n, d, device=dev, generator=gen)
-            w1 = torch.randn(d, hid, device=dev, generator=gen) / math.sqrt(d)
-            b1 = torch.randn(hid, device=dev, generator=gen) * 0.1
-            w2 = torch.randn(hid, hid, device=dev, generator=gen) / 8.0
-            b2 = torch.randn(hid, device=dev, generator=gen) * 0.1
-            gr = torch.randn(n, hid, device=dev, generator=gen)
-            shape = f"{label}={n} d={d}"
-            mlp = 2 * n * (d * hid + hid * hid)
-            records.append(check(
-                "gin_fwd", shape,
-                lambda: kb.gin_fwd(blocks, col_off, h, w1, b1, w2, b2),
-                lambda: kb.gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2),
-                nbytes(blocks, col_off, h, w1, b1, w2, b2) + n * hid * 4,
-                2 * nnz * d + n * d + mlp, tf32x3=True))
-            records.append(check(
-                "gin_bwd", shape,
-                lambda: kb.gin_bwd(blocks, col_off, h, gr, w1, b1, w2),
-                lambda: kb.gin_bwd_plain(blocks, col_off, h, gr, w1, b1, w2),
-                nbytes(blocks, col_off, h, gr, w1, b1, w2)
-                + nbytes(h, w1, b1, w2, b2),            # gz0, dW1 .. db2
-                2 * nnz * d + n * d + 2 * n * (3 * d * hid + 2 * hid * hid),
-                tf32x3=True))
-            win = windows(blocks, col_off, h)
-            records.append(check(
-                "spmm_self", shape,
-                lambda: kb.spmm_self(blocks, col_off, h),
-                lambda: kb.spmm_self_plain(blocks, col_off, h),
-                nbytes(blocks, col_off, h) + n * d * 4, 2 * nnz * d + n * d,
-                lambda: torch.baddbmm(h.view(-1, 128, d), bf, win)))
-        if label == "N":
-            x = torch.randn(n, hid, device=dev, generator=gen)
-            win = windows(blocks, col_off, x)
-            records.append(check(
-                "spmm", f"N={n} d={hid}",
-                lambda: kb.spmm(blocks, col_off, x),
-                lambda: kb.spmm_plain(blocks, col_off, x),
-                nbytes(blocks, col_off, x) + n * hid * 4, 2 * nnz * hid,
-                lambda: torch.bmm(bf, win)))
-
-    # the candidate pooling: S ego-net rows onto N centers
-    s_rows, n_seg = sub.num_nodes, g.num_nodes
-    window = pool_mod.default_window(s_rows, n_seg)
-    if not sub.pool_fits:
-        raise AssertionError("benchmark batch does not fit the pool window")
-    off = pool_mod.window_offsets(sub.node_center, sub.node_mask, n_seg, 128,
-                                  window)
-    pblocks, _ = pool_mod.pool_blocks(sub.node_center, sub.node_mask, off,
-                                      n_seg, 128, window)
-    data = torch.randn(s_rows, hid, device=dev, generator=gen)
-    pbf = pblocks.float()
-    pwin = windows(pblocks, off, data)
-    records.append(check(
-        "pool", f"S={s_rows}->N={n_seg} W={window} d={hid}",
-        lambda: kb.pool(pblocks, off, data),
-        lambda: kb.spmm_plain(pblocks, off, data),
-        nbytes(pblocks, off, data) + n_seg * hid * 4,
-        2 * int((pblocks != 0).sum()) * hid,
-        lambda: torch.bmm(pbf, pwin)))
+        records += band_records(label, batch, dev, gen)
+    records.append(pool_record(g, sub, dev, gen))
     for rec in records:
         if rec["name"] in ("gin_fwd", "gin_bwd"):
             rec["library_note"] = GIN_NO_LIBRARY
@@ -704,6 +657,143 @@ def kernel_phase(g, sub, dev):
                         and PATH[rec["name"]][2] == f"{kernel}_kernel"):
                     rec["resources"] = info
     return records + gt_kernel_phase(g, sub, dev, gen)
+
+
+def band_records(label, batch, dev, gen, hid=64, width=False):
+    """``gin_fwd``, ``gin_bwd`` and ``spmm_self`` at d = 32 and 64, and for
+    the atoms (``label`` "N") ``spmm`` at ``hid``, on the batch's band,
+    each against its plain version and timed (``check``).  ``width``: the
+    shapes name the band's width, and h, W1 and b1 are small integers and
+    halves, which every product keeps exact: past a few million rows some
+    of random inputs' pre-activations lie within rounding of 0, where the
+    kernel's 3xTF32 z1 and the plain float32 one take the ReLU apart."""
+    records = []
+    blocks, col_off = _resolve_band(batch)
+    n = blocks.shape[0] * blocks.shape[1]
+    nnz = int((blocks != 0).sum())
+    bf = blocks.float()
+    tag = f" W={blocks.shape[2]}" if width else ""
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, device=dev,
+                             generator=gen).float()
+    for d in (32, 64):
+        if width:
+            h, w1 = ints(-3, 4, n, d), ints(-2, 3, d, hid)
+            b1 = ints(-4, 4, hid) + 0.5
+        else:
+            h = torch.randn(n, d, device=dev, generator=gen)
+            w1 = torch.randn(d, hid, device=dev,
+                             generator=gen) / math.sqrt(d)
+            b1 = torch.randn(hid, device=dev, generator=gen) * 0.1
+        w2 = torch.randn(hid, hid, device=dev, generator=gen) / 8.0
+        b2 = torch.randn(hid, device=dev, generator=gen) * 0.1
+        gr = torch.randn(n, hid, device=dev, generator=gen)
+        shape = f"{label}={n}{tag} d={d}"
+        mlp = 2 * n * (d * hid + hid * hid)
+        records.append(check(
+            "gin_fwd", shape,
+            lambda: kb.gin_fwd(blocks, col_off, h, w1, b1, w2, b2),
+            lambda: kb.gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2),
+            nbytes(blocks, col_off, h, w1, b1, w2, b2) + n * hid * 4,
+            2 * nnz * d + n * d + mlp, tf32x3=True))
+        records.append(check(
+            "gin_bwd", shape,
+            lambda: kb.gin_bwd(blocks, col_off, h, gr, w1, b1, w2),
+            lambda: kb.gin_bwd_plain(blocks, col_off, h, gr, w1, b1, w2),
+            nbytes(blocks, col_off, h, gr, w1, b1, w2)
+            + nbytes(h, w1, b1, w2, b2),            # gz0, dW1 .. db2
+            2 * nnz * d + n * d + 2 * n * (3 * d * hid + 2 * hid * hid),
+            tf32x3=True))
+        win = windows(blocks, col_off, h)
+        records.append(check(
+            "spmm_self", shape,
+            lambda: kb.spmm_self(blocks, col_off, h),
+            lambda: kb.spmm_self_plain(blocks, col_off, h),
+            nbytes(blocks, col_off, h) + n * d * 4, 2 * nnz * d + n * d,
+            lambda: torch.baddbmm(h.view(-1, 128, d), bf, win)))
+        del win
+    if label == "N":
+        x = torch.randn(n, hid, device=dev, generator=gen)
+        win = windows(blocks, col_off, x)
+        records.append(check(
+            "spmm", f"N={n}{tag} d={hid}",
+            lambda: kb.spmm(blocks, col_off, x),
+            lambda: kb.spmm_plain(blocks, col_off, x),
+            nbytes(blocks, col_off, x) + n * hid * 4, 2 * nnz * hid,
+            lambda: torch.bmm(bf, win)))
+    return records
+
+
+def random_product_records(label, batch, dev, gen, d=64, hid=64):
+    """``gin_fwd`` and ``gin_bwd`` on the batch's band on random inputs,
+    beside ``band_records(..., width=True)``'s exact ones: h, W1 and b1
+    positive keep every pre-activation at least 0.1 from 0 (no ReLU flip),
+    so z1 carries the 3xTF32 products' rounding; the plain versions in
+    TF32 (the control, ``control_rel_err``) must lie past the tolerance."""
+    blocks, col_off = _resolve_band(batch)
+    n = blocks.shape[0] * blocks.shape[1]
+    h = torch.rand(n, d, device=dev, generator=gen)
+    w1 = torch.rand(d, hid, device=dev, generator=gen) / d
+    b1 = 0.1 + 0.1 * torch.rand(hid, device=dev, generator=gen)
+    w2 = torch.randn(hid, hid, device=dev, generator=gen) / 8.0
+    b2 = torch.randn(hid, device=dev, generator=gen) * 0.1
+    gr = torch.randn(n, hid, device=dev, generator=gen)
+    nnz = int((blocks != 0).sum())
+    shape = f"{label}={n} W={blocks.shape[2]} d={d} random"
+    pairs = (
+        ("gin_fwd", lambda: kb.gin_fwd(blocks, col_off, h, w1, b1, w2, b2),
+         lambda: kb.gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2),
+         nbytes(blocks, col_off, h, w1, b1, w2, b2) + n * hid * 4,
+         2 * nnz * d + n * d + 2 * n * (d * hid + hid * hid)),
+        ("gin_bwd", lambda: kb.gin_bwd(blocks, col_off, h, gr, w1, b1, w2),
+         lambda: kb.gin_bwd_plain(blocks, col_off, h, gr, w1, b1, w2),
+         nbytes(blocks, col_off, h, gr, w1, b1, w2)
+         + nbytes(h, w1, b1, w2, b2),
+         2 * nnz * d + n * d + 2 * n * (3 * d * hid + 2 * hid * hid)))
+    records = []
+    for name, kernel_fn, plain_fn, nbyt, flops in pairs:
+        rec = check(name, shape, kernel_fn, plain_fn, nbyt, flops,
+                    tf32x3=True)
+        want = plain_fn()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = plain_fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        control = control if isinstance(control, tuple) else (control,)
+        want = want if isinstance(want, tuple) else (want,)
+        rec["control_rel_err"] = max(rel_err(a, b)[1]
+                                     for a, b in zip(control, want))
+        print(f"kernel {name} {shape}: the TF32 control "
+              f"{rec['control_rel_err']:.3e}", flush=True)
+        if not rec["control_rel_err"] > rec["tol_rel"]:
+            raise AssertionError(f"{name} {shape}: the TF32 control lies "
+                                 f"within the tolerance")
+        records.append(rec)
+    return records
+
+
+def pool_record(g, sub, dev, gen, hid=64):
+    """The candidate pooling: S ego-net rows onto N centers."""
+    s_rows, n_seg = sub.num_nodes, g.num_nodes
+    window = pool_mod.default_window(s_rows, n_seg)
+    if not sub.pool_fits:
+        raise AssertionError("benchmark batch does not fit the pool window")
+    off = pool_mod.window_offsets(sub.node_center, sub.node_mask, n_seg, 128,
+                                  window)
+    pblocks, _ = pool_mod.pool_blocks(sub.node_center, sub.node_mask, off,
+                                      n_seg, 128, window)
+    data = torch.randn(s_rows, hid, device=dev, generator=gen)
+    pbf = pblocks.float()
+    pwin = windows(pblocks, off, data)
+    return check(
+        "pool", f"S={s_rows}->N={n_seg} W={window} d={hid}",
+        lambda: kb.pool(pblocks, off, data),
+        lambda: kb.spmm_plain(pblocks, off, data),
+        nbytes(pblocks, off, data) + n_seg * hid * 4,
+        2 * int((pblocks != 0).sum()) * hid,
+        lambda: torch.bmm(pbf, pwin))
 
 
 def gt_kernel_phase(g, sub, dev, gen):
@@ -1386,6 +1476,149 @@ def bn_phase(g, sub, dev):
     return report
 
 
+PEPTIDE_ATOMS = (120, 182)   # LRGB Peptides-func's sizes (150.9 atoms)
+PEPTIDE_K = 3                # ego-nets of 3 hops
+# the wide bands' widths: molecules of up to 182 atoms, ego-nets of up to
+# 128 nodes (graph/banded.py::band_width)
+PEPTIDE_WIDTHS = (512, 384)
+WIDE_STEPS = 8               # timed steps of each path
+
+
+def peptide_batches(dev, n=3, seed=21):
+    """``n`` batches of 128 Peptides-sized molecules with 3-hop ego-nets,
+    as the benchmark's wide-band cell packs them."""
+    ds = GraphDataset(random_dataset(128 * n, seed=seed,
+                                     min_nodes=PEPTIDE_ATOMS[0],
+                                     max_nodes=PEPTIDE_ATOMS[1]),
+                      k=PEPTIDE_K)
+    caps = plan_capacities(ds, 128)
+    return [(g.to(dev), sub.to(dev)) for g, sub in
+            batch_iterator(ds, 128, caps, shuffle=False)], caps
+
+
+def _branches():
+    return {"encoder": dict(encoders.branch_counts),
+            "pool": dict(pool_mod.branch_counts),
+            "recon": dict(losses_mod.branch_counts)}
+
+
+def _clear_branches():
+    for counter in (encoders.branch_counts, pool_mod.branch_counts,
+                    losses_mod.branch_counts):
+        counter.clear()
+
+
+def wide_step_ms(dev, batches, coo):
+    """The captured GIN pretraining step on ``batches`` (the COO path
+    where ``coo``: every batch's band offsets dropped): the launches and
+    branches of one replay, and the median host ms of ``WIDE_STEPS``
+    steps, each to its loss read."""
+    if coo:
+        batches = [(dataclasses.replace(g, band_col_off=None),
+                    dataclasses.replace(sub, band_col_off=None))
+                   for g, sub in batches]
+    torch.manual_seed(16)
+    model = PretrainModel(9, 64, 32, k_transition=PEPTIDE_K).to(dev)
+    opt = adam_l2(model, 1e-4, 5e-5)
+    step = make_pretrain_step(model, opt)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for g, sub in batches:                    # eager warm-up, captures
+        float(step(g, sub, gen).total)
+    reset_launch_counts()
+    _clear_branches()
+    float(step(*batches[0], gen).total)
+    launches = {k: v for k, v in launch_counts().items() if v}
+    branches = _branches()
+    times = []
+    for i in range(WIDE_STEPS):
+        t0 = time.perf_counter()
+        float(step(*batches[i % len(batches)], gen).total)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"launches": launches, "branches": branches,
+            "step_ms": statistics.median(times), "steps_ms": times}
+
+
+def wide_band_phase(dev, bench=None):
+    """Phase 16: S-CGIB at Peptides-func sizes (the generator's molecules)
+    on the wide bands.  (a) the batch's widths, 512 for the atoms and 384
+    for the 3-hop ego-nets, with every edge kept in its window; (b)
+    ``gin_fwd``, ``gin_bwd``, ``spmm_self`` and ``spmm`` at those bands and
+    the batch's rows on exact integer inputs, ``gin_fwd`` and ``gin_bwd``
+    on positive random ones beside a TF32 control, and the pooling,
+    against their plain versions and timed; (c) the captured
+    GIN step's launches and branches a replay (the fused convs 8 times
+    each, the reconstruction and the pooling on their bands, no COO
+    aggregation) and its host ms to the loss read, against the same step
+    with the bands dropped (the COO path) in turns; (d) the benchmark
+    batch ``bench`` keeps the band of 256."""
+    report = {}
+    batches, caps = peptide_batches(dev)
+    g, sub = batches[0]
+    report["batch"] = {"caps": dataclasses.asdict(caps),
+                       "band_widths": [g.band_width, sub.band_width]}
+    if (g.band_width, sub.band_width) != PEPTIDE_WIDTHS or \
+            g.band_col_off is None or sub.band_col_off is None:
+        raise AssertionError(f"peptide batch bands {report['batch']}, "
+                             f"expected {PEPTIDE_WIDTHS}, both banded")
+    for b in (g, sub):
+        kept = float(_resolve_band(b)[0].float().sum())
+        real = int(b.edge_mask.sum())
+        if kept != real:
+            raise AssertionError(f"the band at W={b.band_width} kept "
+                                 f"{kept} of {real} edges")
+    print(f"peptide batch: N={g.num_nodes} E={g.num_edges} "
+          f"S={sub.num_nodes} Q={sub.num_edges} widths "
+          f"{g.band_width} {sub.band_width}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    records = []
+    for label, batch in (("N", g), ("S", sub)):
+        records += band_records(label, batch, dev, gen, width=True)
+        records += random_product_records(label, batch, dev, gen)
+    records.append(pool_record(g, sub, dev, gen))
+    report["records"] = records
+    torch.cuda.empty_cache()
+    runs = {}
+    for path in ("banded", "coo", "coo", "banded"):
+        rec = wide_step_ms(dev, batches, path == "coo")
+        runs.setdefault(path, []).append(rec)
+        torch.cuda.empty_cache()
+    band = runs["banded"][0]
+    want = {"encoder": {"band": 8}, "pool": {"banded": 1},
+            "recon": {"band": 1}}
+    if band["launches"] != GIN_PER_STEP or band["branches"] != want:
+        raise AssertionError(f"a wide-band replay: {band}, expected "
+                             f"launches {GIN_PER_STEP}, branches {want}")
+    report["steps"] = runs
+    if bench is not None:
+        report["bench_band_widths"] = [b.band_width for b in bench]
+        if report["bench_band_widths"] != [256, 256]:
+            raise AssertionError(f"the benchmark batch's bands: "
+                                 f"{report['bench_band_widths']}")
+    print(f"phase 16: {json.dumps(report)}", flush=True)
+    return report
+
+
+def wide_bands_only():
+    """``python3 chip_smoke.py --wide-bands``: the build and phase 16
+    alone."""
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"device: {torch.cuda.get_device_name(0)} | torch "
+          f"{torch.__version__} | nvidia-smi: {smi_line()}", flush=True)
+    t0 = time.perf_counter()
+    kb.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    ds = GraphDataset(random_dataset(1024, seed=7, min_nodes=10,
+                                     max_nodes=30), k=1)
+    bench = next(batch_iterator(ds, 128, plan_capacities(ds, 128),
+                                shuffle=False))
+    t0 = time.perf_counter()
+    wide_band_phase(dev, bench)
+    print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"ok": True}), flush=True)
+
+
 def main():
     # 1. environment
     if not torch.cuda.is_available():
@@ -1493,7 +1726,11 @@ def main():
     batchnorm = bn_phase(g, sub, dev)
     lap("15 BatchNorm tail")
 
-    # 16. report
+    # 16. the wide bands (Peptides-func sizes)
+    wide = wide_band_phase(dev, (g, sub))
+    lap("16 wide bands")
+
+    # 17. report
     kernels = []
     for name, (src, line, port_kernel) in PATH.items():
         recs = [r for r in records if r["name"] == name]
@@ -1543,7 +1780,7 @@ def main():
                       "data": data, "dp_remat": dp_remat,
                       "sharded": sharded, "bf16": bf16,
                       "tpu_default": tpu_default,
-                      "batchnorm": batchnorm,
+                      "batchnorm": batchnorm, "wide_bands": wide,
                       "attention_ptxas": ptxas,
                       "wide_heads": served,
                       "profile": profiles,
@@ -2505,7 +2742,7 @@ def batches_equal(a, b):
     """Field by field, dtypes and values, flags and absent fields."""
     for f in dataclasses.fields(b):
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if x is None or y is None or isinstance(y, bool):
+        if x is None or y is None or isinstance(y, (bool, int)):
             if x != y:
                 return False
         elif x.dtype != y.dtype or not np.array_equal(x, y):
@@ -4664,5 +4901,7 @@ if __name__ == "__main__":
         shard_rank(*sys.argv[2:])
     elif sys.argv[1:2] == ["--p2p-probe"]:
         p2p_probe(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--wide-bands"]:
+        wide_bands_only()
     else:
         main()

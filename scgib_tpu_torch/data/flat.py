@@ -11,11 +11,15 @@ Per-graph edge lists are sorted receiver-major when the view is built, and
 packed graphs occupy disjoint ascending node ranges, so the concatenated
 lists are sorted without a sort at batch time.
 
-The band test is placement-independent: a batch takes the banded layout
-when every selected graph and ego-net has at most (band - tile) / 2 = 64
-nodes (an edge then stays in its receiver tile's window wherever the graph
-lands), as in the JAX package; the per-graph packers test the batch's own
-edges, so the two agree on every batch of such graphs.  ``gt_fits`` comes
+The band test is placement-independent.  The band is the dataset's, one
+width for its graphs and one for its ego-nets (``graph/banded.py::
+band_width`` of the largest of each: 256 up to 64 nodes, as in the JAX
+package, wider past it); a batch's graphs take the banded layout when each
+selected graph has at most (band - tile) / 2 nodes (an edge then stays in
+its receiver tile's window wherever the graph lands) and the capacity is at
+least the band, and its ego-nets the same by their own width, apart from
+the graphs.  The per-graph packers test the batch's own edges at the same
+widths, so the two agree on every batch.  ``gt_fits`` comes
 from the dataset's largest graph and ego-net, and the batch's ``pool_fits``
 from its own centers (``ops/pool.py::window_fits``), as the per-graph
 packers set them; the JAX package's flat packer sets no ``pool_fits``.
@@ -28,7 +32,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..graph.banded import banded_col_off, gt_band_fits
+from ..graph.banded import (band_width, banded_col_off, component_fits,
+                            gt_band_fits)
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..native import pack_batch_native
 from ..ops.pool import window_fits
@@ -122,7 +127,7 @@ def build_flat(ds) -> FlatDataset:
 
 def pack_flat_batch(fd: FlatDataset, sel: Sequence[int], caps,
                     num_tasks: Optional[int] = None, banded: bool = True,
-                    tile: int = 128, band: int = 256
+                    tile: int = 128
                     ) -> Tuple[GraphBatch, SubgraphBatch]:
     """Pack the graphs ``sel`` with the native packer: the arrays, edge
     order, flags and labels of ``data/loader.py::pack_batch``'s per-graph
@@ -165,27 +170,26 @@ def pack_flat_batch(fd: FlatDataset, sel: Sequence[int], caps,
     graph_mask = np.zeros(caps.graphs, bool)
     graph_mask[:len(sel)] = True
 
-    lim = (band - tile) // 2
-    band_ok = (banded and len(sel) > 0
-               and caps.nodes % tile == 0 and caps.nodes >= band
-               and caps.sub_nodes % tile == 0 and caps.sub_nodes >= band
-               and bool((n_sz <= lim).all())
-               and bool((fd.max_ego[sel] <= lim).all()))
     ds_max_n = int(np.diff(fd.node_off).max(initial=0))
     ds_max_ego = int(fd.max_ego.max(initial=0))
+    w_g, w_sub = band_width(ds_max_n, tile), band_width(ds_max_ego, tile)
+
+    def col_off(cap: int, width: int, sizes: np.ndarray):
+        ok = (banded and len(sel) > 0 and cap % tile == 0 and cap >= width
+              and component_fits(sizes.max(initial=0), width, tile))
+        return banded_col_off(cap, tile, width) if ok else None
     g = GraphBatch(
         node_feat=node_feat, node_graph=node_graph, node_mask=node_mask,
         senders=senders, receivers=receivers, edge_mask=edge_mask,
         graph_mask=graph_mask, labels=labels, label_mask=label_mask,
-        band_col_off=(banded_col_off(caps.nodes, tile, band) if band_ok
-                      else None),
-        gt_fits=gt_band_fits(ds_max_n, caps.nodes))
+        band_col_off=col_off(caps.nodes, w_g, n_sz),
+        gt_fits=gt_band_fits(ds_max_n, caps.nodes), band_width=w_g)
     sub = SubgraphBatch(
         node_feat=None, node_center=node_center, node_orig=node_orig,
         node_mask=sub_node_mask, senders=sub_s, receivers=sub_r,
         edge_mask=sub_edge_mask,
-        band_col_off=(banded_col_off(caps.sub_nodes, tile, band) if band_ok
-                      else None),
+        band_col_off=col_off(caps.sub_nodes, w_sub, fd.max_ego[sel]),
         gt_fits=gt_band_fits(ds_max_ego, caps.sub_nodes),
-        pool_fits=window_fits(node_center, sub_node_mask, caps.nodes))
+        pool_fits=window_fits(node_center, sub_node_mask, caps.nodes),
+        band_width=w_sub)
     return g, sub

@@ -33,7 +33,7 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..graph.banded import gt_band_fits
+from ..graph.banded import band_width, gt_band_fits
 from ..graph.batching import (BucketSpec, EgoNets, GraphData, pack_graphs,
                               pack_subgraphs)
 from ..graph.container import GraphBatch, SubgraphBatch, _Batch
@@ -184,13 +184,14 @@ def plan_batches(ds: GraphDataset, batch_size: int, caps: Capacities,
 def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
                logm_k: Optional[int] = None, use_flat: bool = False
                ) -> Tuple[GraphBatch, SubgraphBatch]:
-    """Pack the graphs ``sel`` of ``ds``.  ``gt_fits`` comes from the
-    dataset's largest graph and ego-net (computed once, kept on ``ds``),
-    so it is the same for every batch of the dataset; ``pool_fits`` is the
-    batch's own.  Labels take the dataset's task count (the JAX package's
-    flat packer does the same).  ``use_flat``: the native flat packer
-    (``data/flat.py``), else the per-graph NumPy packers.  ``logm_k``:
-    attach the k-step logM targets and weights to the GraphBatch."""
+    """Pack the graphs ``sel`` of ``ds``.  ``gt_fits`` and the band widths
+    come from the dataset's largest graph and ego-net (computed once, kept
+    on ``ds``), so they are the same for every batch of the dataset;
+    ``pool_fits`` is the batch's own.  Labels take the dataset's task
+    count (the JAX package's flat packer does the same).  ``use_flat``:
+    the native flat packer (``data/flat.py``), else the per-graph NumPy
+    packers.  ``logm_k``: attach the k-step logM targets and weights to
+    the GraphBatch."""
     graphs = [ds.graphs[j] for j in sel]
     if use_flat:
         from .flat import pack_flat_batch
@@ -207,10 +208,12 @@ def pack_batch(ds: GraphDataset, sel: Sequence[int], caps: Capacities,
             ds._gt_maxima = maxima
         g = pack_graphs(graphs, caps.nodes, caps.edges, caps.graphs,
                         num_tasks=ds.num_tasks(),
-                        gt_fits=gt_band_fits(maxima[0], caps.nodes))
+                        gt_fits=gt_band_fits(maxima[0], caps.nodes),
+                        band_width=band_width(maxima[0]))
         sub = pack_subgraphs(graphs, egos, caps.sub_nodes, caps.sub_edges,
                              gt_fits=gt_band_fits(maxima[1], caps.sub_nodes),
-                             num_centers=caps.nodes)
+                             num_centers=caps.nodes,
+                             band_width=band_width(maxima[1]))
     if logm_k:
         logms = ds.logms(logm_k)
         T, W = pack_logm_targets(graphs, [logms[j] for j in sel], caps.nodes,

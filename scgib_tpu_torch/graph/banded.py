@@ -10,6 +10,16 @@ dense [tile, band] slab whose columns start at ``col_off[t]``, and
 The NumPy helpers run on the host; ``build_blocks`` builds the same blocks
 from the COO edge list on the device, and ``device_col_off`` the offsets.
 
+The band is sized from the data (``band_width``): with ``band`` a multiple of
+the tile, a row tile's window reaches (band - tile) / 2 rows on either side
+of it, so a graph (or ego-net) of at most that many nodes keeps every edge
+in its receiver tile's window wherever it lands.  The packers take one
+width a dataset, for its graphs and for its ego-nets apart: ``BAND`` = 256
+(the JAX package's only width) up to 64 nodes, the smallest multiple of 128
+that is at least 2 m + 128 past it (512 for molecules of up to 192 atoms,
+384 for ego-nets of up to 128 nodes); the batches carry it as their static
+``band_width``.
+
 The graph-transformer attention takes a narrower geometry, tile
 ``GT_TILE`` = 64, band ``GT_BAND`` = 128, offsets aligned to ``GT_ALIGN`` = 8:
 its work grows with the window.  The window [t0 - 32, t0 + 96) holds every
@@ -34,6 +44,25 @@ class BandedAdjacency:
     blocks: np.ndarray
     col_off: np.ndarray
     num_nodes: int
+
+
+TILE = 128
+BAND = 256
+
+
+def band_width(max_component: int, tile: int = TILE) -> int:
+    """The band of a dataset whose largest graph (or ego-net) has
+    ``max_component`` nodes: the smallest multiple of ``tile`` that is at
+    least 2 * max_component + tile, and at least ``BAND``."""
+    need = 2 * int(max_component) + tile
+    return max(BAND, -(-need // tile) * tile)
+
+
+def component_fits(max_component: int, band: int, tile: int = TILE) -> bool:
+    """Every edge of a graph of at most ``max_component`` nodes stays in its
+    receiver tile's window of width ``band`` (a multiple of ``tile``),
+    wherever the graph lands."""
+    return int(max_component) <= (band - tile) // 2
 
 
 def banded_col_off(num_nodes: int, tile: int = 128, band: int = 256,

@@ -16,7 +16,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..ops.pool import window_fits
-from .banded import banded_col_off, fits_band_masked, gt_band_fits
+from .banded import (band_width as width_for, banded_col_off,
+                     fits_band_masked, gt_band_fits)
 from .container import DenseSubgraphBatch, GraphBatch, SubgraphBatch
 
 
@@ -72,10 +73,11 @@ def symmetrize_edges(senders: np.ndarray,
     return s[idx].astype(np.int32), r[idx].astype(np.int32)
 
 
-def _band_col_off(senders, receivers, edge_mask, num_nodes,
-                  tile: int = 128, band: int = 256):
-    """The window offsets when every real edge fits the band, else None
-    (the batch then takes the COO path)."""
+def _band_col_off(senders, receivers, edge_mask, num_nodes, band: int,
+                  tile: int = 128):
+    """The window offsets when every real edge fits the band (which needs
+    a capacity of at least ``band``), else None (the batch then takes the
+    COO path)."""
     if not fits_band_masked(senders, receivers, edge_mask, num_nodes,
                             tile, band):
         return None
@@ -85,17 +87,19 @@ def _band_col_off(senders, receivers, edge_mask, num_nodes,
 def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
                 num_graphs: int, num_tasks: Optional[int] = None,
                 banded: bool = True,
-                gt_fits: Optional[bool] = None) -> GraphBatch:
+                gt_fits: Optional[bool] = None,
+                band_width: Optional[int] = None) -> GraphBatch:
     """Pack graphs into one padded GraphBatch; edges sorted by receiver.
 
     With labels (``num_tasks``, by default the longest label of the
     batch's graphs), ``labels`` [G, T] holds them with NaN as 0 and
     ``label_mask`` [G, T] is True where a label is present.
     ``banded=True`` attaches the window offsets when the batch fits the
-    band (the JAX package's ``banded="device"``).  ``gt_fits`` defaults to
-    this batch's own fact; callers with the dataset at hand pass the
-    dataset's (``data/loader.py::pack_batch``), which cannot change from
-    batch to batch."""
+    band (the JAX package's ``banded="device"``).  ``gt_fits`` and
+    ``band_width`` (``graph/banded.py::band_width`` of the largest graph)
+    default to this batch's own fact; callers with the dataset at hand
+    pass the dataset's (``data/loader.py::pack_batch``), which cannot
+    change from batch to batch."""
     total_n = sum(g.num_nodes for g in graphs)
     total_e = sum(g.num_edges for g in graphs)
     if total_n > num_nodes:
@@ -148,17 +152,19 @@ def pack_graphs(graphs: Sequence[GraphData], num_nodes: int, num_edges: int,
     senders = senders[order]
     receivers = receivers[order]
     edge_mask = edge_mask[order]
-    col_off = (_band_col_off(senders, receivers, edge_mask, num_nodes)
-               if banded else None)
+    largest = max((g.num_nodes for g in graphs), default=0)
+    if band_width is None:
+        band_width = width_for(largest)
+    col_off = (_band_col_off(senders, receivers, edge_mask, num_nodes,
+                             band_width) if banded else None)
     if gt_fits is None:
-        gt_fits = gt_band_fits(max((g.num_nodes for g in graphs), default=0),
-                               num_nodes)
+        gt_fits = gt_band_fits(largest, num_nodes)
     return GraphBatch(node_feat=node_feat, node_graph=node_graph,
                       node_mask=node_mask, senders=senders,
                       receivers=receivers, edge_mask=edge_mask,
                       graph_mask=graph_mask, labels=labels,
                       label_mask=label_mask, band_col_off=col_off,
-                      gt_fits=gt_fits)
+                      gt_fits=gt_fits, band_width=band_width)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,13 +219,15 @@ def pack_subgraphs(graphs: Sequence[GraphData], egonets: Sequence[EgoNets],
                    num_sub_nodes: int, num_sub_edges: int,
                    banded: bool = True,
                    gt_fits: Optional[bool] = None,
-                   num_centers: Optional[int] = None) -> SubgraphBatch:
+                   num_centers: Optional[int] = None,
+                   band_width: Optional[int] = None) -> SubgraphBatch:
     """Flatten the ego-nets of a batch into one padded SubgraphBatch, in
     (graph, node) order, so ``node_center`` is the center's global id in
     the GraphBatch.  Sub-node features are left to the device gather
-    ``g.node_feat[node_orig]``.  ``gt_fits`` as in ``pack_graphs``, from
-    the largest ego-net.  ``num_centers``, the GraphBatch's node capacity:
-    the batch's ``pool_fits`` is taken from it (None without it)."""
+    ``g.node_feat[node_orig]``.  ``gt_fits`` and ``band_width`` as in
+    ``pack_graphs``, from the largest ego-net.  ``num_centers``, the
+    GraphBatch's node capacity: the batch's ``pool_fits`` is taken from it
+    (None without it)."""
     flats = [e.flat() for e in egonets]
     total_s = int(sum(f.node_off[-1] for f in flats))
     total_q = int(sum(f.edge_off[-1] for f in flats))
@@ -261,19 +269,22 @@ def pack_subgraphs(graphs: Sequence[GraphData], egonets: Sequence[EgoNets],
     senders = senders[order]
     receivers = receivers[order]
     edge_mask = edge_mask[order]
-    col_off = (_band_col_off(senders, receivers, edge_mask, num_sub_nodes)
-               if banded else None)
+    largest = max((int(np.diff(f.node_off).max(initial=0)) for f in flats),
+                  default=0)
+    if band_width is None:
+        band_width = width_for(largest)
+    col_off = (_band_col_off(senders, receivers, edge_mask, num_sub_nodes,
+                             band_width) if banded else None)
     if gt_fits is None:
-        gt_fits = gt_band_fits(
-            max((int(np.diff(f.node_off).max(initial=0)) for f in flats),
-                default=0), num_sub_nodes)
+        gt_fits = gt_band_fits(largest, num_sub_nodes)
     pool_fits = (None if num_centers is None
                  else window_fits(node_center, node_mask, num_centers))
     return SubgraphBatch(node_feat=None, node_center=node_center,
                          node_orig=node_orig, node_mask=node_mask,
                          senders=senders, receivers=receivers,
                          edge_mask=edge_mask, band_col_off=col_off,
-                         gt_fits=gt_fits, pool_fits=pool_fits)
+                         gt_fits=gt_fits, pool_fits=pool_fits,
+                         band_width=band_width)
 
 
 def max_egonet_size(egonets: Sequence[EgoNets]) -> int:

@@ -16,7 +16,10 @@ dataset fits the graph-transformer's narrow banded geometry
 ``pool_fits``: the candidate pooling's window holds every center tile's
 sub-rows (``ops/pool.py::window_fits``), or None where the packer was not
 given the centers' capacity.  ``.to`` and ``from_numpy`` pass both through
-unchanged.
+unchanged, and ``band_width`` too: the width of the banded layout, one a
+dataset for its graphs and one for its ego-nets (``graph/banded.py::
+band_width``; ``BAND`` = 256 where a batch object has none, as the JAX
+package's have not).
 
 ``DenseSubgraphBatch`` is the dense ego-net layout (``subgraph_mode=
 "dense"``): one slot of ``max_sub`` members per center node, with a dense
@@ -31,6 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .banded import BAND
+
 _INDEX_FIELDS = ("node_graph", "senders", "receivers", "band_col_off",
                  "node_center", "node_orig")
 _MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask", "label_mask",
@@ -38,6 +43,8 @@ _MASK_FIELDS = ("node_mask", "edge_mask", "graph_mask", "label_mask",
 
 
 def _to_tensor(name: str, value, device: torch.device):
+    if name == "band_width":
+        return BAND if value is None else int(value)
     if name == "gt_fits":
         return bool(value)
     if name == "pool_fits":
@@ -89,12 +96,13 @@ class GraphBatch(_Batch):
       graph_mask [G]    bool
       labels     [G, T] float  per-graph labels (NaN as 0), or None
       label_mask [G, T] bool   True where a label is present
-      band_blocks  [T, 128, 256] bf16 0/1 banded adjacency, or None
+      band_blocks  [T, 128, W] bf16 0/1 banded adjacency, or None
       band_col_off [T]  index   64-aligned window starts, or None
       gt_fits      bool         the narrow (64, 128) geometry fits
       logm_targets [k, N, N] float  block-diagonal k-step logM targets,
                                     or None (``pack_batch(logm_k=...)``)
       logm_weights [N, N] float     1/n_g^2 inside each graph's block
+      band_width   int          W, the band's width (static)
     """
 
     node_feat: object
@@ -111,6 +119,7 @@ class GraphBatch(_Batch):
     gt_fits: bool = False
     logm_targets: Optional[object] = None
     logm_weights: Optional[object] = None
+    band_width: int = BAND
 
     @property
     def num_nodes(self) -> int:
@@ -137,6 +146,7 @@ class SubgraphBatch(_Batch):
       band_blocks / band_col_off / gt_fits   as in GraphBatch
       pool_fits    bool or None  the pooling window holds every center
                                  tile's sub-rows (None: not computed)
+      band_width   int           as in GraphBatch, the ego-nets' own
     """
 
     node_feat: Optional[object]
@@ -150,6 +160,7 @@ class SubgraphBatch(_Batch):
     band_col_off: Optional[object] = None
     gt_fits: bool = False
     pool_fits: Optional[bool] = None
+    band_width: int = BAND
 
     @property
     def num_nodes(self) -> int:

@@ -28,8 +28,9 @@ the JAX package's flax dataclasses: fields in order, ``None`` leaves and
 static fields left out; offsets 4-byte aligned), ``pack_bytes`` /
 ``pack_bytes_grouped`` write it on the host, and ``unpack_bytes`` returns
 typed views into the one device tensor, with no copy a leaf.  The bytes
-are the JAX package's.  Static fields are ``num_graphs_cap`` and
-``gt_fits`` (in the spec, as in the JAX treedef) and ``WireSub.pool_fits``,
+are the JAX package's.  Static fields are ``num_graphs_cap``, ``gt_fits``
+(in the spec, as in the JAX treedef), ``band_width`` (the band's width, in
+the spec; the JAX package has only 256) and ``WireSub.pool_fits``,
 the pooling's branch flag the port's packers set: it is never a leaf, so
 the layout stays the JAX one, and a superbatch carries one flag for its K
 batches beside its buffer (``data/loader.py::wire_superbatches``).
@@ -43,6 +44,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from .banded import BAND
 from .container import GraphBatch, SubgraphBatch
 
 
@@ -62,6 +64,7 @@ class WireGraph:
     edge_rdelta: Optional[object] = None   # [E] uint8 (compact)
     edge_soff: Optional[object] = None     # [E] int8 (compact)
     gt_fits: bool = False         # static
+    band_width: int = BAND        # static
 
 
 @dataclasses.dataclass
@@ -79,10 +82,11 @@ class WireSub:
     edge_soff: Optional[object] = None     # [Q] int8 (compact)
     gt_fits: bool = False           # static
     pool_fits: Optional[bool] = None   # static, never serialized
+    band_width: int = BAND          # static
 
 
-STATIC = {WireGraph: ("num_graphs_cap", "gt_fits"),
-          WireSub: ("gt_fits", "pool_fits")}
+STATIC = {WireGraph: ("num_graphs_cap", "gt_fits", "band_width"),
+          WireSub: ("gt_fits", "pool_fits", "band_width")}
 
 
 class CompactOverflow(ValueError):
@@ -169,7 +173,8 @@ def to_wire_graph(g: GraphBatch, compact: bool = False) -> WireGraph:
         num_graphs_cap=int(g.graph_mask.shape[0]),
         labels=_host(g.labels), label_mask=_host(g.label_mask),
         band_col_off=_host(g.band_col_off),
-        edge_rdelta=rdelta, edge_soff=soff, gt_fits=g.gt_fits)
+        edge_rdelta=rdelta, edge_soff=soff, gt_fits=g.gt_fits,
+        band_width=g.band_width)
 
 
 def to_wire_sub(sub: SubgraphBatch, compact: bool = False) -> WireSub:
@@ -197,7 +202,8 @@ def to_wire_sub(sub: SubgraphBatch, compact: bool = False) -> WireSub:
             edge_soff=_off_i8(sub.senders,
                               _compact_base(sub.receivers, int(n_edges)),
                               int(n_edges), "sub senders"),
-            gt_fits=sub.gt_fits, pool_fits=sub.pool_fits)
+            gt_fits=sub.gt_fits, pool_fits=sub.pool_fits,
+            band_width=sub.band_width)
     # node_center / node_orig index the owning batch's nodes, whose
     # capacity is not at hand: the dtype follows the largest value
     c_max = int(np.asarray(sub.node_center).max(initial=0))
@@ -209,7 +215,8 @@ def to_wire_sub(sub: SubgraphBatch, compact: bool = False) -> WireSub:
         senders=_shrink_idx(sub.senders, s_cap),
         receivers=_shrink_idx(sub.receivers, s_cap),
         n_edges=n_edges, band_col_off=col_off,
-        gt_fits=sub.gt_fits, pool_fits=sub.pool_fits)
+        gt_fits=sub.gt_fits, pool_fits=sub.pool_fits,
+        band_width=sub.band_width)
 
 
 # --- the device side -----------------------------------------------------------
@@ -252,7 +259,7 @@ def from_wire_graph(w: WireGraph) -> GraphBatch:
         labels=_opt(w.labels, lambda t: t.to(torch.float32)),
         label_mask=_opt(w.label_mask, lambda t: t.to(torch.bool)),
         band_col_off=_opt(w.band_col_off, _index),
-        gt_fits=w.gt_fits)
+        gt_fits=w.gt_fits, band_width=w.band_width)
 
 
 def from_wire_sub(w: WireSub) -> SubgraphBatch:
@@ -270,7 +277,7 @@ def from_wire_sub(w: WireSub) -> SubgraphBatch:
         senders=senders, receivers=receivers,
         edge_mask=_prefix_mask(senders.shape[0], w.n_edges),
         band_col_off=_opt(w.band_col_off, _index),
-        gt_fits=w.gt_fits, pool_fits=w.pool_fits)
+        gt_fits=w.gt_fits, pool_fits=w.pool_fits, band_width=w.band_width)
 
 
 # --- one buffer a superbatch ---------------------------------------------------

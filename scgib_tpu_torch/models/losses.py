@@ -16,10 +16,13 @@ contrastive denominator spans the union batch (its columns gathered), and
 so does the reconstruction's gram.  ``contrastive_infonce_replicated`` is
 the node-sharded path's InfoNCE (``parallel/sharded_scgib.py``): readouts
 the same on every rank, each rank adding the terms of the graphs it owns.
+``branch_counts`` records which path the gram reconstruction's edge cross
+term took: ``band`` (the banded product) or ``coo`` (the edge gather).
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Optional
 
 import torch
@@ -27,6 +30,8 @@ import torch.distributed as dist
 
 from ..ops.kernels.banded import spmm_banded_fast
 from ..parallel.collectives import all_gather, all_reduce_sum
+
+branch_counts: collections.Counter = collections.Counter()
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -141,8 +146,10 @@ def recon_adj_loss(interaction_map: torch.Tensor, senders: torch.Tensor,
         raise ValueError(f"unknown recon impl {impl!r}")
     gram = im.T @ im
     if band is not None:
+        branch_counts["band"] += 1
         cross = (im * spmm_banded_fast(band[0], band[1], im)).sum()
     else:
+        branch_counts["coo"] += 1
         cross = ((im[senders] * im[receivers]).sum(-1) * em).sum()
     other = gram if group is None else all_reduce_sum(gram, group)
     total = (gram * other).sum() - 2.0 * cross + em.sum()

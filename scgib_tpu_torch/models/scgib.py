@@ -37,8 +37,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..graph.banded import (GT_ALIGN, GT_BAND, GT_TILE, build_blocks,
-                           device_col_off)
+from ..graph.banded import (BAND, GT_ALIGN, GT_BAND, GT_TILE,
+                           build_blocks, device_col_off)
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..ops.pool import sorted_segment_sum_banded
 from ..ops.segment import (segment_broadcast, segment_softmax,
@@ -67,10 +67,17 @@ def _resolve_band(batch, gt: bool = False):
     the device at first use and kept on the batch object (not in its
     ``band_blocks`` field, which stays what the packer shipped), so both
     encoders' uses and the reconstruction loss's share one build per batch.
+    The blocks are the batch's ``band_width`` wide.
     With ``gt`` and the batch's ``gt_fits``, the graph transformer's narrow
-    (GT_TILE, GT_BAND) geometry instead, built once per batch likewise."""
+    (GT_TILE, GT_BAND) geometry instead, built once per batch likewise.
+    The transformer's wide geometry is the JAX package's (128, 256) alone:
+    its attention kernels have run at no other band, so with ``gt`` a batch
+    of a wider band takes the COO path (None), as its graphs of more than
+    64 nodes did before the band was sized from the data."""
     col_off = batch.band_col_off
     if col_off is None:
+        return None
+    if gt and not batch.gt_fits and batch.band_width != BAND:
         return None
     if gt and batch.gt_fits:
         band = getattr(batch, "_gt_band", None)
@@ -89,7 +96,8 @@ def _resolve_band(batch, gt: bool = False):
     if blocks is None:
         blocks = build_blocks(batch.senders, batch.receivers,
                               batch.edge_mask, col_off,
-                              batch.node_mask.shape[0])
+                              batch.node_mask.shape[0],
+                              band=batch.band_width)
         batch._band = blocks
     return blocks, col_off
 

@@ -13,6 +13,12 @@ three):
   spmm          _spmm_kernel       (recon cross term)   banded_spmm
   pool          _pool_kernel       (candidate pooling)  banded_spmm, W=1024
 
+The band width W is the blocks' last dimension, any multiple of
+``BAND_MULTIPLE``: the packers size it from the data (``graph/banded.py::
+band_width``: 256 up to 64-node graphs and ego-nets, 384 and 512 at
+Peptides-func's), the pool's window is 1024 or more, and the gather walks
+the W-wide row in segments whatever W is.
+
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting each launch that
 succeeded (``launch_counts``); anything else raises, a blocks

@@ -80,6 +80,11 @@ def _stack(values):
                                  "batches only")
             return None
         return all(values)
+    if isinstance(first, int):          # a width: the same on every batch
+        if any(v != first for v in values):
+            raise ValueError("stack_batches: the batches' band widths "
+                             "differ")
+        return first
     raise TypeError(f"stack_batches: cannot stack {type(first).__name__}")
 
 

@@ -40,8 +40,12 @@ session is open, each call keeps its spans (``utils/profiling.py``):
 ``scgib.step``, of kind eager, capture or replay, and the parts of a replay
 (``scgib.step.key``: the graph's lookup; ``.inputs``: the copies into the
 input buffers, counted with their bytes; ``.replay``: ``graph.replay()``;
-``.tally``: the counts' update; ``.outputs``: the clones of the outputs,
-counted); with no session open a call reads no clock and keeps nothing.
+``.tally``: the counts' update, with the launches and branches of the
+replay (``launch.<kernel>``, ``encoder.<branch>``, ``pool.<branch>``,
+``recon.<branch>``) and the band width of each of its batches
+(``band_widths``, 0 for a batch on the COO path); ``.outputs``: the clones
+of the outputs, counted); with no session open a call reads no clock and
+keeps nothing.
 
 ``remat`` (``make_pretrain_step`` and ``make_pretrain_scan_step``, as in
 the JAX package): the forward runs under ``torch.utils.checkpoint``
@@ -83,7 +87,7 @@ from torch.utils.checkpoint import checkpoint
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..graph.wire import (from_wire_graph, from_wire_sub, index_wire,
                           unpack_bytes)
-from ..models import encoders
+from ..models import encoders, losses
 from ..models.layers import statistics_frozen
 from ..models.losses import (bce_loss, bce_with_logits_loss,
                              cross_entropy_loss, mae_loss, rmse_loss)
@@ -348,6 +352,9 @@ class CaptureGuard(TorchDispatchMode):
 
 # the modules whose kernels' launches the tally counts, by their ``KERNELS``
 _KERNEL_MODULES = (kb, kbn, kg)
+# the branch counters the tally counts, by kind
+_BRANCHES = {"encoder": encoders.branch_counts, "pool": pool.branch_counts,
+             "recon": losses.branch_counts}
 
 
 def _tally() -> Dict[Tuple[str, object], int]:
@@ -357,8 +364,8 @@ def _tally() -> Dict[Tuple[str, object], int]:
     out = {("launch", k): v for m in _KERNEL_MODULES
            for k, v in m.launch_counts().items()}
     out.update({("route", k): v for k, v in kg.route_counts().items()})
-    out.update({("encoder", k): v for k, v in encoders.branch_counts.items()})
-    out.update({("pool", k): v for k, v in pool.branch_counts.items()})
+    for kind, counter in _BRANCHES.items():
+        out.update({(kind, k): v for k, v in counter.items()})
     return out
 
 
@@ -371,8 +378,7 @@ def _add_tally(diff: Dict[Tuple[str, object], int], sign: int = 1):
         if kind == "route":
             kg.add_route_launches(*name, sign * n)
             continue
-        counter = (encoders.branch_counts if kind == "encoder"
-                   else pool.branch_counts)
+        counter = _BRANCHES[kind]
         counter[name] += sign * n
         if counter[name] == 0:
             del counter[name]
@@ -411,14 +417,23 @@ _KEY, _INPUTS, _REPLAY, _TALLY, _OUTPUTS = profiling.STEP_PARTS
 
 
 def _replay_counts(entry) -> Dict[str, dict]:
-    """A replay's host calls besides the graph's launch, by the part that
-    makes them: a copy into each input buffer (and its bytes), and a clone
-    of each output."""
-    _, buffers, out, _ = entry
+    """A replay's counts, by the part that makes them: a copy into each
+    input buffer (and its bytes), the launches and branches its capture
+    added and the band width of each batch (0 on the COO path), and a
+    clone of each output."""
+    _, buffers, out, added = entry
     inputs = [v for buf in buffers for _, v in _fields(buf)
               if isinstance(v, torch.Tensor)]
+    tally = {f"{kind}.{name}": n for (kind, name), n in sorted(
+        added.items(), key=repr) if kind == "launch" or kind in _BRANCHES}
+    widths = tuple(b.band_width if b.band_col_off is not None else 0
+                   for b in buffers
+                   if isinstance(b, (GraphBatch, SubgraphBatch)))
+    if widths:
+        tally["band_widths"] = widths
     return {_INPUTS: {"copies": len(inputs),
                       "bytes": sum(v.nbytes for v in inputs)},
+            _TALLY: tally,
             _OUTPUTS: {"clones": (1 if isinstance(out, torch.Tensor)
                                   else len(out))}}
 

@@ -225,7 +225,7 @@ def _gin_bwd_reference(blocks, off, h, g, w1, b1, w2):
             g.sum(0))
 
 
-@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("width", [128, 256, 384, 512, 1024])
 @pytest.mark.parametrize("d", [8, 32, 64, 96, 128, 160])
 def test_banded_spmm_matches_plain_at_ragged_shapes(dev, d, width):
     blocks, off = (t.to(dev) for t in _ragged_band(width))
@@ -238,7 +238,7 @@ def test_banded_spmm_matches_plain_at_ragged_shapes(dev, d, width):
     close(kb.pool(blocks, off, data), kb.spmm_plain(blocks, off, dp))
 
 
-@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("width", [128, 256, 384, 512, 1024])
 @pytest.mark.parametrize("din", [8, 32, 64, 96, 128])
 def test_gin_bwd_matches_plain_at_ragged_shapes(dev, din, width):
     blocks, off = (t.to(dev) for t in _ragged_band(width, seed=1))
@@ -272,7 +272,7 @@ def test_gin_fwd_matches_plain_at_cases(dev, case):
     assert kb.launch_counts()["gin_fwd"] == 1
 
 
-@pytest.mark.parametrize("width", [128, 256, 1024])
+@pytest.mark.parametrize("width", [128, 256, 384, 512, 1024])
 @pytest.mark.parametrize("din", [8, 32, 64, 96, 128])
 def test_gin_fwd_matches_plain_at_ragged_shapes(dev, din, width):
     """Every (hid, dout) in {8, 32, 64, 96, 128}^2 at this din, on blocks
@@ -289,6 +289,113 @@ def test_gin_fwd_matches_plain_at_ragged_shapes(dev, din, width):
             b2 = torch.randn(dout, device=dev, generator=gen) * 0.1
             close(kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),
                   _gin_fwd_reference(blocks, off, h, w1, b1, w2, b2))
+
+
+def _components_band(rows, width, dev, seed=0):
+    """blocks and offsets at ``width`` over ``rows`` rows packed as the
+    packers lay molecules out: one component after another, each a random
+    tree plus 15% chords of (width - 128) / 2 nodes at most (the band's
+    limit), the last rows padding; and the real edge count."""
+    rng = np.random.default_rng(seed + width)
+    lim = (width - 128) // 2
+    s, r, at = [], [], 0
+    while True:
+        m = int(rng.integers(lim * 2 // 3, lim + 1))
+        if at + m > rows - 128:
+            break
+        child = np.arange(1, m)
+        parent = (rng.random(m - 1) * child).astype(np.int64)
+        extra = rng.integers(0, m, size=(2, int(0.15 * m)))
+        extra = extra[:, extra[0] != extra[1]]
+        a = np.concatenate([child, extra[0]]) + at
+        b = np.concatenate([parent, extra[1]]) + at
+        s += [a, b]
+        r += [b, a]
+        at += m
+    key = np.unique(np.concatenate(r) * rows + np.concatenate(s))
+    snd = torch.from_numpy(key % rows).to(dev)
+    rcv = torch.from_numpy(key // rows).to(dev)
+    off = banded.device_col_off(rows, 128, width, 64, dev)
+    blocks = banded.build_blocks(snd, rcv, None, off, rows, band=width)
+    return blocks, off, len(key)
+
+
+@pytest.mark.parametrize("rows,width", [(22016, 512), (401920, 384)],
+                         ids=["atoms", "egonets"])
+def test_kernels_at_the_wide_bands_and_the_cells_rows(dev, rows, width):
+    """The wide-band cell's bands at its capacities (128 Peptides-sized
+    molecules: 22016 atom rows at W = 512, 401920 rows of 3-hop ego-nets at
+    W = 384): every edge kept in its window, and ``spmm``, ``spmm_self``,
+    ``gin_fwd`` and ``gin_bwd`` against their plain versions.  Over 25
+    million pre-activations some lie within rounding of 0 with random
+    inputs, where the kernel's 3xTF32 z1 and the plain float32 one may take
+    the ReLU apart; so h and W1 hold small integers and b1 halves, which
+    every product keeps exact: z1 is exact and at least 1/2 from 0."""
+    blocks, off, edges = _components_band(rows, width, dev)
+    assert blocks.shape == (rows // 128, 128, width)
+    assert int(blocks.float().sum()) == edges
+    gen = torch.Generator(device=dev).manual_seed(width)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, device=dev,
+                             generator=gen).float()
+    for din in (32, 64):
+        h = ints(-3, 4, rows, din)
+        close(kb.spmm(blocks, off, h), kb.spmm_plain(blocks, off, h))
+        close(kb.spmm_self(blocks, off, h),
+              kb.spmm_self_plain(blocks, off, h))
+        w1 = ints(-2, 3, din, 64)
+        b1 = ints(-4, 4, 64) + 0.5
+        w2 = torch.randn(64, 64, device=dev, generator=gen) / 8
+        b2 = torch.randn(64, device=dev, generator=gen) * 0.1
+        gr = torch.randn(rows, 64, device=dev, generator=gen)
+        close(kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),
+              kb.gin_fwd_plain(blocks, off, h, w1, b1, w2, b2))
+        for a, w in zip(kb.gin_bwd(blocks, off, h, gr, w1, b1, w2),
+                        kb.gin_bwd_plain(blocks, off, h, gr, w1, b1, w2)):
+            close(a, w, rtol=1e-4)
+
+
+def _tf32(fn):
+    """``fn()`` with float32 products in TF32: the control of a 3xTF32
+    kernel."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("rows,width", [(22016, 512), (401920, 384)],
+                         ids=["atoms", "egonets"])
+def test_products_at_the_cells_rows_on_random_inputs(dev, rows, width):
+    """The 3xTF32 products of ``gin_fwd`` and ``gin_bwd`` at the wide-band
+    cell's bands and rows on random inputs, beside the exact integer ones
+    above: h, W1 and b1 positive keep every pre-activation at least 0.1
+    from 0, so no ReLU flips, and z1 carries its rounding.  The plain
+    versions in TF32 (the control) lie past the tolerances."""
+    blocks, off, _ = _components_band(rows, width, dev)
+    gen = torch.Generator(device=dev).manual_seed(width + 1)
+    for din in (32, 64):
+        h = torch.rand(rows, din, device=dev, generator=gen)
+        w1 = torch.rand(din, 64, device=dev, generator=gen) / din
+        b1 = 0.1 + 0.1 * torch.rand(64, device=dev, generator=gen)
+        w2 = torch.randn(64, 64, device=dev, generator=gen) / 8
+        b2 = torch.randn(64, device=dev, generator=gen) * 0.1
+        gr = torch.randn(rows, 64, device=dev, generator=gen)
+        fwd = kb.gin_fwd_plain(blocks, off, h, w1, b1, w2, b2)
+        close(kb.gin_fwd(blocks, off, h, w1, b1, w2, b2), fwd)
+        with pytest.raises(AssertionError):
+            close(_tf32(lambda: kb.gin_fwd_plain(blocks, off, h, w1, b1,
+                                                 w2, b2)), fwd)
+        bwd = kb.gin_bwd_plain(blocks, off, h, gr, w1, b1, w2)
+        for a, w in zip(kb.gin_bwd(blocks, off, h, gr, w1, b1, w2), bwd):
+            close(a, w, rtol=1e-4)
+        control = _tf32(lambda: kb.gin_bwd_plain(blocks, off, h, gr, w1, b1,
+                                                 w2))
+        with pytest.raises(AssertionError):     # gz0, dW1
+            for a, w in zip(control[:2], bwd[:2]):
+                close(a, w, rtol=1e-4)
 
 
 def test_gin_fwd_is_bitwise_reproducible(batch, dev):

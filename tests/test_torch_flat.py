@@ -67,7 +67,7 @@ def _assert_equal(a, b, skip=()):
         if f.name in skip:
             continue
         x, y = getattr(a, f.name), getattr(b, f.name)
-        if x is None or isinstance(x, bool):
+        if x is None or isinstance(x, (bool, int)):
             assert x == y, f.name
         else:
             assert x.dtype == y.dtype and x.shape == y.shape, f.name
