@@ -262,13 +262,21 @@ Phases; any failure raises and exits non-zero before the last line:
      the widths, 512 for the atoms and 384 for the ego-nets, every edge
      kept in its window; (b) gin_fwd, gin_bwd, spmm_self and spmm at those
      bands and rows on exact integer inputs, gin_fwd and gin_bwd on
-     positive random ones (the plain versions in TF32 past the
+     positive random ones at d 32 and 64 (the plain versions in TF32 past the
      tolerance), and the pooling, against their plain versions and timed;
      (c) the captured GIN step's launches and branches a replay (8 fused
      convs each way, the reconstruction and the pooling banded, no COO
-     aggregation) and its host ms to the loss read against the same step
+     aggregation, gin_bwd's row tiles and overlapped tiles) and its host ms to the loss read against the same step
      on the COO path, in turns (banded, coo, coo, banded); (d) the
-     benchmark batch keeps 256.
+     benchmark batch keeps 256; (e) gin_bwd at the benchmark batch's S
+     (W 256) and the peptide batch's N (W 512) and S (W 384), d 32 and 64,
+     on exact integer inputs: against its plain version, bitwise equal in
+     two runs, its row tiles and overlapped tiles as counted, its
+     registers, shared bytes, blocks an SM, threads and rows a tile (the
+     last two as the wrapper's mirror of the plan gives them), and its
+     time; with ``--against DIR`` (another checkout), that checkout's
+     gin_fused_bwd built and timed in turns with this one's (this, other,
+     other, this) and compared bitwise.
  17. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch,
      phase 11, 12, 13 and 14 runs among them), the nvidia-smi line, and
@@ -277,12 +285,14 @@ Phases; any failure raises and exits non-zero before the last line:
 ``python3 chip_smoke.py --gloo-rank R PORT`` is one rank of phase 11 (b),
 ``--shard-rank R WORLD PORT`` one of phase 12 (b) and ``--p2p-probe R
 PORT`` one of its probe; the script starts them itself.  ``python3
-chip_smoke.py --wide-bands`` runs the build and phase 16 alone.
+chip_smoke.py --wide-bands`` runs the build and phase 16 alone; ``--against
+DIR`` adds phase 16 (e)'s turns with DIR's kernel, to either form.
 """
 
 import collections
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import functools
 import itertools
@@ -1499,13 +1509,27 @@ def peptide_batches(dev, n=3, seed=21):
 def _branches():
     return {"encoder": dict(encoders.branch_counts),
             "pool": dict(pool_mod.branch_counts),
-            "recon": dict(losses_mod.branch_counts)}
+            "recon": dict(losses_mod.branch_counts),
+            "gin_bwd": dict(kb.branch_counts)}
 
 
 def _clear_branches():
     for counter in (encoders.branch_counts, pool_mod.branch_counts,
-                    losses_mod.branch_counts):
+                    losses_mod.branch_counts, kb.branch_counts):
         counter.clear()
+
+
+def step_bwd_tiles(g, sub, hid=64, d_transfer=32, layers=4):
+    """``gin_bwd``'s row tiles and overlapped tiles in one GIN pretraining
+    step on (g, sub): ``layers`` convs on each batch's rows, the first from
+    ``d_transfer`` features, on this card's grid."""
+    tiles = overlapped = 0
+    for n in (g.num_nodes, sub.num_nodes):
+        for din in [d_transfer] + [hid] * (layers - 1):
+            t, o = kb.bwd_tiles(n, din, hid, hid,
+                                kb._bwd_grid(n, din, hid, hid, 0))
+            tiles, overlapped = tiles + t, overlapped + o
+    return {"tiles": tiles, "overlapped": overlapped}
 
 
 def wide_step_ms(dev, batches, coo):
@@ -1538,7 +1562,97 @@ def wide_step_ms(dev, batches, coo):
             "step_ms": statistics.median(times), "steps_ms": times}
 
 
-def wide_band_phase(dev, bench=None):
+def other_banded(root):
+    """The banded kernels of another checkout at ``root``: its
+    ``scgib_tpu_torch/csrc/banded.cu`` built with nvcc into this one's
+    ``_build/`` and bound as ``kb.build`` binds this one's."""
+    src = os.path.join(root, "scgib_tpu_torch", "csrc", "banded.cu")
+    so = kbuild.BUILD_DIR / "libscgib_banded_other.so"
+    kbuild.BUILD_DIR.mkdir(exist_ok=True)
+    subprocess.run(kbuild.nvcc_command(src, so), check=True,
+                   capture_output=True, text=True)
+    return kb.bind(ctypes.CDLL(str(so)))
+
+
+@contextlib.contextmanager
+def banded_library(lib):
+    """Within: ``kb``'s wrappers launch ``lib``'s kernels."""
+    saved = kb.build()
+    kb._lib = lib
+    kb._bwd_grid.cache_clear()
+    try:
+        yield
+    finally:
+        kb._lib = saved
+        kb._bwd_grid.cache_clear()
+
+
+def bwd_in_turns(label, batch, dev, gen, other=None, hid=64):
+    """``gin_bwd`` on the batch's band at d = 32 and 64 on exact integer
+    inputs (``band_records(..., width=True)``'s): against its plain
+    version, bitwise equal in two runs, the launch's row tiles and the
+    overlapped ones as the tally counts them, the kernel's resources
+    (rows a tile and shared bytes as ``kb.bwd_tile_rows`` and
+    ``kb.bwd_smem_bytes`` give them), and its time; with ``other``
+    (``other_banded``), that library's kernel timed in turns (this, other,
+    other, this) and its output compared bitwise with this one's."""
+    blocks, col_off = _resolve_band(batch)
+    n = blocks.shape[0] * blocks.shape[1]
+    records = []
+    for d in (32, 64):
+        def ints(lo, hi, *shape):
+            return torch.randint(lo, hi, shape, device=dev,
+                                 generator=gen).float()
+        h, w1 = ints(-3, 4, n, d), ints(-2, 3, d, hid)
+        b1 = ints(-4, 4, hid) + 0.5
+        w2 = torch.randn(hid, hid, device=dev, generator=gen) / 8.0
+        gr = torch.randn(n, hid, device=dev, generator=gen)
+
+        def run():
+            return kb.gin_bwd(blocks, col_off, h, gr, w1, b1, w2)
+        kb.branch_counts.clear()
+        got, again = run(), run()
+        want = kb.gin_bwd_plain(blocks, col_off, h, gr, w1, b1, w2)
+        torch.cuda.synchronize()
+        grid = kb._bwd_grid(n, d, hid, hid, h.device.index)
+        tiles, overlapped = kb.bwd_tiles(n, d, hid, hid, grid)
+        rec = {"shape": f"{label}={n} W={blocks.shape[2]} d={d}",
+               "max_rel_err": max(rel_err(a, b)[1]
+                                  for a, b in zip(got, want)),
+               "bitwise_in_two_runs": all(torch.equal(a, b)
+                                          for a, b in zip(got, again)),
+               "grid": grid, "tiles": tiles, "overlapped": overlapped,
+               "counted": dict(kb.branch_counts),
+               "resources": kb.kernel_info("gin_fused_bwd", d, hid, hid)}
+        if other is None:
+            rec["ms"] = [time_ms(run)]
+        else:
+            rec["ms"], rec["other_ms"] = [], []
+            for mine in (True, False, False, True):
+                with contextlib.ExitStack() as stack:
+                    if not mine:
+                        stack.enter_context(banded_library(other))
+                    (rec["ms"] if mine else rec["other_ms"]).append(
+                        time_ms(run))
+            with banded_library(other):
+                theirs = run()
+            torch.cuda.synchronize()
+            rec["bitwise_equal_other"] = all(
+                torch.equal(a, b) for a, b in zip(got, theirs))
+        print(f"gin_bwd {rec['shape']}: {json.dumps(rec)}", flush=True)
+        res = rec["resources"]
+        if not (rec["max_rel_err"] <= KERNEL_RTOL
+                and rec["bitwise_in_two_runs"]
+                and rec["counted"] == {"tiles": 2 * tiles,
+                                       "overlapped": 2 * overlapped}
+                and res["tile_rows"] == kb.bwd_tile_rows(d, hid, hid)
+                and res["smem_bytes"] == kb.bwd_smem_bytes(d, hid, hid)):
+            raise AssertionError(f"gin_bwd {rec['shape']}: {rec}")
+        records.append(rec)
+    return records
+
+
+def wide_band_phase(dev, bench=None, other=None):
     """Phase 16: S-CGIB at Peptides-func sizes (the generator's molecules)
     on the wide bands.  (a) the batch's widths, 512 for the atoms and 384
     for the 3-hop ego-nets, with every edge kept in its window; (b)
@@ -1548,9 +1662,13 @@ def wide_band_phase(dev, bench=None):
     against their plain versions and timed; (c) the captured
     GIN step's launches and branches a replay (the fused convs 8 times
     each, the reconstruction and the pooling on their bands, no COO
-    aggregation) and its host ms to the loss read, against the same step
+    aggregation, the backward's row tiles and overlapped tiles as
+    ``step_bwd_tiles`` counts them) and its host ms to the loss read,
+    against the same step
     with the bands dropped (the COO path) in turns; (d) the benchmark
-    batch ``bench`` keeps the band of 256."""
+    batch ``bench`` keeps the band of 256; (e) ``gin_bwd`` at S of
+    ``bench`` and N and S of the peptide batch (``bwd_in_turns``), in turns
+    with ``other``'s kernel where given."""
     report = {}
     batches, caps = peptide_batches(dev)
     g, sub = batches[0]
@@ -1573,9 +1691,15 @@ def wide_band_phase(dev, bench=None):
     records = []
     for label, batch in (("N", g), ("S", sub)):
         records += band_records(label, batch, dev, gen, width=True)
-        records += random_product_records(label, batch, dev, gen)
+        for d in (32, 64):
+            records += random_product_records(label, batch, dev, gen, d=d)
     records.append(pool_record(g, sub, dev, gen))
     report["records"] = records
+    report["bwd_in_turns"] = sum(
+        (bwd_in_turns(label, batch, dev, gen, other) for label, batch in
+         ((("S bench", bench[1]),) if bench is not None else ())
+         + (("N", g), ("S", sub))), [])
+    torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     runs = {}
     for path in ("banded", "coo", "coo", "banded"):
@@ -1584,7 +1708,7 @@ def wide_band_phase(dev, bench=None):
         torch.cuda.empty_cache()
     band = runs["banded"][0]
     want = {"encoder": {"band": 8}, "pool": {"banded": 1},
-            "recon": {"band": 1}}
+            "recon": {"band": 1}, "gin_bwd": step_bwd_tiles(g, sub)}
     if band["launches"] != GIN_PER_STEP or band["branches"] != want:
         raise AssertionError(f"a wide-band replay: {band}, expected "
                              f"launches {GIN_PER_STEP}, branches {want}")
@@ -1598,9 +1722,17 @@ def wide_band_phase(dev, bench=None):
     return report
 
 
+def against():
+    """The banded kernels of the checkout that ``--against DIR`` names, or
+    None."""
+    if "--against" not in sys.argv:
+        return None
+    return other_banded(sys.argv[sys.argv.index("--against") + 1])
+
+
 def wide_bands_only():
-    """``python3 chip_smoke.py --wide-bands``: the build and phase 16
-    alone."""
+    """``python3 chip_smoke.py --wide-bands [--against DIR]``: the build and
+    phase 16 alone."""
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1611,10 +1743,10 @@ def wide_bands_only():
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
     ds = GraphDataset(random_dataset(1024, seed=7, min_nodes=10,
                                      max_nodes=30), k=1)
-    bench = next(batch_iterator(ds, 128, plan_capacities(ds, 128),
-                                shuffle=False))
+    bench = tuple(b.to(dev) for b in next(batch_iterator(
+        ds, 128, plan_capacities(ds, 128), shuffle=False)))
     t0 = time.perf_counter()
-    wide_band_phase(dev, bench)
+    wide_band_phase(dev, bench, against())
     print(f"phase 16: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"ok": True}), flush=True)
 
@@ -1727,7 +1859,7 @@ def main():
     lap("15 BatchNorm tail")
 
     # 16. the wide bands (Peptides-func sizes)
-    wide = wide_band_phase(dev, (g, sub))
+    wide = wide_band_phase(dev, (g, sub), against())
     lap("16 wide bands")
 
     # 17. report
@@ -4901,7 +5033,7 @@ if __name__ == "__main__":
         shard_rank(*sys.argv[2:])
     elif sys.argv[1:2] == ["--p2p-probe"]:
         p2p_probe(*sys.argv[2:])
-    elif sys.argv[1:2] == ["--wide-bands"]:
+    elif "--wide-bands" in sys.argv:
         wide_bands_only()
     else:
         main()

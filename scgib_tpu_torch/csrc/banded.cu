@@ -9,8 +9,9 @@
 //                  Replaces _kernel (#1).
 //   gin_fused_bwd  recompute z0 = h + A h and z1 = z0 W1 + b1, then
 //                  gz1 = (g W2^T) * [z1 > 0], gz0 = gz1 W1^T, and one
-//                  partial of dW1, db1, dW2, db2 per block.  Replaces
-//                  _bwd_kernel (#2).
+//                  partial of dW1, db1, dW2, db2 per block; the next row
+//                  tile's gather runs under this tile's products.
+//                  Replaces _bwd_kernel (#2).
 //
 // Layout (graph/banded.py): blocks [T, 128, W] bf16, col_off [T] int64; row
 // tile t of 128 rows reads the window x[col_off[t] : col_off[t] + W].  The
@@ -87,15 +88,34 @@
 // The backward is gin_fused_bwd and banded_spmm on the bf16-rounded h, W1
 // and W2 in fp32, as JAX's _bwd runs its fp32 kernels.
 //
-// gin_fused_bwd is persistent: one block of 8 warps per SM stages W1, W2
-// and b1 once, loops over row tiles of 64 rows (32 above width 64), and
-// keeps dW1 and dW2 in registers across its tiles, so the grid writes one
-// small partial per block that the caller sums in a fixed order.  Its five
-// products are z1, g W2^T, gz0, dW2 and dW1.  What bounds it on the card
-// is latency more than the tensor cores: one tile is a chain of the weight
-// and g staging, the gather's two round trips and five dependent products,
-// with 8 warps an SM to hide it (more blocks an SM would cap registers at
-// 128 and spill; measured slower).
+// gin_fused_bwd is persistent: one block per SM stages W1, W2 and b1 once,
+// walks its row tiles (blockIdx.x, then every gridDim.x-th) and keeps dW1
+// and dW2 in registers across them, so the grid writes one small partial
+// per block that the caller sums in a fixed order.  Its five products are
+// z1, g W2^T, gz0, dW2 and dW1.  What bounds it on the card is latency more
+// than the tensor cores: a tile is the g copy and the gather's round trips
+// (latency-bound), then five dependent products.  Walked in series by 8
+// warps, a tile paid both one after the other (S = 403,712 rows at W = 384,
+// d 64: ~48 tiles a block, 0.65 ms); more blocks an SM, to hide one with
+// another, cap registers at 128 and spill (measured slower).  So a block
+// is a pipeline of two warp roles over a ring of two stages of z0 and g in
+// shared memory.  8 producer warps (setmaxnreg: 88 registers) copy tile
+// k's rows of g by cp.async and gather its z0 into stage k % 2, then
+// arrive on the stage's named barrier; 8 consumer warps (168 registers)
+// run the products of tile k - 1 from the other stage, sync among
+// themselves on a barrier of their own, and free a stage for tile k + 2 on
+// a third; no __syncthreads past the prologue.  Every warp gathers tile 0,
+// as the serial kernel did, so a block with one tile runs in series; from
+// its second tile on, each tile's gather runs under the products of the
+// tile before (0.47 ms at that shape).  The gather and the products are
+// the serial kernel's code on the same rows and fragments, so the sums,
+// their order and the bits are too.  Eight producer warps gather a 64-row
+// tile at width 64 in one pass (4 lanes a row); four, in two passes,
+// measured 20% slower there, and 80 registers in place of 88 slower at
+// width 32.  Width rule (plan_bwd): two stages at every width; row tiles of
+// 64 where every width is at most 64 (139,520 bytes of shared memory at
+// 64), of 16 above, where two stages of 32 rows and the float weights
+// would need 237 KB at 128.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/kernels/banded.py).  Every entry launches on the given stream,
@@ -116,7 +136,7 @@ constexpr int TILE = 128;         // rows of one banded block
 using gate_walk::FULL;
 using gate_walk::SEGV;
 constexpr int SPMM_THREADS = 128;
-constexpr int GIN_THREADS = 256;  // 8 warps: gin_fused_fwd, gin_fused_bwd
+constexpr int GIN_THREADS = 256;  // 8 warps: the gin_fused_fwd kernels
 
 // --- sparse gather of one band row (banded_spmm, the GIN kernels) ----------
 
@@ -326,12 +346,16 @@ struct WarpTiles {
   int m0, n0, step, cnt;
 };
 
-__device__ __forceinline__ WarpTiles warp_tiles(int M, int N) {
-  const int warp = threadIdx.x >> 5, nm = M / 16, wpm = 8 / nm;
+__device__ __forceinline__ WarpTiles warp_tiles(int M, int N, int warp) {
+  const int nm = M / 16, wpm = 8 / nm;
   const int first = warp / nm, nn = N / 8;
   // a warp without a tile reads tile 0, in bounds, and stores nothing
   return {(warp % nm) * 16, first < nn ? first * 8 : 0, wpm * 8,
           first < nn ? (nn - first + wpm - 1) / wpm : 0};
+}
+
+__device__ __forceinline__ WarpTiles warp_tiles(int M, int N) {
+  return warp_tiles(M, N, threadIdx.x >> 5);
 }
 
 __host__ __device__ constexpr int pad16(int v) { return (v + 15) & ~15; }
@@ -342,24 +366,56 @@ __host__ __device__ constexpr int pad_pow2(int v) {
   return v <= 16 ? 16 : v <= 32 ? 32 : v <= 64 ? 64 : 128;
 }
 
+// gin_fused_bwd's warp roles (the source note says why): two warpgroups of
+// producers gather the block's next row tile into one of two stages of a
+// ring in shared memory while two warpgroups of consumers run the products
+// of the tile before from the other.  setmaxnreg moves registers from the
+// producers, whose gather needs few, to the consumers, which keep the
+// weight-gradient fragments across tiles.
+constexpr int BWD_PRODUCERS = 8;        // warps: a 64-row tile a pass at 64
+constexpr int BWD_CONSUMERS = 8;        // warps: the products' split
+constexpr int BWD_THREADS = 32 * (BWD_PRODUCERS + BWD_CONSUMERS);
+constexpr int BWD_PRODUCER_REGS = 88;
+constexpr int BWD_CONSUMER_REGS = 168;
+static_assert(32 * (BWD_PRODUCERS * BWD_PRODUCER_REGS
+                    + BWD_CONSUMERS * BWD_CONSUMER_REGS)
+                  <= 65536 / BWD_THREADS / 8 * 8 * BWD_THREADS,
+              "the roles' registers exceed the block's at launch");
+static_assert(BWD_CONSUMERS == 8, "warp_tiles splits a product over 8");
+
+// gin_fused_bwd's named barriers (0 is __syncthreads'): BAR_FULL + s, stage
+// s holds a tile (producers arrive, consumers wait); BAR_EMPTY + s, stage s
+// is free again (consumers arrive, producers wait); BAR_PRODUCTS, the
+// consumers among themselves.
+constexpr int BAR_FULL = 1, BAR_EMPTY = 3, BAR_PRODUCTS = 5;
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // Shared-memory floats of gin_fused_bwd: W1 [DP][HP+4], W2 [HP][OP+4],
-// b1 [HP], and per tile z0 [MT][DP+4], g [MT][OP+4], z1 and gz1 [MT][HP+4],
-// with DP = pad_pow2(din), HP = pad_pow2(hid), OP = pad16(dout) and the
-// padding zero.  Rows are padded by 4 floats so the fragment reads of a
-// warp spread over the banks.
+// b1 [HP], two stages of z0 [MT][DP+4] and g [MT][OP+4], and z1 and gz1
+// [MT][HP+4], with DP = pad_pow2(din), HP = pad_pow2(hid), OP = pad16(dout)
+// and the padding zero.  Rows are padded by 4 floats so the fragment reads
+// of a warp spread over the banks.
 __host__ __device__ constexpr int bwd_smem_floats(int mt, int din, int hid,
                                                   int dout) {
   return pad_pow2(din) * (pad_pow2(hid) + 4)
          + pad_pow2(hid) * (pad16(dout) + 4) + pad_pow2(hid)
-         + mt * ((pad_pow2(din) + 4) + (pad16(dout) + 4)
+         + mt * (2 * (pad_pow2(din) + 4) + 2 * (pad16(dout) + 4)
                  + 2 * (pad_pow2(hid) + 4));
 }
 
 // Zero the entries of a shared [RP, CP] array (row stride ld) outside its
-// [R, C] corner.
+// [R, C] corner, by the block's first THREADS threads.
+template <int THREADS = GIN_THREADS>
 __device__ void zero_pad(float* a, int R, int C, int RP, int CP, int ld) {
   if (R == RP && C == CP) return;
-  for (int e = threadIdx.x; e < RP * CP; e += GIN_THREADS) {
+  for (int e = threadIdx.x; e < RP * CP; e += THREADS) {
     const int r = e / CP, c = e % CP;
     if (r >= R || c >= C) a[r * ld + c] = 0.f;
   }
@@ -379,13 +435,14 @@ __device__ __forceinline__ float column_sum(const float* a, int ld) {
 // when the rows allow it, else 4-byte ones.  The caller commits and waits.
 // CACHE_L1: the 16-byte copies allocate in L1 too (cp.async.ca), so that
 // the blocks on one SM share one read from L2 of what they all stage.
-template <bool CACHE_L1 = false>
+// THREADS: the block's first THREADS threads copy.
+template <bool CACHE_L1 = false, int THREADS = GIN_THREADS>
 __device__ void stage_async(float* dst, int ld, const float* src, int R,
                             int C) {
   const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
   if (C % 4 == 0 && ((uintptr_t)src & 15) == 0) {
     const int cv = C / 4;
-    for (int e = threadIdx.x; e < R * cv; e += GIN_THREADS) {
+    for (int e = threadIdx.x; e < R * cv; e += THREADS) {
       const int r = e / cv, c = (e % cv) * 4;
       const uint32_t to = base + 4u * (r * ld + c);
       const float* from = src + (long long)r * C + c;
@@ -397,7 +454,7 @@ __device__ void stage_async(float* dst, int ld, const float* src, int R,
                      "l"(from));
     }
   } else {
-    for (int e = threadIdx.x; e < R * C; e += GIN_THREADS) {
+    for (int e = threadIdx.x; e < R * C; e += THREADS) {
       const int r = e / C, c = e % C;
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
                        base + 4u * (r * ld + c)),
@@ -430,12 +487,12 @@ __device__ __forceinline__ void store_z0(__nv_bfloat16* p,
 }
 
 // z0 = h + A h for the MT rows from row0 (inside one band tile: MT divides
-// 128) into shared memory, row stride ld: a lane group of lpr lanes a row,
-// SPREAD pieces of VEC columns a lane (band_row), GATHER rows of h in
-// flight.  h is float or bf16, summed in fp32; z0 is stored fp32, or bf16
-// (store_z0).
+// 128) into shared memory, row stride ld, by the block's first WARPS warps:
+// a lane group of lpr lanes a row, SPREAD pieces of VEC columns a lane
+// (band_row), GATHER rows of h in flight.  h is float or bf16, summed in
+// fp32; z0 is stored fp32, or bf16 (store_z0).
 template <int VEC, int MT, int GATHER, typename T, typename Z,
-          int SPREAD = 1>
+          int SPREAD = 1, int WARPS = GIN_THREADS / 32>
 __device__ __forceinline__ void gather_z0(
     const __nv_bfloat16* __restrict__ blocks,
     const long long* __restrict__ col_off, int W, const T* __restrict__ h,
@@ -443,7 +500,7 @@ __device__ __forceinline__ void gather_z0(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rpw = 32 / lpr;                  // rows a warp gathers at once
   const long long off = col_off[row0 / TILE];
-  for (int r1 = 0; r1 < MT; r1 += (GIN_THREADS / 32) * rpw) {
+  for (int r1 = 0; r1 < MT; r1 += WARPS * rpw) {
     const int r = r1 + warp * rpw + lane / lpr;
     const bool active = r < MT;
     const long long row = row0 + (active ? r : 0);
@@ -468,11 +525,17 @@ __device__ __forceinline__ void gather_z0(
   }
 }
 
-// Persistent: each block loops over row tiles of MT rows; MAXFR bounds the
-// dW1 / dW2 fragments a warp keeps in registers (4 up to widths 64, 16 up
-// to 128).  part[block] = [dW1 (din x hid) | db1 | dW2 (hid x dout) | db2].
+// Persistent: each block takes the row tiles blockIdx.x + k gridDim.x of
+// MT rows, k = 0, 1, ..., tile k in stage k % 2 of the ring.  Every warp
+// gathers tile 0, as a kernel without the ring would (a block with one
+// tile runs in series); then the producers gather tiles 1, 2, ... while
+// the consumers run the products of the tile before, so from tile 1 on a
+// tile's gather runs under the products of the one before.  MAXFR bounds
+// the dW1 / dW2 fragments a consumer warp keeps in registers (4 up to
+// widths 64, 16 up to 128).  part[block] = [dW1 (din x hid) | db1 |
+// dW2 (hid x dout) | db2].
 template <int VEC, int MT, int MAXFR>
-__global__ void __launch_bounds__(GIN_THREADS, 1)
+__global__ void __launch_bounds__(BWD_THREADS, 1)
 gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
                      const long long* __restrict__ col_off, int W,
                      const float* __restrict__ h, long long n, int din,
@@ -488,41 +551,76 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
   float* sw1 = smem;                 // W1[k][j]
   float* sw2 = sw1 + DP * LH;        // W2[j][o]
   float* sb1 = sw2 + HP * LO;
-  float* sz0 = sb1 + HP;             // z0 = h + A h
-  float* sg = sz0 + MT * LD;         // this tile's rows of g
-  float* sz1 = sg + MT * LO;         // pre-activation z1
+  float* sz0 = sb1 + HP;             // z0 = h + A h, stages 0 and 1
+  float* sg = sz0 + 2 * MT * LD;     // the tile's rows of g, stages 0 and 1
+  float* sz1 = sg + 2 * MT * LO;     // pre-activation z1
   float* sgz1 = sz1 + MT * LH;       // (g W2^T) * [z1 > 0]
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int fg = lane >> 2, ft = lane & 3;   // fragment row / column group
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const long long tiles = n / MT;    // the grid has at most a block a tile
 
-  // zeros in the padding of the staged operands, once (the copies never
-  // write there, and the products fill z1 and gz1 whole)
-  zero_pad(sw1, din, hid, DP, HP, LH);
-  zero_pad(sw2, hid, dout, HP, OP, LO);
-  zero_pad(sb1, 1, hid, 1, HP, HP);
-  zero_pad(sz0, MT, din, MT, DP, LD);
-  zero_pad(sg, MT, dout, MT, OP, LO);
-  stage_async(sw1, LH, w1, din, hid);
-  stage_async(sw2, LO, w2, hid, dout);
-  stage_async(sb1, HP, b1, 1, hid);
+  // every warp: zeros in the padding of the staged operands, once (the
+  // copies never write there, and the products fill z1 and gz1 whole), the
+  // weights, and tile 0 into stage 0
+  zero_pad<BWD_THREADS>(sw1, din, hid, DP, HP, LH);
+  zero_pad<BWD_THREADS>(sw2, hid, dout, HP, OP, LO);
+  zero_pad<BWD_THREADS>(sb1, 1, hid, 1, HP, HP);
+  zero_pad<BWD_THREADS>(sz0, 2 * MT, din, 2 * MT, DP, LD);
+  zero_pad<BWD_THREADS>(sg, 2 * MT, dout, 2 * MT, OP, LO);
+  stage_async<false, BWD_THREADS>(sw1, LH, w1, din, hid);
+  stage_async<false, BWD_THREADS>(sw2, LO, w2, hid, dout);
+  stage_async<false, BWD_THREADS>(sb1, HP, b1, 1, hid);
+  stage_async<false, BWD_THREADS>(
+      sg, LO, g + (long long)blockIdx.x * MT * dout, MT, dout);
   asm volatile("cp.async.commit_group;");
+  gather_z0<VEC, MT, 2, float, float, 1, BWD_THREADS / 32>(
+      blocks, col_off, W, h, n, din, (long long)blockIdx.x * MT, lpr, sz0,
+      LD);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
 
+  if (warp < BWD_PRODUCERS) {
+    // producers: tile k into stage k % 2 once tile k - 2 has left it
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        BWD_PRODUCER_REGS));
+    int kt = 1;
+    for (long long tile = blockIdx.x + (long long)gridDim.x; tile < tiles;
+         tile += gridDim.x, ++kt) {
+      const int s = kt & 1;
+      if (kt >= 2) bar_sync(BAR_EMPTY + s, BWD_THREADS);
+      const long long row0 = tile * MT;
+      stage_async<false, 32 * BWD_PRODUCERS>(sg + s * MT * LO, LO,
+                                             g + row0 * dout, MT, dout);
+      asm volatile("cp.async.commit_group;");
+      gather_z0<VEC, MT, 2, float, float, 1, BWD_PRODUCERS>(
+          blocks, col_off, W, h, n, din, row0, lpr, sz0 + s * MT * LD, LD);
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      bar_arrive(BAR_FULL + s, BWD_THREADS);
+    }
+    return;
+  }
+
+  // consumers: the products of tile k from stage k % 2
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+      BWD_CONSUMER_REGS));
+  constexpr int CONSUMER_THREADS = 32 * BWD_CONSUMERS;
+  const int cw = warp - BWD_PRODUCERS, ct = tid - 32 * BWD_PRODUCERS;
+  const int fg = (tid & 31) >> 2, ft = tid & 3;  // fragment row / col group
   float dw1[MAXFR][4], dw2[MAXFR][4];
 #pragma unroll
   for (int i = 0; i < MAXFR; ++i)
 #pragma unroll
     for (int q = 0; q < 4; ++q) dw1[i][q] = dw2[i][q] = 0.f;
-  float db = 0.f;   // threads < 128: db1[tid]; the others db2[tid - 128]
-  const WarpTiles t1 = warp_tiles(DP, HP), t2 = warp_tiles(HP, OP);
-  const WarpTiles tz = warp_tiles(MT, HP), t0 = warp_tiles(MT, DP);
+  float db = 0.f;   // ct < 128: db1[ct]; the others db2[ct - 128]
+  const WarpTiles t1 = warp_tiles(DP, HP, cw), t2 = warp_tiles(HP, OP, cw);
+  const WarpTiles tz = warp_tiles(MT, HP, cw), t0 = warp_tiles(MT, DP, cw);
 
-  for (long long tile = blockIdx.x; tile < n / MT; tile += gridDim.x) {
+  int kt = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++kt) {
+    const int s = kt & 1;
+    if (kt >= 1) bar_sync(BAR_FULL + s, BWD_THREADS);
     const long long row0 = tile * MT;
-    stage_async(sg, LO, g + row0 * dout, MT, dout);
-    asm volatile("cp.async.commit_group;");
-    gather_z0<VEC, MT, 2>(blocks, col_off, W, h, n, din, row0, lpr, sz0, LD);
-    asm volatile("cp.async.wait_all;");
-    __syncthreads();
+    const float* z0 = sz0 + s * MT * LD;
+    const float* gt = sg + s * MT * LO;
 
     // z1 = z0 W1 + b1
     {
@@ -533,7 +631,7 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
         c[i][0] = c[i][2] = sb1[j];
         c[i][1] = c[i][3] = sb1[j + 1];
       }
-      mma_3xtf32<4>(c, [=](int m, int k) { return sz0[m * LD + k]; },
+      mma_3xtf32<4>(c, [=](int m, int k) { return z0[m * LD + k]; },
                     [=](int k, int j) { return sw1[k * LH + j]; }, tz.m0,
                     tz.n0, tz.step, tz.cnt, DP);
 #pragma unroll
@@ -545,12 +643,12 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
         }
       }
     }
-    __syncthreads();
+    bar_sync(BAR_PRODUCTS, CONSUMER_THREADS);
 
     // gz1 = (g W2^T) * [z1 > 0]
     {
       float c[4][4] = {};
-      mma_3xtf32<4>(c, [=](int m, int k) { return sg[m * LO + k]; },
+      mma_3xtf32<4>(c, [=](int m, int k) { return gt[m * LO + k]; },
                     [=](int k, int j) { return sw2[j * LO + k]; }, tz.m0,
                     tz.n0, tz.step, tz.cnt, OP);
 #pragma unroll
@@ -565,7 +663,7 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
         }
       }
     }
-    __syncthreads();
+    bar_sync(BAR_PRODUCTS, CONSUMER_THREADS);
 
     // gz0 = gz1 W1^T, straight to global memory
     {
@@ -588,19 +686,21 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
                       [=](int j, int r) {
                         return fmaxf(sz1[r * LH + j], 0.f);
                       },
-                      [=](int r, int o) { return sg[r * LO + o]; }, t2.m0,
+                      [=](int r, int o) { return gt[r * LO + o]; }, t2.m0,
                       t2.n0, t2.step, t2.cnt, MT);
-    mma_3xtf32<MAXFR>(dw1, [=](int k, int r) { return sz0[r * LD + k]; },
+    mma_3xtf32<MAXFR>(dw1, [=](int k, int r) { return z0[r * LD + k]; },
                       [=](int r, int j) { return sgz1[r * LH + j]; }, t1.m0,
                       t1.n0, t1.step, t1.cnt, MT);
-    if (tid < hid) {
-      db += column_sum<MT>(sgz1 + tid, LH);
-    } else if (tid >= 128 && tid - 128 < dout) {
-      db += column_sum<MT>(sg + tid - 128, LO);
+    if (ct < hid) {
+      db += column_sum<MT>(sgz1 + ct, LH);
+    } else if (ct >= 128 && ct - 128 < dout) {
+      db += column_sum<MT>(gt + ct - 128, LO);
     }
-    __syncthreads();   // the next tile overwrites z0, g, z1 and gz1
+    // stage s is free for tile k + 2, where the block has one
+    if (tile + 2LL * gridDim.x < tiles)
+      bar_arrive(BAR_EMPTY + s, BWD_THREADS);
+    bar_sync(BAR_PRODUCTS, CONSUMER_THREADS);   // the next tile's z1, gz1
   }
-  asm volatile("cp.async.wait_all;");
 
   // this block's partial
   float* pw1 = part + (long long)blockIdx.x
@@ -619,8 +719,8 @@ gin_fused_bwd_kernel(const __nv_bfloat16* __restrict__ blocks,
       if (i < t2.cnt && j2 < hid && o < dout) pw2[j2 * dout + o] = dw2[i][q];
     }
   }
-  if (tid < hid) pb1[tid] = db;
-  else if (tid >= 128 && tid - 128 < dout) pb2[tid - 128] = db;
+  if (ct < hid) pb1[ct] = db;
+  else if (ct >= 128 && ct - 128 < dout) pb2[ct - 128] = db;
 }
 
 // Shared-memory floats of gin_fused_fwd: W1 [DP][HP+4], W2 [HP][OP+4],
@@ -1000,22 +1100,29 @@ struct GinPlan {
   size_t* granted;
   int mt, vec;     // rows a tile; columns a lane gathers (lanes_per_row)
   size_t smem;
+  int threads = GIN_THREADS;
 };
 
 template <int VEC, int MT, int MAXFR>
 GinPlan bwd_plan(int din, int hid, int dout) {
   static size_t granted = 0;
   return {(const void*)gin_fused_bwd_kernel<VEC, MT, MAXFR>, &granted, MT,
-          VEC, sizeof(float) * (size_t)bwd_smem_floats(MT, din, hid, dout)};
+          VEC, sizeof(float) * (size_t)bwd_smem_floats(MT, din, hid, dout),
+          BWD_THREADS};
 }
 
+// gin_fused_bwd keeps two stages of z0 and g at every width.  Row tiles of
+// 64 where every width is at most 64 (139,520 bytes of shared memory at
+// 64); of 16 above, where the float weights alone take 135,680 bytes at 128
+// and two stages of 32-row tiles would need 237 KB (186,368 bytes at 16).
+// ops/kernels/banded.py::bwd_tile_rows mirrors the rule.
 GinPlan plan_bwd(int din, int hid, int dout) {
   const bool narrow = din <= 64 && hid <= 64 && dout <= 64;
   if (din % 16 == 0)
     return narrow ? bwd_plan<16, 64, 4>(din, hid, dout)
-                  : bwd_plan<16, 32, 16>(din, hid, dout);
+                  : bwd_plan<16, 16, 16>(din, hid, dout);
   return narrow ? bwd_plan<1, 64, 4>(din, hid, dout)
-                : bwd_plan<1, 32, 16>(din, hid, dout);
+                : bwd_plan<1, 16, 16>(din, hid, dout);
 }
 
 template <int VEC, int MT, int NT>
@@ -1086,7 +1193,7 @@ int bwd_grid(const GinPlan& p, long long n, int* grid) {
            &sms, cudaDevAttrMultiProcessorCount, dev)))
     return err;
   if ((err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, p.kernel, GIN_THREADS, p.smem)))
+           &per_sm, p.kernel, p.threads, p.smem)))
     return err;
   long long tiles = n / p.mt, cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
   *grid = (int)(tiles < cap ? tiles : cap);
@@ -1160,19 +1267,20 @@ int scgib_gin_fused_bwd(const void* blocks, const void* col_off, int W,
                   (void*)&n, (void*)&din, (void*)&g, (void*)&w1, (void*)&b1,
                   (void*)&hid, (void*)&w2, (void*)&dout, (void*)&gz0,
                   (void*)&part, (void*)&lpr};
-  err = (int)cudaLaunchKernel(p.kernel, dim3(grid), dim3(GIN_THREADS), args,
+  err = (int)cudaLaunchKernel(p.kernel, dim3(grid), dim3(p.threads), args,
                               p.smem, (cudaStream_t)stream);
   return err ? err : (int)cudaGetLastError();
 }
 
 // For the report: registers a thread, shared memory a block (static +
-// dynamic) and blocks an SM of the kernel a call at these widths launches;
+// dynamic), blocks an SM, threads a block and, for the GIN kernels, rows a
+// tile (0 for banded_spmm) of the kernel a call at these widths launches;
 // which = 0 banded_spmm (width din), 1 gin_fused_bwd, 2 gin_fused_fwd,
 // 3 gin_fused_fwd_bf16.
 int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
   const void* kernel;
   size_t dyn = 0;
-  int threads, err;
+  int threads, err, mt = 0;
   if (which == 0) {
     kernel = din % 4 == 0 ? (const void*)banded_spmm_kernel<4>
                           : (const void*)banded_spmm_kernel<1>;
@@ -1184,7 +1292,8 @@ int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
     if ((err = set_smem(p.kernel, p.smem, p.granted))) return err;
     kernel = p.kernel;
     dyn = p.smem;
-    threads = GIN_THREADS;
+    threads = p.threads;
+    mt = p.mt;
   }
   cudaFuncAttributes attr;
   if ((err = (int)cudaFuncGetAttributes(&attr, kernel))) return err;
@@ -1195,6 +1304,8 @@ int scgib_kernel_info(int which, int din, int hid, int dout, int* info) {
   info[0] = attr.numRegs;
   info[1] = (int)(attr.sharedSizeBytes + dyn);
   info[2] = per_sm;
+  info[3] = threads;
+  info[4] = mt;
   return 0;
 }
 

@@ -34,10 +34,15 @@ with warp ballots and keeps several gathers in flight, summing in fp32 in
 a fixed order.  ``gin_fused_fwd`` gathers a row tile's h + A h the same
 way into shared memory and runs both products on the tensor cores in
 3xTF32.  ``gin_fused_bwd`` is a persistent grid of one block per SM that
-stages the weights once, loops over row tiles, runs its products the same
-way and writes one weight-gradient partial per block, which ``gin_bwd``
-sums with one ``torch.sum``: no atomics, so all three are bitwise
-reproducible on one card.
+stages the weights once and loops over row tiles as a pipeline: two
+warpgroups of producers gather the next tile's z0 and copy its rows of g
+into a two-stage ring in shared memory while two warpgroups of consumers
+run this tile's five products the same way; each block writes one
+weight-gradient partial, which ``gin_bwd`` sums with one ``torch.sum``: no
+atomics, so all three are bitwise reproducible on one card.
+``branch_counts`` counts the backward's row tiles (``tiles``) and those
+whose gather ran under the products of the tile before (``overlapped``),
+from the launch's shapes (``bwd_tiles``).
 
 ``gin_fwd_bf16`` is the JAX package's ``compute_dtype="bfloat16"`` conv:
 h, W1 and W2 arrive in bfloat16 (its GIN casts them), every product takes
@@ -56,6 +61,7 @@ design answers it.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -75,6 +81,9 @@ KERNELS = ("gin_fwd", "gin_fwd_bf16", "gin_bwd", "spmm_self", "spmm",
 
 _lib = None
 _launches = {}
+# gin_bwd's row tiles: "tiles", and "overlapped", those whose gather ran
+# under the products of the tile before (``bwd_tiles``)
+branch_counts: collections.Counter = collections.Counter()
 
 
 def build() -> ctypes.CDLL:
@@ -84,6 +93,13 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib, = load("banded")
+    _lib = bind(lib)
+    return lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give a library built from ``csrc/banded.cu`` its entries' argument
+    and return types."""
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.scgib_banded_spmm.argtypes = [P, P, I, I, P, L, I, P, I, P]
     lib.scgib_gin_fused_fwd.argtypes = [P, P, I, I, P, L, I, P, P, I, P, P,
@@ -97,7 +113,6 @@ def build() -> ctypes.CDLL:
                lib.scgib_gin_fused_fwd_bf16, lib.scgib_gin_fused_bwd_grid,
                lib.scgib_gin_fused_bwd, lib.scgib_kernel_info):
         fn.restype = ctypes.c_int
-    _lib = lib
     return lib
 
 
@@ -316,6 +331,44 @@ def gin_fwd_bf16(blocks, col_off, h, w1, b1, w2, b2):
     return out
 
 
+def bwd_tile_rows(din: int, hid: int, dout: int) -> int:
+    """Rows of a ``gin_fused_bwd`` row tile at these widths, as
+    ``plan_bwd`` in ``csrc/banded.cu`` picks them: two stages of z0 and g
+    in shared memory at every width, so 64 where every width is at most 64
+    and 16 above (up to ``MAX_FUSED_DIM``), where two stages of 32 rows
+    would not fit beside the float weights."""
+    return 64 if max(din, hid, dout) <= 64 else 16
+
+
+def bwd_smem_bytes(din: int, hid: int, dout: int) -> int:
+    """Shared memory of a ``gin_fused_bwd`` block at these widths, as
+    ``bwd_smem_floats`` in ``csrc/banded.cu`` counts it: W1, W2 and b1,
+    two stages of z0 and g, and z1 and gz1, rows padded by 4 floats."""
+    def pow2(v):
+        return next(p for p in (16, 32, 64, 128) if v <= p)
+    dp, hp, op = pow2(din), pow2(hid), -(-dout // 16) * 16
+    mt = bwd_tile_rows(din, hid, dout)
+    return 4 * (dp * (hp + 4) + hp * (op + 4) + hp
+                + mt * (2 * (dp + 4) + 2 * (op + 4) + 2 * (hp + 4)))
+
+
+def bwd_tiles(n: int, din: int, hid: int, dout: int, grid: int):
+    """(tiles, overlapped) of a ``gin_fused_bwd`` launch over ``n`` rows
+    with ``grid`` blocks: its row tiles, and those that had an earlier tile
+    in the same block (every tile but each block's first), whose gather
+    therefore ran under the products of the tile before."""
+    tiles = n // bwd_tile_rows(din, hid, dout)
+    return tiles, tiles - min(grid, tiles)
+
+
+def count_bwd_tiles(n: int, din: int, hid: int, dout: int, grid: int):
+    """Add a ``gin_fused_bwd`` launch's ``bwd_tiles`` to
+    ``branch_counts``."""
+    tiles, overlapped = bwd_tiles(n, din, hid, dout, grid)
+    branch_counts["tiles"] += tiles
+    branch_counts["overlapped"] += overlapped
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_grid(n, din, hid, dout, device_index):
     """Blocks (and so weight-gradient partials) of ``gin_fused_bwd`` for
@@ -351,16 +404,18 @@ def gin_bwd(blocks, col_off, h, g, w1, b1, w2):
         _ptr(w1), _ptr(b1), hid, _ptr(w2), dout, _ptr(gz0), _ptr(part),
         grid, _stream()), "gin_bwd")
     add_launches("gin_bwd")
+    count_bwd_tiles(n, din, hid, dout, grid)
     dw1, db1, dw2, db2 = part.sum(0).split(sizes)
     return gz0, dw1.view(din, hid), db1, dw2.view(hid, dout), db2
 
 
 def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
-    """Registers a thread, shared memory a block and blocks an SM of the
-    kernel that ``spmm`` (width ``din``), ``gin_bwd``, ``gin_fwd`` or
-    ``gin_fwd_bf16`` (``gin_fused_fwd_bf16``) launches; for the last also
-    its ``route``, the instantiation ``gin_route`` names."""
-    info = (ctypes.c_int * 3)()
+    """Registers a thread, shared memory a block, blocks an SM, threads a
+    block and rows a tile (0 for ``banded_spmm``) of the kernel that
+    ``spmm`` (width ``din``), ``gin_bwd``, ``gin_fwd`` or ``gin_fwd_bf16``
+    (``gin_fused_fwd_bf16``) launches; for the last also its ``route``, the
+    instantiation ``gin_route`` names."""
+    info = (ctypes.c_int * 5)()
     _raise_on(build().scgib_kernel_info(
         {"banded_spmm": 0, "gin_fused_bwd": 1, "gin_fused_fwd": 2,
          "gin_fused_fwd_bf16": 3}[kernel],
@@ -368,7 +423,8 @@ def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
     route = ({"route": gin_route(din, hid, dout)}
              if kernel == "gin_fused_fwd_bf16" else {})
     return {**route, "registers": info[0], "smem_bytes": info[1],
-            "blocks_per_sm": info[2]}
+            "blocks_per_sm": info[2], "threads": info[3],
+            "tile_rows": info[4]}
 
 
 def add_launches(name: str, n: int = 1):

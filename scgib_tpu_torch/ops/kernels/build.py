@@ -53,6 +53,15 @@ def _nvcc() -> str:
     return nvcc
 
 
+def nvcc_command(src: Path, out: Path) -> List[str]:
+    """The ``nvcc`` command that builds the library ``out`` from the CUDA
+    source ``src`` (its headers beside it), with its ptxas report on
+    standard error."""
+    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(out), str(src)]
+
+
 def load(*names: str) -> List[ctypes.CDLL]:
     """The loaded libraries of ``csrc/<name>.cu`` for each name, building
     the missing ones in parallel first.  Raises if a build fails."""
@@ -65,11 +74,9 @@ def load(*names: str) -> List[ctypes.CDLL]:
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v", "-o", str(tmp), str(CSRC / f"{name}.cu")]
         pending.append((name, so, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            nvcc_command(CSRC / f"{name}.cu", tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
     failures = []
     for name, so, tmp, proc in pending:
         out, err = proc.communicate()

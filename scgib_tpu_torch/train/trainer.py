@@ -42,7 +42,9 @@ session is open, each call keeps its spans (``utils/profiling.py``):
 input buffers, counted with their bytes; ``.replay``: ``graph.replay()``;
 ``.tally``: the counts' update, with the launches and branches of the
 replay (``launch.<kernel>``, ``encoder.<branch>``, ``pool.<branch>``,
-``recon.<branch>``) and the band width of each of its batches
+``recon.<branch>``, and ``gin_bwd.tiles`` and ``gin_bwd.overlapped``, the
+fused GIN backward's row tiles and those whose gather ran under the
+products of the tile before) and the band width of each of its batches
 (``band_widths``, 0 for a batch on the COO path); ``.outputs``: the clones
 of the outputs, counted); with no session open a call reads no clock and
 keeps nothing.
@@ -354,7 +356,7 @@ class CaptureGuard(TorchDispatchMode):
 _KERNEL_MODULES = (kb, kbn, kg)
 # the branch counters the tally counts, by kind
 _BRANCHES = {"encoder": encoders.branch_counts, "pool": pool.branch_counts,
-             "recon": losses.branch_counts}
+             "recon": losses.branch_counts, "gin_bwd": kb.branch_counts}
 
 
 def _tally() -> Dict[Tuple[str, object], int]:

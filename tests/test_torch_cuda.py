@@ -254,6 +254,59 @@ def test_gin_bwd_matches_plain_at_ragged_shapes(dev, din, width):
             close(a, w, rtol=1e-4)
 
 
+def _long_band(width, n_tiles, seed=0):
+    """[T, 128, width] blocks with ~2% ones and windows starting a quarter
+    of the width before their tile (multiples of 64, the last running past
+    T*128 rows): enough row tiles that every block of ``gin_fused_bwd``
+    walks several."""
+    rng = np.random.default_rng(seed + width)
+    a = (rng.random((n_tiles, 128, width)) < 0.02).astype(np.float32)
+    off = [max(0, 128 * t - width // 4) // 64 * 64 for t in range(n_tiles)]
+    return (torch.from_numpy(a).to(torch.bfloat16),
+            torch.tensor(off, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("din,hid,dout", [(32, 64, 64), (64, 64, 64),
+                                          (9, 64, 40), (96, 128, 96)])
+def test_gin_bwd_pipelined_tiles_match_plain(dev, din, hid, dout):
+    """400 band tiles (51,200 rows): every block of ``gin_fused_bwd``
+    walks several row tiles, its producers gathering tile k while its
+    consumers run the products of tile k - 1, at the narrow plan (64-row
+    tiles) and the wide one (16).  h, W1 and b1 are small integers and
+    halves, which keep z1 exact and never 0 (past ~10^5 rows some random
+    pre-activations lie within rounding of 0, where the 3xTF32 and the
+    float32 ReLU part).  Against the plain version, bitwise equal in two
+    runs, the tiles and the overlapped ones counted, and ``kernel_info``'s
+    rows a tile and shared bytes as the wrapper's mirror of the plan gives
+    them."""
+    blocks, off = (t.to(dev) for t in _long_band(384, 400, seed=2))
+    n = blocks.shape[0] * blocks.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(din + hid)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, device=dev, generator=gen).float()
+    h, w1, b1 = ints(-3, 4, n, din), ints(-2, 3, din, hid), ints(-4, 4, hid)
+    b1 = b1 + 0.5
+    w2 = torch.randn(hid, dout, device=dev, generator=gen) / hid ** 0.5
+    gr = torch.randn(n, dout, device=dev, generator=gen)
+    kb.branch_counts.clear()
+    runs = [kb.gin_bwd(blocks, off, h, gr, w1, b1, w2) for _ in range(2)]
+    for a, w in zip(runs[0], _gin_bwd_reference(blocks, off, h, gr, w1, b1,
+                                                w2)):
+        close(a, w, rtol=1e-4)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    grid = kb._bwd_grid(n, din, hid, dout, h.device.index)
+    tiles = n // kb.bwd_tile_rows(din, hid, dout)
+    assert 2 * grid < tiles
+    assert dict(kb.branch_counts) == {"tiles": 2 * tiles,
+                                      "overlapped": 2 * (tiles - grid)}
+    info = kb.kernel_info("gin_fused_bwd", din, hid, dout)
+    assert info["tile_rows"] == kb.bwd_tile_rows(din, hid, dout)
+    assert info["smem_bytes"] == kb.bwd_smem_bytes(din, hid, dout)
+    assert info["blocks_per_sm"] == 1 and info["threads"] == 512
+    kb.branch_counts.clear()
+
+
 def _gin_fwd_reference(blocks, off, h, w1, b1, w2, b2):
     """``gin_fwd_plain`` over zero-padded windows."""
     z0 = kb.spmm_plain(blocks, off, _zero_padded(h, off, blocks.shape[2])) + h
