@@ -327,7 +327,6 @@ from scgib_tpu_torch.data.loader import (  # noqa: E402
 from scgib_tpu_torch.graph import wire  # noqa: E402
 from scgib_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from scgib_tpu_torch.models import encoders  # noqa: E402
-from scgib_tpu_torch.models import losses as losses_mod  # noqa: E402
 from scgib_tpu_torch.models.scgib import (  # noqa: E402
     DomainAdaptModel, FinetuneModel, PretrainModel, _resolve_band,
     uniform_draws)
@@ -355,6 +354,7 @@ from scgib_tpu_torch.train.trainer import (  # noqa: E402
     adam_l2, finetune_trainable_mask, make_domainadapt_step, make_eval_fn,
     make_finetune_step, make_pretrain_scan_step, make_pretrain_step,
     make_pretrain_superbatch_step, masked_adam, pretrain_step_eager)
+from scgib_tpu_torch.utils import counters  # noqa: E402
 from scgib_tpu_torch.utils.msgpack_codec import unpackb  # noqa: E402
 from scgib_tpu_torch.utils.params import (from_jax_variables,  # noqa: E402
                                           init_flax_style_, sorted_leaves)
@@ -487,12 +487,13 @@ def time_ms(fn, reps=20):
 
 
 def launch_counts():
-    return {**kb.launch_counts(), **kg.launch_counts()}
+    """The banded and attention kernels' launches, 0 where none; the
+    BatchNorm kernels' are ``counters.of("launch", kbn.KERNELS)``."""
+    return counters.of("launch", kb.KERNELS + kg.KERNELS)
 
 
 def reset_launch_counts():
-    kb.reset_launch_counts()
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
 
 
 def bound_ms(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
@@ -1128,7 +1129,7 @@ def stale_inputs(real):
             return real(self, entry, batches, spans)
         graph, _, out, added = entry
         graph.replay()
-        trainer._add_tally(added)
+        counters.add(added)
         return trainer._clone(out)
     return replay
 
@@ -1326,24 +1327,24 @@ def skewed_phase(dev):
     model.to(dev)
     step = make_pretrain_step(model, adam_l2(model, 1e-4, 5e-5))
     reset_launch_counts()
-    pool_mod.branch_counts.clear()
+    counters.reset("pool")
     worst = 0.0
     for i in range(3):
         ref = copy.deepcopy(model).to("cpu", torch.float64).train()
         g64, sub64 = g.to("cpu"), sub.to("cpu")
         g64.node_feat = g64.node_feat.double()
-        before = trainer._tally()
+        before = counters.snapshot()
         with torch.no_grad():
             want = [float(v) for v in ref(g64, sub64)]
-        after = trainer._tally()               # the reference's branches
-        trainer._add_tally({k: n - before.get(k, 0)
-                            for k, n in after.items()}, -1)
+        after = counters.snapshot()          # the reference's branches
+        counters.add({k: n - before.get(k, 0)
+                      for k, n in after.items()}, -1)
         got = [float(v) for v in step(g, sub)]
         if i:
             worst = max(worst, max(abs(a - b) / abs(b)
                                    for a, b in zip(got, want)))
     counts = launch_counts()
-    branches = dict(pool_mod.branch_counts)
+    branches = counters.of("pool")
     rec = {"replay_loss_rel": worst, "pool_branches": branches,
            "pool_launches": counts["pool"], "graphs": len(step.graphs)}
     print(f"skewed batch, captured: {json.dumps(rec)} (tol {MODEL_RTOL})",
@@ -1380,13 +1381,12 @@ def medians_phase(encoder_names=("GIN", "Transformer")):
 def composed_bn_tail():
     """Within: ``MaskedBatchNorm.normalize_relu`` takes its composed ops on
     the card too (the tail before the kernels), for a comparison."""
-    real = kbn._dispatch
-    kbn._dispatch = lambda name, x: name != "masked_bn_relu" and real(name,
-                                                                    x)
+    real = kbn.on_card
+    kbn.on_card = lambda name, x: name != "masked_bn_relu" and real(name, x)
     try:
         yield
     finally:
-        kbn._dispatch = real
+        kbn.on_card = real
 
 
 def bn_launches(dev):
@@ -1397,12 +1397,13 @@ def bn_launches(dev):
     for label, kwargs, steps in (("GIN", {}, 3),
                                  ("Transformer", {"encoder": "Transformer"},
                                   2)):
-        kbn.reset_launch_counts()
+        counters.reset("launch")
         run_pretrain(synthetic=1024, batch_size=128, steps=steps, lr=1e-4,
                      weight_decay=5e-5, device="cuda", log=lambda _: None,
                      **kwargs)
         torch.cuda.synchronize()
-        out[f"{label} pretraining, {steps} steps"] = kbn.launch_counts()
+        out[f"{label} pretraining, {steps} steps"] = counters.of(
+            "launch", kbn.KERNELS)
         want = BN_PER_STEP * steps if label == "GIN" else 0
         if out[f"{label} pretraining, {steps} steps"] != dict.fromkeys(
                 kbn.KERNELS, want):
@@ -1413,14 +1414,14 @@ def bn_launches(dev):
     step = make_finetune_step(model, opt, "bce")
     gen = torch.Generator(device=dev).manual_seed(1)
     step(*batches[0], gen)                    # eager warm-up, capture
-    kbn.reset_launch_counts()
+    counters.reset("launch")
     step(*batches[1], gen)
     torch.cuda.synchronize()
-    out["finetune step"] = kbn.launch_counts()
-    kbn.reset_launch_counts()
+    out["finetune step"] = counters.of("launch", kbn.KERNELS)
+    counters.reset("launch")
     make_eval_fn(model)(*fresh(batches[2], dev), gen)
     torch.cuda.synchronize()
-    out["eval batch"] = kbn.launch_counts()
+    out["eval batch"] = counters.of("launch", kbn.KERNELS)
     if out["eval batch"] != {"bn_stats": 0, "bn_apply": BN_PER_STEP,
                              "bn_grad_stats": 0, "bn_grad_apply": 0}:
         raise AssertionError(f"BatchNorm kernels in an eval batch: {out}")
@@ -1506,17 +1507,15 @@ def peptide_batches(dev, n=3, seed=21):
             batch_iterator(ds, 128, caps, shuffle=False)], caps
 
 
+BRANCHES = ("encoder", "pool", "recon", "gin_bwd")
+
+
 def _branches():
-    return {"encoder": dict(encoders.branch_counts),
-            "pool": dict(pool_mod.branch_counts),
-            "recon": dict(losses_mod.branch_counts),
-            "gin_bwd": dict(kb.branch_counts)}
+    return {kind: counters.of(kind) for kind in BRANCHES}
 
 
 def _clear_branches():
-    for counter in (encoders.branch_counts, pool_mod.branch_counts,
-                    losses_mod.branch_counts, kb.branch_counts):
-        counter.clear()
+    counters.reset(*BRANCHES)
 
 
 def step_bwd_tiles(g, sub, hid=64, d_transfer=32, layers=4):
@@ -1578,12 +1577,12 @@ def other_banded(root):
 def banded_library(lib):
     """Within: ``kb``'s wrappers launch ``lib``'s kernels."""
     saved = kb.build()
-    kb._lib = lib
+    kbuild._bound["banded"] = lib
     kb._bwd_grid.cache_clear()
     try:
         yield
     finally:
-        kb._lib = saved
+        kbuild._bound["banded"] = saved
         kb._bwd_grid.cache_clear()
 
 
@@ -1610,7 +1609,7 @@ def bwd_in_turns(label, batch, dev, gen, other=None, hid=64):
 
         def run():
             return kb.gin_bwd(blocks, col_off, h, gr, w1, b1, w2)
-        kb.branch_counts.clear()
+        counters.reset("gin_bwd")
         got, again = run(), run()
         want = kb.gin_bwd_plain(blocks, col_off, h, gr, w1, b1, w2)
         torch.cuda.synchronize()
@@ -1622,7 +1621,7 @@ def bwd_in_turns(label, batch, dev, gen, other=None, hid=64):
                "bitwise_in_two_runs": all(torch.equal(a, b)
                                           for a, b in zip(got, again)),
                "grid": grid, "tiles": tiles, "overlapped": overlapped,
-               "counted": dict(kb.branch_counts),
+               "counted": counters.of("gin_bwd"),
                "resources": kb.kernel_info("gin_fused_bwd", d, hid, hid)}
         if other is None:
             rec["ms"] = [time_ms(run)]
@@ -1930,14 +1929,13 @@ def main_path(name, kwargs, steps, per_step, band=None):
     attention must take the ``band`` branch (by default the fused GIN
     layer's, or the narrow attention's)."""
     reset_launch_counts()
-    pool_mod.branch_counts.clear()
-    encoders.branch_counts.clear()
+    counters.reset("pool", "encoder")
     records = run_pretrain(synthetic=1024, batch_size=128, steps=steps,
                            lr=1e-4, weight_decay=5e-5, device="cuda",
                            **kwargs)
     torch.cuda.synchronize()
     counts = launch_counts()
-    branches = (dict(pool_mod.branch_counts), dict(encoders.branch_counts))
+    branches = (counters.of("pool"), counters.of("encoder"))
     for rec in records:
         for key in ("kl", "contrastive", "reconstruction"):
             if not math.isfinite(rec[key]):
@@ -1956,7 +1954,7 @@ def main_path(name, kwargs, steps, per_step, band=None):
     band = band or default_band
     if branches != ({"banded": steps}, {band: layers * steps}):
         raise AssertionError(f"{name} left the kernel branches: {branches}")
-    routes = {f"{k} {r}": c for (k, r), c in kg.route_counts().items() if c}
+    routes = {f"{k} {r}": c for (k, r), c in counters.of("route").items()}
     heads = kwargs.get("num_heads", HEADS)
     for kernel in kg.STAGED:
         route = kg.gt_route(kernel, heads, kwargs.get("hidden", 64) // heads)
@@ -2022,15 +2020,14 @@ def verb_run(label, argv):
     """``cli.main(argv)`` with the counts set to 0 before; returns its
     result, the counts and the seconds it took."""
     reset_launch_counts()
-    pool_mod.branch_counts.clear()
-    encoders.branch_counts.clear()
+    counters.reset("pool", "encoder")
     t0 = time.perf_counter()
     out = cli.main(argv)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     print(f"verb {label}: {secs:.2f} s; launches {launch_counts()}; "
-          f"branches {dict(pool_mod.branch_counts)} "
-          f"{dict(encoders.branch_counts)}", flush=True)
+          f"branches {counters.of('pool')} "
+          f"{counters.of('encoder')}", flush=True)
     return out, secs
 
 
@@ -2038,7 +2035,7 @@ def check_verb_counts(label, steps):
     """The launch and branch counts of ``steps`` GIN steps, as
     ``main_path`` checks them."""
     expect_counts(label, GIN_PER_STEP, steps)
-    branches = (dict(pool_mod.branch_counts), dict(encoders.branch_counts))
+    branches = (counters.of("pool"), counters.of("encoder"))
     if branches != ({"banded": steps}, {"band": 8 * steps}):
         raise AssertionError(f"{label} left the kernel branches: {branches}")
 
@@ -2655,8 +2652,7 @@ def dense_phase(dev, ds, caps):
     step = make_pretrain_step(model, adam_l2(model, LR, 5e-5))
     gen = torch.Generator(device=dev).manual_seed(8)
     reset_launch_counts()
-    pool_mod.branch_counts.clear()
-    encoders.branch_counts.clear()
+    counters.reset("pool", "encoder")
     times, steps = [], []
     for g, _, dense in batches:
         t0 = time.perf_counter()
@@ -2665,7 +2661,7 @@ def dense_phase(dev, ds, caps):
         times.append((time.perf_counter() - t0) * 1e3)
         steps.append([float(v) for v in out])
     counts = expect_counts("dense mode", DENSE_PER_STEP, DENSE_STEPS)
-    branches = (dict(pool_mod.branch_counts), dict(encoders.branch_counts))
+    branches = (counters.of("pool"), counters.of("encoder"))
     rec = {"s_max": s_max, "losses": losses, "loss_rel": loss_rel,
            "steps": steps, "step_ms_median": statistics.median(times[1:]),
            "launches": counts, "branches": branches,
@@ -3815,14 +3811,14 @@ def remat_run(dev, batch, remat, measured):
     gen = torch.Generator(device=dev).manual_seed(12)
     step = make_pretrain_step(model, opt, remat=remat)
     reset_launch_counts()
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     with (contextlib.nullcontext() if measured else deterministic()):
         losses = [step(*batch, gen) for _ in range(REMAT_STEPS)]
     torch.cuda.synchronize()
     counts = {k: n for k, n in launch_counts().items() if n}
     rec = {"launches_a_step": {k: n / REMAT_STEPS for k, n in counts.items()},
            "branches_a_step": {k: n / REMAT_STEPS
-                               for k, n in encoders.branch_counts.items()}}
+                               for k, n in counters.of("encoder").items()}}
     if measured:
         rec["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
         rec["call_ms"] = call_median(step, batch, gen)

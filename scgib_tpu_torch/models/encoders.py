@@ -50,13 +50,12 @@ dense [C, S, S] adjacency; the aggregation is one batched product, as the
 JAX package's ``jnp.einsum`` (no Pallas kernel there).
 
 A batch that does not fit the band takes the COO gather + segment-sum path;
-``branch_counts`` records which path each conv or attention took (for the
-transformer, with the band's geometry).
+Each conv or attention counts the path it took (kind ``encoder`` in
+``utils/counters.py``; for the transformer, with the band's geometry).
 """
 
 from __future__ import annotations
 
-import collections
 import math
 from typing import Callable, Optional, Tuple
 
@@ -71,9 +70,8 @@ from ..ops.segment import (segment_count, segment_normalize_exp,
                            segment_sum)
 from ..ops.spmm import (gather_mean, gather_sum, gcn_degree_norms,
                         gcn_norm_sum, sddmm_dot)
+from ..utils import counters
 from .layers import MLP2, MaskedBatchNorm, _mask_rows
-
-branch_counts: collections.Counter = collections.Counter()
 
 
 class GIN(nn.Module):
@@ -103,17 +101,17 @@ class GIN(nn.Module):
             fused = max(mlp.Dense_0.in_features, mlp.Dense_0.out_features,
                         mlp.Dense_1.out_features) <= MAX_FUSED_DIM
             if band is not None and fused:
-                branch_counts["band"] += 1
+                counters.tick("encoder", "band")
                 x, w1, w2 = h, mlp.Dense_0.weight.t(), mlp.Dense_1.weight.t()
                 if self.compute_dtype == "bfloat16":
                     x, w1, w2 = (t.to(torch.bfloat16) for t in (x, w1, w2))
                 h = gin_banded_layer(band[0], band[1], x, w1,
                                      mlp.Dense_0.bias, w2, mlp.Dense_1.bias)
             elif band is not None:
-                branch_counts["band_spmm"] += 1
+                counters.tick("encoder", "band_spmm")
                 h = mlp(h + spmm_banded_fast(band[0], band[1], h))
             else:
-                branch_counts["coo"] += 1
+                counters.tick("encoder", "coo")
                 h = mlp(h + gather_sum(h, senders, receivers, n, edge_mask))
             h = getattr(self, f"bn{i}").normalize_relu(h, node_mask)
         return h
@@ -138,13 +136,13 @@ class GCN(nn.Module):
                                                   edge_mask)
 
             def agg(x):
-                branch_counts["gcn_band"] += 1
+                counters.tick("encoder", "gcn_band")
                 return spmm_banded_fast(band[0], band[1],
                                         x * src_norm[:, None]
                                         ) * dst_norm[:, None]
         else:
             def agg(x):
-                branch_counts["gcn_coo"] += 1
+                counters.tick("encoder", "gcn_coo")
                 return gcn_norm_sum(x, senders, receivers, n, edge_mask)
         for i in range(3):
             h = getattr(self, f"conv{i}")(agg(h))
@@ -178,11 +176,11 @@ class GraphSAGE(nn.Module):
                                           mask=edge_mask).clamp_min(1.0)
 
             def mean(x):
-                branch_counts["sage_band"] += 1
+                counters.tick("encoder", "sage_band")
                 return spmm_banded_fast(band[0], band[1], x) * inv_deg[:, None]
         else:
             def mean(x):
-                branch_counts["sage_coo"] += 1
+                counters.tick("encoder", "sage_coo")
                 return gather_mean(x, senders, receivers, n, edge_mask)
 
         def conv(i, x):
@@ -284,11 +282,12 @@ class GraphTransformerLayer(nn.Module):
         q, k, v = (part.reshape(n, self.num_heads, hd)
                    for part in _dense(self.qkv, h, dt).split(d, dim=1))
         if band is not None:
-            branch_counts["gt_band_{}x{}".format(*band[0].shape[1:])] += 1
+            counters.tick("encoder",
+                          "gt_band_{}x{}".format(*band[0].shape[1:]))
             attn = gt_flash_attention(band[0], band[1], q, k, v, bwd=self.bwd,
                                       bf16_dots=self.bf16_dots)
         else:
-            branch_counts["gt_coo"] += 1
+            counters.tick("encoder", "gt_coo")
             score = sddmm_dot(k, q, senders, receivers) / math.sqrt(hd)
             w = segment_normalize_exp(score, receivers, n, mask=edge_mask)
             attn = segment_sum(v[senders] * w[:, :, None], receivers, n,

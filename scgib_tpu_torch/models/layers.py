@@ -99,7 +99,7 @@ class MaskedBatchNorm(nn.Module):
         the CPU those composed ops (the plain version); on the card
         ``masked_bn_relu``'s kernels, with the same statistics, running
         updates and gradients."""
-        if not kbn._dispatch("masked_bn_relu", x):
+        if not kbn.on_card("masked_bn_relu", x):
             return _mask_rows(torch.relu(self(x, mask)), mask)
         return kbn.masked_bn_relu(
             x, mask, self.scale, self.bias, self.mean, self.var,

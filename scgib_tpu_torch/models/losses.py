@@ -16,13 +16,13 @@ contrastive denominator spans the union batch (its columns gathered), and
 so does the reconstruction's gram.  ``contrastive_infonce_replicated`` is
 the node-sharded path's InfoNCE (``parallel/sharded_scgib.py``): readouts
 the same on every rank, each rank adding the terms of the graphs it owns.
-``branch_counts`` records which path the gram reconstruction's edge cross
-term took: ``band`` (the banded product) or ``coo`` (the edge gather).
+The gram reconstruction counts which path its edge cross term took (kind
+``recon`` in ``utils/counters.py``): ``band`` (the banded product) or
+``coo`` (the edge gather).
 """
 
 from __future__ import annotations
 
-import collections
 from typing import Optional
 
 import torch
@@ -30,8 +30,7 @@ import torch.distributed as dist
 
 from ..ops.kernels.banded import spmm_banded_fast
 from ..parallel.collectives import all_gather, all_reduce_sum
-
-branch_counts: collections.Counter = collections.Counter()
+from ..utils import counters
 
 
 def l2_normalize(x: torch.Tensor, dim: int = -1,
@@ -146,10 +145,10 @@ def recon_adj_loss(interaction_map: torch.Tensor, senders: torch.Tensor,
         raise ValueError(f"unknown recon impl {impl!r}")
     gram = im.T @ im
     if band is not None:
-        branch_counts["band"] += 1
+        counters.tick("recon", "band")
         cross = (im * spmm_banded_fast(band[0], band[1], im)).sum()
     else:
-        branch_counts["coo"] += 1
+        counters.tick("recon", "coo")
         cross = ((im[senders] * im[receivers]).sum(-1) * em).sum()
     other = gram if group is None else all_reduce_sum(gram, group)
     total = (gram * other).sum() - 2.0 * cross + em.sum()

@@ -21,10 +21,10 @@ the W-wide row in segments whatever W is.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting each launch that
-succeeded (``launch_counts``); anything else raises, a blocks
-tensor that is not 16-byte aligned included, and for ``spmm``,
-``spmm_self``, ``pool`` and ``gin_bwd`` a feature tensor that is not
-(``gin_fwd`` copies it).  The kernels are built from the repo's sources
+succeeded (kind ``launch`` in ``utils/counters.py``); anything else
+raises, a blocks tensor that is not 16-byte aligned included, and for
+``spmm``, ``spmm_self``, ``pool`` and ``gin_bwd`` a feature tensor that
+is not (``gin_fwd`` copies it).  The kernels are built from the repo's sources
 with ``nvcc`` into ``scgib_tpu_torch/_build/`` at first use and loaded
 with ``ctypes``.
 
@@ -40,7 +40,7 @@ into a two-stage ring in shared memory while two warpgroups of consumers
 run this tile's five products the same way; each block writes one
 weight-gradient partial, which ``gin_bwd`` sums with one ``torch.sum``: no
 atomics, so all three are bitwise reproducible on one card.
-``branch_counts`` counts the backward's row tiles (``tiles``) and those
+``count_bwd_tiles`` counts the backward's row tiles (``tiles``) and those
 whose gather ran under the products of the tile before (``overlapped``),
 from the launch's shapes (``bwd_tiles``).
 
@@ -61,14 +61,14 @@ design answers it.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
 import torch
 
+from ...utils import counters
 from ..spmm_banded import _banded_spmm_impl
-from .build import load
+from .build import library, on_card, ptr, raise_on, stream
 
 TILE = 128
 BAND_MULTIPLE = 32   # band widths the kernels take
@@ -79,22 +79,11 @@ ALIGN = 16           # bytes: the kernels read blocks and x in 16-byte
 KERNELS = ("gin_fwd", "gin_fwd_bf16", "gin_bwd", "spmm_self", "spmm",
            "pool")
 
-_lib = None
-_launches = {}
-# gin_bwd's row tiles: "tiles", and "overlapped", those whose gather ran
-# under the products of the tile before (``bwd_tiles``)
-branch_counts: collections.Counter = collections.Counter()
-
 
 def build() -> ctypes.CDLL:
     """Compile ``csrc/banded.cu`` for sm_90a (once per source hash, see
     ``build.py``) and load it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib, = load("banded")
-    _lib = bind(lib)
-    return lib
+    return library("banded", bind)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -114,19 +103,6 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.scgib_gin_fused_bwd, lib.scgib_kernel_info):
         fn.restype = ctypes.c_int
     return lib
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
 def _band_args(blocks, col_off, x, name, copy=False, dtype=torch.float32):
@@ -159,16 +135,6 @@ def _band_args(blocks, col_off, x, name, copy=False, dtype=torch.float32):
     return blocks, col_off.to(torch.int64).contiguous(), x
 
 
-def _dispatch(name: str, x: torch.Tensor) -> bool:
-    """True: launch the kernel (CUDA tensor).  False: plain version (CPU
-    tensor).  Raises for any other device."""
-    if x.is_cuda:
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: unsupported device {x.device}")
-
-
 # --- banded SpMM: wrappers #3, #4, #5 ---------------------------------------
 
 def _launch_spmm(blocks, col_off, x, add_self: bool, name: str):
@@ -178,9 +144,9 @@ def _launch_spmm(blocks, col_off, x, add_self: bool, name: str):
         raise ValueError(f"{name}: x + A x needs T*{TILE} rows")
     out = torch.empty((n_tiles * TILE, x.shape[1]), dtype=torch.float32,
                       device=x.device)
-    _raise_on(build().scgib_banded_spmm(
-        _ptr(blocks), _ptr(col_off), n_tiles, width, _ptr(x), x.shape[0],
-        x.shape[1], _ptr(out), int(add_self), _stream()), name)
+    raise_on(build().scgib_banded_spmm(
+        ptr(blocks), ptr(col_off), n_tiles, width, ptr(x), x.shape[0],
+        x.shape[1], ptr(out), int(add_self), stream()), name)
     return out
 
 
@@ -194,19 +160,19 @@ def spmm_self_plain(blocks, col_off, x):
 
 def spmm(blocks, col_off, x):
     """``A x`` (replaces ``_spmm_kernel``)."""
-    if not _dispatch("spmm", x):
+    if not on_card("spmm", x):
         return spmm_plain(blocks, col_off, x)
     out = _launch_spmm(blocks, col_off, x, False, "spmm")
-    add_launches("spmm")
+    counters.tick("launch", "spmm")
     return out
 
 
 def spmm_self(blocks, col_off, x):
     """``x + A x`` (replaces ``_spmm_self_kernel``)."""
-    if not _dispatch("spmm_self", x):
+    if not on_card("spmm_self", x):
         return spmm_self_plain(blocks, col_off, x)
     out = _launch_spmm(blocks, col_off, x, True, "spmm_self")
-    add_launches("spmm_self")
+    counters.tick("launch", "spmm_self")
     return out
 
 
@@ -214,10 +180,10 @@ def pool(blocks, col_off, data):
     """[T, 128, W] 0/1 blocks x windows of [S, d] -> [T*128, d] (replaces
     ``_pool_kernel``; fp32 FMA on the 0/1 operand is the exact sum that the
     TPU reached with a hi/lo bf16 split)."""
-    if not _dispatch("pool", data):
+    if not on_card("pool", data):
         return spmm_plain(blocks, col_off, data)
     out = _launch_spmm(blocks, col_off, data, False, "pool")
-    add_launches("pool")
+    counters.tick("launch", "pool")
     return out
 
 
@@ -270,7 +236,7 @@ def _fused_dims(h, w1, w2, name):
 def gin_fwd(blocks, col_off, h, w1, b1, w2, b2):
     """Fused pre-BN GIN conv (replaces ``_kernel``).  w1 [d_in, H],
     w2 [H, d_out] as in the JAX package."""
-    if not _dispatch("gin_fwd", h):
+    if not on_card("gin_fwd", h):
         return gin_fwd_plain(blocks, col_off, h, w1, b1, w2, b2)
     blocks, col_off, h = _band_args(blocks, col_off, h, "gin_fwd",
                                     copy=True)
@@ -281,11 +247,11 @@ def gin_fwd(blocks, col_off, h, w1, b1, w2, b2):
     w1, b1, w2, b2 = (t.float().contiguous() for t in (w1, b1, w2, b2))
     out = torch.empty((h.shape[0], dout), dtype=torch.float32,
                       device=h.device)
-    _raise_on(build().scgib_gin_fused_fwd(
-        _ptr(blocks), _ptr(col_off), n_tiles, width, _ptr(h), h.shape[0],
-        din, _ptr(w1), _ptr(b1), hid, _ptr(w2), _ptr(b2), dout, _ptr(out),
-        _stream()), "gin_fwd")
-    add_launches("gin_fwd")
+    raise_on(build().scgib_gin_fused_fwd(
+        ptr(blocks), ptr(col_off), n_tiles, width, ptr(h), h.shape[0],
+        din, ptr(w1), ptr(b1), hid, ptr(w2), ptr(b2), dout, ptr(out),
+        stream()), "gin_fwd")
+    counters.tick("launch", "gin_fwd")
     return out
 
 
@@ -309,7 +275,7 @@ def gin_route(din: int, hid: int, dout: int) -> str:
 def gin_fwd_bf16(blocks, col_off, h, w1, b1, w2, b2):
     """The fused conv with bf16 operands (replaces ``_kernel`` in its bf16
     mode): h, w1 and w2 bfloat16, b1 and b2 float32; the output float32."""
-    if not _dispatch("gin_fwd_bf16", h):
+    if not on_card("gin_fwd_bf16", h):
         return gin_fwd_bf16_plain(blocks, col_off, h, w1, b1, w2, b2)
     blocks, col_off, h = _band_args(blocks, col_off, h, "gin_fwd_bf16",
                                     copy=True, dtype=torch.bfloat16)
@@ -323,11 +289,11 @@ def gin_fwd_bf16(blocks, col_off, h, w1, b1, w2, b2):
     b1, b2 = (t.float().contiguous() for t in (b1, b2))
     out = torch.empty((h.shape[0], dout), dtype=torch.float32,
                       device=h.device)
-    _raise_on(build().scgib_gin_fused_fwd_bf16(
-        _ptr(blocks), _ptr(col_off), n_tiles, width, _ptr(h), h.shape[0],
-        din, _ptr(w1), _ptr(b1), hid, _ptr(w2), _ptr(b2), dout, _ptr(out),
-        _stream()), "gin_fwd_bf16")
-    add_launches("gin_fwd_bf16")
+    raise_on(build().scgib_gin_fused_fwd_bf16(
+        ptr(blocks), ptr(col_off), n_tiles, width, ptr(h), h.shape[0],
+        din, ptr(w1), ptr(b1), hid, ptr(w2), ptr(b2), dout, ptr(out),
+        stream()), "gin_fwd_bf16")
+    counters.tick("launch", "gin_fwd_bf16")
     return out
 
 
@@ -362,11 +328,11 @@ def bwd_tiles(n: int, din: int, hid: int, dout: int, grid: int):
 
 
 def count_bwd_tiles(n: int, din: int, hid: int, dout: int, grid: int):
-    """Add a ``gin_fused_bwd`` launch's ``bwd_tiles`` to
-    ``branch_counts``."""
+    """Count a ``gin_fused_bwd`` launch's ``bwd_tiles`` (kind
+    ``gin_bwd``)."""
     tiles, overlapped = bwd_tiles(n, din, hid, dout, grid)
-    branch_counts["tiles"] += tiles
-    branch_counts["overlapped"] += overlapped
+    counters.tick("gin_bwd", "tiles", tiles)
+    counters.tick("gin_bwd", "overlapped", overlapped)
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,8 +340,8 @@ def _bwd_grid(n, din, hid, dout, device_index):
     """Blocks (and so weight-gradient partials) of ``gin_fused_bwd`` for
     these shapes on the current device."""
     grid = ctypes.c_int(0)
-    _raise_on(build().scgib_gin_fused_bwd_grid(n, din, hid, dout,
-                                               ctypes.byref(grid)), "gin_bwd")
+    raise_on(build().scgib_gin_fused_bwd_grid(n, din, hid, dout,
+                                              ctypes.byref(grid)), "gin_bwd")
     return grid.value
 
 
@@ -384,7 +350,7 @@ def gin_bwd(blocks, col_off, h, g, w1, b1, w2):
     return (gz0, dW1, db1, dW2, db2).  The kernel writes one weight-gradient
     partial per block (a few hundred at most); one ``torch.sum`` adds them
     in a fixed order."""
-    if not _dispatch("gin_bwd", h):
+    if not on_card("gin_bwd", h):
         return gin_bwd_plain(blocks, col_off, h, g, w1, b1, w2)
     blocks, col_off, h = _band_args(blocks, col_off, h, "gin_bwd")
     din, hid, dout = _fused_dims(h, w1, w2, "gin_bwd")
@@ -399,11 +365,11 @@ def gin_bwd(blocks, col_off, h, g, w1, b1, w2):
     gz0 = torch.empty((n, din), dtype=torch.float32, device=h.device)
     part = torch.empty((grid, sum(sizes)), dtype=torch.float32,
                        device=h.device)
-    _raise_on(build().scgib_gin_fused_bwd(
-        _ptr(blocks), _ptr(col_off), width, _ptr(h), n, din, _ptr(g),
-        _ptr(w1), _ptr(b1), hid, _ptr(w2), dout, _ptr(gz0), _ptr(part),
-        grid, _stream()), "gin_bwd")
-    add_launches("gin_bwd")
+    raise_on(build().scgib_gin_fused_bwd(
+        ptr(blocks), ptr(col_off), width, ptr(h), n, din, ptr(g),
+        ptr(w1), ptr(b1), hid, ptr(w2), dout, ptr(gz0), ptr(part),
+        grid, stream()), "gin_bwd")
+    counters.tick("launch", "gin_bwd")
     count_bwd_tiles(n, din, hid, dout, grid)
     dw1, db1, dw2, db2 = part.sum(0).split(sizes)
     return gz0, dw1.view(din, hid), db1, dw2.view(hid, dout), db2
@@ -416,7 +382,7 @@ def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
     (``gin_fused_fwd_bf16``) launches; for the last also its ``route``, the
     instantiation ``gin_route`` names."""
     info = (ctypes.c_int * 5)()
-    _raise_on(build().scgib_kernel_info(
+    raise_on(build().scgib_kernel_info(
         {"banded_spmm": 0, "gin_fused_bwd": 1, "gin_fused_fwd": 2,
          "gin_fused_fwd_bf16": 3}[kernel],
         din, hid, dout, info), kernel)
@@ -425,22 +391,6 @@ def kernel_info(kernel: str, din: int, hid: int = 0, dout: int = 0) -> dict:
     return {**route, "registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2], "threads": info[3],
             "tile_rows": info[4]}
-
-
-def add_launches(name: str, n: int = 1):
-    """Add ``n`` to the launch count of ``name``, one of ``KERNELS``."""
-    _launches[name] += n
-
-
-def launch_counts() -> dict:
-    return dict(_launches)
-
-
-def reset_launch_counts():
-    _launches.update(dict.fromkeys(KERNELS, 0))
-
-
-reset_launch_counts()
 
 
 # --- autograd ---------------------------------------------------------------

@@ -21,10 +21,10 @@ is what a GIN step's CUDA graph was mostly made of.  Four CUDA kernels in
 
 Each wrapper takes its plain PyTorch version (``*_plain``: the same
 formulas, sums in float64) for a CPU tensor and launches its kernel for a
-CUDA tensor, counting each launch that succeeded (``launch_counts``);
-anything else raises, a feature tensor that is not float32 included.  The
-kernels are built from ``csrc/batchnorm.cu`` with ``nvcc`` at first use
-(``build.py``) and loaded with ``ctypes``.
+CUDA tensor, counting each launch that succeeded (kind ``launch`` in
+``utils/counters.py``); anything else raises, a feature tensor that is not
+float32 included.  The kernels are built from ``csrc/batchnorm.cu`` with
+``nvcc`` at first use (``build.py``) and loaded with ``ctypes``.
 
 ``masked_bn_relu`` is the autograd function over the four.  With a sync-BN
 ``group`` the totals are all-reduced between ``bn_stats`` and
@@ -44,22 +44,22 @@ import functools
 import torch
 
 from ...parallel.collectives import all_reduce_sum
-from .build import load
+from ...utils import counters
+from .build import library, on_card, ptr, raise_on, stream
 
 KERNELS = ("bn_stats", "bn_apply", "bn_grad_stats", "bn_grad_apply")
 STATS = ("a", "c", "mean", "rsqrt", "passed")   # rows of ``stats``
-
-_lib = None
-_launches = {}
 
 
 def build() -> ctypes.CDLL:
     """Compile ``csrc/batchnorm.cu`` for sm_90a (once per source hash, see
     ``build.py``) and load it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib, = load("batchnorm")
+    return library("batchnorm", bind)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give a library built from ``csrc/batchnorm.cu`` its entries'
+    argument and return types."""
     P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_double)
     lib.scgib_bn_partials.argtypes = [L, I, P]
@@ -74,31 +74,7 @@ def build() -> ctypes.CDLL:
                lib.scgib_bn_grad_stats, lib.scgib_bn_grad_apply,
                lib.scgib_bn_kernel_info):
         fn.restype = ctypes.c_int
-    _lib = lib
     return lib
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(err: int, name: str):
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA error {err} at launch")
-
-
-def _dispatch(name: str, x: torch.Tensor) -> bool:
-    """True: launch the kernel (CUDA tensor).  False: plain version (CPU
-    tensor).  Raises for any other device."""
-    if x.is_cuda:
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 def _rows(x: torch.Tensor, name: str) -> torch.Tensor:
@@ -131,8 +107,8 @@ def _vector(t, f, name, what):
 @functools.lru_cache(maxsize=None)
 def _partials(n: int, f: int) -> int:
     doubles = ctypes.c_longlong(0)
-    _raise_on(build().scgib_bn_partials(n, f, ctypes.byref(doubles)),
-              "bn_partials")
+    raise_on(build().scgib_bn_partials(n, f, ctypes.byref(doubles)),
+             "bn_partials")
     return doubles.value
 
 
@@ -215,16 +191,16 @@ def bn_grad_apply_plain(dy, x, mask, stats, terms):
 
 def bn_stats(x, mask):
     """Kernel 1: totals [S1 | S2 | count], float64 [2F + 1]."""
-    if not _dispatch("bn_stats", x):
+    if not on_card("bn_stats", x):
         return bn_stats_plain(x, mask)
     x = _rows(x, "bn_stats")
     mask = _mask(mask, x, "bn_stats")
     n, f = x.shape
     part = torch.empty(_partials(n, f), dtype=torch.float64, device=x.device)
     totals = torch.empty(2 * f + 1, dtype=torch.float64, device=x.device)
-    _raise_on(build().scgib_bn_stats(_ptr(x), _ptr(mask), n, f, _ptr(part),
-                                     _ptr(totals), _stream()), "bn_stats")
-    add_launches("bn_stats")
+    raise_on(build().scgib_bn_stats(ptr(x), ptr(mask), n, f, ptr(part),
+                                    ptr(totals), stream()), "bn_stats")
+    counters.tick("launch", "bn_stats")
     return totals
 
 
@@ -232,7 +208,7 @@ def bn_apply(x, mask, totals, scale, bias, run_mean, run_var, update=False,
              momentum=0.1, eps=1e-5):
     """Kernel 2: (y, stats [5, F]); ``totals`` None is eval mode.  With
     ``update`` the running statistics move in place."""
-    if not _dispatch("bn_apply", x):
+    if not on_card("bn_apply", x):
         return bn_apply_plain(x, mask, totals, scale, bias, run_mean,
                               run_var, update, momentum, eps)
     x = _rows(x, "bn_apply")
@@ -247,18 +223,18 @@ def bn_apply(x, mask, totals, scale, bias, run_mean, run_var, update=False,
     stats = torch.empty((len(STATS), f), dtype=torch.float32,
                         device=x.device)
     update = int(bool(update and totals is not None))
-    _raise_on(build().scgib_bn_apply(
-        _ptr(x), _ptr(mask), n, f, _ptr(totals), _ptr(scale), _ptr(bias),
-        _ptr(run_mean), _ptr(run_var), update, momentum, eps, _ptr(y),
-        _ptr(stats), _stream()), "bn_apply")
-    add_launches("bn_apply")
+    raise_on(build().scgib_bn_apply(
+        ptr(x), ptr(mask), n, f, ptr(totals), ptr(scale), ptr(bias),
+        ptr(run_mean), ptr(run_var), update, momentum, eps, ptr(y),
+        ptr(stats), stream()), "bn_apply")
+    counters.tick("launch", "bn_apply")
     return y, stats
 
 
 def bn_grad_stats(dy, x, mask, stats, totals, scale):
     """Kernel 3: (dscale, dbias, terms [dS1 | dS2]); ``totals`` None is
     eval mode (terms 0)."""
-    if not _dispatch("bn_grad_stats", x):
+    if not on_card("bn_grad_stats", x):
         return bn_grad_stats_plain(dy, x, mask, stats, totals, scale)
     x, dy = _rows(x, "bn_grad_stats"), _rows(dy, "bn_grad_stats")
     mask = _mask(mask, x, "bn_grad_stats")
@@ -266,27 +242,27 @@ def bn_grad_stats(dy, x, mask, stats, totals, scale):
     part = torch.empty(_partials(n, f), dtype=torch.float64, device=x.device)
     out = torch.empty(4 * f, dtype=torch.float32, device=x.device)
     dscale, dbias, terms = out.split((f, f, 2 * f))
-    _raise_on(build().scgib_bn_grad_stats(
-        _ptr(dy), _ptr(x), _ptr(mask), n, f, _ptr(stats), _ptr(totals),
-        _ptr(scale), _ptr(part), _ptr(dscale), _ptr(dbias), _ptr(terms),
-        _stream()), "bn_grad_stats")
-    add_launches("bn_grad_stats")
+    raise_on(build().scgib_bn_grad_stats(
+        ptr(dy), ptr(x), ptr(mask), n, f, ptr(stats), ptr(totals),
+        ptr(scale), ptr(part), ptr(dscale), ptr(dbias), ptr(terms),
+        stream()), "bn_grad_stats")
+    counters.tick("launch", "bn_grad_stats")
     return dscale, dbias, terms
 
 
 def bn_grad_apply(dy, x, mask, stats, terms):
     """Kernel 4: dx."""
-    if not _dispatch("bn_grad_apply", x):
+    if not on_card("bn_grad_apply", x):
         return bn_grad_apply_plain(dy, x, mask, stats, terms)
     x, dy = _rows(x, "bn_grad_apply"), _rows(dy, "bn_grad_apply")
     mask = _mask(mask, x, "bn_grad_apply")
     n, f = x.shape
     terms = terms.contiguous()
     dx = torch.empty_like(x)
-    _raise_on(build().scgib_bn_grad_apply(
-        _ptr(dy), _ptr(x), _ptr(mask), n, f, _ptr(stats), _ptr(terms),
-        _ptr(dx), _stream()), "bn_grad_apply")
-    add_launches("bn_grad_apply")
+    raise_on(build().scgib_bn_grad_apply(
+        ptr(dy), ptr(x), ptr(mask), n, f, ptr(stats), ptr(terms),
+        ptr(dx), stream()), "bn_grad_apply")
+    counters.tick("launch", "bn_grad_apply")
     return dx
 
 
@@ -294,26 +270,10 @@ def kernel_info(kernel: str, n: int, f: int) -> dict:
     """Registers a thread, static shared memory a block, blocks an SM and
     the grid of the kernel (one of ``KERNELS``) at n rows of width f."""
     info = (ctypes.c_int * 5)()
-    _raise_on(build().scgib_bn_kernel_info(KERNELS.index(kernel), n, f,
-                                           info), kernel)
+    raise_on(build().scgib_bn_kernel_info(KERNELS.index(kernel), n, f,
+                                          info), kernel)
     return {"registers": info[0], "smem_bytes": info[1],
             "blocks_per_sm": info[2], "grid": [info[3], info[4]]}
-
-
-def add_launches(name: str, n: int = 1):
-    """Add ``n`` to the launch count of ``name``, one of ``KERNELS``."""
-    _launches[name] += n
-
-
-def launch_counts() -> dict:
-    return dict(_launches)
-
-
-def reset_launch_counts():
-    _launches.update(dict.fromkeys(KERNELS, 0))
-
-
-reset_launch_counts()
 
 
 # --- autograd ---------------------------------------------------------------

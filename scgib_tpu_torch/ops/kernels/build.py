@@ -10,6 +10,12 @@ them together.  Each build's ``-Xptxas -v`` report (registers, shared
 memory and spills per kernel) is kept beside its library, so a library
 built earlier still has it: ``logs`` holds the report of every library
 loaded, and ``ptxas_report`` reads it kernel by kernel.
+
+``library`` is what the kernel wrappers call: the loaded library with its
+entries' argument types bound once.  ``ptr``, ``stream``, ``raise_on`` and
+``on_card`` are the wrappers' ctypes plumbing: a tensor's address, the
+current stream, a launch's error code raised, and which version a tensor's
+device takes.
 """
 
 from __future__ import annotations
@@ -21,13 +27,16 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_bound: Dict[str, ctypes.CDLL] = {}      # ``library``'s, bound once
 logs: Dict[str, str] = {}
 
 
@@ -97,6 +106,43 @@ def load(*names: str) -> List[ctypes.CDLL]:
             _libs[name] = ctypes.CDLL(str(so))
             logs[name] = _log_path(so).read_text()
     return [_libs[name] for name in names]
+
+
+def library(name: str, bind: Callable[[ctypes.CDLL], ctypes.CDLL]
+            ) -> ctypes.CDLL:
+    """``load(name)``'s library, given its entries' argument and return
+    types by ``bind`` the first time, and that same object after (a later
+    ``load`` that makes a new one leaves it as it is)."""
+    lib = _bound.get(name)
+    if lib is None:
+        lib = _bound[name] = bind(load(name)[0])
+    return lib
+
+
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """The tensor's device address (NULL for None)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    """The current CUDA stream, which every launch takes."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def raise_on(err: int, name: str):
+    """Raise for a launch of ``name`` that returned CUDA error ``err``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def on_card(name: str, x: torch.Tensor) -> bool:
+    """True: ``name`` launches its kernel (CUDA tensor).  False: its plain
+    version (CPU tensor).  Raises for any other device."""
+    if x.is_cuda:
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:

@@ -15,7 +15,8 @@ TPU; here False by default): every wrapper then launches its kernel's
 bf16-dot instantiation, which rounds both operands of every product to
 bfloat16 and accumulates in float32 (the TPU's bf16 multiplicands), and
 counts those launches as ``gt_fwd_bf16``, ``gt_bwd_rows_bf16``,
-``gt_bwd_cols_bf16`` and ``gt_bwd_merged_bf16`` in ``launch_counts``.
+``gt_bwd_cols_bf16`` and ``gt_bwd_merged_bf16`` (kind ``launch`` in
+``utils/counters.py``).
 ``gt_flash_attention(bwd="merged", bf16_dots=True)`` is the JAX package's
 own configuration on a TPU (``_bwd_merged_kernel`` with ``bf16=True``).
 
@@ -27,12 +28,12 @@ heads, with the tile's window of k and v, its q (and g) rows and its gate
 rows copied into shared memory) wherever a block's staged bytes fit its
 shared memory, and the lane-group kernel of every other wrapper elsewhere
 (wide heads, or the wide geometry at large widths).  Both routes count
-their launches under the wrapper's name; ``route_counts`` splits them by
-route.  A launch failure on either raises.
+their launches under the wrapper's name, and kind ``route`` splits them by
+route, as (wrapper, route).  A launch failure on either raises.
 
 Each wrapper takes its plain PyTorch version (``*_plain``) for a CPU tensor and
 launches its kernel for a CUDA tensor, counting each launch that succeeded
-(``launch_counts``); anything else raises.  The kernels compute in
+(kind ``launch``); anything else raises.  The kernels compute in
 float32 and take any banded geometry [T, tile, band] with band a multiple of 32
 up to 256 (the narrow (64, 128) and the wide (128, 256) ones) and a head width
 hd in ``HEAD_WIDTHS`` (powers of two up to 512) or a multiple of ``SWEEP``
@@ -66,9 +67,11 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils import counters
 from ..spmm_banded import gt_scores, gt_windows
-from .banded import ALIGN, _bf16, _dispatch, _ptr, _raise_on, _stream
-from .build import load, ptxas_report as _ptxas_report
+from .banded import ALIGN, _bf16
+from .build import library, on_card, ptr, raise_on, stream
+from .build import ptxas_report as _ptxas_report
 
 # the wrappers, and their bf16-dot modes, by their launch counts' names
 KERNELS = ("gt_fwd", "gt_bwd_rows", "gt_bwd_cols", "gt_bwd_merged",
@@ -98,18 +101,15 @@ SWEEP = 512
 MAX_BAND = 256
 BWD = ("twopass", "merged")
 
-_lib = None
-_launches = {}
-_route_launches = {}
-
-
 def build() -> ctypes.CDLL:
     """Compile ``csrc/gt_flash.cu`` for sm_90a (once per source hash, see
     ``build.py``) and load it."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib, = load("gt_flash")
+    return library("gt_flash", bind)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Give a library built from ``csrc/gt_flash.cu`` its entries' argument
+    and return types, and check its head widths against the wrapper's."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     geo = [P, P, I, I, I]                   # blocks, col_off, T, tile, band
     # ..., eps, bf16 (an int), outputs, stream
@@ -134,7 +134,6 @@ def build() -> ctypes.CDLL:
                lib.scgib_gt_bwd_merged_staged, lib.scgib_gt_staged_info):
         fn.restype = ctypes.c_int
     _check_head_widths(lib)
-    _lib = lib
     return lib
 
 
@@ -410,17 +409,17 @@ def _launch(fn, name, blocks, col_off, geo, tensors, num_heads, hd, clamp,
     staged kernel."""
     widths = hd if isinstance(hd, tuple) else (hd,)
     scale = _scale(widths[0]) if scale is None else scale
-    _raise_on(fn(_ptr(blocks), _ptr(col_off), *geo,
-                 *(_ptr(t) for t in tensors), num_heads, *widths, scale,
-                 clamp, eps, *flags, *(_ptr(t) for t in outs), _stream()),
-              name)
+    raise_on(fn(ptr(blocks), ptr(col_off), *geo,
+                *(ptr(t) for t in tensors), num_heads, *widths, scale,
+                clamp, eps, *flags, *(ptr(t) for t in outs), stream()),
+             name)
 
 
 def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None,
            bf16_dots=False):
     """(out, z) (replaces ``_fwd_kernel``; with ``bf16_dots`` its bf16
     mode, counted on ``gt_fwd_bf16``)."""
-    if not _dispatch("gt_fwd", q):
+    if not on_card("gt_fwd", q):
         return gt_fwd_plain(blocks, col_off, q, k, v, clamp, eps, scale,
                             bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
@@ -443,9 +442,9 @@ def gt_fwd(blocks, col_off, q, k, v, clamp=5.0, eps=1e-6, scale=None,
     else:
         _launch(build().scgib_gt_fwd, "gt_fwd", blocks, col_off, geo, ts,
                 num_heads, hd, clamp, eps, scale, (out, z), int(bf16_dots))
-    add_launches(name)
+    counters.tick("launch", name)
     if bf16_dots:
-        add_route_launches(name, route.name)
+        counters.tick("route", (name, route.name))
     return out, z
 
 
@@ -453,7 +452,7 @@ def gt_bwd_rows(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
                 scale=None, bf16_dots=False):
     """(dq, rho) (replaces ``_bwd_rows_kernel``; with ``bf16_dots`` its
     bf16 mode, counted on ``gt_bwd_rows_bf16``)."""
-    if not _dispatch("gt_bwd_rows", q):
+    if not on_card("gt_bwd_rows", q):
         return gt_bwd_rows_plain(blocks, col_off, q, k, v, g, z, clamp, eps,
                                  scale, bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
@@ -462,7 +461,8 @@ def gt_bwd_rows(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
     rho = torch.empty_like(ts[4])
     _launch(build().scgib_gt_bwd_rows, "gt_bwd_rows", blocks, col_off, geo,
             ts, num_heads, hd, clamp, eps, scale, (dq, rho), int(bf16_dots))
-    add_launches("gt_bwd_rows_bf16" if bf16_dots else "gt_bwd_rows")
+    counters.tick("launch",
+                  "gt_bwd_rows_bf16" if bf16_dots else "gt_bwd_rows")
     return dq, rho
 
 
@@ -470,7 +470,7 @@ def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6,
                 scale=None, bf16_dots=False):
     """(dk, dv) (replaces ``_bwd_cols_kernel``; with ``bf16_dots`` its
     bf16 mode, counted on ``gt_bwd_cols_bf16``).  Needs a symmetric A."""
-    if not _dispatch("gt_bwd_cols", q):
+    if not on_card("gt_bwd_cols", q):
         return gt_bwd_cols_plain(blocks, col_off, q, k, v, g, z, rho, clamp,
                                  eps, scale, bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
@@ -479,7 +479,8 @@ def gt_bwd_cols(blocks, col_off, q, k, v, g, z, rho, clamp=5.0, eps=1e-6,
     dv = torch.empty_like(ts[0])
     _launch(build().scgib_gt_bwd_cols, "gt_bwd_cols", blocks, col_off, geo,
             ts, num_heads, hd, clamp, eps, scale, (dk, dv), int(bf16_dots))
-    add_launches("gt_bwd_cols_bf16" if bf16_dots else "gt_bwd_cols")
+    counters.tick("launch",
+                  "gt_bwd_cols_bf16" if bf16_dots else "gt_bwd_cols")
     return dk, dv
 
 
@@ -488,7 +489,7 @@ def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
     """(dq, dk, dv) in one pass (replaces ``_bwd_merged_kernel``; with
     ``bf16_dots`` its bf16 mode, counted on ``gt_bwd_merged_bf16``); dk and
     dv are summed with atomics, so their last bits vary between runs."""
-    if not _dispatch("gt_bwd_merged", q):
+    if not on_card("gt_bwd_merged", q):
         return gt_bwd_merged_plain(blocks, col_off, q, k, v, g, z, clamp,
                                    eps, scale, bf16_dots)
     blocks, col_off, geo, num_heads, hd, ts = _gt_args(
@@ -506,9 +507,9 @@ def gt_bwd_merged(blocks, col_off, q, k, v, g, z, clamp=5.0, eps=1e-6,
         _launch(build().scgib_gt_bwd_merged, "gt_bwd_merged", blocks,
                 col_off, geo, ts, num_heads, hd, clamp, eps, scale,
                 (dq, dk, dv), int(bf16_dots))
-    add_launches(name)
+    counters.tick("launch", name)
     if bf16_dots:
-        add_route_launches(name, route.name)
+        counters.tick("route", (name, route.name))
     return dq, dk, dv
 
 
@@ -525,12 +526,12 @@ def kernel_info(kernel: str, hd: int, num_heads=None, tile: int = 64,
     route = (gt_route(kernel, num_heads, hd, tile, band)
              if num_heads is not None else Route("lane_group"))
     if route.name == "staged":
-        _raise_on(build().scgib_gt_staged_info(
+        raise_on(build().scgib_gt_staged_info(
             STAGED[kernel], hd, num_heads, tile, band, route.split,
             route.threads, info), kernel)
     else:
-        _raise_on(build().scgib_gt_kernel_info(_INFO[kernel], hd, info),
-                  kernel)
+        raise_on(build().scgib_gt_kernel_info(_INFO[kernel], hd, info),
+                 kernel)
     staged = route.name == "staged"
     return {"route": route.name,
             "blocks_per_tile": route.split if staged else None,
@@ -570,35 +571,6 @@ def ptxas_report() -> dict:
                     else "gt_bwd_rows"}[m.group(1)]
             out[name + ("_bf16" if flags[-1] else ""), int(m.group(2))] = rec
     return out
-
-
-def add_launches(name: str, n: int = 1):
-    """Add ``n`` to the launch count of ``name``, one of ``KERNELS``."""
-    _launches[name] += n
-
-
-def add_route_launches(name: str, route: str, n: int = 1):
-    """Add ``n`` to the count of ``name``'s launches on ``route``, for a
-    wrapper with a staged route (one of ``STAGED``)."""
-    _route_launches[name, route] += n
-
-
-def launch_counts() -> dict:
-    return dict(_launches)
-
-
-def route_counts() -> dict:
-    """{(wrapper, route): launches} of the wrappers with a staged route."""
-    return dict(_route_launches)
-
-
-def reset_launch_counts():
-    _launches.update(dict.fromkeys(KERNELS, 0))
-    _route_launches.update(dict.fromkeys(
-        [(k, r) for k in STAGED for r in ROUTES], 0))
-
-
-reset_launch_counts()
 
 
 # --- autograd ---------------------------------------------------------------

@@ -13,22 +13,20 @@ than it holds) takes the scatter branch instead.  The JAX package decides
 that on the device with ``lax.cond``.  The test depends only on the batch's
 index arrays, so here the packer takes it once per batch in NumPy
 (``window_fits``) and ships it as the ``SubgraphBatch``'s ``pool_fits``;
-the pool reads no tensor on the host, and ``branch_counts`` records which
-branch ran.
+the pool reads no tensor on the host, and counts which branch ran (kind
+``pool`` in ``utils/counters.py``).
 """
 
 from __future__ import annotations
 
-import collections
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..utils import counters
 from .kernels.banded import pool
 from .segment import _apply_mask, segment_sum
-
-branch_counts: collections.Counter = collections.Counter()
 
 
 class _PoolMatmul(torch.autograd.Function):
@@ -96,7 +94,7 @@ def sorted_segment_sum_banded(data: torch.Tensor, segment_ids: torch.Tensor,
     if window is None:
         window = default_window(s_rows, num_segments, tile)
     if not _banded_shape(s_rows, num_segments, tile, window, data.dim()):
-        branch_counts["fallback"] += 1
+        counters.tick("pool", "fallback")
         return _scatter(data, segment_ids, num_segments, mask)
     if fits is None:
         if segment_ids.is_cuda:
@@ -106,9 +104,9 @@ def sorted_segment_sum_banded(data: torch.Tensor, segment_ids: torch.Tensor,
         fits = window_fits(segment_ids.numpy(), None if mask is None
                            else mask.numpy(), num_segments, tile, window)
     if not fits:
-        branch_counts["scatter"] += 1
+        counters.tick("pool", "scatter")
         return _scatter(data, segment_ids, num_segments, mask)
-    branch_counts["banded"] += 1
+    counters.tick("pool", "banded")
     m = (mask if mask is not None
          else torch.ones(segment_ids.shape, dtype=torch.bool,
                          device=segment_ids.device))

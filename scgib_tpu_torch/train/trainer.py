@@ -32,11 +32,12 @@ order.  The generator that draws the noise is registered with each graph, so
 the replays draw what the eager steps would have drawn and leave it in the same
 state.  A capture that fails raises, naming the op that made it fail (an op
 that reads the device back to the host is refused as it is dispatched); it
-never falls back to the eager step.  The launch and branch counts tick once at
-capture; each replay adds what its capture added, so they stay counts per
-optimizer step.  A step's graphs live as long as the step.  On the CPU the step
-is the eager one.  ``donate`` has no counterpart.  While a ``torch.profiler``
-session is open, each call keeps its spans (``utils/profiling.py``):
+never falls back to the eager step.  The launch and branch counts
+(``utils/counters.py``) tick once at capture, which takes them back; each
+replay adds what its capture added, so they stay counts per optimizer step.
+A step's graphs live as long as the step.  On the CPU the step is the eager
+one.  ``donate`` has no counterpart.  While a ``torch.profiler`` session is
+open, each call keeps its spans (``utils/profiling.py``):
 ``scgib.step``, of kind eager, capture or replay, and the parts of a replay
 (``scgib.step.key``: the graph's lookup; ``.inputs``: the copies into the
 input buffers, counted with their bytes; ``.replay``: ``graph.replay()``;
@@ -89,16 +90,11 @@ from torch.utils.checkpoint import checkpoint
 from ..graph.container import GraphBatch, SubgraphBatch
 from ..graph.wire import (from_wire_graph, from_wire_sub, index_wire,
                           unpack_bytes)
-from ..models import encoders, losses
 from ..models.layers import statistics_frozen
 from ..models.losses import (bce_loss, bce_with_logits_loss,
                              cross_entropy_loss, mae_loss, rmse_loss)
 from ..models.scgib import PretrainLosses, PretrainModel, uniform_draws
-from ..ops import pool
-from ..ops.kernels import banded as kb
-from ..ops.kernels import batchnorm as kbn
-from ..ops.kernels import gt_flash as kg
-from ..utils import profiling
+from ..utils import counters, profiling
 from ..utils.params import to_jax_variables
 
 
@@ -350,42 +346,6 @@ class CaptureGuard(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-# --- the counts a step ticks -------------------------------------------------
-
-# the modules whose kernels' launches the tally counts, by their ``KERNELS``
-_KERNEL_MODULES = (kb, kbn, kg)
-# the branch counters the tally counts, by kind
-_BRANCHES = {"encoder": encoders.branch_counts, "pool": pool.branch_counts,
-             "recon": losses.branch_counts, "gin_bwd": kb.branch_counts}
-
-
-def _tally() -> Dict[Tuple[str, object], int]:
-    """Every count the step ticks: the kernels' launches (and the routes of
-    those with two), and the branch counts of the encoders and the
-    pooling."""
-    out = {("launch", k): v for m in _KERNEL_MODULES
-           for k, v in m.launch_counts().items()}
-    out.update({("route", k): v for k, v in kg.route_counts().items()})
-    for kind, counter in _BRANCHES.items():
-        out.update({(kind, k): v for k, v in counter.items()})
-    return out
-
-
-def _add_tally(diff: Dict[Tuple[str, object], int], sign: int = 1):
-    for (kind, name), n in diff.items():
-        if kind == "launch":
-            next(m for m in _KERNEL_MODULES
-                 if name in m.KERNELS).add_launches(name, sign * n)
-            continue
-        if kind == "route":
-            kg.add_route_launches(*name, sign * n)
-            continue
-        counter = _BRANCHES[kind]
-        counter[name] += sign * n
-        if counter[name] == 0:
-            del counter[name]
-
-
 # --- the captured steps ------------------------------------------------------
 
 def _fields(batch):
@@ -427,7 +387,7 @@ def _replay_counts(entry) -> Dict[str, dict]:
     inputs = [v for buf in buffers for _, v in _fields(buf)
               if isinstance(v, torch.Tensor)]
     tally = {f"{kind}.{name}": n for (kind, name), n in sorted(
-        added.items(), key=repr) if kind == "launch" or kind in _BRANCHES}
+        added.items(), key=repr) if kind != "route"}
     widths = tuple(b.band_width if b.band_col_off is not None else 0
                    for b in buffers
                    if isinstance(b, (GraphBatch, SubgraphBatch)))
@@ -538,7 +498,7 @@ class _CapturedSteps:
         graph.register_generator_state(generator)
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=True)
-        before = _tally()
+        before = counters.snapshot()
         guard = CaptureGuard()
         try:
             with torch.cuda.graph(graph,
@@ -548,11 +508,11 @@ class _CapturedSteps:
         except RuntimeError as e:
             raise RuntimeError(f"capturing {self.what} failed at "
                                f"{guard.last}: {e}") from e
-        after = _tally()
+        after = counters.snapshot()
         added = {k: after.get(k, 0) - before.get(k, 0)
                  for k in set(after) | set(before)}
         added = {k: n for k, n in added.items() if n}
-        _add_tally(added, -1)                 # the capture ran nothing
+        counters.add(added, -1)               # the capture ran nothing
         return graph, buffers, out, added
 
     def _replay(self, entry, batches,
@@ -569,7 +529,7 @@ class _CapturedSteps:
         graph.replay()
         if spans is not None:
             spans.part(_REPLAY)
-        _add_tally(added)
+        counters.add(added)
         if spans is not None:
             spans.part(_TALLY)
         out = _clone(out)

@@ -148,7 +148,6 @@ def _pretrain_model(weights, group, **kw):
 
 
 def dp_case(rank, group, weights, out_dir):
-    from scgib_tpu_torch.ops import pool
     from scgib_tpu_torch.parallel import dp
     from scgib_tpu_torch.train import checkpoint, trainer
     from scgib_tpu_torch.train.loops import jax_key
@@ -156,6 +155,7 @@ def dp_case(rank, group, weights, out_dir):
                                                make_pretrain_step,
                                                masked_adam,
                                                finetune_trainable_mask)
+    from scgib_tpu_torch.utils import counters
     import torch.distributed as dist
 
     res = {}
@@ -191,10 +191,10 @@ def dp_case(rank, group, weights, out_dir):
     # one rank's pooling flag False: every rank takes the scatter branch
     model = _pretrain_model(weights, group)
     step = dp.make_dp_pretrain_step(model, adam_l2(model, LR, WD), group)
-    pool.branch_counts.clear()
+    counters.reset("pool")
     flagged = dataclasses.replace(sub, pool_fits=rank != 0)
     res["flag_losses"] = [float(x) for x in step(g, flagged)]
-    res["flag_branches"] = dict(pool.branch_counts)
+    res["flag_branches"] = counters.of("pool")
 
     # uneven shards, the last one empty
     ug, usub = (b.to("cpu") for b in shard(ds, caps, rank, UNEVEN))

@@ -27,6 +27,7 @@ from scgib_tpu_torch.models.layers import MaskedBatchNorm, _mask_rows
 from scgib_tpu_torch.models.scgib import PretrainModel
 from scgib_tpu_torch.ops.kernels import batchnorm as kbn
 from scgib_tpu_torch.train import trainer
+from scgib_tpu_torch.utils import counters
 
 import bn_sync_ranks
 
@@ -127,16 +128,17 @@ def test_plain_kernels_keep_float32_coefficients_and_the_clamp():
 
 
 def test_tally_routes_each_kernel_to_its_module():
-    before = trainer._tally()
+    before = counters.snapshot()
     diff = {("launch", name): i + 1 for i, name in enumerate(kbn.KERNELS)}
     diff[("launch", "gin_fwd")] = 5
-    trainer._add_tally(diff)
-    after = trainer._tally()
-    assert {k: after[k] - before[k] for k in diff} == diff
-    assert kbn.launch_counts() == {name: before["launch", name] + i + 1
-                                   for i, name in enumerate(kbn.KERNELS)}
-    trainer._add_tally(diff, -1)
-    assert trainer._tally() == before
+    counters.add(diff)
+    after = counters.snapshot()
+    assert {k: after[k] - before.get(k, 0) for k in diff} == diff
+    assert counters.of("launch", kbn.KERNELS) == {
+        name: before.get(("launch", name), 0) + i + 1
+        for i, name in enumerate(kbn.KERNELS)}
+    counters.add(diff, -1)
+    assert counters.snapshot() == before
 
 
 def _counted(name, x):
@@ -144,7 +146,7 @@ def _counted(name, x):
     a launch and runs its plain version; the module takes the kernels'
     path."""
     if name in kbn.KERNELS:
-        kbn.add_launches(name)
+        counters.tick("launch", name)
     return name == "masked_bn_relu"
 
 
@@ -171,21 +173,24 @@ def test_a_pretraining_step_ticks_each_kernel_once_a_conv(monkeypatch,
         model = PretrainModel(9, hidden=16, d_transfer=8, encoder=encoder,
                               deterministic=True)
     plain = copy.deepcopy(model)
-    kbn.reset_launch_counts()
-    monkeypatch.setattr(kbn, "_dispatch", _counted)
+    counters.reset("launch")
+    monkeypatch.setattr(kbn, "on_card", _counted)
     losses = trainer.pretrain_step_eager(
         model, trainer.adam_l2(model, 1e-4), g, sub,
         torch.Generator().manual_seed(1))
-    assert kbn.launch_counts() == dict.fromkeys(kbn.KERNELS, per_step)
-    assert {k: v for (kind, k), v in trainer._tally().items()
-            if kind == "launch" and k in kbn.KERNELS} == kbn.launch_counts()
+    assert counters.of("launch", kbn.KERNELS) == dict.fromkeys(kbn.KERNELS,
+                                                               per_step)
+    assert {k: v for (kind, k), v in counters.snapshot().items()
+            if kind == "launch" and k in kbn.KERNELS} == {
+                k: v for k, v in counters.of("launch", kbn.KERNELS).items()
+                if v}
     monkeypatch.undo()
     want = trainer.pretrain_step_eager(plain, trainer.adam_l2(plain, 1e-4),
                                        g, sub,
                                        torch.Generator().manual_seed(1))
     for a, b in zip(losses, want):
         assert torch.allclose(a, b, rtol=1e-4, atol=1e-6)
-    kbn.reset_launch_counts()
+    counters.reset("launch")
 
 
 def test_sync_bn_over_two_gloo_ranks_is_the_composed_path(tmp_path):

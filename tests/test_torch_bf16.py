@@ -50,7 +50,6 @@ from scgib_tpu_torch.data.synthetic import random_dataset
 from scgib_tpu_torch.graph import banded
 from scgib_tpu_torch.graph.batching import pack_graphs
 from scgib_tpu_torch.graph.container import GraphBatch, SubgraphBatch
-from scgib_tpu_torch.models import encoders
 from scgib_tpu_torch.models.encoders import (GIN, GraphTransformer,
                                              GraphTransformerLayer)
 from scgib_tpu_torch.models.scgib import (DomainAdaptModel, FinetuneModel,
@@ -62,6 +61,7 @@ from scgib_tpu_torch.train.trainer import (TrainState,
                                            finetune_trainable_mask,
                                            make_eval_fn, make_finetune_step,
                                            masked_adam)
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import from_jax_variables, init_flax_style_
 
 import gt_rounding
@@ -126,11 +126,11 @@ def test_gin_bf16_forward_matches_pallas_kernel(din):
     """9 features: conv 0's width, zero-padded to the products' depth."""
     blocks, off, arrays = gin_inputs(din)
     h, w1, b1, w2, b2 = map(t, arrays)
-    kb.reset_launch_counts()
+    counters.reset("launch")
     got = kb.gin_banded_layer(blocks, off, h.to(BF), w1.to(BF), b1,
                               w2.to(BF), b2)
     assert got.dtype == torch.float32
-    assert kb.launch_counts() == dict.fromkeys(kb.KERNELS, 0)
+    assert counters.of("launch", kb.KERNELS) == dict.fromkeys(kb.KERNELS, 0)
     with pltpu.force_tpu_interpret_mode():
         want = jkb.gin_banded_layer(*jax_gin_args(blocks, off, arrays))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-2,
@@ -199,7 +199,7 @@ def pallas_bf16(request):
 @pytest.mark.parametrize("kernel", ["fwd", "rows", "cols"])
 def test_bf16_plain_versions_match_pallas_kernels(pallas_bf16, kernel):
     blocks, off, (q, k, v, g), want = pallas_bf16
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     z = t(want["fwd"][1])
     if kernel == "fwd":
         got = kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
@@ -211,7 +211,7 @@ def test_bf16_plain_versions_match_pallas_kernels(pallas_bf16, kernel):
         rho = kg.gt_bwd_rows(blocks, off, q, k, v, g, z, bf16_dots=True)[1]
         got = kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho, bf16_dots=True)
         f32 = kg.gt_bwd_cols(blocks, off, q, k, v, g, z, rho)[0]
-    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 0)
+    assert counters.of("launch", kg.KERNELS) == dict.fromkeys(kg.KERNELS, 0)
     for a, b in zip(got, want[kernel]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b).reshape(a.shape),
                                    rtol=1e-2, atol=1e-2)
@@ -251,10 +251,10 @@ def test_merged_bf16_plain_version_matches_pallas_kernel(pallas_bf16):
     times that."""
     blocks, off, (q, k, v, g), want = pallas_bf16
     z = t(want["fwd"][1])
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     got = kg.gt_bwd_merged(blocks, off, q, k, v, g, z, bf16_dots=True)
     f32 = kg.gt_bwd_merged(blocks, off, q, k, v, g, z)
-    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 0)
+    assert counters.of("launch", kg.KERNELS) == dict.fromkeys(kg.KERNELS, 0)
     for a, b in zip(got, want["merged"]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b).reshape(a.shape),
                                    rtol=1e-2, atol=1e-2)
@@ -624,9 +624,7 @@ def test_run_pretrain_in_bf16_mode_on_cpu(encoder):
     """``cli.run_pretrain`` threads each mode to the model: two steps,
     finite losses, every conv or attention on its band branch, and no
     launch on the CPU."""
-    kb.reset_launch_counts()
-    kg.reset_launch_counts()
-    encoders.branch_counts.clear()
+    counters.reset("launch", "route", "encoder")
     records = cli.run_pretrain(synthetic=48, batch_size=16, steps=2,
                                device="cpu", encoder=encoder, num_layers=2,
                                num_heads=2, hidden=WIDTH, d_transfer=8,
@@ -636,8 +634,8 @@ def test_run_pretrain_in_bf16_mode_on_cpu(encoder):
                    ("kl", "contrastive", "reconstruction"))
     band = "band" if encoder == "GIN" else "gt_band_64x128"
     per_step = 4 if encoder == "GIN" else 6
-    assert dict(encoders.branch_counts) == {band: per_step * 2}
-    assert not any({**kb.launch_counts(), **kg.launch_counts()}.values())
+    assert counters.of("encoder") == {band: per_step * 2}
+    assert not any(counters.of("launch", kb.KERNELS + kg.KERNELS).values())
 
 
 @pytest.mark.parametrize("encoder", sorted(MODES))
@@ -655,12 +653,12 @@ def test_run_finetune_in_bf16_mode_on_cpu(encoder):
                           num_heads=2, **MODES[encoder])
     init_flax_style_(model, torch.Generator().manual_seed(5))
     opt = masked_adam(model, finetune_trainable_mask(model), 1e-3, 5e-5)
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     result = loops.run_finetune(
         make_finetune_step(model, opt, spec.loss, spec.grad_accum),
         make_eval_fn(model), TrainState(model, opt), train, val, test, caps,
         8, spec, epochs=2, seed=3, log=None)
     assert len(result["history"]) == 2
     assert all(np.isfinite(v) for rec in result["history"] for v in rec)
-    assert set(encoders.branch_counts) == {
+    assert set(counters.of("encoder")) == {
         "band" if encoder == "GIN" else "gt_band_64x128"}

@@ -45,6 +45,7 @@ from scgib_tpu_torch.graph.egonet import extract_egonets
 from scgib_tpu_torch.models.scgib import PretrainModel
 from scgib_tpu_torch.ops import pool, segment
 from scgib_tpu_torch.train import trainer
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import (adam_to_optax, from_jax_variables,
                                           load_adam_state)
 
@@ -153,11 +154,11 @@ def test_pool_flag_from_the_packer_matches_jax(monkeypatch, skewed):
     assert sub.pool_fits is jfits is (not skewed)
     tsub = sub.to("cpu")
     assert tsub.pool_fits is sub.pool_fits
-    pool.branch_counts.clear()
+    counters.reset("pool")
     got = pool.sorted_segment_sum_banded(
         torch.from_numpy(data), tsub.node_center, n_cap,
         mask=tsub.node_mask, fits=tsub.pool_fits)
-    assert pool.branch_counts == {("scatter" if skewed else "banded"): 1}
+    assert counters.of("pool") == {("scatter" if skewed else "banded"): 1}
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -170,12 +171,12 @@ def test_pool_flag_without_the_packer():
     sub = pack_subgraphs(graphs, egos, 1024, 4096)
     assert sub.pool_fits is None
     assert SubgraphBatch.from_numpy(sub, "cpu").pool_fits is None
-    pool.branch_counts.clear()
+    counters.reset("pool")
     x = torch.randn(1024, 4)
     out = pool.sorted_segment_sum_banded(
         x, torch.from_numpy(sub.node_center).long(), 256,
         mask=torch.from_numpy(sub.node_mask))
-    assert pool.branch_counts == {"banded": 1}
+    assert counters.of("pool") == {"banded": 1}
     np.testing.assert_allclose(out.numpy(), segment.segment_sum(
         x, torch.from_numpy(sub.node_center).long(), 256,
         torch.from_numpy(sub.node_mask)).numpy(), rtol=1e-5, atol=1e-5)
@@ -327,15 +328,15 @@ def test_capture_guard_refuses_host_reads():
 # --- the counts and the optimizer state around a captured step ---------------
 
 def test_tally_round_trip():
-    before = trainer._tally()
+    before = counters.snapshot()
     diff = {("launch", "gt_fwd"): 3, ("pool", "banded"): 1,
             ("encoder", "gt_band_64x128"): 10,
             ("route", ("gt_fwd_bf16", "staged")): 2}
-    trainer._add_tally(diff)
-    after = trainer._tally()
+    counters.add(diff)
+    after = counters.snapshot()
     assert {k: after.get(k, 0) - before.get(k, 0) for k in diff} == diff
-    trainer._add_tally(diff, -1)
-    assert trainer._tally() == before
+    counters.add(diff, -1)
+    assert counters.snapshot() == before
 
 
 def test_adam_state_loads_in_place():

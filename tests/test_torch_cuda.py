@@ -48,6 +48,7 @@ from scgib_tpu_torch.ops.kernels import batchnorm as kbn
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention
 from scgib_tpu_torch.train import checkpoint, trainer
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import (from_jax_variables,
                                           init_flax_style_, to_jax_variables)
 
@@ -93,7 +94,7 @@ def close(got, want, rtol=1e-5):
 def test_kernels_match_plain_versions(batch, dev, d):
     g, sub = batch
     gen = torch.Generator(device=dev).manual_seed(d)
-    kb.reset_launch_counts()
+    counters.reset("launch")
     for b in (g, sub):
         blocks, off = _resolve_band(b)
         n = blocks.shape[0] * 128
@@ -119,9 +120,9 @@ def test_kernels_match_plain_versions(batch, dev, d):
                                   128, window)
     x = torch.randn(1536, d, device=dev, generator=gen)
     close(kb.pool(pblocks, off, x), kb.spmm_plain(pblocks, off, x))
-    assert kb.launch_counts() == {"gin_fwd": 2, "gin_fwd_bf16": 0,
-                                  "gin_bwd": 2, "spmm_self": 2, "spmm": 2,
-                                  "pool": 1}
+    assert counters.of("launch", kb.KERNELS) == {
+        "gin_fwd": 2, "gin_fwd_bf16": 0, "gin_bwd": 2, "spmm_self": 2,
+        "spmm": 2, "pool": 1}
 
 
 @pytest.mark.parametrize("din", [32, 64])
@@ -145,7 +146,7 @@ def test_gin_layer_kernel_backward_matches_cpu_autograd(batch, dev, din):
 
 def test_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
     g, _ = batch
-    kb.reset_launch_counts()
+    counters.reset("launch")
     blocks, off = _resolve_band(g)
     w1, b1, w2 = (torch.zeros(s, device=dev) for s in ((8, 64), 64, (64, 64)))
     gr = torch.zeros(512, 64, device=dev)
@@ -176,7 +177,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
         kb.gin_bwd(blocks, off, torch.zeros(512, 8, device=dev,
                                             dtype=torch.float64),
                    gr, w1, b1, w2)
-    assert kb.launch_counts() == dict.fromkeys(kb.KERNELS, 0)
+    assert counters.of("launch", kb.KERNELS) == dict.fromkeys(kb.KERNELS, 0)
 
 
 def test_gin_fwd_takes_features_off_a_16_byte_boundary(batch, dev):
@@ -289,7 +290,7 @@ def test_gin_bwd_pipelined_tiles_match_plain(dev, din, hid, dout):
     b1 = b1 + 0.5
     w2 = torch.randn(hid, dout, device=dev, generator=gen) / hid ** 0.5
     gr = torch.randn(n, dout, device=dev, generator=gen)
-    kb.branch_counts.clear()
+    counters.reset("gin_bwd")
     runs = [kb.gin_bwd(blocks, off, h, gr, w1, b1, w2) for _ in range(2)]
     for a, w in zip(runs[0], _gin_bwd_reference(blocks, off, h, gr, w1, b1,
                                                 w2)):
@@ -298,13 +299,13 @@ def test_gin_bwd_pipelined_tiles_match_plain(dev, din, hid, dout):
     grid = kb._bwd_grid(n, din, hid, dout, h.device.index)
     tiles = n // kb.bwd_tile_rows(din, hid, dout)
     assert 2 * grid < tiles
-    assert dict(kb.branch_counts) == {"tiles": 2 * tiles,
+    assert counters.of("gin_bwd") == {"tiles": 2 * tiles,
                                       "overlapped": 2 * (tiles - grid)}
     info = kb.kernel_info("gin_fused_bwd", din, hid, dout)
     assert info["tile_rows"] == kb.bwd_tile_rows(din, hid, dout)
     assert info["smem_bytes"] == kb.bwd_smem_bytes(din, hid, dout)
     assert info["blocks_per_sm"] == 1 and info["threads"] == 512
-    kb.branch_counts.clear()
+    counters.reset("gin_bwd")
 
 
 def _gin_fwd_reference(blocks, off, h, w1, b1, w2, b2):
@@ -320,9 +321,9 @@ def test_gin_fwd_matches_plain_at_cases(dev, case):
     blocks, off, arrays = gin_case_inputs(case)
     blocks, off = blocks.to(dev), off.to(dev)
     args = [torch.from_numpy(a).to(dev) for a in arrays]
-    kb.reset_launch_counts()
+    counters.reset("launch")
     close(kb.gin_fwd(blocks, off, *args), kb.gin_fwd_plain(blocks, off, *args))
-    assert kb.launch_counts()["gin_fwd"] == 1
+    assert counters.of("launch", kb.KERNELS)["gin_fwd"] == 1
 
 
 @pytest.mark.parametrize("width", [128, 256, 384, 512, 1024])
@@ -481,14 +482,13 @@ def test_spmm_and_gin_bwd_are_bitwise_reproducible(batch, dev):
 
 
 def test_pretrain_steps_on_card(dev):
-    kb.reset_launch_counts()
-    pool.branch_counts.clear()
+    counters.reset("launch", "pool")
     records = cli.run_pretrain(synthetic=48, batch_size=16, steps=2,
                                device="cuda")
     assert all(np.isfinite(r[k]) for r in records
                for k in ("kl", "contrastive", "reconstruction"))
-    counts = kb.launch_counts()
-    assert counts["pool"] == pool.branch_counts["banded"]
+    counts = counters.of("launch", kb.KERNELS)
+    assert counts["pool"] == counters.of("pool", ["banded"])["banded"]
     assert all(counts[k] > 0 for k in ("gin_fwd", "gin_bwd", "spmm_self",
                                         "spmm"))
 
@@ -501,7 +501,7 @@ def _gt_inputs(n, dev, seed, heads=8, hd=8):
 
 @pytest.mark.parametrize("gt", [True, False], ids=["narrow", "wide"])
 def test_gt_kernels_match_plain_versions(batch, dev, gt):
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     for seed, b in enumerate(batch):
         blocks, off = _resolve_band(b, gt=gt)
         assert blocks.shape[1:] == ((64, 128) if gt else (128, 256))
@@ -523,9 +523,9 @@ def test_gt_kernels_match_plain_versions(batch, dev, gt):
             close(a, w, rtol=1e-4)
         for a, w in zip(merged, (dq, dk, dv)):           # merged vs two-pass
             close(a, w, rtol=1e-4)
-    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 0),
-                                  "gt_fwd": 2, "gt_bwd_rows": 2,
-                                  "gt_bwd_cols": 2, "gt_bwd_merged": 2}
+    assert counters.of("launch", kg.KERNELS) == {
+        **dict.fromkeys(kg.KERNELS, 0), "gt_fwd": 2, "gt_bwd_rows": 2,
+        "gt_bwd_cols": 2, "gt_bwd_merged": 2}
 
 
 @pytest.mark.parametrize("bwd", ["twopass", "merged"])
@@ -552,7 +552,7 @@ def test_gt_attention_kernel_backward_matches_cpu_autograd(batch, dev, bwd):
 
 def test_gt_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
     g, _ = batch
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     blocks, off = _resolve_band(g, gt=True)
     q, k, v, _ = _gt_inputs(g.num_nodes, dev, 0)
     with pytest.raises(TypeError, match="float32"):
@@ -562,7 +562,7 @@ def test_gt_wrappers_reject_what_the_kernels_do_not_take(batch, dev):
                                  for t in (q, k, v)))
     with pytest.raises(ValueError, match="CUDA device"):
         kg.gt_fwd(blocks.cpu(), off, q, k, v)
-    assert kg.launch_counts()["gt_fwd"] == 0
+    assert counters.of("launch", kg.KERNELS)["gt_fwd"] == 0
 
 
 def _gt_bwd_check(blocks, off, q, k, v, g):
@@ -736,12 +736,10 @@ def test_captured_step_is_the_eager_step(dev, encoder):
     torch.use_deterministic_algorithms(True)
     try:
         eager = _steps(dev, batches, kw, False)
-        kb.reset_launch_counts()
-        kg.reset_launch_counts()
-        kbn.reset_launch_counts()
+        counters.reset("launch", "route")
         captured = _steps(dev, batches, kw, True)
-        counts = {**kb.launch_counts(), **kg.launch_counts()}
-        bn_counts = kbn.launch_counts()
+        counts = counters.of("launch", kb.KERNELS + kg.KERNELS)
+        bn_counts = counters.of("launch", kbn.KERNELS)
     finally:
         torch.use_deterministic_algorithms(False)
     assert len(captured[4].graphs) == 1
@@ -778,7 +776,7 @@ def test_gt_bwd_passes_reject_what_they_do_not_take(batch, dev):
     in the two passes and the forward (launch counts stay 0); features off
     a 16-byte boundary are copied and give the plain version's result."""
     g, _ = batch
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     blocks, off = _resolve_band(g, gt=True)
     n = g.num_nodes
     q, k, v, gr = _gt_inputs(n, dev, 3, heads=3, hd=1)
@@ -802,22 +800,20 @@ def test_gt_bwd_passes_reject_what_they_do_not_take(batch, dev):
         kg.gt_bwd_rows(shifted, off, q, k, v, gr, z)
     with pytest.raises(ValueError, match="16-byte aligned"):
         kg.gt_bwd_cols(shifted, off, q, k, v, gr, z, rho)
-    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 0)
+    assert counters.of("launch", kg.KERNELS) == dict.fromkeys(kg.KERNELS, 0)
     # q 4 bytes past a boundary, contiguous: copied, then launched
     qs = torch.zeros(q.numel() + 1, device=dev)[1:].view(q.shape)
     qs.copy_(q)
     assert qs.data_ptr() % 16
     _gt_bwd_check(blocks, off, qs, k, v, gr)
     _gt_fwd_check(blocks, off, qs, k, v)
-    assert kg.launch_counts()["gt_bwd_rows"] == 1
-    assert kg.launch_counts()["gt_fwd"] == 1
+    assert counters.of("launch", kg.KERNELS)["gt_bwd_rows"] == 1
+    assert counters.of("launch", kg.KERNELS)["gt_fwd"] == 1
 
 
 @pytest.mark.parametrize("bwd", ["twopass", "merged"])
 def test_gt_pretrain_steps_on_card(dev, bwd):
-    kb.reset_launch_counts()
-    kg.reset_launch_counts()
-    encoders.branch_counts.clear()
+    counters.reset("launch", "route", "encoder")
     records = cli.run_pretrain(synthetic=48, batch_size=16, steps=2,
                                device="cuda", encoder="Transformer",
                                gt_bwd=bwd)
@@ -825,13 +821,13 @@ def test_gt_pretrain_steps_on_card(dev, bwd):
                for k in ("kl", "contrastive", "reconstruction"))
     per_call = 2 * 5 * 2             # encoders x layers x steps
     rows = per_call if bwd == "twopass" else 0
-    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 0),
-                                  "gt_fwd": per_call, "gt_bwd_rows": rows,
-                                  "gt_bwd_cols": rows,
-                                  "gt_bwd_merged": per_call - rows}
-    assert dict(encoders.branch_counts) == {"gt_band_64x128": per_call}
-    assert kb.launch_counts()["gin_fwd"] == 0
-    assert kb.launch_counts()["spmm"] == 2 * 2
+    assert counters.of("launch", kg.KERNELS) == {
+        **dict.fromkeys(kg.KERNELS, 0), "gt_fwd": per_call,
+        "gt_bwd_rows": rows, "gt_bwd_cols": rows,
+        "gt_bwd_merged": per_call - rows}
+    assert counters.of("encoder") == {"gt_band_64x128": per_call}
+    assert counters.of("launch", kb.KERNELS)["gin_fwd"] == 0
+    assert counters.of("launch", kb.KERNELS)["spmm"] == 2 * 2
 
 
 # --- the widths the card path now serves, checkpoints and the verb ----------
@@ -856,8 +852,7 @@ def test_gin_at_any_width_matches_cpu(batch, dev, hidden):
         gin = encoders.GIN(32, hidden=hidden, num_convs=2)
     runs = []
     for device in (dev, torch.device("cpu")):
-        kb.reset_launch_counts()
-        encoders.branch_counts.clear()
+        counters.reset("launch", "encoder")
         m = copy.deepcopy(gin).to(device)
         xt = torch.from_numpy(x).to(device).requires_grad_()
         out = m(xt, g.senders.to(device), g.receivers.to(device),
@@ -868,8 +863,8 @@ def test_gin_at_any_width_matches_cpu(batch, dev, hidden):
         runs.append([out.detach().cpu(), xt.grad.cpu()]
                     + [p.grad.cpu() for p in m.parameters()])
         if device == dev:
-            counts = kb.launch_counts()
-            branches = dict(encoders.branch_counts)
+            counts = counters.of("launch", kb.KERNELS)
+            branches = counters.of("encoder")
     for a, w in zip(*runs):
         close(a, w, rtol=1e-4)
     if hidden <= kb.MAX_FUSED_DIM:
@@ -892,7 +887,7 @@ def test_attention_at_new_head_widths_matches_cpu(dev, case, bwd):
     heads, hd = WIDTHS[case]
     blocks, off = banded_graph("narrow")
     q, k, v, ct = qkvg(256, heads=heads, hd=hd, seed=6)
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     grads = []
     for device, dtype in ((dev, torch.float32), ("cpu", torch.float64)):
         ts = [torch.from_numpy(a).to(device, dtype).requires_grad_()
@@ -906,10 +901,9 @@ def test_attention_at_new_head_widths_matches_cpu(dev, case, bwd):
     for a, w in zip(*grads):
         assert torch.allclose(a, w, rtol=1e-4, atol=1e-4)
     rows = int(bwd == "twopass")
-    assert kg.launch_counts() == {**dict.fromkeys(kg.KERNELS, 0),
-                                  "gt_fwd": 1, "gt_bwd_rows": rows,
-                                  "gt_bwd_cols": rows,
-                                  "gt_bwd_merged": 1 - rows}
+    assert counters.of("launch", kg.KERNELS) == {
+        **dict.fromkeys(kg.KERNELS, 0), "gt_fwd": 1, "gt_bwd_rows": rows,
+        "gt_bwd_cols": rows, "gt_bwd_merged": 1 - rows}
 
 
 def test_checkpoint_saved_on_card_reloads_to_the_same_losses(batch, dev,
@@ -931,17 +925,16 @@ def test_checkpoint_saved_on_card_reloads_to_the_same_losses(batch, dev,
 
 
 def test_pretrain_verb_one_epoch_on_card(dev, tmp_path):
-    kb.reset_launch_counts()
-    pool.branch_counts.clear()
+    counters.reset("launch", "pool")
     info = cli.main(["pretrain", "--synthetic", "48", "--batch_size", "16",
                      "--epochs", "1", "--out", str(tmp_path / "p.msgpack")])
     assert len(info["history"]) == 1 and np.isfinite(info["history"][0])
     steps = info["throughput"]["steps"]
     assert steps > 0
-    assert kb.launch_counts() == {"gin_fwd": 8 * steps, "gin_fwd_bf16": 0,
-                                  "gin_bwd": 8 * steps,
-                                  "spmm_self": 8 * steps, "spmm": 2 * steps,
-                                  "pool": pool.branch_counts["banded"]}
+    assert counters.of("launch", kb.KERNELS) == {
+        "gin_fwd": 8 * steps, "gin_fwd_bf16": 0, "gin_bwd": 8 * steps,
+        "spmm_self": 8 * steps, "spmm": 2 * steps,
+        "pool": counters.of("pool", ["banded"])["banded"]}
     variables, meta = checkpoint.load_checkpoint(str(tmp_path / "p.msgpack"))
     assert meta["step"] == 0 and "core" in variables["params"]
 
@@ -1031,10 +1024,9 @@ def test_captured_finetune_step_is_the_eager_step(dev, encoder, accum):
     torch.use_deterministic_algorithms(True)
     try:
         eager = _ft_steps(dev, batches, kw, accum, False)
-        kb.reset_launch_counts()
-        kg.reset_launch_counts()
+        counters.reset("launch", "route")
         captured = _ft_steps(dev, batches, kw, accum, True)
-        counts = {**kb.launch_counts(), **kg.launch_counts()}
+        counts = counters.of("launch", kb.KERNELS + kg.KERNELS)
     finally:
         torch.use_deterministic_algorithms(False)
     assert len(captured[4].graphs) == 1
@@ -1081,13 +1073,11 @@ def test_captured_remat_step_is_the_captured_plain_step(dev, encoder):
     torch.use_deterministic_algorithms(True)
     try:
         for remat in (False, True):
-            kb.reset_launch_counts()
-            kg.reset_launch_counts()
-            kbn.reset_launch_counts()
+            counters.reset("launch", "route")
             runs.append((_steps(dev, batches, {"encoder": encoder}, True,
                                 remat=remat),
-                         {**kb.launch_counts(), **kg.launch_counts()},
-                         kbn.launch_counts()))
+                         counters.of("launch", kb.KERNELS + kg.KERNELS),
+                         counters.of("launch", kbn.KERNELS)))
     finally:
         torch.use_deterministic_algorithms(False)
     (plain, n_plain, bn_plain), (remat, n_remat, bn_remat) = runs
@@ -1155,8 +1145,7 @@ def test_gcn_sage_model_on_card_matches_cpu(batch, dev, encoder):
                           deterministic=True)
     init_flax_style_(model, torch.Generator().manual_seed(1))
     ref = copy.deepcopy(model)
-    kb.reset_launch_counts()
-    encoders.branch_counts.clear()
+    counters.reset("launch", "encoder")
     out = []
     for m, gb, sb in ((model.to(dev), g, sub),
                       (ref, g.to("cpu"), sub.to("cpu"))):
@@ -1166,8 +1155,8 @@ def test_gcn_sage_model_on_card_matches_cpu(batch, dev, encoder):
                     {k: p.grad.cpu() for k, p in m.named_parameters()}))
         if m is model:
             torch.cuda.synchronize()
-            counts = dict(kb.launch_counts())
-            branches = dict(encoders.branch_counts)
+            counts = counters.of("launch", kb.KERNELS)
+            branches = counters.of("encoder")
     assert counts == {"gin_fwd": 0, "gin_fwd_bf16": 0, "gin_bwd": 0,
                       "spmm_self": 0, "spmm": 14, "pool": 1}
     prefix = "gcn" if encoder == "GCN" else "sage"
@@ -1185,9 +1174,9 @@ def test_captured_gcn_sage_step_is_the_eager_step(dev, encoder):
     torch.use_deterministic_algorithms(True)
     try:
         eager = _steps(dev, batches, {"encoder": encoder}, False)
-        kb.reset_launch_counts()
+        counters.reset("launch")
         captured = _steps(dev, batches, {"encoder": encoder}, True)
-        counts = kb.launch_counts()
+        counts = counters.of("launch", kb.KERNELS)
     finally:
         torch.use_deterministic_algorithms(False)
     assert len(captured[4].graphs) == 1
@@ -1215,10 +1204,9 @@ def test_dense_mode_captured_step_is_the_eager_step(dev):
     torch.use_deterministic_algorithms(True)
     try:
         eager = _steps(dev, out, kw, False)
-        kb.reset_launch_counts()
-        kbn.reset_launch_counts()
+        counters.reset("launch")
         captured = _steps(dev, out, kw, True)
-        counts = kb.launch_counts()
+        counts = counters.of("launch", kb.KERNELS)
     finally:
         torch.use_deterministic_algorithms(False)
     for a, b in zip(eager[0], captured[0]):
@@ -1227,7 +1215,8 @@ def test_dense_mode_captured_step_is_the_eager_step(dev):
     assert counts == {"gin_fwd": 3 * 2, "gin_fwd_bf16": 0, "gin_bwd": 3 * 2,
                       "spmm_self": 3 * 2, "spmm": 3 * 2, "pool": 0}
     # DenseGIN's two convs take the BatchNorm kernels as GIN's do
-    assert kbn.launch_counts() == dict.fromkeys(kbn.KERNELS, 3 * 4)
+    assert counters.of("launch", kbn.KERNELS) == dict.fromkeys(kbn.KERNELS,
+                                                               3 * 4)
 
 
 @pytest.mark.parametrize("live_noise", [False, True])
@@ -1312,7 +1301,7 @@ def test_captured_superbatch_step_is_the_single_steps(dev):
         model.to(dev)
         opt = trainer.adam_l2(model, 1e-3, 5e-5)
         gen = torch.Generator(device=dev).manual_seed(2)
-        kb.reset_launch_counts()
+        counters.reset("launch")
         if superbatch:
             step = trainer.make_pretrain_superbatch_step(model, opt, spec)
             losses = [step(buf, fits, gen).total.cpu()
@@ -1332,7 +1321,8 @@ def test_captured_superbatch_step_is_the_single_steps(dev):
         state = [v.cpu() for v in model.state_dict().values()] + [
             t.cpu() for p in model.parameters()
             for t in opt.state[p].values()]
-        return losses, state, gen.get_state(), dict(kb.launch_counts()), step
+        return (losses, state, gen.get_state(),
+                counters.of("launch", kb.KERNELS), step)
 
     torch.use_deterministic_algorithms(True)
     try:
@@ -1399,10 +1389,10 @@ def test_gin_fwd_bf16_matches_plain_at_cases(dev, case):
     h, w1, b1, w2, b2 = (torch.from_numpy(a).to(dev) for a in arrays)
     blocks, off = blocks.to(dev), off.to(dev)
     args = (blocks, off, h.to(BF), w1.to(BF), b1, w2.to(BF), b2)
-    kb.reset_launch_counts()
+    counters.reset("launch")
     got = kb.gin_fwd_bf16(*args)
-    assert kb.launch_counts()["gin_fwd_bf16"] == 1
-    assert kb.launch_counts()["gin_fwd"] == 0
+    assert counters.of("launch", kb.KERNELS)["gin_fwd_bf16"] == 1
+    assert counters.of("launch", kb.KERNELS)["gin_fwd"] == 0
     bf16_close((got,), (kb.gin_fwd_bf16_plain(*args),),
                (kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),))
 
@@ -1441,9 +1431,9 @@ def test_gt_bf16_kernels_match_plain_at_cases(dev, case):
     blocks, off, arrays = case_inputs(case)
     blocks, off = blocks.to(dev), off.to(dev)
     q, k, v, g = (torch.from_numpy(a).to(dev) for a in arrays)
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     bf16_attention_checks(blocks, off, q, k, v, g)
-    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 1)
+    assert counters.of("launch", kg.KERNELS) == dict.fromkeys(kg.KERNELS, 1)
 
 
 @pytest.mark.parametrize("hd", kg.HEAD_WIDTHS + (1024,))
@@ -1488,22 +1478,22 @@ def test_bf16_model_on_card_matches_cpu(batch, dev, encoder, mode):
 def test_bf16_pretrain_steps_on_card(dev, encoder, mode):
     """Two captured steps in each bf16 mode (the last the JAX package's
     TPU-default Transformer): only the bf16 forms launch."""
-    kb.reset_launch_counts()
-    kg.reset_launch_counts()
-    kbn.reset_launch_counts()
+    counters.reset("launch", "route")
     records = cli.run_pretrain(synthetic=48, batch_size=16, steps=2,
                                device="cuda", encoder=encoder, **mode)
     assert all(np.isfinite(r[k]) for r in records
                for k in ("kl", "contrastive", "reconstruction"))
-    counts = {**kb.launch_counts(), **kg.launch_counts()}
-    assert kbn.launch_counts() == dict.fromkeys(
+    counts = counters.of("launch", kb.KERNELS + kg.KERNELS)
+    assert counters.of("launch", kbn.KERNELS) == dict.fromkeys(
         kbn.KERNELS, 8 * 2 if encoder == "GIN" else 0)
     if encoder == "GIN":
         assert counts["gin_fwd_bf16"] == 8 * 2 and counts["gin_fwd"] == 0
     elif mode.get("gt_bwd") == "merged":
         assert counts["gt_fwd_bf16"] == counts["gt_bwd_merged_bf16"] == \
             2 * 5 * 2
-        routes = kg.route_counts()           # each launch on one route
+        # each launch on one route
+        routes = counters.of("route", [(k, r) for k in kg.STAGED
+                                       for r in kg.ROUTES])
         for name in kg.STAGED:
             assert sum(routes[name, r] for r in kg.ROUTES) == counts[name]
         assert not any(counts[k] for k in kg.KERNELS
@@ -1541,7 +1531,7 @@ def test_gt_bf16_routes_match_plain(batch, dev, kernel, shape, route):
     gen = torch.Generator(device=dev).manual_seed(hd)
     q, k, v, g = (torch.randn(sub.num_nodes, heads, hd, device=dev,
                               generator=gen) for _ in range(4))
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     if kernel == "gt_fwd_bf16":
         args = (blocks, off, q, k, v)
         got = kg.gt_fwd(*args, bf16_dots=True)
@@ -1556,8 +1546,8 @@ def test_gt_bf16_routes_match_plain(batch, dev, kernel, shape, route):
     taken = kg.gt_route(kernel, heads, hd).name
     assert taken == ("lane_group" if route == "lane_group" or hd == 1024
                      else "staged")
-    assert kg.launch_counts()[kernel] == 1
-    assert kg.route_counts()[kernel, taken] == 1
+    assert counters.of("launch", kg.KERNELS)[kernel] == 1
+    assert counters.of("route", [(kernel, taken)])[kernel, taken] == 1
 
 
 def test_staged_forward_is_the_lane_group_forward(batch, dev, monkeypatch):
@@ -1630,11 +1620,11 @@ def test_staged_launch_refuses_a_shape_it_does_not_take(batch, dev,
     q, k, v, _ = _gt_inputs(sub.num_nodes, dev, 16, heads=1, hd=1024)
     monkeypatch.setattr(kg, "gt_route", lambda *args, **kw: kg.Route(
         "staged", 1, 512, kg.SMEM_LIMIT))
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     with pytest.raises(RuntimeError, match="CUDA error"):
         kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
-    assert kg.launch_counts()["gt_fwd_bf16"] == 0
-    assert not any(kg.route_counts().values())
+    assert counters.of("launch", kg.KERNELS)["gt_fwd_bf16"] == 0
+    assert not any(counters.of("route").values())
 
 
 @pytest.mark.parametrize("kernel", sorted(kg.STAGED))
@@ -1687,9 +1677,9 @@ def test_gin_fwd_bf16_matches_plain(batch, dev, d):
     blocks, off = _resolve_band(sub)
     h, w1, b1, w2, b2 = _gin_bf16_inputs(sub.num_nodes, d, dev, d)
     args = (blocks, off, h.to(BF), w1.to(BF), b1, w2.to(BF), b2)
-    kb.reset_launch_counts()
+    counters.reset("launch")
     got = kb.gin_fwd_bf16(*args)
-    assert kb.launch_counts()["gin_fwd_bf16"] == 1
+    assert counters.of("launch", kb.KERNELS)["gin_fwd_bf16"] == 1
     bf16_close((got,), (kb.gin_fwd_bf16_plain(*args),),
                (kb.gin_fwd(blocks, off, h, w1, b1, w2, b2),))
 
@@ -1763,7 +1753,7 @@ def test_bn_kernels_match_float64_plain(dev, shape, mode):
     n, f, masked = BN_SHAPES[shape]
     x, dy, mask, scale, bias, rmean, rvar = _bn_inputs(n, f, masked, dev, n)
     d = (lambda t: None if t is None else t.double())
-    kbn.reset_launch_counts()
+    counters.reset("launch")
     totals = None
     if mode == "train":
         totals = kbn.bn_stats(x, mask)
@@ -1800,7 +1790,7 @@ def test_bn_kernels_match_float64_plain(dev, shape, mode):
     assert torch.equal(dx, kbn.bn_grad_apply(dy, x, mask, stats, grads[2]))
     if masked:
         assert not y[~mask].any() and not dx[~mask].any()
-    assert kbn.launch_counts() == {
+    assert counters.of("launch", kbn.KERNELS) == {
         "bn_stats": 2 if mode == "train" else 0, "bn_apply": 1,
         "bn_grad_stats": 1, "bn_grad_apply": 2}
 

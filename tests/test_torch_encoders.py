@@ -43,6 +43,7 @@ from scgib_tpu_torch.train import checkpoint as ckpt
 from scgib_tpu_torch.train.trainer import (TrainState,
                                            finetune_trainable_mask,
                                            make_finetune_step, masked_adam)
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import (adam_to_optax, from_jax_variables,
                                           load_adam_state, to_jax_variables)
 
@@ -143,13 +144,13 @@ def test_encoder_matches_jax(graph, case, banded):
     jg, g, x = graph
     mod, v = _jax_encoder(case, graph)
     enc = _port_encoder(case, v)
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     out, grad = _port_run(enc, g, x, banded)
     want_out, want_grad = _jax_run(mod, v, jg, x, banded)
     np.testing.assert_allclose(out, want_out, **VALUE_TOL)
     np.testing.assert_allclose(grad, want_grad, **GRAD_TOL)
     prefix = "gcn" if case == "GCN" else "sage"
-    assert dict(encoders.branch_counts) == {
+    assert counters.of("encoder") == {
         f"{prefix}_{'band' if banded else 'coo'}": 3}
     assert float(np.abs(out[~np.asarray(jg.node_mask)]).max()) == 0.0
 
@@ -269,11 +270,11 @@ def test_pretrain_model_matches_jax(pretrain_batch, encoder):
     model.load_state_dict(state)
     g, sub = (GraphBatch.from_numpy(jg, "cpu"),
               SubgraphBatch.from_numpy(jsub, "cpu"))
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     losses = model.train()(g, sub)
     losses.total.backward()
     prefix = "gcn" if encoder == "GCN" else "sage"
-    assert dict(encoders.branch_counts) == {f"{prefix}_band": 6}
+    assert counters.of("encoder") == {f"{prefix}_band": 6}
     for a, b in zip(losses, jl):
         np.testing.assert_allclose(float(a.detach()), float(b), rtol=1e-4)
     want = from_jax_variables({"params": jax.tree_util.tree_map(

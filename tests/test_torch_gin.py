@@ -13,6 +13,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from scgib_tpu.ops.pallas import banded as jkb
 from scgib_tpu_torch.ops.kernels import banded as kb
+from scgib_tpu_torch.utils import counters
 
 from gin_cases import CASES, EMPTY_TILE, REPEATED, case_inputs
 
@@ -25,9 +26,9 @@ def run(request):
     """(JAX operands, the port's output through the CPU wrapper) of a case;
     the wrapper takes the plain version and counts no launch."""
     blocks, off, arrays = case_inputs(request.param)
-    kb.reset_launch_counts()
+    counters.reset("launch")
     out = kb.gin_fwd(blocks, off, *map(torch.from_numpy, arrays))
-    assert kb.launch_counts()["gin_fwd"] == 0
+    assert counters.of("launch", kb.KERNELS)["gin_fwd"] == 0
     jargs = (jnp.asarray(blocks.float().numpy()).astype(jnp.bfloat16),
              jnp.asarray(off.numpy().astype(np.int32)),
              *map(jnp.asarray, arrays))

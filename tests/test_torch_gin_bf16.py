@@ -24,6 +24,7 @@ from jax.experimental.pallas import tpu as pltpu
 from scgib_tpu.ops.pallas import banded as jkb
 
 from scgib_tpu_torch.ops.kernels import banded as kb
+from scgib_tpu_torch.utils import counters
 
 import gin_rounding
 
@@ -127,7 +128,7 @@ def test_gin_fwd_bf16_on_cpu_counts_no_launch_on_any_route():
     """On a CPU tensor the wrapper is its plain version: no launch.  ~0.05
     s."""
     ins = gin_rounding.separating_inputs(16, 16, 16)
-    kb.reset_launch_counts()
+    counters.reset("launch")
     out = kb.gin_fwd_bf16(*ins)
     assert torch.equal(out, kb.gin_fwd_bf16_plain(*ins))
-    assert kb.launch_counts() == dict.fromkeys(kb.KERNELS, 0)
+    assert counters.of("launch", kb.KERNELS) == dict.fromkeys(kb.KERNELS, 0)

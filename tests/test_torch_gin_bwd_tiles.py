@@ -23,7 +23,7 @@ from scgib_tpu_torch.graph.egonet import extract_egonets
 from scgib_tpu_torch.models.scgib import PretrainModel
 from scgib_tpu_torch.ops.kernels import banded as kb
 from scgib_tpu_torch.train import trainer
-from scgib_tpu_torch.utils import profiling
+from scgib_tpu_torch.utils import counters, profiling
 
 SMEM_BYTES = 232_448          # shared memory a block may take on an H100
 SMS = 132                     # the grid: one block an SM
@@ -104,12 +104,12 @@ def test_a_steps_tally_carries_the_backward_tiles(monkeypatch):
         torch.manual_seed(7)
         model = PretrainModel(9, hidden=16, d_transfer=8,
                               deterministic=True)
-    before = trainer._tally()
+    before = counters.snapshot()
     monkeypatch.setattr(kb, "gin_bwd", launched)
     trainer.pretrain_step_eager(model, trainer.adam_l2(model, 1e-4), g, sub,
                                 torch.Generator().manual_seed(1))
     monkeypatch.undo()
-    after = trainer._tally()
+    after = counters.snapshot()
     added = {k: after.get(k, 0) - before.get(k, 0)
              for k in set(after) | set(before)}
     added = {k: v for k, v in added.items() if v}
@@ -123,5 +123,5 @@ def test_a_steps_tally_carries_the_backward_tiles(monkeypatch):
     tally = counts[profiling.STEP_PARTS[3]]
     assert tally["gin_bwd.tiles"] == tiles
     assert tally["gin_bwd.overlapped"] == overlapped
-    trainer._add_tally(added, -1)
-    assert trainer._tally() == before
+    counters.add(added, -1)
+    assert counters.snapshot() == before

@@ -60,7 +60,6 @@ from scgib_tpu_torch.graph.batching import (GraphData, pack_graphs,
                                             pack_subgraphs)
 from scgib_tpu_torch.graph.container import GraphBatch, SubgraphBatch
 from scgib_tpu_torch.graph.egonet import extract_egonets
-from scgib_tpu_torch.models import encoders
 from scgib_tpu_torch.models.encoders import (GraphTransformer,
                                              GraphTransformerLayer, dropout)
 from scgib_tpu_torch.models.scgib import (PretrainModel, _resolve_band,
@@ -70,6 +69,7 @@ from scgib_tpu_torch.ops.kernels import gt_flash as kg
 from scgib_tpu_torch.ops.spmm import sddmm_dot
 from scgib_tpu_torch.ops.spmm_banded import gt_banded_attention, gt_scores
 from scgib_tpu_torch.train.trainer import make_pretrain_step
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import from_jax_variables, init_flax_style_
 
 from gt_cases import (CASES, EMPTY, GEOMETRIES, Q_SCALE, REPEATED,
@@ -401,6 +401,31 @@ sys.stderr.write({_FAKE_PTXAS!r})
     assert calls.read_text() == "xx"
 
 
+def test_a_library_is_bound_once_and_kept(monkeypatch):
+    """``library`` binds a library's entries once and hands back that bound
+    object after, even once a later ``load`` has made a new, unbound one
+    (the card test of the ptxas report reloads the attention library)."""
+    import types
+
+    from scgib_tpu_torch.ops.kernels import build
+
+    loaded, bound = [], []
+
+    def load(name):
+        loaded.append(types.SimpleNamespace(name=name))
+        return loaded[-1:]
+
+    def bind(lib):
+        bound.append(lib)
+        return lib
+    monkeypatch.setattr(build, "load", load)
+    monkeypatch.setattr(build, "_bound", {})
+    first = build.library("a", bind)
+    load("a")
+    assert build.library("a", bind) is first
+    assert bound == [first] and len(loaded) == 2
+
+
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_merged_backward_matches_twopass(geometry):
     """The autograd function's two backward variants, and both against
@@ -425,13 +450,13 @@ def test_merged_backward_matches_twopass(geometry):
 def test_wrappers_take_plain_versions_on_cpu_without_launching():
     blocks, off = _banded_graph("narrow")
     q, k, v, g = (t(x) for x in _qkvg(256))
-    kg.reset_launch_counts()
+    counters.reset("launch", "route")
     out, z = kg.gt_fwd(blocks, off, q, k, v)
     kg.gt_bwd_merged(blocks, off, q, k, v, g, z)
     kg.gt_fwd(blocks, off, q, k, v, bf16_dots=True)
     kg.gt_bwd_merged(blocks, off, q, k, v, g, z, bf16_dots=True)
-    assert kg.launch_counts() == dict.fromkeys(kg.KERNELS, 0)
-    assert not any(kg.route_counts().values())
+    assert counters.of("launch", kg.KERNELS) == dict.fromkeys(kg.KERNELS, 0)
+    assert not any(counters.of("route").values())
 
 
 # (kernel, heads, head width, tile, band) -> (route, blocks a tile, threads)
@@ -522,12 +547,12 @@ def test_layer_matches_jax(monkeypatch, path, layout):
     layer = GraphTransformerLayer(HID, HEADS).eval()
     layer.load_state_dict(from_jax_variables(
         jax.tree_util.tree_map(np.asarray, variables)))
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     got = layer(t(x), b.senders, b.receivers, edge_mask=b.edge_mask,
                 band=band)
     rows = b.node_mask.numpy()        # padding rows are masked downstream
     _encoder_close(got[rows], np.asarray(want)[rows])
-    assert dict(encoders.branch_counts) == (
+    assert counters.of("encoder") == (
         {"gt_band_64x128": 1} if path == "band" else {"gt_coo": 1})
 
 
@@ -644,11 +669,11 @@ def test_pretrain_model_matches_jax(path):
         (_, losses), grads = jax.value_and_grad(loss, has_aux=True)(
             v["params"])
     model = _port_model(v)
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     port = model(GraphBatch.from_numpy(jg, "cpu"),
                  SubgraphBatch.from_numpy(jsub, "cpu"))
     port.total.backward()
-    assert dict(encoders.branch_counts) == (
+    assert counters.of("encoder") == (
         {"gt_band_64x128": 4} if path == "band" else {"gt_coo": 4})
     for a, b in zip(port, losses):
         np.testing.assert_allclose(float(a), float(b), rtol=1e-4)
@@ -750,13 +775,13 @@ def test_three_steps_match_jax_trainer():
 
 
 def test_cli_pretrain_transformer_on_cpu(capsys):
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     records = cli.run_pretrain(synthetic=24, batch_size=8, steps=1,
                                device="cpu", encoder="Transformer",
                                num_layers=1, num_heads=4, gt_bwd="merged")
     assert all(np.isfinite(records[0][k])
                for k in ("kl", "contrastive", "reconstruction"))
-    assert set(encoders.branch_counts) == {"gt_band_64x128"}
+    assert set(counters.of("encoder")) == {"gt_band_64x128"}
     cli.main(["pretrain", "--synthetic", "24", "--batch_size", "8",
               "--steps", "1", "--device", "cpu", "--encoder", "Transformer",
               "--num_layers", "1", "--num_heads", "4"])

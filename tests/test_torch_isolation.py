@@ -34,6 +34,21 @@ def test_no_banned_import_in_source(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_training_layer_imports_no_kernel_module():
+    """``train/`` reads the counts from ``utils/counters.py`` alone: none of
+    its modules imports from ``ops.kernels``."""
+    for path in sorted((ROOT / "scgib_tpu_torch" / "train").glob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        names = [alias.name for node in ast.walk(tree)
+                 if isinstance(node, ast.Import) for alias in node.names]
+        names += [f"{node.module or ''}.{alias.name}"
+                  for node in ast.walk(tree)
+                  if isinstance(node, ast.ImportFrom)
+                  for alias in node.names]
+        bad = [n for n in names if "ops.kernels" in n]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_package_imports_with_jax_blocked():
     """Every module of the package (and chip_smoke.py) imports in a fresh
     interpreter where importing any banned name raises."""

@@ -18,6 +18,7 @@ from scgib_tpu_torch.data.synthetic import random_dataset
 from scgib_tpu_torch.graph.batching import pack_graphs
 from scgib_tpu_torch.models import encoders
 from scgib_tpu_torch.models.layers import MLP2, MaskedBatchNorm, SegmentBatchNorm
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import from_jax_variables
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -136,10 +137,10 @@ def test_gin_encoder_matches(gin_batch, path, train):
             lambda a: a + 0.3, v["batch_stats"])}
     gin = bridged(encoders.GIN(8, hidden=16, num_convs=3), v)
     gin.train(train)
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     out = gin(t(x), g.senders, g.receivers, node_mask=g.node_mask,
               edge_mask=g.edge_mask, band=band)
-    assert encoders.branch_counts == {path: 3}
+    assert counters.of("encoder") == {path: 3}
     if train:
         want, upd = jgin.apply(v, *jargs, train=True,
                                mutable=["batch_stats"], **jkw)

@@ -27,6 +27,7 @@ from scgib_tpu_torch.ops import pool, segment
 from scgib_tpu_torch.ops.kernels import banded as kb
 from scgib_tpu_torch.ops.spmm import gather_sum
 from scgib_tpu_torch.ops.spmm_banded import banded_spmm
+from scgib_tpu_torch.utils import counters
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -232,14 +233,14 @@ def test_gin_bwd_plain_matches_fused_pallas(batch):
 
 def test_pool_forward_and_grad_match(batch):
     g, sub = batch
-    pool.branch_counts.clear()
+    counters.reset("pool")
     rng = np.random.default_rng(8)
     x, w = randn(rng, 1536, 16), randn(rng, 512, 16)
     xt = t(x).requires_grad_()
     out = pool.sorted_segment_sum_banded(xt, sub.node_center, 512,
                                          mask=sub.node_mask)
     (out * t(w)).sum().backward()
-    assert pool.branch_counts == {"banded": 1}
+    assert counters.of("pool") == {"banded": 1}
     args = (jnp.asarray(sub.node_center.numpy().astype(np.int32)), 512)
     jm = jnp.asarray(sub.node_mask.numpy())
     close(out, jpool.sorted_segment_sum_banded(jnp.asarray(x), *args,
@@ -276,10 +277,10 @@ def test_pool_scatter_branch_on_skewed_batch():
     ids = np.concatenate([ids, np.zeros(24, np.int64)]).astype(np.int32)
     mask = np.arange(1024) < 1000
     x = randn(rng, 1024, 8)
-    pool.branch_counts.clear()
+    counters.reset("pool")
     got = pool.sorted_segment_sum_banded(t(x), t(ids).long(), 256,
                                          mask=t(mask), window=256)
-    assert pool.branch_counts == {"scatter": 1}
+    assert counters.of("pool") == {"scatter": 1}
     close(got, jpool.sorted_segment_sum_banded(
         jnp.asarray(x), jnp.asarray(ids), 256, mask=jnp.asarray(mask),
         window=256))
@@ -289,11 +290,11 @@ def test_pool_scatter_branch_on_skewed_batch():
 
 def test_wrappers_on_cpu_take_the_plain_path_without_counting(batch):
     g, _ = batch
-    kb.reset_launch_counts()
+    counters.reset("launch")
     x = torch.randn(512, 64)
     kb.spmm(g.band_blocks, g.band_col_off, x)
     kb.spmm_self(g.band_blocks, g.band_col_off, x)
     kb.pool(g.band_blocks, g.band_col_off, x)
-    assert kb.launch_counts() == dict.fromkeys(kb.KERNELS, 0)
+    assert counters.of("launch", kb.KERNELS) == dict.fromkeys(kb.KERNELS, 0)
     with pytest.raises(ValueError, match="unsupported device"):
         kb.spmm(g.band_blocks, g.band_col_off, x.to("meta"))

@@ -47,6 +47,7 @@ from scgib_tpu_torch.models.encoders import GraphTransformerLayer
 from scgib_tpu_torch.models.scgib import PretrainModel, _resolve_band
 from scgib_tpu_torch.models.set2set import Set2Set
 from scgib_tpu_torch.ops.kernels import gt_flash as kg
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import (from_jax_variables, init_flax_style_,
                                           to_jax_variables)
 
@@ -254,10 +255,10 @@ def test_gin_at_any_width_matches_jax(gin_batch, hidden, branch):
     gin = encoders.GIN(8, hidden=hidden, num_convs=2)
     gin.load_state_dict(from_jax_variables(
         jax.tree_util.tree_map(np.asarray, v)))
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     out = gin(t(x), g.senders, g.receivers, node_mask=g.node_mask,
               edge_mask=g.edge_mask, band=band)
-    assert encoders.branch_counts == {branch: 2}
+    assert counters.of("encoder") == {branch: 2}
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(want),
                                rtol=1e-4, atol=1e-4)
 

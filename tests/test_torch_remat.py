@@ -31,11 +31,11 @@ from scgib_tpu_torch.data.loader import (GraphDataset, batch_iterator,
                                          plan_capacities)
 from scgib_tpu_torch.data.synthetic import random_dataset
 from scgib_tpu_torch.graph.container import GraphBatch, SubgraphBatch
-from scgib_tpu_torch.models import encoders
 from scgib_tpu_torch.models.scgib import PretrainModel
 from scgib_tpu_torch.train import trainer
 from scgib_tpu_torch.train.trainer import (adam_l2, make_pretrain_scan_step,
                                            make_pretrain_step)
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import from_jax_variables, init_flax_style_
 
 IN, HID, DT = 9, 16, 8
@@ -76,9 +76,9 @@ def _run(batch, encoder, remat, scan):
         step = make_pretrain_scan_step(model, opt, STEPS, remat=remat)
     else:
         step = make_pretrain_step(model, opt, remat=remat)
-    encoders.branch_counts.clear()
+    counters.reset("encoder")
     losses = [step(*batch, gen) for _ in range(1 if scan else STEPS)]
-    counts = {k: n // STEPS for k, n in encoders.branch_counts.items()}
+    counts = {k: n // STEPS for k, n in counters.of("encoder").items()}
     state = {k: v.numpy().tobytes() for k, v in model.state_dict().items()}
     state["generator"] = gen.get_state().numpy().tobytes()
     return ([t.numpy().tobytes() for ls in losses for t in ls], state,

@@ -42,11 +42,11 @@ from scgib_tpu_torch.data.synthetic import random_dataset
 from scgib_tpu_torch.graph import wire
 from scgib_tpu_torch.graph.batching import GraphData
 from scgib_tpu_torch.models.scgib import PretrainModel
-from scgib_tpu_torch.ops import pool
 from scgib_tpu_torch.train.loops import run_pretraining
 from scgib_tpu_torch.train.trainer import (TrainState,
                                            make_pretrain_superbatch_step,
                                            pretrain_step_eager)
+from scgib_tpu_torch.utils import counters
 from scgib_tpu_torch.utils.params import from_jax_variables, init_flax_style_
 from scgib_tpu_torch.utils.profiling import StepTimer, profile_trace
 
@@ -155,7 +155,7 @@ def test_superbatch_of_mixed_flags_pools_every_batch_by_scatter():
 
     gs, subs = wire.unpack_bytes(buf, spec)
     for own_flags in (False, True):
-        banded = pool.branch_counts["banded"]
+        banded = counters.of("pool", ["banded"])["banded"]
         b = _model()
         opt_b = torch.optim.Adam(b.parameters(), lr=LR, weight_decay=WD)
         gen_b = torch.Generator().manual_seed(3)
@@ -170,7 +170,7 @@ def test_superbatch_of_mixed_flags_pools_every_batch_by_scatter():
                                                rtol=1e-5)
                 else:
                     assert torch.equal(x[k], y)
-        assert pool.branch_counts["banded"] - banded == own_flags
+        assert counters.of("pool", ["banded"])["banded"] - banded == own_flags
         if not own_flags:
             sa, sb = _state(a, opt_a, gen_a), _state(b, opt_b, gen_b)
             assert all(torch.equal(sa[k], sb[k]) for k in sa)

@@ -27,7 +27,7 @@ from scgib_tpu_torch.graph.batching import pack_graphs, pack_subgraphs
 from scgib_tpu_torch.graph.egonet import extract_egonets
 from scgib_tpu_torch.models.scgib import PretrainModel
 from scgib_tpu_torch.train import trainer
-from scgib_tpu_torch.utils import profiling
+from scgib_tpu_torch.utils import counters, profiling
 
 PARTS = profiling.STEP_PARTS
 
@@ -169,6 +169,27 @@ def test_profile_trace_writes_the_spans_on_their_own_track(cpu_step,
     ops = [e for e in events if e.get("cat") == "cpu_op"]
     inside = [e for e in ops if a <= e["ts"] and e["ts"] + e["dur"] <= b]
     assert ops and len(inside) >= 0.9 * len(ops)
+
+
+def test_a_steps_tally_reads_the_registry(cpu_step):
+    """One GIN pretraining step on a banded batch, between two snapshots of
+    the counts: the tally a replay of it would carry holds its branches
+    and each batch's band width, and no route; taking the difference back
+    leaves the counts as they were."""
+    step, (g, sub) = cpu_step
+    before = counters.snapshot()
+    step(g, sub)
+    after = counters.snapshot()
+    added = {k: after.get(k, 0) - before.get(k, 0)
+             for k in set(after) | set(before)}
+    added = {k: n for k, n in added.items() if n}
+    tally = trainer._replay_counts((None, (g, sub), torch.zeros(()),
+                                    added))[PARTS[3]]
+    assert tally == {"encoder.band": 8, "pool.banded": 1, "recon.band": 1,
+                     "band_widths": (256, 256)}
+    assert not any(k.startswith("route.") for k in tally)
+    counters.add(added, -1)
+    assert counters.snapshot() == before
 
 
 @pytest.mark.cuda

@@ -34,11 +34,9 @@ from scgib_tpu_torch.graph import banded
 from scgib_tpu_torch.graph.batching import pack_graphs, pack_subgraphs
 from scgib_tpu_torch.graph.container import GraphBatch, SubgraphBatch
 from scgib_tpu_torch.graph.egonet import extract_egonets
-from scgib_tpu_torch.models import encoders, losses as losses_mod
 from scgib_tpu_torch.models.scgib import PretrainModel
-from scgib_tpu_torch.ops import pool
 from scgib_tpu_torch.train import trainer
-from scgib_tpu_torch.utils import profiling
+from scgib_tpu_torch.utils import counters, profiling
 from scgib_tpu_torch.utils.params import from_jax_variables
 
 IN, HID, DT, K = 9, 16, 8, 3
@@ -157,14 +155,12 @@ def _coo(b):
 
 
 def _counts():
-    return (dict(encoders.branch_counts), dict(pool.branch_counts),
-            dict(losses_mod.branch_counts))
+    return (counters.of("encoder"), counters.of("pool"),
+            counters.of("recon"))
 
 
 def _clear():
-    for c in (encoders.branch_counts, pool.branch_counts,
-              losses_mod.branch_counts):
-        c.clear()
+    counters.reset("encoder", "pool", "recon")
 
 
 @pytest.fixture(scope="module")
