@@ -35,7 +35,8 @@ Phases; any failure raises and exits non-zero before the last line:
      0.5, two-pass backward), then 2 with the merged backward; the step is
      captured (the first step eager, then CUDA-graph replays); each run
      starts with every launch count at 0, and each kernel's count must be
-     its expected per-step count times the steps, the pooling must take
+     its expected per-step count times the steps, the block builds 3 a
+     step (4 with graph transformers) times the steps, the pooling must take
      its kernel branch and the encoders their band branches.  Then:
      (a) captured against eager, 6 steps from one start on 6 batches,
      under torch's deterministic algorithms: losses every step, the final
@@ -276,7 +277,14 @@ Phases; any failure raises and exits non-zero before the last line:
      last two as the wrapper's mirror of the plan gives them), and its
      time; with ``--against DIR`` (another checkout), that checkout's
      gin_fused_bwd built and timed in turns with this one's (this, other,
-     other, this) and compared bitwise.
+     other, this) and compared bitwise; (f) the blocks kernel alone on the
+     peptide batch's atom band, ego-net band and pooling blocks, and on the
+     benchmark batch's (W 256, and its two bands in the transformer's
+     narrow geometry), against the plain route (float32 zeros, index_add_,
+     the cast): bitwise equal, timed beside it and beside PyTorch's bf16
+     route (bf16 zeros, index_add_ of bf16 ones), the zero pass beside
+     torch.zeros, with the bound of the bytes it writes, and (c)'s replay
+     making 3 builds of the peptide batch's entries.
  17. one JSON line of the kernels (with the launches of a fine-tuning step
      and an evaluation batch, and of each main-path run, the superbatch,
      phase 11, 12, 13 and 14 runs among them), the nvidia-smi line, and
@@ -325,6 +333,8 @@ from scgib_tpu_torch.data.loader import (  # noqa: E402
     GraphDataset, batch_iterator, pack_batch, plan_batches, plan_capacities,
     superbatch_spec)
 from scgib_tpu_torch.graph import wire  # noqa: E402
+from scgib_tpu_torch.graph.banded import (  # noqa: E402
+    GT_ALIGN, GT_BAND, GT_TILE, TILE, device_col_off)
 from scgib_tpu_torch.data.synthetic import random_dataset  # noqa: E402
 from scgib_tpu_torch.models import encoders  # noqa: E402
 from scgib_tpu_torch.models.scgib import (  # noqa: E402
@@ -431,6 +441,11 @@ SPMM_ENCODERS = ("GCN", "GraphSAGE")     # their runs are phase 9's
 # encoder -> (its branch count's name, convs or attention layers a step)
 ENCODER_BRANCHES = {"GIN": ("band", 8), "Transformer": ("gt_band_64x128", 10),
                     "GCN": ("gcn_band", 6), "GraphSAGE": ("sage_band", 6)}
+# encoder -> block builds a step (``kb.blocks``, counted as ``kb.BLOCKS``):
+# the atom band, the ego-net band and the pooling blocks; the transformer's
+# two bands in the narrow geometry, the reconstruction's atom band at W 256
+# and the pooling blocks
+BUILDS_PER_STEP = {"GIN": 3, "Transformer": 4, "GCN": 3, "GraphSAGE": 3}
 # which run's count each kernel reports
 REPORT_RUN = {"gt_fwd": "Transformer", "gt_bwd_rows": "Transformer",
               "gt_bwd_cols": "Transformer",
@@ -1548,17 +1563,121 @@ def wide_step_ms(dev, batches, coo):
     for g, sub in batches:                    # eager warm-up, captures
         float(step(g, sub, gen).total)
     reset_launch_counts()
+    counters.reset("blocks")
     _clear_branches()
     float(step(*batches[0], gen).total)
     launches = {k: v for k, v in launch_counts().items() if v}
     branches = _branches()
+    builds = {"launches": counters.of("launch", [kb.BLOCKS])[kb.BLOCKS],
+              **counters.of("blocks")}
     times = []
     for i in range(WIDE_STEPS):
         t0 = time.perf_counter()
         float(step(*batches[i % len(batches)], gen).total)
         times.append((time.perf_counter() - t0) * 1e3)
-    return {"launches": launches, "branches": branches,
+    return {"launches": launches, "branches": branches, "builds": builds,
             "step_ms": statistics.median(times), "steps_ms": times}
+
+
+def blocks_torch_bf16(rows, src, mask, off, n_tiles, tile, width):
+    """The blocks by PyTorch alone in bf16: ``kb.blocks_plain`` with its
+    float32 zeros and ones in bf16 and no cast (exact for counts up to
+    256): the control that the blocks kernel is timed beside."""
+    size = n_tiles * tile * width
+    t_idx = rows // tile
+    cols = src if src is not None else torch.arange(rows.shape[0],
+                                                    device=rows.device)
+    col = cols - off[t_idx.clamp(0, n_tiles - 1)]
+    keep = (rows >= 0) & (t_idx < n_tiles) & (col >= 0) & (col < width)
+    if mask is not None:
+        keep = keep & mask
+    lin = torch.where(keep, rows * width + col, torch.full_like(rows, size))
+    flat = torch.zeros(size + 1, dtype=torch.bfloat16, device=rows.device)
+    flat.index_add_(0, lin, torch.ones(lin.shape, dtype=torch.bfloat16,
+                                       device=rows.device))
+    return flat[:size].view(n_tiles, tile, width)
+
+
+def zero_pass(out):
+    """``blocks_zero_kernel`` alone over ``out`` (a build of no items)."""
+    n_tiles, tile, width = out.shape
+    kbuild.raise_on(kb.build().scgib_blocks(
+        None, None, None, None, 0, n_tiles, tile, width, kbuild.ptr(out),
+        kbuild.stream()), "blocks")
+
+
+def band_build(b, tile=TILE, width=None, align=None):
+    """``kb.blocks``' arguments for batch ``b``'s band: its own offsets and
+    width, or the geometry (``tile``, ``width``, ``align``) given."""
+    n = b.node_mask.shape[0]
+    off = (b.band_col_off if width is None else
+           device_col_off(n, tile, width, align, b.receivers.device))
+    return (b.receivers, b.senders, b.edge_mask, off, n // tile, tile,
+            width or b.band_width)
+
+
+def pool_build(g, sub):
+    """``kb.blocks``' arguments for the pooling blocks of (g, sub), as
+    ``ops/pool.py::pool_blocks`` passes them."""
+    n_seg, s_rows = g.num_nodes, sub.num_nodes
+    window = pool_mod.default_window(s_rows, n_seg)
+    poff = pool_mod.window_offsets(sub.node_center, sub.node_mask, n_seg,
+                                   TILE, window)
+    cc = torch.where(sub.node_mask, sub.node_center, torch.full_like(
+        sub.node_center, n_seg)).clamp_max(n_seg - 1)
+    return (cc, None, sub.node_mask, poff, n_seg // TILE, TILE, window)
+
+
+def build_records(g, sub, bench=None):
+    """Phase 16 (f): the blocks kernel (``kb.blocks``: a zero pass, then a
+    scatter of bf16 counts) alone on the peptide batch's atom band, ego-net
+    band and pooling blocks, and on ``bench``'s (the benchmark batch: W 256,
+    and its two bands in the graph transformer's narrow geometry), against
+    the plain route on the same indices (float32 zeros, ``index_add_`` of
+    ones, the cast to bf16): bitwise equal, each timed (``time_ms``) beside
+    the plain route and PyTorch's bf16 route (``blocks_torch_bf16``), the
+    zero pass alone beside ``torch.zeros`` in bf16, with the bound of the
+    bytes the kernel writes at HBM_BYTES_PER_S and its two kernels'
+    registers."""
+    builds = {("peptides", "atom band"): band_build(g),
+              ("peptides", "ego-net band"): band_build(sub),
+              ("peptides", "pool"): pool_build(g, sub)}
+    if bench is not None:
+        bg, bsub = bench
+        builds.update({
+            ("bench", "atom band"): band_build(bg),
+            ("bench", "ego-net band"): band_build(bsub),
+            ("bench", "pool"): pool_build(bg, bsub),
+            ("bench", "GT atom band"): band_build(bg, GT_TILE, GT_BAND,
+                                                  GT_ALIGN),
+            ("bench", "GT ego-net band"): band_build(bsub, GT_TILE, GT_BAND,
+                                                     GT_ALIGN)})
+    registers = {name: rec["registers"] for name, rec in
+                 kbuild.ptxas_report("banded").items()
+                 for kernel in ("blocks_zero_kernel", "blocks_scatter_kernel")
+                 if kernel in name}
+    records = []
+    for (batch, label), args in builds.items():
+        got, want = kb.blocks(*args), kb.blocks_plain(*args)
+        bf16 = blocks_torch_bf16(*args)
+        torch.cuda.synchronize()
+        rec = {"batch": batch, "build": label, "shape": list(got.shape),
+               "items": int(args[0].shape[0]), "entries": got.numel(),
+               "bitwise_equal_plain": torch.equal(got, want),
+               "torch_bf16_bitwise_equal_plain": torch.equal(bf16, want),
+               "ms": time_ms(lambda: kb.blocks(*args)),
+               "plain_ms": time_ms(lambda: kb.blocks_plain(*args)),
+               "torch_bf16_ms": time_ms(lambda: blocks_torch_bf16(*args)),
+               "zero_ms": time_ms(lambda: zero_pass(got)),
+               "torch_zeros_ms": time_ms(lambda: torch.zeros(
+                   got.shape, dtype=torch.bfloat16, device=got.device)),
+               "bound_ms": 2 * got.numel() / HBM_BYTES_PER_S * 1e3,
+               "registers": registers}
+        print(f"blocks {batch} {label}: {json.dumps(rec)}", flush=True)
+        if not rec["bitwise_equal_plain"]:
+            raise AssertionError(f"blocks {batch} {label}: {rec}")
+        records.append(rec)
+    return records
 
 
 def other_banded(root):
@@ -1664,10 +1783,12 @@ def wide_band_phase(dev, bench=None, other=None):
     aggregation, the backward's row tiles and overlapped tiles as
     ``step_bwd_tiles`` counts them) and its host ms to the loss read,
     against the same step
-    with the bands dropped (the COO path) in turns; (d) the benchmark
+    with the bands dropped (the COO path) in turns, and the block builds
+    of a replay (3, and the entries of (f)'s three); (d) the benchmark
     batch ``bench`` keeps the band of 256; (e) ``gin_bwd`` at S of
     ``bench`` and N and S of the peptide batch (``bwd_in_turns``), in turns
-    with ``other``'s kernel where given."""
+    with ``other``'s kernel where given; (f) the block builds alone
+    (``build_records``)."""
     report = {}
     batches, caps = peptide_batches(dev)
     g, sub = batches[0]
@@ -1698,7 +1819,7 @@ def wide_band_phase(dev, bench=None, other=None):
         (bwd_in_turns(label, batch, dev, gen, other) for label, batch in
          ((("S bench", bench[1]),) if bench is not None else ())
          + (("N", g), ("S", sub))), [])
-    torch.cuda.empty_cache()
+    report["builds"] = build_records(g, sub, bench)
     torch.cuda.empty_cache()
     runs = {}
     for path in ("banded", "coo", "coo", "banded"):
@@ -1708,9 +1829,15 @@ def wide_band_phase(dev, bench=None, other=None):
     band = runs["banded"][0]
     want = {"encoder": {"band": 8}, "pool": {"banded": 1},
             "recon": {"band": 1}, "gin_bwd": step_bwd_tiles(g, sub)}
-    if band["launches"] != GIN_PER_STEP or band["branches"] != want:
+    # the atom band (the encoder's and the reconstruction's), the ego-net
+    # band and the pooling blocks: one build each a replay
+    builds = {"launches": 3, "entries": sum(
+        r["entries"] for r in report["builds"] if r["batch"] == "peptides")}
+    if band["launches"] != GIN_PER_STEP or band["branches"] != want \
+            or band["builds"] != builds:
         raise AssertionError(f"a wide-band replay: {band}, expected "
-                             f"launches {GIN_PER_STEP}, branches {want}")
+                             f"launches {GIN_PER_STEP}, branches {want}, "
+                             f"builds {builds}")
     report["steps"] = runs
     if bench is not None:
         report["bench_band_widths"] = [b.band_width for b in bench]
@@ -1925,7 +2052,8 @@ def main():
 def main_path(name, kwargs, steps, per_step, band=None):
     """One main-path run: every launch count set to 0, ``run_pretrain`` at
     full width, the counts read; each must be its per-step count times
-    the steps (0 for the wrappers not in ``per_step``), and every conv or
+    the steps (0 for the wrappers not in ``per_step``), the block builds
+    the encoder's ``BUILDS_PER_STEP`` times the steps, and every conv or
     attention must take the ``band`` branch (by default the fused GIN
     layer's, or the narrow attention's)."""
     reset_launch_counts()
@@ -1950,7 +2078,12 @@ def main_path(name, kwargs, steps, per_step, band=None):
         if counts[kernel] != want:
             raise AssertionError(f"{name}: {kernel} launched "
                                  f"{counts[kernel]} times, expected {want}")
-    default_band, layers = ENCODER_BRANCHES[kwargs.get("encoder", "GIN")]
+    encoder = kwargs.get("encoder", "GIN")
+    builds = counters.of("launch", [kb.BLOCKS])[kb.BLOCKS]
+    if builds != BUILDS_PER_STEP[encoder] * steps:
+        raise AssertionError(f"{name}: {builds} block builds, expected "
+                             f"{BUILDS_PER_STEP[encoder] * steps}")
+    default_band, layers = ENCODER_BRANCHES[encoder]
     band = band or default_band
     if branches != ({"banded": steps}, {band: layers * steps}):
         raise AssertionError(f"{name} left the kernel branches: {branches}")
@@ -1961,8 +2094,8 @@ def main_path(name, kwargs, steps, per_step, band=None):
         if routes.get(f"{kernel} {route.name}", 0) != counts[kernel]:
             raise AssertionError(f"{name}: {kernel} left its {route.name} "
                                  f"route: {routes}")
-    return {"counts": counts, "routes": routes, "step_ms": step_ms,
-            "steps": records}
+    return {"counts": counts, "routes": routes, "builds": builds,
+            "step_ms": step_ms, "steps": records}
 
 
 # --- 6. the pretrain verb, its options and the repaired widths ---------------

@@ -12,6 +12,12 @@
 //                  partial of dW1, db1, dW2, db2 per block; the next row
 //                  tile's gather runs under this tile's products.
 //                  Replaces _bwd_kernel (#2).
+//   blocks_zero,   the 0/1 blocks themselves, from index arrays: a band's
+//   blocks_scatter from COO edges (models/scgib.py::_resolve_band), the
+//                  pooling's from the clipped centre ids
+//                  (ops/pool.py::pool_blocks).  Replaces no Pallas kernel:
+//                  the JAX package builds them with XLA scatters
+//                  (build_blocks_jax, and the pool's .at[].add).
 //
 // Layout (graph/banded.py): blocks [T, 128, W] bf16, col_off [T] int64; row
 // tile t of 128 rows reads the window x[col_off[t] : col_off[t] + W].  The
@@ -116,6 +122,22 @@
 // 64 where every width is at most 64 (139,520 bytes of shared memory at
 // 64), of 16 above, where two stages of 32 rows and the float weights
 // would need 237 KB at 128.
+//
+// scgib_blocks writes the [T, tile, W] bf16 counts of n items in two
+// passes: blocks_zero stores zeros over the whole output in 16-byte
+// vectors, then blocks_scatter takes one item a thread, finds its slot and
+// adds 1 with a bf16 atomicAdd (a band may repeat an edge, so counts add;
+// integer counts up to 256 are exact in bf16 in any order, so the blocks
+// are bit-equal to a float32 scatter cast once).  It is bound by the bytes
+// it writes: at Peptides-func's shapes 273 M entries, 547 MB, 0.16 ms at
+// 3.35 TB/s, against ~1.6 M items scattered.  The route it replaces zeroed
+// a float32 buffer twice that size, scattered ones into it and cast it
+// (five or more kernels, ~7x the bound).  The two passes are what keep it
+// correct for any item order: the packers emit edges sorted by receiver
+// and ego-net rows by centre (data/flat.py, graph/batching.py), but a
+// build that relied on that (a tile's slab built in shared memory and
+// stored once) would need the sorting checked, and the pooling's slab of
+// 128 x 4864 entries (1.2 MB at Peptides-func's window) fits no block.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (ops/kernels/banded.py).  Every entry launches on the given stream,
@@ -263,6 +285,48 @@ banded_spmm_kernel(const __nv_bfloat16* __restrict__ blocks,
                      lpr, acc);
     if (col_ok) store_vec<VEC>(out + r * d + c, acc);
   }
+}
+
+// --- the blocks themselves (scgib_blocks) -----------------------------------
+
+constexpr int BUILD_THREADS = 256;
+constexpr int ZERO_VECS = 4;      // 16-byte stores a thread of the zero pass
+
+// out[0 : total] = 0 in 16-byte stores (out 16-byte aligned); the first
+// block also writes the total % 8 entries past the last whole vector.
+__global__ void __launch_bounds__(BUILD_THREADS)
+blocks_zero_kernel(__nv_bfloat16* __restrict__ out, long long total) {
+  const long long nvec = total / 8;
+  uint4* v = reinterpret_cast<uint4*>(out);
+  const long long base =
+      (long long)blockIdx.x * BUILD_THREADS * ZERO_VECS + threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < ZERO_VECS; ++j) {
+    const long long i = base + (long long)j * BUILD_THREADS;
+    if (i < nvec) v[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < total % 8)
+    out[nvec * 8 + threadIdx.x] = __float2bfloat16(0.f);
+}
+
+// One thread an item i: row r = rows[i], source c = src[i] (i itself where
+// src is null), tile t = r / tile; adds 1 at [t, r - t tile, c - off[t]]
+// where mask[i] (or no mask), 0 <= r, t < T and 0 <= c - off[t] < W, and
+// drops the item otherwise.
+__global__ void __launch_bounds__(BUILD_THREADS)
+blocks_scatter_kernel(const long long* __restrict__ rows,
+                      const long long* __restrict__ src,
+                      const unsigned char* __restrict__ mask,
+                      const long long* __restrict__ off, long long n, int T,
+                      int tile, int W, __nv_bfloat16* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * BUILD_THREADS + threadIdx.x;
+  if (i >= n || (mask != nullptr && !mask[i])) return;
+  const long long r = rows[i];
+  const long long t = r / tile;
+  if (r < 0 || t >= T) return;
+  const long long col = (src != nullptr ? src[i] : i) - off[t];
+  if (col < 0 || col >= W) return;
+  atomicAdd(out + r * W + col, __float2bfloat16(1.f));
 }
 
 // --- 3xTF32 tensor-core products (gin_fused_bwd) ---------------------------
@@ -1218,6 +1282,28 @@ int scgib_banded_spmm(const void* blocks, const void* col_off, int n_tiles,
   k<<<grid, SPMM_THREADS, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)blocks, (const long long*)col_off, W,
       (const float*)x, nx, d, (float*)out, rows, add_self, lpr);
+  return (int)cudaGetLastError();
+}
+
+// out[T, tile, W] bf16 = the counts of n items (blocks_scatter_kernel):
+// the zero pass, then the scatter.  rows, src and off int64, mask bool; src
+// and mask may be null; out 16-byte aligned (a fresh torch allocation).
+int scgib_blocks(const void* rows, const void* src, const void* mask,
+                 const void* off, long long n, int T, int tile, int W,
+                 void* out, void* stream) {
+  const long long total = (long long)T * tile * W;
+  const long long per_block = (long long)BUILD_THREADS * ZERO_VECS * 8;
+  if (total > 0)
+    blocks_zero_kernel<<<(unsigned)((total + per_block - 1) / per_block),
+                         BUILD_THREADS, 0, (cudaStream_t)stream>>>(
+        (__nv_bfloat16*)out, total);
+  if (n > 0)
+    blocks_scatter_kernel<<<(unsigned)((n + BUILD_THREADS - 1) /
+                                       BUILD_THREADS),
+                            BUILD_THREADS, 0, (cudaStream_t)stream>>>(
+        (const long long*)rows, (const long long*)src,
+        (const unsigned char*)mask, (const long long*)off, n, T, tile, W,
+        (__nv_bfloat16*)out);
   return (int)cudaGetLastError();
 }
 

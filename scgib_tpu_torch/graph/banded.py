@@ -7,8 +7,9 @@ dense [tile, band] slab whose columns start at ``col_off[t]``, and
 
     agg[t*tile:(t+1)*tile] = blocks[t] @ h[col_off[t] : col_off[t]+band]
 
-The NumPy helpers run on the host; ``build_blocks`` builds the same blocks
-from the COO edge list on the device, and ``device_col_off`` the offsets.
+The NumPy helpers run on the host; ``device_col_off`` gives the offsets on
+the device, where ``ops/kernels/banded.py::blocks`` builds the same blocks
+from the COO edge list.
 
 The band is sized from the data (``band_width``): with ``band`` a multiple of
 the tile, a row tile's window reaches (band - tile) / 2 rows on either side
@@ -156,32 +157,3 @@ def pack_banded(senders: np.ndarray, receivers: np.ndarray,
     return BandedAdjacency(blocks=blocks, col_off=col_off,
                            num_nodes=num_nodes)
 
-
-def build_blocks(senders: torch.Tensor, receivers: torch.Tensor,
-                 edge_mask: Optional[torch.Tensor], col_off: torch.Tensor,
-                 num_nodes: int, tile: int = 128,
-                 band: int = 256) -> torch.Tensor:
-    """Device-side build of the [T, tile, band] bf16 blocks from COO.
-
-    Equals ``build_blocks_jax``: a scatter-add of the edge weights (the
-    edge mask) that drops entries outside their window.  ``index_add_``
-    raises on an out-of-range index where XLA's ``mode="drop"`` skips it,
-    so masked and out-of-window edges are routed to one spare slot past
-    the end and cut off — no boolean compaction, hence no host sync.
-    Counts add in float32 and are cast once: small integer counts are
-    exact in both types, so the bf16 result is bit-equal to the bf16
-    scatter."""
-    n_tiles = num_nodes // tile
-    size = n_tiles * tile * band
-    t_idx = receivers // tile
-    col = senders - col_off[t_idx.clamp(0, n_tiles - 1)]
-    keep = (col >= 0) & (col < band) & (t_idx < n_tiles)
-    if edge_mask is not None:
-        keep = keep & edge_mask
-    lin = torch.where(keep, receivers * band + col,
-                      torch.full_like(receivers, size))
-    flat = torch.zeros(size + 1, dtype=torch.float32,
-                       device=receivers.device)
-    flat.index_add_(0, lin, torch.ones(lin.shape, dtype=torch.float32,
-                                       device=receivers.device))
-    return flat[:size].view(n_tiles, tile, band).to(torch.bfloat16)

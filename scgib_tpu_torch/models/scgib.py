@@ -37,9 +37,10 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import nn
 
-from ..graph.banded import (BAND, GT_ALIGN, GT_BAND, GT_TILE,
-                           build_blocks, device_col_off)
+from ..graph.banded import (BAND, GT_ALIGN, GT_BAND, GT_TILE, TILE,
+                           device_col_off)
 from ..graph.container import GraphBatch, SubgraphBatch
+from ..ops.kernels import banded as kb
 from ..ops.pool import sorted_segment_sum_banded
 from ..ops.segment import (segment_broadcast, segment_softmax,
                            segment_std_mean, segment_sum)
@@ -64,7 +65,8 @@ def _resolve_band(batch, gt: bool = False):
     """(blocks, col_off) of a batch's banded adjacency, or None.
 
     When the packer shipped only the offsets, the bf16 blocks are built on
-    the device at first use and kept on the batch object (not in its
+    the device at first use (``kb.blocks``, the receivers as rows and the
+    senders as sources) and kept on the batch object (not in its
     ``band_blocks`` field, which stays what the packer shipped), so both
     encoders' uses and the reconstruction loss's share one build per batch.
     The blocks are the batch's ``band_width`` wide.
@@ -85,19 +87,19 @@ def _resolve_band(batch, gt: bool = False):
             n = batch.node_mask.shape[0]
             off = device_col_off(n, GT_TILE, GT_BAND, GT_ALIGN,
                                  col_off.device)
-            band = (build_blocks(batch.senders, batch.receivers,
-                                 batch.edge_mask, off, n, tile=GT_TILE,
-                                 band=GT_BAND), off)
+            band = (kb.blocks(batch.receivers, batch.senders,
+                              batch.edge_mask, off, n // GT_TILE, GT_TILE,
+                              GT_BAND), off)
             batch._gt_band = band
         return band
     if batch.band_blocks is not None:
         return batch.band_blocks, col_off
     blocks = getattr(batch, "_band", None)
     if blocks is None:
-        blocks = build_blocks(batch.senders, batch.receivers,
-                              batch.edge_mask, col_off,
-                              batch.node_mask.shape[0],
-                              band=batch.band_width)
+        blocks = kb.blocks(batch.receivers, batch.senders,
+                           batch.edge_mask, col_off,
+                           batch.node_mask.shape[0] // TILE,
+                           TILE, batch.band_width)
         batch._band = blocks
     return blocks, col_off
 

@@ -13,6 +13,14 @@ three):
   spmm          _spmm_kernel       (recon cross term)   banded_spmm
   pool          _pool_kernel       (candidate pooling)  banded_spmm, W=1024
 
+A seventh, ``blocks``, builds the 0/1 blocks the others read, from index
+arrays (``models/scgib.py::_resolve_band``, ``ops/pool.py::pool_blocks``),
+with two kernels, ``blocks_zero`` and ``blocks_scatter``; it replaces no
+Pallas kernel (the JAX package builds the blocks with XLA scatters), so it
+is not one of ``KERNELS``, which are the Pallas kernels' counterparts.  It
+counts its launches as ``BLOCKS`` (kind ``launch``) and the entries it
+writes (kind ``blocks``, name ``entries``).
+
 The band width W is the blocks' last dimension, any multiple of
 ``BAND_MULTIPLE``: the packers size it from the data (``graph/banded.py::
 band_width``: 256 up to 64-node graphs and ego-nets, 384 and 512 at
@@ -78,6 +86,7 @@ ALIGN = 16           # bytes: the kernels read blocks and x in 16-byte
 
 KERNELS = ("gin_fwd", "gin_fwd_bf16", "gin_bwd", "spmm_self", "spmm",
            "pool")
+BLOCKS = "blocks"    # the block build's launch count (not a Pallas kernel's)
 
 
 def build() -> ctypes.CDLL:
@@ -98,7 +107,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.scgib_gin_fused_bwd.argtypes = [P, P, I, P, L, I, P, P, P, I, P, I,
                                         P, P, I, P]
     lib.scgib_kernel_info.argtypes = [I, I, I, I, P]
-    for fn in (lib.scgib_banded_spmm, lib.scgib_gin_fused_fwd,
+    lib.scgib_blocks.argtypes = [P, P, P, P, L, I, I, I, P, P]
+    for fn in (lib.scgib_banded_spmm, lib.scgib_blocks,
+               lib.scgib_gin_fused_fwd,
                lib.scgib_gin_fused_fwd_bf16, lib.scgib_gin_fused_bwd_grid,
                lib.scgib_gin_fused_bwd, lib.scgib_kernel_info):
         fn.restype = ctypes.c_int
@@ -133,6 +144,68 @@ def _band_args(blocks, col_off, x, name, copy=False, dtype=torch.float32):
         if t.data_ptr() % ALIGN:
             raise ValueError(f"{name}: {what} must be {ALIGN}-byte aligned")
     return blocks, col_off.to(torch.int64).contiguous(), x
+
+
+# --- the blocks ------------------------------------------------------------
+
+def _blocks_args(rows, src, mask, off, n_tiles):
+    """Validate ``blocks``' index operands (on either device)."""
+    if rows.dim() != 1 or rows.dtype != torch.int64:
+        raise TypeError("blocks: rows must be a 1-D int64 tensor")
+    if src is not None and (src.dtype != torch.int64
+                            or src.shape != rows.shape):
+        raise TypeError("blocks: src must be int64, shaped as rows")
+    if mask is not None and (mask.dtype != torch.bool
+                             or mask.shape != rows.shape):
+        raise TypeError("blocks: mask must be bool, shaped as rows")
+    if off.dtype != torch.int64:
+        raise TypeError("blocks: off must be int64")
+    if off.shape != (n_tiles,):
+        raise ValueError(f"blocks: off must be [T] = [{n_tiles}], got "
+                         f"{tuple(off.shape)}")
+    for t in (src, mask, off):
+        if t is not None and t.device != rows.device:
+            raise ValueError("blocks: operands must share one device")
+
+
+def blocks_plain(rows, src, mask, off, n_tiles, tile, width):
+    """The counts as a float32 ``index_add_`` cast to bf16 once (exact for
+    counts up to 256); dropped items go to a spare slot past the end, cut
+    off (``index_add_`` raises on an index out of range)."""
+    size = n_tiles * tile * width
+    t_idx = rows // tile
+    cols = src if src is not None else torch.arange(rows.shape[0],
+                                                    device=rows.device)
+    col = cols - off[t_idx.clamp(0, n_tiles - 1)]
+    keep = (rows >= 0) & (t_idx < n_tiles) & (col >= 0) & (col < width)
+    if mask is not None:
+        keep = keep & mask
+    lin = torch.where(keep, rows * width + col, torch.full_like(rows, size))
+    flat = torch.zeros(size + 1, dtype=torch.float32, device=rows.device)
+    flat.index_add_(0, lin, torch.ones(lin.shape, dtype=torch.float32,
+                                       device=rows.device))
+    return flat[:size].view(n_tiles, tile, width).to(torch.bfloat16)
+
+
+def blocks(rows, src, mask, off, n_tiles, tile, width):
+    """[n_tiles, tile, width] bf16 counts of items: item i adds 1 at
+    [t, r - t tile, c - off[t]], with r = rows[i], c = src[i] (i where
+    ``src`` is None) and t = r // tile, where ``mask[i]`` (or no mask),
+    0 <= r, t < n_tiles and 0 <= c - off[t] < width; any other item is
+    dropped.  rows, src and off int64, mask bool, off [n_tiles]."""
+    _blocks_args(rows, src, mask, off, n_tiles)
+    if not on_card("blocks", rows):
+        return blocks_plain(rows, src, mask, off, n_tiles, tile, width)
+    out = torch.empty((n_tiles, tile, width), dtype=torch.bfloat16,
+                      device=rows.device)    # the allocator aligns to 512
+    src, mask = (None if t is None else t.contiguous() for t in (src, mask))
+    rows, off = rows.contiguous(), off.contiguous()
+    raise_on(build().scgib_blocks(
+        ptr(rows), ptr(src), ptr(mask), ptr(off), rows.shape[0], n_tiles,
+        tile, width, ptr(out), stream()), "blocks")
+    counters.tick("launch", BLOCKS)
+    counters.tick("blocks", "entries", out.numel())
+    return out
 
 
 # --- banded SpMM: wrappers #3, #4, #5 ---------------------------------------

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..utils import counters
-from .kernels.banded import pool
+from .kernels.banded import blocks, pool
 from .segment import _apply_mask, segment_sum
 
 
@@ -133,26 +133,13 @@ def window_offsets(segment_ids, m, num_segments: int, tile: int,
 def pool_blocks(segment_ids, m, off, num_segments: int, tile: int,
                 window: int):
     """The [T, tile, window] bf16 0/1 pooling blocks and the clipped
-    center ids (the backward's gather map)."""
-    s_rows = segment_ids.shape[0]
-    n_tiles = num_segments // tile
+    center ids (the backward's gather map): each real sub-row i adds 1 at
+    its center's row, column i - off[t] (``kernels/banded.py::blocks``,
+    which drops masked and out-of-window rows)."""
     cc_clip = torch.where(m, segment_ids, torch.full_like(
         segment_ids, num_segments)).clamp_max(num_segments - 1)
-    t_idx = cc_clip // tile
-    row = cc_clip - t_idx * tile
-    col = torch.arange(s_rows, device=cc_clip.device) - off[t_idx]
-    # each real sub-row owns one (tile, row, col) slot: 0/1 entries, exact
-    # in bf16; masked and out-of-window rows go to a spare slot cut off
-    # below (index_add_ raises where XLA's mode="drop" skips)
-    size = n_tiles * tile * window
-    keep = m & (col >= 0) & (col < window)
-    lin = torch.where(keep, (t_idx * tile + row) * window + col,
-                      torch.full_like(col, size))
-    flat = torch.zeros(size + 1, dtype=torch.float32, device=col.device)
-    flat.index_add_(0, lin, torch.ones(lin.shape, dtype=torch.float32,
-                                       device=col.device))
-    blocks = flat[:size].view(n_tiles, tile, window).to(torch.bfloat16)
-    return blocks, cc_clip
+    return (blocks(cc_clip, None, m, off, num_segments // tile, tile,
+                   window), cc_clip)
 
 
 def _scatter(data, segment_ids, num_segments, mask):

@@ -3,7 +3,8 @@ branches a step took, keyed by ``(kind, name)``.
 
   kind      ticked by                                 name
   launch    each kernel wrapper (``ops/kernels/``)    the wrapper, one of its
-                                                      module's ``KERNELS``
+                                                      module's ``KERNELS``,
+                                                      or ``banded.BLOCKS``
   route     ``gt_flash``'s wrappers with a staged     (wrapper, route)
             route
   encoder   ``models/encoders.py``                    a conv's or an
@@ -12,6 +13,7 @@ branches a step took, keyed by ``(kind, name)``.
   recon     ``models/losses.py``                      the reconstruction's
                                                       cross term's path
   gin_bwd   ``banded.py::count_bwd_tiles``            ``tiles``, ``overlapped``
+  blocks    ``banded.py::blocks``                     ``entries`` written
 
 A kernel or branch is counted by the module that runs it, and by no other.
 A captured step (``train/trainer.py``) takes what its capture ticked as the

@@ -6,7 +6,9 @@ ego-nets among them) and the captured evaluation against their eager
 forms, the captured remat step against the plain one and the captured
 data-parallel step at world size 1 over NCCL against the single step; the
 GIN layer's BatchNorm -> ReLU -> row mask kernels against their plain
-versions in float64 and, over two gloo ranks on the card, as sync-BN.
+versions in float64 and, over two gloo ranks on the card, as sync-BN;
+the block build (``kb.blocks``) bitwise against its plain version at every
+cell's shapes, and replayed in a graph on new indices.
 Marked ``cuda``; without a CUDA device every
 test skips.  On a machine with one:
 
@@ -23,8 +25,8 @@ on the same inputs must sit past that gate (the gate would catch a kernel
 that skipped its rounding), as must the control of each single rounding
 point that lies at least twice the gate from the plain version
 (``gt_rounding.py``).  Every kernel but the
-merged attention backward uses no atomics, so two runs on one card agree
-bitwise."""
+merged attention backward uses no atomics (the block build's add integer
+counts, exact in any order), so two runs on one card agree bitwise."""
 
 import copy
 import functools
@@ -370,7 +372,7 @@ def _components_band(rows, width, dev, seed=0):
     snd = torch.from_numpy(key % rows).to(dev)
     rcv = torch.from_numpy(key // rows).to(dev)
     off = banded.device_col_off(rows, 128, width, 64, dev)
-    blocks = banded.build_blocks(snd, rcv, None, off, rows, band=width)
+    blocks = kb.blocks(rcv, snd, None, off, rows // 128, 128, width)
     return blocks, off, len(key)
 
 
@@ -408,6 +410,145 @@ def test_kernels_at_the_wide_bands_and_the_cells_rows(dev, rows, width):
         for a, w in zip(kb.gin_bwd(blocks, off, h, gr, w1, b1, w2),
                         kb.gin_bwd_plain(blocks, off, h, gr, w1, b1, w2)):
             close(a, w, rtol=1e-4)
+
+
+def _band_items(rows, width, tile, seed, edges=None):
+    """(senders, receivers, edge_mask) as the packers lay a batch out over
+    ``rows`` rows: components of at most (width - tile) / 2 nodes, a tree
+    plus chords each, symmetric, no edge twice; then one real edge doubled
+    (the only count of 2), padding self-loops (masked) up to ``edges``
+    items, and the order permuted."""
+    rng = np.random.default_rng(seed)
+    lim = (width - tile) // 2
+    s, r, at = [], [], 0
+    while True:
+        m = int(rng.integers(lim // 2, lim + 1))
+        if at + m > rows - tile:
+            break
+        child = np.arange(1, m)
+        parent = (rng.random(m - 1) * child).astype(np.int64)
+        extra = rng.integers(0, m, size=(2, int(0.15 * m)))
+        extra = extra[:, extra[0] != extra[1]]
+        a = np.concatenate([child, extra[0]]) + at
+        b = np.concatenate([parent, extra[1]]) + at
+        s += [a, b]
+        r += [b, a]
+        at += m
+    key = np.unique(np.concatenate(r) * rows + np.concatenate(s))
+    s, r = key % rows, key // rows       # a chord may repeat a tree edge
+    s, r = np.append(s, s[0]), np.append(r, r[0])        # a doubled edge
+    pad = (edges or len(s) + 64) - len(s)
+    mask = np.arange(len(s) + pad) < len(s)
+    s = np.concatenate([s, np.full(pad, rows - 1)])
+    r = np.concatenate([r, np.full(pad, rows - 1)])
+    p = rng.permutation(len(s))
+    return s[p], r[p], mask[p]
+
+
+# cell -> (rows, band width, tile, offsets' alignment): the Peptides cell's
+# atom and 3-hop ego-net bands, the PCQM cells' (N and S of a batch of 128
+# at W 256) and the graph transformer's narrow geometry
+BUILD_BANDS = {"peptides-atoms": (22016, 512, 128, 64),
+               "peptides-egonets": (403712, 384, 128, 64),
+               "pcqm-atoms": (3072, 256, 128, 64),
+               "pcqm-egonets": (9728, 256, 128, 64),
+               "gt": (9728, 128, 64, 8)}
+# cell -> (ego-net rows S, centers N, pooling window)
+BUILD_POOLS = {"peptides": (403712, 22016, 4864),
+               "pcqm": (9728, 3072, pool.default_window(9728, 3072))}
+
+
+@pytest.mark.parametrize("cell", list(BUILD_BANDS))
+def test_band_build_kernel_is_bitwise_the_plain_one(dev, cell):
+    """``kb.blocks`` on the card (the blocks kernel) == the plain
+    float32 scatter cast once, bit for bit, at each cell's band: masked
+    padding, a doubled edge (a count of 2) and a permuted edge order."""
+    rows, width, tile, align = BUILD_BANDS[cell]
+    snd, rcv, mask = (torch.from_numpy(a).to(dev)
+                      for a in _band_items(rows, width, tile, seed=rows))
+    off = banded.device_col_off(rows, tile, width, align, dev)
+    got = kb.blocks(rcv, snd, mask, off, rows // tile, tile, width)
+    want = kb.blocks_plain(rcv, snd, mask, off, rows // tile, tile, width)
+    torch.cuda.synchronize()
+    assert got.shape == (rows // tile, tile, width)
+    assert torch.equal(got, want)
+    assert float(got.float().sum()) == int(mask.sum())
+    assert float(got.float().max()) == 2         # the doubled edge alone
+
+
+@pytest.mark.parametrize("cell", list(BUILD_POOLS))
+def test_pool_build_kernel_is_bitwise_the_plain_one(dev, cell):
+    """``pool_blocks`` on the card == the plain version, bit for bit, at
+    each cell's pooling window: sorted centers, padding rows masked."""
+    s_rows, centers, window = BUILD_POOLS[cell]
+    rng = np.random.default_rng(s_rows)
+    per = 1 + rng.poisson(0.9 * s_rows / centers - 1, size=centers)
+    ids = np.repeat(np.arange(centers), per)[:s_rows]
+    mask = np.arange(s_rows) < len(ids)
+    ids = np.concatenate([ids, np.zeros(s_rows - len(ids), np.int64)])
+    assert 0.8 * s_rows < mask.sum() < s_rows
+    assert pool.window_fits(ids, mask, centers, 128, window)
+    ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    off = pool.window_offsets(ids, mask, centers, 128, window)
+    got, cc = pool.pool_blocks(ids, mask, off, centers, 128, window)
+    want = kb.blocks_plain(cc, None, mask, off, centers // 128, 128, window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got.float().sum()) == int(mask.sum())
+
+
+def test_band_build_replayed_in_a_graph_sees_the_next_batch(dev):
+    """A build captured in a CUDA graph, replayed after another batch's
+    indices are copied into its inputs, equals that batch's plain blocks:
+    the zero pass leaves none of the first batch's counts behind."""
+    rows, width, tile, align = BUILD_BANDS["pcqm-egonets"]
+    first = _band_items(rows, width, tile, seed=1, edges=24000)
+    second = _band_items(rows, width, tile, seed=2, edges=24000)
+    bufs = [torch.from_numpy(a).to(dev) for a in first]
+    off = banded.device_col_off(rows, tile, width, align, dev)
+
+    def build():
+        return kb.blocks(bufs[1], bufs[0], bufs[2], off, rows // tile, tile,
+                         width)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        build()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = build()
+    for items in (first, second, first):
+        for buf, a in zip(bufs, items):
+            buf.copy_(torch.from_numpy(a))
+        graph.replay()
+        want = kb.blocks_plain(bufs[1], bufs[0], bufs[2], off, rows // tile,
+                               tile, width)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+def test_block_builds_count_one_launch_each(dev):
+    """Each build ticks one ``launch`` of ``kb.BLOCKS`` and its entries
+    (kind ``blocks``); the plain version on the CPU ticks neither."""
+    rows, width, tile, align = BUILD_BANDS["pcqm-atoms"]
+    snd, rcv, mask = (torch.from_numpy(a).to(dev)
+                      for a in _band_items(rows, width, tile, seed=3))
+    off = banded.device_col_off(rows, tile, width, align, dev)
+    counters.reset("launch", "blocks")
+    kb.blocks(rcv, snd, mask, off, rows // tile, tile, width)
+    assert counters.of("launch", [kb.BLOCKS]) == {kb.BLOCKS: 1}
+    assert counters.of("blocks") == {"entries": rows * width}
+    ids = torch.div(torch.arange(rows, device=dev), 4, rounding_mode="floor")
+    m = torch.ones(rows, dtype=torch.bool, device=dev)
+    poff = pool.window_offsets(ids, m, rows // 4, 128, 1024)
+    pool.pool_blocks(ids, m, poff, rows // 4, 128, 1024)
+    assert counters.of("launch", [kb.BLOCKS]) == {kb.BLOCKS: 2}
+    assert counters.of("blocks") == {"entries": rows * width + rows // 4
+                                     * 1024}
+    kb.blocks(rcv.cpu(), snd.cpu(), mask.cpu(), off.cpu(), rows // tile,
+              tile, width)
+    assert counters.of("launch", [kb.BLOCKS]) == {kb.BLOCKS: 2}
 
 
 def _tf32(fn):

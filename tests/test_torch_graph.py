@@ -27,6 +27,9 @@ from scgib_tpu_torch.graph.batching import (GraphData, pack_graphs,
                                             pack_subgraphs)
 from scgib_tpu_torch.graph.container import GraphBatch, SubgraphBatch
 from scgib_tpu_torch.graph.egonet import egonet_sizes, extract_egonets
+from scgib_tpu_torch.ops.kernels import banded as kb
+
+from block_counts import np_blocks
 
 GRAPH_FIELDS = ("node_feat", "node_graph", "node_mask", "senders",
                 "receivers", "edge_mask", "graph_mask", "band_col_off")
@@ -153,12 +156,13 @@ def test_plan_capacities_and_batches_match():
 
 @pytest.mark.parametrize("which", ["graph", "sub"])
 def test_build_blocks_bit_equal(packed, which):
-    """build_blocks == build_blocks_jax == pack_banded, bit for bit."""
+    """The blocks build (``kb.blocks``, its plain version on the CPU) ==
+    build_blocks_jax == pack_banded, bit for bit."""
     b = packed[0] if which == "graph" else packed[1]
     n = b.node_mask.shape[0]
     tb = b.to("cpu")
-    got = banded.build_blocks(tb.senders, tb.receivers, tb.edge_mask,
-                              tb.band_col_off, n)
+    got = kb.blocks(tb.receivers, tb.senders, tb.edge_mask, tb.band_col_off,
+                    n // 128, 128, 256)
     assert got.dtype == torch.bfloat16 and got.shape == (n // 128, 128, 256)
     want = jbanded.build_blocks_jax(jnp.asarray(b.senders),
                                     jnp.asarray(b.receivers),
@@ -171,6 +175,77 @@ def test_build_blocks_bit_equal(packed, which):
     jhost = jbanded.pack_banded(b.senders, b.receivers, b.edge_mask, n)
     np.testing.assert_array_equal(host.blocks, jhost.blocks)
     np.testing.assert_array_equal(host.col_off, jhost.col_off)
+
+
+# case -> does build_blocks_jax (and pack_banded) see the same edges: XLA's
+# negative indices wrap, and pack_banded raises on an edge out of its window
+BAND_CASES = {"packed": True, "masked": True, "unmasked": True,
+              "doubled": True, "shuffled": True, "out_of_window": False}
+
+
+def band_case(b, case, band):
+    """(senders, receivers, edge_mask) of batch ``b`` for one case: some
+    real edges masked, no mask at all over the real edges and five of the
+    padding self-loops (which then count 5 on the padding node: counts
+    past 256 are not exact in bf16), three real edges doubled (counts of
+    2), the order shuffled, or twenty real edges moved a band's width out
+    of their window either way."""
+    rng = np.random.default_rng(len(case))
+    s = np.asarray(b.senders, np.int64)
+    r = np.asarray(b.receivers, np.int64)
+    m = np.asarray(b.edge_mask, bool)
+    real = np.flatnonzero(m)
+    if case == "masked":
+        m = m & (rng.random(len(m)) < 0.7)
+    elif case == "unmasked":
+        keep = np.concatenate([real, np.flatnonzero(~m)[:5]])
+        s, r, m = s[keep], r[keep], None
+    elif case == "doubled":
+        s, r, m = (np.concatenate([a, a[real[:3]]]) for a in (s, r, m))
+    elif case == "shuffled":
+        p = rng.permutation(len(s))
+        s, r, m = s[p], r[p], m[p]
+    elif case == "out_of_window":
+        moved = rng.choice(real, 20, replace=False)
+        s = s.copy()
+        s[moved[:10]] += band
+        s[moved[10:]] -= band
+    return s, r, m
+
+
+@pytest.mark.parametrize("geometry", [(128, 256, 64), (64, 128, 8)],
+                         ids=["wide", "gt"])
+@pytest.mark.parametrize("case", list(BAND_CASES))
+@pytest.mark.parametrize("which", ["graph", "sub"])
+def test_build_blocks_cases_bit_equal(packed, which, case, geometry):
+    """``kb.blocks`` (its plain version) == the NumPy counts, and
+    == build_blocks_jax and pack_banded where they see the same edges,
+    bit for bit: masked edges, edges out of their window, the packers'
+    padding self-loops, a doubled edge, any edge order."""
+    tile, band, align = geometry
+    b = packed[0] if which == "graph" else packed[1]
+    n = b.node_mask.shape[0]
+    s, r, m = band_case(b, case, band)
+    off = banded.device_col_off(n, tile, band, align, "cpu")
+    got = kb.blocks(torch.from_numpy(r), torch.from_numpy(s),
+                    None if m is None else torch.from_numpy(m), off,
+                    n // tile, tile, band)
+    assert got.dtype == torch.bfloat16 and got.shape == (n // tile, tile,
+                                                         band)
+    got_np = got.float().numpy()
+    want = np_blocks(r, s, m, off.numpy(), n // tile, tile, band)
+    np.testing.assert_array_equal(got_np, want)
+    assert want.max() == {"doubled": 2, "unmasked": 5}.get(case, 1)
+    if not BAND_CASES[case]:
+        assert want.sum() == int(np.asarray(b.edge_mask).sum()) - 20
+        return
+    jm = None if m is None else jnp.asarray(m)
+    jwant = jbanded.build_blocks_jax(jnp.asarray(s), jnp.asarray(r), jm,
+                                     jnp.asarray(off.numpy()), n, tile,
+                                     band)
+    np.testing.assert_array_equal(got_np, np.asarray(jwant, np.float32))
+    host = banded.pack_banded(s, r, m, n, tile, band, align)
+    np.testing.assert_array_equal(got_np, host.blocks)
 
 
 def test_banded_col_off_and_fit_match(packed):

@@ -20,7 +20,6 @@ from scgib_tpu.ops.spmm import gather_sum as jgather_sum
 from scgib_tpu.ops.spmm_banded import banded_spmm as jbanded_spmm
 
 from scgib_tpu_torch.data.synthetic import random_dataset
-from scgib_tpu_torch.graph.banded import build_blocks
 from scgib_tpu_torch.graph.batching import pack_graphs, pack_subgraphs
 from scgib_tpu_torch.graph.egonet import extract_egonets
 from scgib_tpu_torch.ops import pool, segment
@@ -28,6 +27,8 @@ from scgib_tpu_torch.ops.kernels import banded as kb
 from scgib_tpu_torch.ops.spmm import gather_sum
 from scgib_tpu_torch.ops.spmm_banded import banded_spmm
 from scgib_tpu_torch.utils import counters
+
+from block_counts import np_blocks
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -50,8 +51,9 @@ def batch():
     g = pack_graphs(graphs, 512, 2048, 16).to("cpu")
     sub = pack_subgraphs(graphs, egos, 1536, 4096).to("cpu")
     for b in (g, sub):
-        b.band_blocks = build_blocks(b.senders, b.receivers, b.edge_mask,
-                                     b.band_col_off, b.node_mask.shape[0])
+        b.band_blocks = kb.blocks(b.receivers, b.senders, b.edge_mask,
+                                  b.band_col_off, b.node_mask.shape[0] // 128,
+                                  128, 256)
     return g, sub
 
 
@@ -266,6 +268,57 @@ def test_pool_plain_matches_pallas_kernel(batch):
             jnp.asarray(off.numpy().astype(np.int32)), jnp.asarray(x))
     # the TPU kernel's hi/lo bf16 split keeps ~2^-17 of each summand
     close(kb.pool(blocks, off, t(x)), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["packed", "masked", "narrow_window",
+                                  "shifted_window"])
+def test_pool_blocks_cases_bit_equal(batch, case):
+    """pool_blocks (the wrapper's plain version) == the NumPy counts, bit
+    for bit, and its clipped centers == NumPy's: the packer's sub-rows,
+    some real rows masked, a window of 256 that leaves rows past its end,
+    and windows moved 64 rows on, which leaves rows before their start."""
+    _, sub = batch
+    ids, m = sub.node_center, sub.node_mask
+    window = 256 if case == "narrow_window" else pool.default_window(1536,
+                                                                     512)
+    off = pool.window_offsets(ids, m, 512, 128, window)
+    if case == "shifted_window":
+        off = off + 64
+    if case == "masked":     # after the offsets, which take sorted centers
+        m = m & (torch.arange(m.shape[0]) % 3 != 0)
+    blocks, cc_clip = pool.pool_blocks(ids, m, off, 512, 128, window)
+    want_cc = np.minimum(np.where(m.numpy(), ids.numpy(), 512), 511)
+    np.testing.assert_array_equal(cc_clip.numpy(), want_cc)
+    want = np_blocks(want_cc, None, m.numpy(), off.numpy(), 4, 128, window)
+    assert blocks.dtype == torch.bfloat16
+    np.testing.assert_array_equal(blocks.float().numpy(), want)
+    kept = int(want.sum())
+    assert want.max() == 1
+    assert (kept == int(m.sum())) == (case in ("packed", "masked"))
+
+
+@pytest.mark.parametrize("fault", ["rows_int32", "src_int32", "mask_uint8",
+                                   "off_int32", "off_short", "off_long"])
+def test_blocks_wrapper_refuses_bad_operands(fault):
+    """``kb.blocks`` raises on an index of the wrong dtype and on window
+    offsets that are not one a tile, on the CPU as on the card."""
+    rows = torch.arange(256, dtype=torch.int64)
+    args = dict(rows=rows, src=rows.flip(0), mask=rows % 2 == 0,
+                off=torch.zeros(2, dtype=torch.int64))
+    kind, what = fault.split("_")
+    if kind == "off" and what in ("short", "long"):
+        args["off"] = torch.zeros(1 if what == "short" else 3,
+                                  dtype=torch.int64)
+        err = ValueError
+    else:
+        args[kind] = args[kind].to(getattr(torch, what))
+        err = TypeError
+    with pytest.raises(err, match="blocks"):
+        kb.blocks(args["rows"], args["src"], args["mask"], args["off"], 2,
+                  128, 256)
+    ok = kb.blocks(rows, rows.flip(0), rows % 2 == 0,
+                   torch.zeros(2, dtype=torch.int64), 2, 128, 256)
+    assert ok.shape == (2, 128, 256) and float(ok.float().sum()) == 128
 
 
 def test_pool_scatter_branch_on_skewed_batch():
